@@ -1,0 +1,121 @@
+"""
+Monte-Carlo samples of the surrogate (port of gpry_tpu/mc/samples.py).
+
+The final sampler is the device nested sampler (``mc.nested``) followed by
+the mixture importance-sampling refinement (``mc.refine``); both score the
+surrogate through the K1 kernel.  ``"uniform"`` draws are for tests.  The
+other samplers of the JAX package (MCMC, Cobaya, host NS interfaces) are
+not ported yet.
+"""
+
+import os
+import time
+from functools import partial
+
+import numpy as np
+import torch
+
+from gpry_tpu_torch.mc.nested import run_nested_device
+from gpry_tpu_torch.models.gp import surrogate_predict_mean
+from gpry_tpu_torch.parallel.rng import torch_generator_from_rng
+from gpry_tpu_torch.utils.tools import (check_and_return_bounds,
+                                        generic_params_names, get_Xnumber)
+
+def surrogate_logp_fn(family):
+    """The gated surrogate log-density ``f(params, X) -> logp`` (K1)."""
+    return partial(surrogate_predict_mean, family)
+
+
+def _rng_of(rng):
+    if isinstance(rng, np.random.Generator):
+        return rng
+    # fresh OS entropy when no seed is given
+    return np.random.default_rng(rng)
+
+
+def mc_sample_from_gp(gpr, bounds=None, sampler="nested", rng=None,
+                      options=None, verbose=1):
+    """
+    Draw MC samples from the surrogate posterior.  ``sampler``: "nested"
+    (device NS, ``nlive=50d``, then IS refinement) or "uniform" (tests).
+
+    Returns a samples dict: {"X", "logpost", "weights", "logZ" (NS only),
+    "n_calls", and the phase times "time_ns" / "time_refine" in seconds}.
+    """
+    if sampler not in ("nested", "uniform"):
+        raise NotImplementedError(
+            f"sampler={sampler!r} is not ported yet; only 'nested' and "
+            "'uniform' are (ROADMAP.md §A: 'mcmc' comes with the NORA "
+            "slice, the host interfaces with the periphery).")
+    options = dict(options or {})
+    bounds = check_and_return_bounds(
+        bounds if bounds is not None else gpr.bounds)
+    d = bounds.shape[0]
+    p = gpr.surrogate_params()
+    dt, dev = p.X.dtype, p.X.device
+    lo = torch.as_tensor(bounds[:, 0], dtype=dt, device=dev)
+    hi = torch.as_tensor(bounds[:, 1], dtype=dt, device=dev)
+    rng = _rng_of(rng)
+    gen = torch_generator_from_rng(rng, dev)
+    logp = surrogate_logp_fn(gpr.family)
+
+    if sampler == "uniform":
+        n = int(options.get("n_samples", 5000))
+        X = torch.rand((n, d), generator=gen, dtype=dt, device=dev) \
+            * (hi - lo) + lo
+        logpost = logp(p, X)
+        gpr.n_eval += n
+        return {"X": X.cpu().numpy(), "logpost": logpost.cpu().numpy(),
+                "weights": np.ones(n)}
+
+    nlive = get_Xnumber(options.get("nlive", "50d"), "d", d, dtype=int,
+                        varname="nlive")
+    num_repeats = get_Xnumber(options.get("num_repeats", "5d"), "d", d,
+                              dtype=int, varname="num_repeats")
+    max_dead = int(options.get("max_dead", max(4000, 60 * nlive)))
+    t0 = time.perf_counter()
+    res = run_nested_device(
+        logp, p, gen, lo, hi, nlive=int(nlive), num_repeats=int(num_repeats),
+        precision_criterion=float(options.get("precision_criterion", 0.01)),
+        max_dead=max_dead)
+    logw = res.logw.cpu().numpy()
+    logl = res.logl.cpu().numpy()
+    keep = np.isfinite(logw) & np.isfinite(logl)
+    X = res.X.cpu().numpy()[keep]
+    logl, logw = logl[keep], logw[keep]
+    time_ns = time.perf_counter() - t0
+    out = {
+        "X": X,
+        "logpost": logl,
+        "weights": np.exp(logw - np.max(logw)),
+        "logZ": res.logZ,
+        "n_calls": res.n_calls,
+        "ns_steps": res.n_steps,
+        "time_ns": time_ns,
+        "time_refine": 0.0,
+    }
+    gpr.n_eval += res.n_calls
+    if options.get("refine", True):
+        from gpry_tpu_torch.mc.refine import is_refine_sample
+        t0 = time.perf_counter()
+        out = is_refine_sample(
+            gpr, out, bounds, rng=rng,
+            n_draw=int(options.get("refine_n_draw", 65536)),
+            verbose=verbose)
+        out["time_refine"] = time.perf_counter() - t0
+    return out
+
+
+def write_samples_txt(samples_dict, path, params=None):
+    """
+    Plain-text chain output (weight, -logpost, params...) like the
+    reference's final-MC chain files (gpry/mc.py:432-455).
+    """
+    X = np.asarray(samples_dict["X"])
+    w = np.asarray(samples_dict.get("weights", np.ones(len(X))))
+    logp = np.asarray(samples_dict.get("logpost", np.zeros(len(X))))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    data = np.column_stack([w, -logp, X])
+    header = "weight minus_logpost " + " ".join(
+        params or generic_params_names(X.shape[1]))
+    np.savetxt(path, data, header=header)

@@ -1,0 +1,375 @@
+"""
+The hand-written CUDA kernels of the main path, their plain PyTorch
+versions, and the wrappers that choose between them.
+
+* K1 ``gated_mean`` (``csrc/gated_mean.cu``) replaces gpry_tpu's
+  models/gp.py:121 surrogate_predict_mean (ops/linalg.py:157 predict_mean
+  with models/classifier.py:40 svm_decision); plain version
+  :func:`gated_mean_plain`.
+* K2 ``gated_meanvar_logexp`` (``csrc/gated_meanvar_logexp.cu``) replaces
+  models/gp.py:100 surrogate_predict and
+  acquisition/batch_optimizer.py:27 _acq_values_gated (ops/linalg.py:192
+  predict_meanvar); plain version :func:`gated_meanvar_logexp_plain`.
+* K3 ``masked_kernel_matrix_batched`` (``csrc/masked_kernel_matrix.cu``)
+  replaces ops/linalg.py:34 masked_kernel_matrix as vmapped by
+  models/gp.py:188 _lml_batch; plain version
+  :func:`masked_kernel_matrix_plain`.
+
+A wrapper runs the plain version only when its input tensor lies on the
+CPU.  For a CUDA tensor it launches the kernel or raises: there is no
+fallback.  The kernels are float64-only and forward-only; a CUDA tensor
+that requires grad is refused (the autograd paths call the plain versions
+themselves, as the JAX package differentiated XLA there).
+
+The three sources build in one ``nvcc`` call into a shared library with a
+plain C interface (``_build/libgpry_kernels.so`` inside the package), at
+first use, and load over ``ctypes``.  Every launch goes on PyTorch's
+current stream and is checked with ``cudaGetLastError``.
+
+``LAUNCHES`` counts, per kernel, the launches the wrappers made.
+"""
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+from gpry_tpu_torch.models.classifier import svm_decision
+from gpry_tpu_torch.ops.kernels import check_family, cross_kernel
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+_BUILD = os.path.join(_PKG, "_build")
+_SOURCES = ("gated_mean.cu", "gated_meanvar_logexp.cu",
+            "masked_kernel_matrix.cu")
+_HEADERS = ("common.cuh",)
+_LIB_PATH = os.path.join(_BUILD, "libgpry_kernels.so")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_FAMILY_ID = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3}
+
+#: launches per kernel made by the wrappers (never by the plain versions)
+LAUNCHES = {"gated_mean": 0, "gated_meanvar_logexp": 0,
+            "masked_kernel_matrix_batched": 0}
+
+#: seconds the last build took (None: the library was already built)
+BUILD_SECONDS = None
+
+_lib = None
+_lib_lock = threading.Lock()
+
+# K2 keeps one k vector per query in shared memory; the block's query
+# count is the warp count (8) unless nmax forces fewer.
+_K2_MAX_Q = 8
+_SMEM_DEFAULT = 48 * 1024
+_SMEM_MAX = 227 * 1024
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused the sources."""
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise KernelBuildError(
+        "nvcc not found on PATH or under $CUDA_HOME/bin: the CUDA kernels "
+        "cannot be built.")
+
+
+def _stale():
+    if not os.path.exists(_LIB_PATH):
+        return True
+    t_lib = os.path.getmtime(_LIB_PATH)
+    return any(os.path.getmtime(os.path.join(_CSRC, f)) > t_lib
+               for f in _SOURCES + _HEADERS)
+
+
+def build():
+    """Compile ``csrc/*.cu`` into the package's ``_build/`` (if stale) and
+    return the path of the shared library."""
+    global BUILD_SECONDS
+    if not _stale():
+        return _LIB_PATH
+    os.makedirs(_BUILD, exist_ok=True)
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *(os.path.join(_CSRC, f) for f in _SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, _LIB_PATH)
+    BUILD_SECONDS = time.perf_counter() - t0
+    return _LIB_PATH
+
+
+def library():
+    """The loaded kernel library (building it first if needed)."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(build())
+        P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        lib.gpry_gated_mean.argtypes = [I] * 5 + [P] * 11 \
+            + [I, P, P]
+        lib.gpry_gated_mean.restype = I
+        lib.gpry_gated_meanvar_logexp.argtypes = [I] * 8 + [P] * 12 \
+            + [I, D, D, P, P, P]
+        lib.gpry_gated_meanvar_logexp.restype = I
+        lib.gpry_masked_kernel_matrix.argtypes = [I] * 5 + [P] * 3 \
+            + [I, D, P, P]
+        lib.gpry_masked_kernel_matrix.restype = I
+        _lib = lib
+        return lib
+
+
+# ---------------------------------------------------------------------------
+# argument checks
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda(name, device, **tensors):
+    """Raise unless every tensor is contiguous float64 on ``device`` and
+    none requires grad."""
+    for key, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: '{key}' must be a tensor.")
+        if t.dtype != torch.float64:
+            raise TypeError(f"{name}: '{key}' must be float64, got "
+                            f"{t.dtype} (the kernels are float64-only).")
+        if t.device != device:
+            raise ValueError(f"{name}: '{key}' is on {t.device}, expected "
+                             f"{device}.")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: '{key}' must be contiguous.")
+        if t.requires_grad:
+            raise RuntimeError(
+                f"{name}: '{key}' requires grad, but the CUDA kernel is "
+                "forward-only; differentiate the plain version instead.")
+    if device.type != "cuda":
+        raise ValueError(f"{name}: expected CUDA tensors, got {device}.")
+
+
+def _raise_on(name, rc):
+    if rc != 0:
+        raise RuntimeError(
+            f"CUDA kernel {name} failed to launch: cudaError {rc} "
+            f"({torch.cuda.get_device_name()})")
+
+
+def _stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _gate_tensors(p):
+    """The surrogate's gate inputs as kernel arguments."""
+    return dict(X=p.X, alpha=p.alpha, theta=p.theta, x_loc=p.x_loc,
+                x_scale=p.x_scale, trust_lo=p.trust_lo, trust_hi=p.trust_hi,
+                sv=p.svm.sv, dual=p.svm.dual, scal=p.scal)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _gates(p, Xq_raw, Xq_):
+    finite = svm_decision(p.svm, Xq_)
+    in_trust = torch.all((Xq_raw >= p.trust_lo) & (Xq_raw <= p.trust_hi),
+                         dim=-1)
+    return finite & in_trust
+
+
+def _cross_masked(family, p, Xq_):
+    m = (torch.arange(p.X.shape[0], device=p.X.device) < p.n).to(p.X.dtype)
+    return cross_kernel(family, p.theta, Xq_, p.X) * m[None, :]
+
+
+def gated_mean_plain(family, p, Xq_raw):
+    """Plain K1: the gated raw-space posterior mean (the NS/IS target)."""
+    Xq_ = (Xq_raw - p.x_loc) / p.x_scale
+    mean = (_cross_masked(family, p, Xq_) @ p.alpha) * p.y_scale + p.y_loc
+    mean = torch.minimum(mean, p.clip_max)
+    return torch.where(_gates(p, Xq_raw, Xq_), mean,
+                       torch.full_like(mean, -torch.inf))
+
+
+def gated_meanvar_logexp_plain(family, p, Xq_raw, logexp=None):
+    """
+    Plain K2.  Without ``logexp``: the gated ``(mean, std)`` of
+    ``surrogate_predict``.  With ``logexp=(zeta, noise_std)``: the gated
+    LogExp values ``2 zeta (mean - y_max) + 0.5 log(std^2 - noise_std^2)``
+    (-inf where that variance is <= 0 or the mean is not finite), as
+    ``_acq_values_gated``.  The variance uses the triangular-solve form.
+    """
+    Xq_ = (Xq_raw - p.x_loc) / p.x_scale
+    Kq = _cross_masked(family, p, Xq_)
+    mean = (Kq @ p.alpha) * p.y_scale + p.y_loc
+    V = torch.linalg.solve_triangular(p.L, Kq.T, upper=False)
+    var = torch.exp(p.theta[0]) - torch.sum(V * V, dim=0)
+    std = torch.sqrt(torch.clamp_min(var, 0.0)) * p.y_scale
+    mean = torch.minimum(mean, p.clip_max)
+    ok = _gates(p, Xq_raw, Xq_)
+    mean = torch.where(ok, mean, torch.full_like(mean, -torch.inf))
+    std = torch.where(ok, std, torch.zeros_like(std))
+    if logexp is None:
+        return mean, std
+    zeta, noise_std = logexp
+    var2 = std * std - noise_std * noise_std
+    ok2 = (var2 > 0) & torch.isfinite(mean)
+    vals = 2.0 * zeta * (mean - p.y_max) + \
+        0.5 * torch.log(torch.where(ok2, var2, torch.ones_like(var2)))
+    return torch.where(ok2, vals, torch.full_like(vals, -torch.inf))
+
+
+def masked_kernel_matrix_plain(family, thetas, X, n, noise_var,
+                               rel_jitter=0.0):
+    """
+    Plain K3 (differentiable in ``thetas``): the padded training covariance
+    ``[[K_valid + (noise + rel_jitter * s2) I, 0], [0, I]]`` for every
+    leading index of ``thetas`` (..., 1 + d).  ``noise_var`` is a scalar or
+    an (nmax,) vector.
+    """
+    nmax = X.shape[0]
+    m = (torch.arange(nmax, device=X.device) < n).to(X.dtype)
+    K = cross_kernel(family, thetas, X, X) * (m[:, None] * m[None, :])
+    noise = torch.as_tensor(noise_var, dtype=X.dtype, device=X.device)
+    diag = noise.expand(nmax) + \
+        rel_jitter * torch.exp(thetas[..., 0])[..., None]
+    diag_fill = torch.where(m > 0, diag, torch.ones_like(diag))
+    return K + torch.diag_embed(diag_fill)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def gated_mean(family, p, Xq_raw):
+    """K1: gated posterior mean at ``Xq_raw`` (nq, d) for surrogate ``p``."""
+    check_family(family)
+    if Xq_raw.device.type == "cpu":
+        return gated_mean_plain(family, p, Xq_raw)
+    tensors = dict(Xq_raw=Xq_raw, **_gate_tensors(p))
+    _check_cuda("gated_mean", Xq_raw.device, **tensors)
+    nq, d = Xq_raw.shape
+    out = torch.empty(nq, dtype=torch.float64, device=Xq_raw.device)
+    if nq == 0:
+        return out
+    lib = library()
+    rc = lib.gpry_gated_mean(
+        _FAMILY_ID[family], nq, int(p.n), p.svm.sv.shape[0], d,
+        *(_ptr(tensors[k]) for k in (
+            "Xq_raw", "X", "alpha", "theta", "x_loc", "x_scale",
+            "trust_lo", "trust_hi", "sv", "dual", "scal")),
+        int(p.svm.mode), _ptr(out), _stream())
+    _raise_on("gated_mean", rc)
+    LAUNCHES["gated_mean"] += 1
+    return out
+
+
+def _k2_queries_per_block(nmax, d):
+    """Queries per K2 block: one per warp, fewer when nmax-long k vectors
+    of 8 queries do not fit in the default 48 KB of shared memory."""
+    per_q = 8 * (nmax + 2 * d + 1)
+    q = min(_K2_MAX_Q, (_SMEM_DEFAULT - 8 * d) // per_q)
+    if q >= 1:
+        return q
+    if 8 * d + per_q > _SMEM_MAX:
+        raise ValueError(
+            f"gated_meanvar_logexp: nmax={nmax} needs more shared memory "
+            "per query than a Hopper block has.")
+    return 1
+
+
+def gated_meanvar_logexp(family, p, Xq_raw, logexp=None):
+    """K2: gated ``(mean, std)`` at ``Xq_raw``, or with
+    ``logexp=(zeta, noise_std)`` the gated LogExp acquisition values."""
+    check_family(family)
+    if Xq_raw.device.type == "cpu":
+        return gated_meanvar_logexp_plain(family, p, Xq_raw, logexp)
+    tensors = dict(Xq_raw=Xq_raw, L=p.L, **_gate_tensors(p))
+    _check_cuda("gated_meanvar_logexp", Xq_raw.device, **tensors)
+    nq, d = Xq_raw.shape
+    nmax = p.X.shape[0]
+    out0 = torch.empty(nq, dtype=torch.float64, device=Xq_raw.device)
+    out1 = out0 if logexp is not None else torch.empty_like(out0)
+    if nq == 0:
+        return out0 if logexp is not None else (out0, out1)
+    zeta, noise_std = (0.0, 0.0) if logexp is None else logexp
+    Q = _k2_queries_per_block(nmax, d)
+    lib = library()
+    rc = lib.gpry_gated_meanvar_logexp(
+        _FAMILY_ID[family], int(logexp is not None), nq, int(p.n), nmax,
+        p.svm.sv.shape[0], d, Q,
+        *(_ptr(tensors[k]) for k in (
+            "Xq_raw", "X", "alpha", "L", "theta", "x_loc", "x_scale",
+            "trust_lo", "trust_hi", "sv", "dual", "scal")),
+        int(p.svm.mode), float(zeta), float(noise_std), _ptr(out0),
+        _ptr(out1), _stream())
+    _raise_on("gated_meanvar_logexp", rc)
+    LAUNCHES["gated_meanvar_logexp"] += 1
+    return out0 if logexp is not None else (out0, out1)
+
+
+def masked_kernel_matrix_batched(family, thetas, X, n, noise_var,
+                                 rel_jitter=0.0):
+    """K3: padded training covariances (R, nmax, nmax) for ``thetas``
+    (R, 1 + d); ``noise_var`` a scalar or an (nmax,) vector."""
+    check_family(family)
+    if X.device.type == "cpu":
+        return masked_kernel_matrix_plain(family, thetas, X, n, noise_var,
+                                          rel_jitter)
+    R = thetas.shape[0]
+    nmax, d = X.shape
+    if thetas.shape != (R, d + 1):
+        raise ValueError(f"thetas must be (R, {d + 1}); got "
+                         f"{tuple(thetas.shape)}.")
+    if R > 65535:
+        raise ValueError("masked_kernel_matrix_batched: R > 65535.")
+    noise = torch.as_tensor(noise_var, dtype=torch.float64,
+                            device=X.device).reshape(-1).contiguous()
+    if noise.numel() not in (1, nmax):
+        raise ValueError("noise_var must be a scalar or an (nmax,) vector.")
+    _check_cuda("masked_kernel_matrix_batched", X.device, thetas=thetas, X=X,
+                noise=noise)
+    out = torch.empty((R, nmax, nmax), dtype=torch.float64, device=X.device)
+    if R == 0 or nmax == 0:
+        return out
+    lib = library()
+    rc = lib.gpry_masked_kernel_matrix(
+        _FAMILY_ID[family], R, nmax, int(n), d, _ptr(thetas), _ptr(X),
+        _ptr(noise), int(noise.numel() == nmax), float(rel_jitter),
+        _ptr(out), _stream())
+    _raise_on("masked_kernel_matrix_batched", rc)
+    LAUNCHES["masked_kernel_matrix_batched"] += 1
+    return out
+
+
+__all__ = ["LAUNCHES", "KernelBuildError", "build", "library",
+           "reset_launch_counts", "gated_mean", "gated_mean_plain",
+           "gated_meanvar_logexp", "gated_meanvar_logexp_plain",
+           "masked_kernel_matrix_batched", "masked_kernel_matrix_plain"]
