@@ -2,16 +2,29 @@
 """
 Drive gpry_tpu_torch once on one CUDA card.
 
-1. Build the three CUDA kernels (K1 gated_mean, K2 gated_meanvar_logexp,
-   K3 masked_kernel_matrix_batched) from ``gpry_tpu_torch/csrc``.
+1. Build the four CUDA kernels (K1 gated_mean, K2 gated_meanvar_logexp,
+   K3 masked_kernel_matrix_batched, K4 kriging_believer_fill) from
+   ``gpry_tpu_torch/csrc``.
 2. Hold each kernel against its plain PyTorch version on the card at the
-   shapes of the main path (d = 8, n = 224 valid rows in a bucket of
+   shapes of the main paths (d = 8, n = 224 valid rows in a bucket of
    nmax = 320; K1 at nq = 66 and 65,536, K2 at nq = 3,200, K3 at
-   R = 2,048), and time both with CUDA events.
-3. Run the main path: ``Runner(loglike, bounds, options={"audit": False})``
-   ``.run()`` and then ``generate_mc_sample()`` on the 8-dimensional
-   correlated Gaussian of ``tests/model_generator.py``; check convergence,
-   KL(sample || truth) <= 0.05, and that every kernel was launched.
+   R = 2,048, K4 at N = 4,096 candidates and a pool of 8), time both with
+   CUDA events, and compute each kernel's bound: the larger of its FP64
+   operations over the H100 SXM's FP64 peak and its bytes over 3.35 TB/s.
+3. Drive four paths, each with the launch counts set to 0 just before it
+   and read just after, and check that each launched its kernels:
+   a. the BatchOptimizer Runner: ``Runner(loglike, bounds, options=
+      {"audit": False}).run()`` then ``generate_mc_sample()`` on the
+      8-dimensional correlated Gaussian of ``tests/model_generator.py``
+      (converged, KL(sample || truth) <= 0.05);
+   b. bench.py's NORA operating point (d = 8, N = 224): 1 warm-up and 3
+      timed iterations of a 26-restart fit, ``force_resample()`` and
+      ``multi_add(n_points=8)``;
+   c. the NORA Runner: ``Runner(..., gp_acquisition="NORA")`` on the same
+      Gaussian, ``run()`` then ``generate_mc_sample()`` (converged,
+      KL <= 0.05);
+   d. ``mc_sample_from_gp(sampler="mcmc")`` on c's surrogate (split-R-hat
+      < 1.2, KL between the MCMC and the NS Gaussians <= 0.05).
 
 Prints the card's ``nvidia-smi`` name and power limit, a JSON line with the
 kernel results, and as the last line the contract line
@@ -30,7 +43,12 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 D, N, NMAX, NSV = 8, 224, 320, 8
 KL_GATE = 0.05
-TOL_K1, TOL_K2, TOL_K3 = 1e-12, 1e-10, 1e-12
+TOL_K1, TOL_K2, TOL_K3, TOL_K4 = 1e-12, 1e-10, 1e-12, 1e-10
+# K4 at bench.py's NORA operating point: N candidates, a pool of SIZE
+N_CAND, SIZE = 4096, 8
+# H100 SXM data sheet at its 700 W limit: FP64 with tensor cores (the
+# least time), and HBM3
+PEAK_FP64, PEAK_BYTES = 67e12, 3.35e12
 SOURCES = {
     "gated_mean": ("gpry_tpu_torch/csrc/gated_mean.cu",
                    "gpry_tpu/models/gp.py:121"),
@@ -39,6 +57,17 @@ SOURCES = {
     "masked_kernel_matrix_batched": (
         "gpry_tpu_torch/csrc/masked_kernel_matrix.cu",
         "gpry_tpu/ops/linalg.py:34"),
+    "kriging_believer_fill": (
+        "gpry_tpu_torch/csrc/kriging_believer_fill.cu",
+        "gpry_tpu/acquisition/ranked_pool.py:41"),
+}
+# the kernels each path must launch
+PATH_KERNELS = {
+    "batchoptimizer": ("gated_mean", "gated_meanvar_logexp",
+                       "masked_kernel_matrix_batched"),
+    "nora_bench": tuple(SOURCES),
+    "nora_runner": tuple(SOURCES),
+    "mcmc": ("gated_mean",),
 }
 
 
@@ -84,6 +113,22 @@ def rel_err(a, b):
     return err, err / float(torch.max(torch.abs(b[fin])))
 
 
+def sync():
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def bound(flops, nbytes):
+    """The least time the card could take for ``flops`` FP64 operations
+    and ``nbytes`` of memory traffic (each input read once, each output
+    written once), and which of the two bounds it."""
+    t_ops, t_bytes = flops / PEAK_FP64, nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": float(flops), "bytes": float(nbytes)}
+
+
 def synthetic_surrogate(family, dev, seed):
     """A surrogate snapshot at the main-path shapes with every gate active:
     a fitted SVM, a trust box inside the prior and an upper clip."""
@@ -124,6 +169,92 @@ def synthetic_surrogate(family, dev, seed):
     return p.replace(clip_max=clip.to(torch.float64))
 
 
+def k4_inputs(family, dev, noise_kind, rng, acqf, noise_std):
+    """K4's arguments at the NORA shapes: N_CAND candidates inside the
+    trust box with a finite LogExp value under the synthetic surrogate
+    (their gated mean, std and acquisition from the plain K2), scalar or
+    per-row noise."""
+    import numpy as np
+    import torch
+    from gpry_tpu_torch.ops import fused
+    t = lambda a: torch.as_tensor(np.asarray(a, float), dtype=torch.float64,
+                                  device=dev)
+    p = synthetic_surrogate(family, dev, seed=13)
+    if noise_kind == "vector":
+        p = p.replace(noise_var=t(rng.uniform(1e-5, 1e-3, NMAX)))
+    Xc = t(rng.uniform(-4.5, 4.5, (4 * N_CAND, D)))
+    y, sd = fused.gated_meanvar_logexp_plain(family, p, Xc)
+    acq0 = acqf.values(y, sd, p.y_max, noise_std)
+    keep = torch.nonzero(torch.isfinite(acq0))[:, 0][:N_CAND]
+    if len(keep) < N_CAND:
+        raise AssertionError("too few finite K4 candidates")
+    alive = torch.ones(N_CAND, dtype=torch.bool, device=dev)
+    fn = lambda yy, ss: acqf.values(yy, ss, p.y_max, noise_std)
+    return (p, Xc[keep].contiguous(), y[keep].contiguous(),
+            sd[keep].contiguous(), acq0[keep].contiguous(), alive, SIZE, fn)
+
+
+def check_k4(dev, rng):
+    """K4 against its plain version: identical picks and -inf masks,
+    outC and outS within rel TOL_K4, in both sweep modes (LogExp in the
+    kernel; any other acquisition in torch between the two kernels)."""
+    import torch
+    from gpry_tpu_torch.acquisition.functions import LogExp
+    from gpry_tpu_torch.ops import fused
+    acqf, noise_std = LogExp(dimension=D), 0.01
+    worst = 0.0
+    row = {}
+    for fam in ("rbf", "matern12", "matern32", "matern52"):
+        for noise_kind in ("scalar", "vector"):
+            args = k4_inputs(fam, dev, noise_kind, rng, acqf, noise_std)
+            ref = fused.kriging_believer_fill_plain(fam, *args)
+            if not bool(torch.isfinite(ref[4]).all()):
+                raise AssertionError(f"K4 {fam}: the plain fill left "
+                                     "slots empty")
+            for mode, logexp in (("logexp", (acqf.zeta, noise_std)),
+                                 ("torch-acq", None)):
+                out = fused.kriging_believer_fill(fam, *args, logexp=logexp)
+                sync()
+                for what, i in (("outX", 0), ("outY", 1), ("outA", 3)):
+                    if not torch.equal(out[i], ref[i]):
+                        raise AssertionError(
+                            f"K4 {fam} {noise_kind} {mode}: {what} differs "
+                            "(different picks)")
+                errC, relC = rel_err(out[4], ref[4])
+                errS, relS = rel_err(out[2], ref[2])
+                log(f"[K4] {fam:8s} noise {noise_kind:6s} {mode:9s}: "
+                    f"same picks; outC max abs err {errC:.3e} rel "
+                    f"{relC:.3e}; outS rel {relS:.3e}")
+                if not (relC <= TOL_K4 and relS <= TOL_K4):
+                    raise AssertionError(f"K4 {fam} {mode}: rel {relC}, "
+                                         f"{relS} > {TOL_K4}")
+                worst = max(worst, errC, errS)
+            if fam == "rbf" and noise_kind == "scalar":
+                lexp = (acqf.zeta, noise_std)
+                ms = time_ms(lambda: fused.kriging_believer_fill(
+                    fam, *args, logexp=lexp), 20)
+                plain = time_ms(lambda: fused.kriging_believer_fill_plain(
+                    fam, *args), 5)
+                log(f"[K4] rbf N={N_CAND} size={SIZE}: kernel {ms:.4f} ms, "
+                    f"plain {plain:.4f} ms")
+                row = {"ms": ms, "plain_ms": plain}
+                # FP64 work of this fill: every conditioned round sweeps
+                # the alive candidates (k vector, length-n substitution,
+                # sum of squares), every round appends one row
+                n0 = args[0].n
+                flops = sum((N_CAND - r) * ((n0 + r) * (3 * D + 3)
+                                            + (n0 + r) ** 2 + 3 * (n0 + r))
+                            for r in range(1, SIZE))
+                flops += sum((n0 + r) * (3 * D + 3) + (n0 + r) ** 2
+                             for r in range(SIZE))
+                nbytes = 8 * (N_CAND * (D + 3) + n0 * D
+                              + n0 * (n0 + 1) // 2 + SIZE * (D + 4)) + N_CAND
+                row.update(bound(flops, nbytes))
+    row["max_abs_err"] = worst
+    row["shape"] = f"N={N_CAND} n={N} nmax={NMAX} d={D} size={SIZE}"
+    return row
+
+
 def check_kernels(dev):
     """Compare K1-K3 with their plain versions; returns per-kernel rows."""
     import numpy as np
@@ -161,7 +292,14 @@ def check_kernels(dev):
                     f"{plain:.4f} ms")
     rows["gated_mean"] = {"max_abs_err": worst, "shapes": shapes,
                           "ms": shapes["nq=65536"]["ms"],
-                          "plain_ms": shapes["nq=65536"]["plain_ms"]}
+                          "plain_ms": shapes["nq=65536"]["plain_ms"],
+                          "shape": f"nq=65536 n={N} nmax={NMAX} d={D}"}
+    # per (query, training row or support vector): r^2 over d, one
+    # exponential, one multiply-add
+    nq = 65536
+    rows["gated_mean"].update(bound(
+        nq * (N + NSV) * (3 * D + 3),
+        8 * (nq * D + nq + N * D + N + NSV * (D + 1) + 4 * D)))
 
     # K2: the acquisition screen, in both output modes
     worst = 0.0
@@ -194,6 +332,13 @@ def check_kernels(dev):
                 f"{plain:.4f} ms")
             rows["gated_meanvar_logexp"] = {"ms": ms, "plain_ms": plain}
     rows["gated_meanvar_logexp"]["max_abs_err"] = worst
+    rows["gated_meanvar_logexp"]["shape"] = f"nq={nq} n={N} nmax={NMAX} d={D}"
+    # per query: the k vector and the SVM sum, the length-n forward
+    # substitution (n^2 / 2 multiply-adds), the mean and sum of squares
+    rows["gated_meanvar_logexp"].update(bound(
+        nq * ((N + NSV) * (3 * D + 3) + N * N + 4 * N),
+        8 * (nq * D + nq + N * D + N + N * (N + 1) // 2 + NSV * (D + 1)
+             + 4 * D)))
 
     # K3: the fit's LML screen (R = 2048 thetas), scalar and vector noise
     worst = 0.0
@@ -233,21 +378,33 @@ def check_kernels(dev):
     plain = time_ms(lambda: k3_plain("rbf", thetas, noise), 3)
     log(f"[K3] rbf R={R}: kernel {ms:.4f} ms, plain {plain:.4f} ms")
     rows["masked_kernel_matrix_batched"] = {
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain}
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+        "shape": f"R={R} n={N} nmax={NMAX} d={D}"}
+    # every valid entry of every theta's K; the whole padded matrix written
+    rows["masked_kernel_matrix_batched"].update(bound(
+        R * N * N * (3 * D + 3),
+        8 * (R * (D + 1) + N * D + R * NMAX * NMAX)))
+    torch.cuda.empty_cache()
+
+    # K4: the ranked pool's greedy fill
+    rows["kriging_believer_fill"] = check_k4(dev, rng)
     torch.cuda.empty_cache()
     return rows
 
 
-def run_slice():
-    """The main path at d = 8; returns (runner, sample, phase seconds)."""
+def run_runner(label, **kwargs):
+    """A Runner on the d = 8 correlated Gaussian (``kwargs`` pick the
+    engine): ``run()`` then ``generate_mc_sample()``, gated on convergence
+    and KL(sample || truth) <= KL_GATE.  Returns (runner, sample, summary)."""
     import numpy as np
     from model_generator import random_gaussian
+    from gpry_tpu_torch.progress import _COLUMNS
     from gpry_tpu_torch.run import Runner
     from gpry_tpu_torch.utils.tools import kl_norm, mean_covmat_from_samples
     model = random_gaussian(d=D, rng=10 + D)
     t0 = time.perf_counter()
     runner = Runner(model.loglike, bounds=model.bounds, seed=1, verbose=2,
-                    options={"audit": False})
+                    options={"audit": False}, **kwargs)
     runner.run()
     t_run = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -257,24 +414,142 @@ def run_slice():
     kl = max(kl_norm(mean, cov, model.mean, model.cov),
              kl_norm(model.mean, model.cov, mean, cov))
     tab = runner.progress.table
-    from gpry_tpu_torch.progress import _COLUMNS
     col = lambda c: float(np.nansum(tab[:, _COLUMNS.index(c)]))
-    phases = {"run_s": t_run, "generate_mc_sample_s": t_mc,
-              "fit_s": col("time_fit"), "acquisition_s": col("time_acquire"),
-              "truth_s": col("time_truth"), "ns_s": sample["time_ns"],
-              "refine_s": sample["time_refine"]}
-    log(f"[SLICE] converged={runner.has_converged} n_total="
+    summary = {"run_s": t_run, "generate_mc_sample_s": t_mc,
+               "fit_s": col("time_fit"), "acquisition_s": col("time_acquire"),
+               "truth_s": col("time_truth"), "ns_s": sample["time_ns"],
+               "refine_s": sample["time_refine"], "kl": kl,
+               "n_total": int(runner.gpr.n_total),
+               "iterations": int(runner.current_iteration)}
+    log(f"[{label}] converged={runner.has_converged} n_total="
         f"{runner.gpr.n_total} iterations={runner.current_iteration} "
         f"KL={kl:.4g} refined={bool(sample.get('refined'))} "
         f"ns_steps={sample['ns_steps']} ns_calls={sample['n_calls']}")
-    log("[SLICE] phase seconds: " + json.dumps(phases))
+    log(f"[{label}] phase seconds: " + json.dumps(summary))
     if not runner.has_converged:
-        raise AssertionError("the d=8 slice did not converge")
+        raise AssertionError(f"{label}: the d=8 Runner did not converge")
     if not (np.isfinite(kl) and kl <= KL_GATE):
-        raise AssertionError(f"KL(sample || truth) = {kl} > {KL_GATE}")
+        raise AssertionError(f"{label}: KL(sample || truth) = {kl} > "
+                             f"{KL_GATE}")
     if sample["X"].shape[1] != D or not np.all(np.isfinite(sample["X"])):
-        raise AssertionError("the final sample is malformed")
-    return runner, kl, phases
+        raise AssertionError(f"{label}: the final sample is malformed")
+    return runner, sample, summary
+
+
+def bench_data(seed=0):
+    """bench.py's make_data (bench.py:44-49): N = 224 uniform points in
+    the unit 8-cube under a centred isotropic Gaussian."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    bounds = np.array([[0.0, 1.0]] * D)
+    X = rng.uniform(size=(N, D))
+    y = -0.5 * 25 * np.sum((X - 0.5) ** 2, axis=1)
+    return bounds, X, y
+
+
+def run_nora_bench(n_timed=3):
+    """bench.py's NORA operating point on the port (bench.py:52-92): a
+    26-restart fit, ``force_resample()`` and ``multi_add(n_points=8)``,
+    once to warm up and ``n_timed`` times timed."""
+    import numpy as np
+    from gpry_tpu_torch.acquisition import NORA
+    from gpry_tpu_torch.models.gp import GaussianProcessRegressor
+    from gpry_tpu_torch.models.preprocessing import Normalize_bounds, \
+        Normalize_y
+    from gpry_tpu_torch.ops import fused
+    bounds, X, y = bench_data()
+    gpr = GaussianProcessRegressor(
+        bounds=bounds, preprocessing_X=Normalize_bounds(bounds),
+        preprocessing_y=Normalize_y(), random_state=0, verbose=1)
+    gpr.append_to_data(X, y, fit_gpr=False)
+    acq = NORA(bounds, acq_func={"LogExp": {"dimension": D}},
+               rng=np.random.default_rng(1), verbose=1)
+    iters = []
+    for i in range(1 + n_timed):
+        acq.force_resample()
+        before = dict(fused.LAUNCHES)
+        t0 = time.perf_counter()
+        gpr.fit_gpr_hyperparameters(n_restarts=10 + 2 * D)
+        sync()
+        t_fit = time.perf_counter() - t0
+        Xn, _, acq_vals = acq.multi_add(gpr, n_points=D)
+        sync()
+        t_acq = time.perf_counter() - t0 - t_fit
+        if Xn.shape != (D, D) or not np.all(np.isfinite(acq_vals)) or \
+                not np.all((Xn >= bounds[:, 0]) & (Xn <= bounds[:, 1])):
+            raise AssertionError(f"NORA bench iteration {i}: malformed "
+                                 f"proposal {Xn.shape}")
+        it = {"fit_s": t_fit, "acq_s": t_acq, "nlive": acq._nlive(gpr),
+              "ns_samples": int(len(acq.last_MC_X)),
+              "launches": {k: fused.LAUNCHES[k] - before[k]
+                           for k in before}}
+        log(f"[NORA-BENCH] {'warm-up' if i == 0 else f'iter {i}'}: "
+            + json.dumps(it))
+        iters.append(it)
+    timed = [it["fit_s"] + it["acq_s"] for it in iters[1:]]
+    summary = {"iters": iters, "fit_acq_s_min": min(timed),
+               "fit_acq_s_median": float(np.median(timed))}
+    log(f"[NORA-BENCH] fit + acquisition s/iter: min {min(timed):.4f}, "
+        f"median {summary['fit_acq_s_median']:.4f}")
+    return summary
+
+
+def run_mcmc(runner, ns_sample):
+    """``mc_sample_from_gp(sampler="mcmc")`` on the NORA Runner's
+    surrogate: split-R-hat < 1.2 and KL between its Gaussian and the NS
+    sample's <= KL_GATE (both directions)."""
+    import numpy as np
+    from gpry_tpu_torch.mc.samples import mc_sample_from_gp
+    from gpry_tpu_torch.utils.tools import kl_norm, mean_covmat_from_samples
+    t0 = time.perf_counter()
+    s = mc_sample_from_gp(runner.gpr, sampler="mcmc", rng=5, verbose=2)
+    t_mc = time.perf_counter() - t0
+    m1, c1 = mean_covmat_from_samples(s["X"], s["weights"])
+    m0, c0 = mean_covmat_from_samples(ns_sample["X"], ns_sample["weights"])
+    kl = max(kl_norm(m1, c1, m0, c0), kl_norm(m0, c0, m1, c1))
+    summary = {"mcmc_s": s["time_mcmc"], "refine_s": s["time_refine"],
+               "total_s": t_mc, "rhat": s["rhat"], "kl_vs_ns": kl,
+               "n_calls": s["n_calls"], "refined": bool(s.get("refined"))}
+    log("[MCMC] " + json.dumps(summary))
+    if not s["rhat"] < 1.2:
+        raise AssertionError(f"MCMC split-R-hat {s['rhat']} >= 1.2")
+    if not (np.isfinite(kl) and kl <= KL_GATE):
+        raise AssertionError(f"KL(MCMC, NS) = {kl} > {KL_GATE}")
+    if s["X"].shape[1] != D or not np.all(np.isfinite(s["X"])):
+        raise AssertionError("the MCMC sample is malformed")
+    return summary
+
+
+def drive(name, fn, *args, **kwargs):
+    """Run one path with the launch counts set to 0 just before it and
+    read just after; fail if a kernel of the path was not launched."""
+    from gpry_tpu_torch.ops import fused
+    fused.reset_launch_counts()
+    out = fn(*args, **kwargs)
+    sync()
+    launches = dict(fused.LAUNCHES)
+    log(f"[{name}] kernel launches: {launches}")
+    for kernel in PATH_KERNELS[name]:
+        if launches[kernel] <= 0:
+            raise AssertionError(f"kernel {kernel} was not launched on the "
+                                 f"{name} path")
+    return out, launches
+
+
+def drive_paths():
+    """The four paths in order; returns their summaries and launches."""
+    t0 = time.perf_counter()
+    paths, launches = {}, {}
+    (_, _, paths["batchoptimizer"]), launches["batchoptimizer"] = drive(
+        "batchoptimizer", run_runner, "SLICE")
+    paths["nora_bench"], launches["nora_bench"] = drive(
+        "nora_bench", run_nora_bench)
+    (runner, ns_sample, paths["nora_runner"]), launches["nora_runner"] = \
+        drive("nora_runner", run_runner, "NORA", gp_acquisition="NORA")
+    paths["mcmc"], launches["mcmc"] = drive("mcmc", run_mcmc, runner,
+                                            ns_sample)
+    log(f"[PATHS] all four paths in {time.perf_counter() - t0:.1f} s")
+    return paths, launches
 
 
 def main():
@@ -304,25 +579,22 @@ def main():
         " s)")
 
     rows = check_kernels(dev)
-
-    fused.reset_launch_counts()
-    runner, kl, phases = run_slice()
-    launches = dict(fused.LAUNCHES)
-    log(f"[SLICE] kernel launches on the main path: {launches}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
+    paths, launches = drive_paths()
     kernels = []
     for name, (src, replaces) in SOURCES.items():
+        # library_ms: no single PyTorch call computes any of the four
+        # functions (PERF.md, section 6, says why for each)
         row = {"name": name, "route": "cuda", "source": src,
-               "replaces": replaces, "launches": launches[name]}
+               "replaces": replaces,
+               "launches": sum(c[name] for c in launches.values()),
+               "launches_by_path": {k: c[name] for k, c in launches.items()},
+               "library_ms": None}
         row.update(rows[name])
         kernels.append(row)
     assert "jax" not in sys.modules
-    print(json.dumps({"kernels": kernels, "slice": dict(
-        phases, kl=kl, n_total=int(runner.gpr.n_total),
-        iterations=int(runner.current_iteration))}))
+    assert not any(m == "gpry_tpu" or m.startswith("gpry_tpu.")
+                   for m in sys.modules)
+    print(json.dumps({"kernels": kernels, "paths": paths}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

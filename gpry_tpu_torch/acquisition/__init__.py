@@ -12,3 +12,5 @@ from gpry_tpu_torch.acquisition.functions import (  # noqa: F401
 from gpry_tpu_torch.acquisition.batch_optimizer import (  # noqa: F401
     BatchOptimizer,
 )
+from gpry_tpu_torch.acquisition.nora import NORA  # noqa: F401
+from gpry_tpu_torch.acquisition.ranked_pool import RankedPool  # noqa: F401

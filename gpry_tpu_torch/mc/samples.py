@@ -1,11 +1,12 @@
 """
 Monte-Carlo samples of the surrogate (port of gpry_tpu/mc/samples.py).
 
-The final sampler is the device nested sampler (``mc.nested``) followed by
-the mixture importance-sampling refinement (``mc.refine``); both score the
+The final sampler is the device nested sampler (``mc.nested``) or the
+device ensemble MCMC (``mc.mcmc``), followed by the mixture
+importance-sampling refinement (``mc.refine``); all of them score the
 surrogate through the K1 kernel.  ``"uniform"`` draws are for tests.  The
-other samplers of the JAX package (MCMC, Cobaya, host NS interfaces) are
-not ported yet.
+host samplers of the JAX package (Cobaya, PolyChord, UltraNest, nessai)
+are not ported yet.
 """
 
 import os
@@ -15,6 +16,7 @@ from functools import partial
 import numpy as np
 import torch
 
+from gpry_tpu_torch.mc.mcmc import run_mcmc_device, split_rhat
 from gpry_tpu_torch.mc.nested import run_nested_device
 from gpry_tpu_torch.models.gp import surrogate_predict_mean
 from gpry_tpu_torch.parallel.rng import torch_generator_from_rng
@@ -37,16 +39,19 @@ def mc_sample_from_gp(gpr, bounds=None, sampler="nested", rng=None,
                       options=None, verbose=1):
     """
     Draw MC samples from the surrogate posterior.  ``sampler``: "nested"
-    (device NS, ``nlive=50d``, then IS refinement) or "uniform" (tests).
+    (device NS, ``nlive=50d``, then IS refinement), "mcmc" (device
+    ensemble of adaptive MH chains, then IS refinement) or "uniform"
+    (tests).
 
     Returns a samples dict: {"X", "logpost", "weights", "logZ" (NS only),
-    "n_calls", and the phase times "time_ns" / "time_refine" in seconds}.
+    "rhat" (MCMC only), "n_calls", and the phase times "time_ns" /
+    "time_refine" in seconds}.
     """
-    if sampler not in ("nested", "uniform"):
+    if sampler not in ("nested", "mcmc", "uniform"):
         raise NotImplementedError(
-            f"sampler={sampler!r} is not ported yet; only 'nested' and "
-            "'uniform' are (ROADMAP.md §A: 'mcmc' comes with the NORA "
-            "slice, the host interfaces with the periphery).")
+            f"sampler={sampler!r} is not ported yet; only 'nested', 'mcmc' "
+            "and 'uniform' are (ROADMAP.md §A6: the host samplers come "
+            "with the periphery).")
     options = dict(options or {})
     bounds = check_and_return_bounds(
         bounds if bounds is not None else gpr.bounds)
@@ -67,6 +72,10 @@ def mc_sample_from_gp(gpr, bounds=None, sampler="nested", rng=None,
         gpr.n_eval += n
         return {"X": X.cpu().numpy(), "logpost": logpost.cpu().numpy(),
                 "weights": np.ones(n)}
+
+    if sampler == "mcmc":
+        return _mc_sample_mcmc(gpr, p, logp, gen, lo, hi, bounds, rng,
+                               options, verbose)
 
     nlive = get_Xnumber(options.get("nlive", "50d"), "d", d, dtype=int,
                         varname="nlive")
@@ -95,6 +104,49 @@ def mc_sample_from_gp(gpr, bounds=None, sampler="nested", rng=None,
         "time_refine": 0.0,
     }
     gpr.n_eval += res.n_calls
+    if options.get("refine", True):
+        from gpry_tpu_torch.mc.refine import is_refine_sample
+        t0 = time.perf_counter()
+        out = is_refine_sample(
+            gpr, out, bounds, rng=rng,
+            n_draw=int(options.get("refine_n_draw", 65536)),
+            verbose=verbose)
+        out["time_refine"] = time.perf_counter() - t0
+    return out
+
+
+def _mc_sample_mcmc(gpr, p, logp, gen, lo, hi, bounds, rng, options,
+                    verbose):
+    """The "mcmc" branch of :func:`mc_sample_from_gp`
+    (gpry_tpu/mc/samples.py:176-206)."""
+    d = bounds.shape[0]
+    n_chains = int(options.get("n_chains", max(8, 2 * d)))
+    n_steps = int(options.get("n_steps", 2000))
+    t0 = time.perf_counter()
+    X3, logpost3 = run_mcmc_device(logp, p, gen, lo, hi, n_chains=n_chains,
+                                   n_steps=n_steps,
+                                   covmat=options.get("covmat"))
+    X3, logpost3 = X3.cpu().numpy(), logpost3.cpu().numpy()
+    # cross-chain convergence diagnostic (the reference leans on Cobaya's
+    # R-1 here, gpry/convergence.py:430-472)
+    rhat = split_rhat(X3)
+    if verbose >= 2 and not (rhat - 1.0 < 0.1):
+        import warnings
+        warnings.warn(
+            f"Device MCMC may not have converged: split-R-hat = "
+            f"{rhat:.3f} (> 1.1). Increase n_steps/n_chains.")
+    X = X3.reshape(-1, d)
+    logpost = logpost3.ravel()
+    keep = np.isfinite(logpost)
+    # exact device-eval count: 16 start tries per chain, then one proposal
+    # eval per chain per step over the warm-up (n_steps // 2) and sampling
+    # phases
+    n_calls = n_chains * (16 + n_steps // 2 + n_steps)
+    gpr.n_eval += n_calls
+    out = {"X": X[keep], "logpost": logpost[keep],
+           "weights": np.ones(int(keep.sum())), "rhat": rhat,
+           "n_calls": n_calls, "time_mcmc": time.perf_counter() - t0,
+           "time_refine": 0.0}
     if options.get("refine", True):
         from gpry_tpu_torch.mc.refine import is_refine_sample
         t0 = time.perf_counter()

@@ -14,6 +14,9 @@ versions, and the wrappers that choose between them.
   replaces ops/linalg.py:34 masked_kernel_matrix as vmapped by
   models/gp.py:188 _lml_batch; plain version
   :func:`masked_kernel_matrix_plain`.
+* K4 ``kriging_believer_fill`` (``csrc/kriging_believer_fill.cu``)
+  replaces acquisition/ranked_pool.py:41 _bulk_fill_device; plain version
+  :func:`kriging_believer_fill_plain`.
 
 A wrapper runs the plain version only when its input tensor lies on the
 CPU.  For a CUDA tensor it launches the kernel or raises: there is no
@@ -21,12 +24,14 @@ fallback.  The kernels are float64-only and forward-only; a CUDA tensor
 that requires grad is refused (the autograd paths call the plain versions
 themselves, as the JAX package differentiated XLA there).
 
-The three sources build in one ``nvcc`` call into a shared library with a
+The four sources build in one ``nvcc`` call into a shared library with a
 plain C interface (``_build/libgpry_kernels.so`` inside the package), at
 first use, and load over ``ctypes``.  Every launch goes on PyTorch's
 current stream and is checked with ``cudaGetLastError``.
 
-``LAUNCHES`` counts, per kernel, the launches the wrappers made.
+``LAUNCHES`` counts, per kernel, the launches the wrappers made (for K4,
+both of its kernels: one select per round and one sweep per conditioned
+round).
 """
 
 import ctypes
@@ -39,13 +44,14 @@ import time
 import torch
 
 from gpry_tpu_torch.models.classifier import svm_decision
-from gpry_tpu_torch.ops.kernels import check_family, cross_kernel
+from gpry_tpu_torch.ops.kernels import check_family, cross_kernel, \
+    kernel_diag
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 _SOURCES = ("gated_mean.cu", "gated_meanvar_logexp.cu",
-            "masked_kernel_matrix.cu")
+            "masked_kernel_matrix.cu", "kriging_believer_fill.cu")
 _HEADERS = ("common.cuh",)
 _LIB_PATH = os.path.join(_BUILD, "libgpry_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -55,7 +61,7 @@ _FAMILY_ID = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3}
 
 #: launches per kernel made by the wrappers (never by the plain versions)
 LAUNCHES = {"gated_mean": 0, "gated_meanvar_logexp": 0,
-            "masked_kernel_matrix_batched": 0}
+            "masked_kernel_matrix_batched": 0, "kriging_believer_fill": 0}
 
 #: seconds the last build took (None: the library was already built)
 BUILD_SECONDS = None
@@ -138,6 +144,10 @@ def library():
         lib.gpry_masked_kernel_matrix.argtypes = [I] * 5 + [P] * 3 \
             + [I, D, P, P]
         lib.gpry_masked_kernel_matrix.restype = I
+        lib.gpry_kb_sweep.argtypes = [I] * 6 + [P] * 7 + [D, D, P, P, P]
+        lib.gpry_kb_sweep.restype = I
+        lib.gpry_kb_select.argtypes = [I] * 6 + [P] * 18
+        lib.gpry_kb_select.restype = I
         _lib = lib
         return lib
 
@@ -263,6 +273,72 @@ def masked_kernel_matrix_plain(family, thetas, X, n, noise_var,
     return K + torch.diag_embed(diag_fill)
 
 
+def kriging_believer_fill_plain(family, p, Xd_raw, y, sigma, acq0, alive0,
+                                size, acq_values):
+    """
+    Plain K4: the greedy Kriging-believer fill of ``size`` pool slots
+    (gpry_tpu/acquisition/ranked_pool.py:41 _bulk_fill_device, line by
+    line).  ``p`` has at least ``size`` free padded rows; ``acq_values(y,
+    sd)`` is the acquisition of raw means and (ungated) conditioned stds.
+    Returns ``(outX, outY, outS, outA, outC)``; unfilled slots carry
+    ``outC = -inf``.
+    """
+    dt = p.X.dtype
+    nmax = p.X.shape[0]
+    N, d = Xd_raw.shape
+    Xq_ = (Xd_raw - p.x_loc) / p.x_scale
+    prior_var = kernel_diag(family, p.theta, Xq_)
+    minus_inf = torch.tensor(-torch.inf, dtype=dt, device=Xd_raw.device)
+    rows = torch.arange(nmax, device=Xd_raw.device)
+
+    def noise_at(n):
+        return p.noise_var if p.noise_var.ndim == 0 else p.noise_var[n]
+
+    def sigma_cond(Xbuf, n, L):
+        m = (rows < n).to(dt)
+        Kq = cross_kernel(family, p.theta, Xq_, Xbuf) * m[None, :]
+        V = torch.linalg.solve_triangular(L, Kq.T, upper=False)
+        var = prior_var - torch.sum(V * V, dim=0)
+        return torch.sqrt(torch.clamp_min(var, 0.0)) * p.y_scale
+
+    outX = torch.zeros((size, d), dtype=dt, device=Xd_raw.device)
+    outY = torch.zeros(size, dtype=dt, device=Xd_raw.device)
+    outS = torch.zeros(size, dtype=dt, device=Xd_raw.device)
+    outA = torch.full((size,), -torch.inf, dtype=dt, device=Xd_raw.device)
+    outC = torch.full((size,), -torch.inf, dtype=dt, device=Xd_raw.device)
+    Xbuf, n, L = p.X.clone(), p.n, p.L.clone()
+    alive = alive0.clone()
+    for i in range(size):
+        if i == 0:
+            # round 0 ranks by the unconditioned acquisition
+            acq_cond = acq0
+        else:
+            ac = acq_values(y, sigma_cond(Xbuf, n, L))
+            finite = torch.isfinite(ac)
+            alive = alive & finite
+            acq_cond = torch.where(finite, ac, minus_inf)
+        acq_m = torch.where(alive, acq_cond, minus_inf)
+        j = int(torch.argmax(acq_m))
+        valid = bool(torch.isfinite(acq_m[j]))
+        alive[j] = False
+        if not valid:
+            continue
+        outX[i], outY[i], outS[i] = Xd_raw[j], y[j], sigma[j]
+        outA[i], outC[i] = acq0[j], acq_m[j]
+        # rank-1 Cholesky append of the believer lie at row n
+        xj_ = Xq_[j]
+        m = (rows < n).to(dt)
+        K12 = cross_kernel(family, p.theta, Xbuf, xj_[None]) * m[:, None]
+        S12 = torch.linalg.solve_triangular(L, K12, upper=False)[:, 0]
+        k22 = kernel_diag(family, p.theta, xj_[None])[0] + noise_at(n)
+        s22 = torch.sqrt(torch.clamp_min(k22 - torch.sum(S12 * S12),
+                                         1e-12))
+        L[n] = torch.where(rows == n, s22, S12)
+        Xbuf[n] = xj_
+        n += 1
+    return outX, outY, outS, outA, outC
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -369,7 +445,87 @@ def masked_kernel_matrix_batched(family, thetas, X, n, noise_var,
     return out
 
 
+def kriging_believer_fill(family, p, Xd_raw, y, sigma, acq0, alive0, size,
+                          acq_values, logexp=None):
+    """
+    K4: the greedy Kriging-believer fill (see
+    :func:`kriging_believer_fill_plain` for the arguments).  With
+    ``logexp=(zeta, noise_std)`` the acquisition is LogExp and runs inside
+    the sweep kernel; otherwise the sweep returns the conditioned stds and
+    ``acq_values`` is applied in torch between the two kernels of a round.
+    Every round stays on the device: nothing is read back to the host.
+    """
+    check_family(family)
+    if Xd_raw.device.type == "cpu":
+        return kriging_believer_fill_plain(family, p, Xd_raw, y, sigma, acq0,
+                                           alive0, size, acq_values)
+    dev = Xd_raw.device
+    N, d = Xd_raw.shape
+    nmax = p.X.shape[0]
+    if p.n + size > nmax:
+        raise ValueError(f"kriging_believer_fill: n={p.n} + size={size} "
+                         f"exceeds the padded buffer nmax={nmax}.")
+    if tuple(p.L.shape) != (nmax, nmax) or not p.L.is_contiguous():
+        raise ValueError("kriging_believer_fill: L must be a row-major "
+                         "(nmax, nmax) factor.")
+    if alive0.dtype != torch.bool or alive0.shape != (N,):
+        raise TypeError("kriging_believer_fill: alive0 must be an (N,) "
+                        "bool tensor.")
+    noise = p.noise_var.reshape(-1).contiguous()
+    if noise.numel() not in (1, nmax):
+        raise ValueError("noise_var must be a scalar or an (nmax,) vector.")
+    tensors = dict(Xd_raw=Xd_raw, y=y, sigma=sigma, acq0=acq0, L=p.L,
+                   X=p.X, theta=p.theta, x_loc=p.x_loc, x_scale=p.x_scale,
+                   scal=p.scal, noise=noise)
+    _check_cuda("kriging_believer_fill", dev, **tensors)
+    if alive0.device != dev:
+        raise ValueError(f"kriging_believer_fill: 'alive0' is on "
+                         f"{alive0.device}, expected {dev}.")
+    dt = torch.float64
+    outX = torch.empty((size, d), dtype=dt, device=dev)
+    outY, outS, outA, outC = (torch.empty(size, dtype=dt, device=dev)
+                              for _ in range(4))
+    if size <= 0:
+        return outX, outY, outS, outA, outC
+    # working state: updated in place by the kernels, never read on host
+    Xq_ = ((Xd_raw - p.x_loc) / p.x_scale).contiguous()
+    Xbuf, L = p.X.clone(), p.L.clone()
+    alive = alive0.clone()
+    n_dev = torch.tensor([p.n], dtype=torch.int32, device=dev)
+    swept = torch.empty(N, dtype=dt, device=dev)
+    zeta, noise_std = (0.0, 0.0) if logexp is None else logexp
+    Q = _k2_queries_per_block(nmax, d)
+    fam = _FAMILY_ID[family]
+    lib = library()
+    for i in range(size):
+        if i == 0:
+            ac = acq0
+        else:
+            rc = lib.gpry_kb_sweep(
+                fam, int(logexp is not None), N, nmax, d, Q, _ptr(n_dev),
+                _ptr(Xq_), _ptr(y), _ptr(Xbuf), _ptr(L), _ptr(p.theta),
+                _ptr(p.scal), float(zeta), float(noise_std), _ptr(alive),
+                _ptr(swept), _stream())
+            _raise_on("kriging_believer_fill (sweep)", rc)
+            LAUNCHES["kriging_believer_fill"] += 1
+            if logexp is None:
+                ac = acq_values(y, swept).to(dt).contiguous()
+                alive &= torch.isfinite(ac)
+            else:
+                ac = swept
+        rc = lib.gpry_kb_select(
+            fam, N, nmax, d, i, int(noise.numel() == nmax), _ptr(Xd_raw),
+            _ptr(Xq_), _ptr(y), _ptr(sigma), _ptr(acq0), _ptr(ac),
+            _ptr(alive), _ptr(p.theta), _ptr(noise), _ptr(n_dev),
+            _ptr(Xbuf), _ptr(L), _ptr(outX), _ptr(outY), _ptr(outS),
+            _ptr(outA), _ptr(outC), _stream())
+        _raise_on("kriging_believer_fill (select)", rc)
+        LAUNCHES["kriging_believer_fill"] += 1
+    return outX, outY, outS, outA, outC
+
+
 __all__ = ["LAUNCHES", "KernelBuildError", "build", "library",
            "reset_launch_counts", "gated_mean", "gated_mean_plain",
            "gated_meanvar_logexp", "gated_meanvar_logexp_plain",
-           "masked_kernel_matrix_batched", "masked_kernel_matrix_plain"]
+           "masked_kernel_matrix_batched", "masked_kernel_matrix_plain",
+           "kriging_believer_fill", "kriging_believer_fill_plain"]

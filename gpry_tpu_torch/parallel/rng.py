@@ -19,7 +19,11 @@ def get_random_generator(seed=None):
 
 
 def torch_generator_from_rng(rng, device):
-    """A ``torch.Generator`` on ``device`` seeded from the host generator."""
+    """A ``torch.Generator`` on ``device`` seeded from the host generator.
+
+    Draws what the JAX package draws for its PRNG key at the same site
+    (``int(rng.integers(2**31))``), so that the host stream stays aligned
+    with gpry_tpu's for every later numpy draw."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(int(rng.integers(2**62)))
+    gen.manual_seed(int(rng.integers(2**31)))
     return gen

@@ -9,13 +9,15 @@ loop, truth evaluation and bookkeeping; GP fits, acquisition and the final
 MC run on the package device (``config.get_device()``) through the K1-K3
 CUDA kernels.
 
-This slice runs the default BatchOptimizer / LogExp / CorrectCounter loop
-with the starvation (Sobol exploration) fallback and the flat-surrogate and
-amplitude-underfit vetoes.  Features of later slices raise
-``NotImplementedError`` naming their ROADMAP.md item: the convergence
-audit (``options["audit"]=True``, the JAX default), NORA, checkpoints,
-plots, samplers other than "nested" / "uniform", and truth executors other
-than "serial".
+The port runs the BatchOptimizer loop (LogExp, CorrectCounter) and the
+NORA loop (CorrectCounter + GaussianKL + TrainAlignment, with the
+mode-signature stability veto), with the starvation (Sobol exploration)
+fallback and the flat-surrogate and amplitude-underfit vetoes; the final
+sampler is "nested" (default), "mcmc" or "uniform".  Features of later
+slices raise ``NotImplementedError`` naming their ROADMAP.md item: the
+convergence audit (``options["audit"]=True``, the JAX default),
+checkpoints, plots, the host samplers, and truth executors other than
+"serial".
 
 Defaults follow gpry/run.py:531-537: n_initial=3d, max_initial=30d^1.5,
 max_total=70d^1.5, n_points_per_acq=d, fit_full_every=2*sqrt(d) (full
@@ -27,19 +29,23 @@ import numpy as np
 from gpry_tpu_torch.acquisition import proposal as proposal_module
 from gpry_tpu_torch.acquisition.base import GenericGPAcquisition
 from gpry_tpu_torch.acquisition.batch_optimizer import BatchOptimizer
+from gpry_tpu_torch.acquisition.nora import NORA
 from gpry_tpu_torch.convergence import (ConvergenceCheckError,
                                         ConvergenceCriterion, CorrectCounter,
-                                        DontConverge, construct_criterion)
+                                        DontConverge, GaussianKL,
+                                        TrainAlignment, construct_criterion)
 from gpry_tpu_torch.models.gp import GaussianProcessRegressor
 from gpry_tpu_torch.models.preprocessing import Normalize_bounds, \
     Normalize_y
 from gpry_tpu_torch.parallel import TruthExecutor, get_random_generator
 from gpry_tpu_torch.progress import Progress, Timer, TimerCounter
 from gpry_tpu_torch.truth import get_truth
+from gpry_tpu_torch.utils.modes import detect_modes, mode_signature, \
+    modes_match
 from gpry_tpu_torch.utils.tools import (check_candidates,
                                         credibility_of_nstd,
                                         gaussian_distance, get_Xnumber,
-                                        mean_covmat_from_evals,
+                                        kl_norm, mean_covmat_from_evals,
                                         mean_covmat_from_samples)
 
 _VERBOSITY_ERROR, _VERBOSITY_WARN, _VERBOSITY_INFO = 1, 2, 3
@@ -89,6 +95,13 @@ class Runner:
         # True once exploration ever fired while the surrogate was FLAT:
         # convergence is then not accepted until the Sobol net is spent
         self._flat_explored = False
+        # mode-signature veto state: the acquisition sample's signature at
+        # the last convergence checks, and the consecutive vetoes since the
+        # last stable signature (capped by max_mode_vetoes)
+        self._mode_sig_hist = []
+        self._mode_sig_now = None
+        self._last_modes = None
+        self._mode_veto_streak = 0
         self.truth = get_truth(loglike, bounds=bounds, params=params,
                                labels=None, ref_bounds=ref_bounds)
         self.options = self._construct_options(options)
@@ -202,6 +215,12 @@ class Runner:
             # The mode-aware convergence audit (the JAX package's
             # default) is not ported yet: only audit=False is accepted.
             "audit": bool(options.get("audit", True)),
+            "mode_weight_tol": float(options.get("mode_weight_tol", 0.10)),
+            "mode_stable_checks": int(options.get("mode_stable_checks", 3)),
+            # cap on CONSECUTIVE signature vetoes (see the veto in
+            # _run_main_loop), so an oscillating borderline cluster cannot
+            # veto forever
+            "max_mode_vetoes": int(options.get("max_mode_vetoes", 6)),
             # amplitude-underfit veto: minimum fitted output scale as a
             # fraction of the finite training-y span (see
             # _surrogate_is_amp_underfit); measured separation on the
@@ -231,6 +250,9 @@ class Runner:
             options["n_resamples_before_giveup"]
         self.max_starved_explore = options["max_starved_explore"]
         self.audit = options["audit"]
+        self.mode_weight_tol = options["mode_weight_tol"]
+        self.mode_stable_checks = options["mode_stable_checks"]
+        self.max_mode_vetoes = options["max_mode_vetoes"]
         self.amp_underfit_frac = options["amp_underfit_frac"]
         if self.audit:
             raise _not_ported(
@@ -279,11 +301,13 @@ class Runner:
         kwargs = dict(spec[name] or {})
         kwargs.setdefault("zeta_scaling", 0.85)
         kwargs.setdefault("verbose", self.verbose)
-        if name.lower() == "nora":
-            raise _not_ported('gp_acquisition="NORA"', "NORA")
-        if name.lower() != "batchoptimizer":
+        cls = {"batchoptimizer": BatchOptimizer, "nora": NORA}.get(
+            name.lower())
+        if cls is None:
             raise ValueError(f"Unknown acquisition engine '{name}'.")
-        return BatchOptimizer(bounds, **kwargs)
+        if cls is NORA:
+            kwargs.setdefault("rng", self.rng)
+        return cls(bounds, **kwargs)
 
     def _construct_initial_proposer(self, spec):
         """Reference: gpry/run.py:406-444."""
@@ -311,13 +335,20 @@ class Runner:
     def _construct_convergence_criterion(self, spec):
         """
         Defaults (reference: gpry/run.py:446-457): CorrectCounter for
-        BatchOptimizer.
+        BatchOptimizer; CorrectCounter + GaussianKL + TrainAlignment for
+        NORA.
         """
         bounds = self.truth.prior_bounds
         if spec is False:
             return [DontConverge(bounds, {})]
         if spec is None:
-            return [CorrectCounter(bounds, {"policy": "s"})]
+            criteria = [CorrectCounter(bounds, {"policy": "s"})]
+            if isinstance(self.acquisition, NORA):
+                criteria += [
+                    GaussianKL(bounds, {"policy": "s"}),
+                    TrainAlignment(bounds, {"policy": "n"}),
+                ]
+            return criteria
         if isinstance(spec, ConvergenceCriterion):
             return [spec]
         if isinstance(spec, (list, tuple)):
@@ -339,8 +370,9 @@ class Runner:
                        "options": dict(mc.get("options") or {})}
         else:
             raise ValueError(f"Cannot parse mc spec {mc!r}.")
-        if out["sampler"] not in ("nested", "uniform"):
-            raise _not_ported(f"mc sampler {out['sampler']!r}", "NORA")
+        if out["sampler"] not in ("nested", "mcmc", "uniform"):
+            raise _not_ported(f"mc sampler {out['sampler']!r}",
+                              "periphery")
         return out
 
     # ---------------------------------------------------------------- the loop
@@ -463,6 +495,10 @@ class Runner:
                 self.log(f"[CONVERGENCE] value={conv_value:.3g} "
                          f"converged={self.has_converged} "
                          f"({timer_conv.time:.3g}s)", _VERBOSITY_INFO)
+                # track the acquisition sample's mode signature (host-side
+                # clustering of ~1k resampled points; None for engines
+                # without an MC sample, e.g. BatchOptimizer)
+                self._mode_sig_now = self._acquisition_mode_signature()
             self.update_mean_cov()
 
             # Flat-surrogate convergence veto: a surrogate with (almost) no
@@ -551,6 +587,42 @@ class Runner:
                              "span and the exploration budget is spent; "
                              "refusing to declare from a globally "
                              "overconfident surrogate.", _VERBOSITY_WARN)
+
+            # Mode-signature stability veto (beyond the reference): on a
+            # MULTIMODAL surrogate, convergence requires the mode count
+            # and weights of the acquisition's MC sample to agree across
+            # the last ``mode_stable_checks`` convergence checks (a
+            # signature still in flux means the mode weights, and possibly
+            # the mode census, are not settled).  Costs no truth evals.
+            if not explored_batch and self._mode_sig_now is not None:
+                self._mode_sig_hist.append(self._mode_sig_now)
+                del self._mode_sig_hist[:-max(self.mode_stable_checks, 1)]
+            if self.has_converged and self._mode_sig_now is not None \
+                    and self._mode_sig_now[0] >= 2:
+                hist = self._mode_sig_hist[-self.mode_stable_checks:]
+                stable = len(hist) >= self.mode_stable_checks and all(
+                    modes_match(a, b, self.mode_weight_tol)
+                    for a, b in zip(hist, hist[1:]))
+                if stable:
+                    self._mode_veto_streak = 0
+                elif self._mode_veto_streak >= self.max_mode_vetoes:
+                    # bounded veto: a borderline cluster oscillating across
+                    # detect_modes' min_weight threshold would otherwise
+                    # veto forever
+                    self.log("[MODES] signature still unstable after "
+                             f"{self._mode_veto_streak} consecutive "
+                             "vetoes (max_mode_vetoes cap): accepting "
+                             "the declaration.", _VERBOSITY_WARN)
+                else:
+                    self._mode_veto_streak += 1
+                    self.has_converged = False
+                    self.log("[MODES] convergence vetoed: multimodal "
+                             f"signature {self._mode_sig_now} not stable "
+                             f"over the last {self.mode_stable_checks} "
+                             f"checks (history: {hist[:-1]}; veto "
+                             f"{self._mode_veto_streak}/"
+                             f"{self.max_mode_vetoes}).",
+                             _VERBOSITY_WARN)
 
             # [MC+DIAGNOSIS] on declared convergence
             if self.has_converged:
@@ -676,6 +748,26 @@ class Runner:
             return np.empty((0, self.d))
         self._n_explored += got
         return np.concatenate(out, axis=0)
+
+    def _acquisition_mode_signature(self):
+        """Mode signature of the acquisition engine's current MC sample
+        (None when the engine has no sample, e.g. BatchOptimizer)."""
+        if not hasattr(self.acquisition, "last_MC_sample"):
+            self._last_modes = None
+            return None
+        try:
+            X, _, w = self.acquisition.last_MC_sample()
+        except (ValueError, AttributeError):
+            self._last_modes = None
+            return None
+        try:
+            self._last_modes = detect_modes(X, w, rng=self.rng)
+            return mode_signature(self._last_modes)
+        except Exception as excpt:
+            self.log(f"[MODES] mode detection failed: {excpt}",
+                     _VERBOSITY_DEBUG)
+            self._last_modes = None
+            return None
 
     def do_initial_training(self):
         """
@@ -844,10 +936,10 @@ class Runner:
 
     def diagnose_last_mc_sample(self):
         """
-        Post-MC diagnosis (reference: gpry/run.py:1747-1784): the training
-        mean must lie within 0.5 central credibility of the MC sample.
-        (The second test, KL against the acquisition's own MC sample, needs
-        an engine with one, i.e. NORA.)  Failure vetoes convergence.
+        Post-MC diagnosis (reference: gpry/run.py:1747-1784): (1) the
+        training mean must lie within 0.5 central credibility of the MC
+        sample; (2) KL(MC Gaussian || acquisition Gaussian) < d, for an
+        engine with its own MC sample (NORA).  Failure vetoes convergence.
         """
         if self.last_mc_result is None:
             return True
@@ -868,6 +960,23 @@ class Runner:
         except Exception as excpt:
             self.log(f"[DIAGNOSIS] alignment check failed: {excpt}",
                      _VERBOSITY_WARN)
+        # KL(mc || acq) < d against the acquisition's OWN last sample
+        # (reference: gpry/run.py:1775-1784; skipped for engines without
+        # one; a failed moment computation leaves the training test as the
+        # verdict)
+        if ok and hasattr(self.acquisition, "last_MC_sample"):
+            try:
+                X_a, _, w_a = self.acquisition.last_MC_sample()
+                mean_acq, cov_acq = mean_covmat_from_samples(X_a, w_a)
+                kl = kl_norm(mean_mc, cov_mc, mean_acq, cov_acq)
+            except Exception as excpt:
+                self.log(f"[DIAGNOSIS] KL check skipped: {excpt}",
+                         _VERBOSITY_WARN)
+            else:
+                if not (kl < self.d):
+                    self.log(f"[DIAGNOSIS] KL(mc||acq)={kl:.3g} >= d",
+                             _VERBOSITY_WARN)
+                    ok = False
         return ok
 
     # ------------------------------------------------------------- fiducials

@@ -87,6 +87,52 @@ def test_masked_kernel_matrix_kernel(dev, family):
                                                 1e-5), 1e-12)
 
 
+def _fill_inputs(family, dev, noise, N=500, size=4):
+    """K4's inputs on the small surrogate: candidates inside the trust box
+    with their gated mean, std and LogExp values; scalar or per-row
+    noise."""
+    from gpry_tpu_torch.acquisition.base import grow_surrogate
+    from gpry_tpu_torch.acquisition.functions import LogExp
+    p = surrogate(family, dev)
+    if noise == "vector":
+        p = p.replace(noise_var=torch.linspace(1e-4, 1e-3, 64,
+                                               dtype=torch.float64,
+                                               device=dev))
+    p = grow_surrogate(p, 64)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    Xc = torch.rand((N, 3), generator=gen, dtype=torch.float64,
+                    device=dev) * 1.6 - 0.8
+    y, sd = fused.gated_meanvar_logexp_plain(family, p, Xc)
+    acqf = LogExp(dimension=3)
+    acq0 = acqf.values(y, sd, p.y_max, 0.01)
+    keep = torch.isfinite(acq0)
+    Xc, y, sd, acq0 = Xc[keep], y[keep], sd[keep], acq0[keep]
+    alive = torch.ones(len(Xc), dtype=torch.bool, device=dev)
+    fn = lambda yy, ss: acqf.values(yy, ss, p.y_max, 0.01)
+    return (p, Xc.contiguous(), y.contiguous(), sd.contiguous(),
+            acq0.contiguous(), alive, size, fn), acqf
+
+
+@pytest.mark.parametrize("noise", ["scalar", "vector"])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_kriging_believer_fill_kernel(dev, family, noise):
+    """K4 against its plain version: identical picks and -inf masks,
+    conditioned values within rel 1e-10, with the LogExp epilogue in the
+    sweep and with the acquisition applied in torch between the kernels;
+    one sweep per conditioned round and one select per round."""
+    args, acqf = _fill_inputs(family, dev, noise)
+    ref = fused.kriging_believer_fill_plain(family, *args)
+    for logexp in ((acqf.zeta, 0.01), None):
+        n0 = fused.LAUNCHES["kriging_believer_fill"]
+        out = fused.kriging_believer_fill(family, *args, logexp=logexp)
+        assert fused.LAUNCHES["kriging_believer_fill"] == n0 + 2 * 4 - 1
+        assert torch.equal(torch.isfinite(out[4]), torch.isfinite(ref[4]))
+        assert bool(torch.isfinite(ref[4]).all())
+        for a, b in zip(out[:4], ref[:4]):
+            assert torch.equal(a, b)
+        _close(out[4], ref[4], 1e-10)
+
+
 def test_kernels_refuse_grad_and_float32(dev):
     p = surrogate("rbf", dev)
     Xq = torch.zeros((4, 3), dtype=torch.float64, device=dev)

@@ -91,15 +91,15 @@ def test_default_device_without_cuda_raises():
 @pytest.mark.parametrize("kwargs", [
     {"options": {"audit": True}},
     {"options": None},
-    {"options": {"audit": False}, "gp_acquisition": "NORA"},
+    {"options": {"audit": False},
+     "gp_acquisition": {"NORA": {"sampler": "polychord"}}},
     {"options": {"audit": False}, "checkpoint": "ckpt",
      "load_checkpoint": "overwrite"},
-    {"options": {"audit": False}, "mc": "mcmc"},
+    {"options": {"audit": False}, "mc": "polychord"},
     {"options": {"audit": False}, "truth_executor": "processes"},
     {"options": {"audit": False}, "gpr": {"kernel": {"RationalQuadratic":
                                                      {}}}},
-    {"options": {"audit": False},
-     "convergence_criterion": "GaussianKL"},
+    {"options": {"audit": False}, "mc": "cobaya_mcmc"},
     {"options": {"audit": False},
      "gp_acquisition": {"BatchOptimizer": {"acq_optimizer": "sampling"}}},
 ])
