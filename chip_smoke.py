@@ -2,29 +2,36 @@
 """
 Drive gpry_tpu_torch once on one CUDA card.
 
-1. Build the four CUDA kernels (K1 gated_mean, K2 gated_meanvar_logexp,
-   K3 masked_kernel_matrix_batched, K4 kriging_believer_fill) from
-   ``gpry_tpu_torch/csrc``.
+1. Build the five CUDA kernels (K1 gated_mean, K2 gated_meanvar_logexp,
+   K3 masked_kernel_matrix_batched, K4 kriging_believer_fill, K5
+   meanvar_ungated) from ``gpry_tpu_torch/csrc``.
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes of the main paths (d = 8, n = 224 valid rows in a bucket of
    nmax = 320; K1 at nq = 66 and 65,536, K2 at nq = 3,200, K3 at
-   R = 2,048, K4 at N = 4,096 candidates and a pool of 8), time both with
-   CUDA events, and compute each kernel's bound: the larger of its FP64
-   operations over the H100 SXM's FP64 peak and its bytes over 3.35 TB/s.
-3. Drive four paths, each with the launch counts set to 0 just before it
+   R = 2,048, K4 at N = 4,096 candidates and a pool of 8, K5 at the
+   audit screen's nq = 4,096), time both with CUDA events, and compute
+   each kernel's bound: the larger of its FP64 operations over the H100
+   SXM's FP64 peak and its bytes over 3.35 TB/s.
+3. Drive five paths, each with the launch counts set to 0 just before it
    and read just after, and check that each launched its kernels:
-   a. the BatchOptimizer Runner: ``Runner(loglike, bounds, options=
-      {"audit": False}).run()`` then ``generate_mc_sample()`` on the
-      8-dimensional correlated Gaussian of ``tests/model_generator.py``
-      (converged, KL(sample || truth) <= 0.05);
-   b. bench.py's NORA operating point (d = 8, N = 224): 1 warm-up and 3
+   a. the default entry point: ``Runner(loglike, bounds).run()`` (the
+      BatchOptimizer loop with the convergence audit) then
+      ``generate_mc_sample()`` on the 8-dimensional correlated Gaussian
+      of ``tests/model_generator.py`` (converged, KL(sample || truth)
+      <= 0.05);
+   b. bench.py's NORA operating point (d = 8, N = 224): 1 warm-up and 2
       timed iterations of a 26-restart fit, ``force_resample()`` and
       ``multi_add(n_points=8)``;
-   c. the NORA Runner: ``Runner(..., gp_acquisition="NORA")`` on the same
-      Gaussian, ``run()`` then ``generate_mc_sample()`` (converged,
-      KL <= 0.05);
+   c. the NORA Runner: ``Runner(..., gp_acquisition="NORA", options=
+      {"audit": False})`` on the same Gaussian, ``run()``, whose final
+      sample is the one drawn at the declaration (converged, KL <= 0.05);
    d. ``mc_sample_from_gp(sampler="mcmc")`` on c's surrogate (split-R-hat
-      < 1.2, KL between the MCMC and the NS Gaussians <= 0.05).
+      < 1.2, KL between the MCMC and the NS Gaussians <= 0.05);
+   e. the audited NORA Runner on Himmelblau (``benchmarks/nongaussian.py``'s
+      run): ``Runner(loglike, bounds, seed=100, gp_acquisition="NORA")``
+      at the default options (converged; moment-KL of the final sample
+      <= 0.05 against a grid-quadrature truth; every quadrant's mode holds
+      >= 5% of the weight).
 
 Prints the card's ``nvidia-smi`` name and power limit, a JSON line with the
 kernel results, and as the last line the contract line
@@ -44,6 +51,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 D, N, NMAX, NSV = 8, 224, 320, 8
 KL_GATE = 0.05
 TOL_K1, TOL_K2, TOL_K3, TOL_K4 = 1e-12, 1e-10, 1e-12, 1e-10
+# K5: the mean within rel TOL_K5; sigma within TOL_K5_SIGMA sqrt(sigma^2)
+# y_scale absolute (sigma^2 - |v|^2 cancels to ~0 at a training point)
+TOL_K5, TOL_K5_SIGMA = 1e-10, 1e-7
+# K5 at the audit screen
+NQ_SCREEN = 4096
+# the JAX package's truth evals to convergence on path e's run
+# (benchmarks/results_nongaussian.json, Himmelblau seed 100)
+JAX_HIMMELBLAU_EVALS = 61
 # K4 at bench.py's NORA operating point: N candidates, a pool of SIZE
 N_CAND, SIZE = 4096, 8
 # H100 SXM data sheet at its 700 W limit: FP64 with tensor cores (the
@@ -60,14 +75,19 @@ SOURCES = {
     "kriging_believer_fill": (
         "gpry_tpu_torch/csrc/kriging_believer_fill.cu",
         "gpry_tpu/acquisition/ranked_pool.py:41"),
+    "meanvar_ungated": ("gpry_tpu_torch/csrc/meanvar_ungated.cu",
+                        "gpry_tpu/models/gp.py:85"),
 }
 # the kernels each path must launch
 PATH_KERNELS = {
     "batchoptimizer": ("gated_mean", "gated_meanvar_logexp",
-                       "masked_kernel_matrix_batched"),
-    "nora_bench": tuple(SOURCES),
-    "nora_runner": tuple(SOURCES),
+                       "masked_kernel_matrix_batched", "meanvar_ungated"),
+    "nora_bench": ("gated_mean", "gated_meanvar_logexp",
+                   "masked_kernel_matrix_batched", "kriging_believer_fill"),
+    "nora_runner": ("gated_mean", "gated_meanvar_logexp",
+                    "masked_kernel_matrix_batched", "kriging_believer_fill"),
     "mcmc": ("gated_mean",),
+    "himmelblau_audit": tuple(SOURCES),
 }
 
 
@@ -255,8 +275,53 @@ def check_k4(dev, rng):
     return row
 
 
+def check_k5(dev, rng):
+    """K5 against its plain version at the audit screen (nq = NQ_SCREEN,
+    the first 64 queries on training points) for all four families."""
+    import torch
+    from gpry_tpu_torch.ops import fused
+    worst = 0.0
+    row = {}
+    for fam in ("rbf", "matern12", "matern32", "matern52"):
+        p = synthetic_surrogate(fam, dev, seed=14)
+        Xq = torch.as_tensor(rng.uniform(-5, 5, (NQ_SCREEN, D)),
+                             dtype=torch.float64, device=dev)
+        Xq[:64] = p.X[:64] * p.x_scale + p.x_loc
+        ma, sa = fused.meanvar_ungated(fam, p, Xq)
+        mb, sb = fused.meanvar_ungated_plain(fam, p, Xq)
+        torch.cuda.synchronize()
+        err_m, rel_m = rel_err(ma, mb)
+        err_s = float(torch.max(torch.abs(sa - sb)))
+        tol_s = TOL_K5_SIGMA * float(torch.exp(0.5 * p.theta[0])
+                                     * p.y_scale)
+        log(f"[K5] {fam:8s} nq={NQ_SCREEN}: mean max abs err {err_m:.3e} "
+            f"rel {rel_m:.3e}; std max abs err {err_s:.3e} (tol "
+            f"{tol_s:.3e})")
+        if not (rel_m <= TOL_K5 and err_s <= tol_s):
+            raise AssertionError(f"K5 {fam}: mean rel {rel_m} > {TOL_K5} "
+                                 f"or std abs {err_s} > {tol_s}")
+        worst = max(worst, err_m, err_s)
+        if fam == "rbf":
+            ms = time_ms(lambda: fused.meanvar_ungated(fam, p, Xq), 50)
+            plain = time_ms(lambda: fused.meanvar_ungated_plain(fam, p, Xq),
+                            50)
+            log(f"[K5] rbf nq={NQ_SCREEN}: kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms")
+            row = {"ms": ms, "plain_ms": plain}
+    row["max_abs_err"] = worst
+    row["shape"] = f"nq={NQ_SCREEN} n={N} nmax={NMAX} d={D}"
+    # per query: the k vector, the length-n forward substitution (n^2 / 2
+    # multiply-adds), the mean and the sum of squares; bytes: the queries,
+    # the training rows, alpha, the valid triangle of L, two outputs
+    nq = NQ_SCREEN
+    row.update(bound(nq * (N * (3 * D + 3) + N * N + 4 * N),
+                     8 * (nq * D + 2 * nq + N * D + N + N * (N + 1) // 2
+                          + 4 * D)))
+    return row
+
+
 def check_kernels(dev):
-    """Compare K1-K3 with their plain versions; returns per-kernel rows."""
+    """Compare K1-K5 with their plain versions; returns per-kernel rows."""
     import numpy as np
     import torch
     from gpry_tpu_torch.ops import fused
@@ -389,13 +454,37 @@ def check_kernels(dev):
     # K4: the ranked pool's greedy fill
     rows["kriging_believer_fill"] = check_k4(dev, rng)
     torch.cuda.empty_cache()
+
+    # K5: the audit's screen
+    rows["meanvar_ungated"] = check_k5(dev, rng)
     return rows
 
 
-def run_runner(label, **kwargs):
+def timed_audit(runner):
+    """Wrap the Runner's ``_convergence_audit`` to count its calls and
+    vetoes and sum its wall seconds; returns the dict it fills."""
+    stats = {"audits": 0, "audit_vetoes": 0, "audit_s": 0.0}
+    inner = runner._convergence_audit
+
+    def audit():
+        t0 = time.perf_counter()
+        ok = inner()
+        sync()
+        stats["audit_s"] += time.perf_counter() - t0
+        stats["audits"] += 1
+        stats["audit_vetoes"] += int(not ok)
+        return ok
+
+    runner._convergence_audit = audit
+    return stats
+
+
+def run_runner(label, resample=True, **kwargs):
     """A Runner on the d = 8 correlated Gaussian (``kwargs`` pick the
-    engine): ``run()`` then ``generate_mc_sample()``, gated on convergence
-    and KL(sample || truth) <= KL_GATE.  Returns (runner, sample, summary)."""
+    engine and options): ``run()`` then, with ``resample``,
+    ``generate_mc_sample()`` (else the sample drawn at the declaration),
+    gated on convergence and KL(sample || truth) <= KL_GATE.  Returns
+    (runner, sample, summary)."""
     import numpy as np
     from model_generator import random_gaussian
     from gpry_tpu_torch.progress import _COLUMNS
@@ -404,11 +493,14 @@ def run_runner(label, **kwargs):
     model = random_gaussian(d=D, rng=10 + D)
     t0 = time.perf_counter()
     runner = Runner(model.loglike, bounds=model.bounds, seed=1, verbose=2,
-                    options={"audit": False}, **kwargs)
+                    **kwargs)
+    audit = timed_audit(runner)
     runner.run()
     t_run = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sample = runner.generate_mc_sample()
+    sample = runner.last_mc_result
+    if resample or sample is None:
+        sample = runner.generate_mc_sample()
     t_mc = time.perf_counter() - t0
     mean, cov = mean_covmat_from_samples(sample["X"], sample["weights"])
     kl = max(kl_norm(mean, cov, model.mean, model.cov),
@@ -420,11 +512,14 @@ def run_runner(label, **kwargs):
                "truth_s": col("time_truth"), "ns_s": sample["time_ns"],
                "refine_s": sample["time_refine"], "kl": kl,
                "n_total": int(runner.gpr.n_total),
-               "iterations": int(runner.current_iteration)}
+               "iterations": int(runner.current_iteration),
+               "n_audited": int(runner._n_audited), **audit}
     log(f"[{label}] converged={runner.has_converged} n_total="
         f"{runner.gpr.n_total} iterations={runner.current_iteration} "
         f"KL={kl:.4g} refined={bool(sample.get('refined'))} "
-        f"ns_steps={sample['ns_steps']} ns_calls={sample['n_calls']}")
+        f"ns_steps={sample['ns_steps']} ns_calls={sample['n_calls']} "
+        f"audited={runner._n_audited} audits={audit['audits']} audit "
+        f"vetoes={audit['audit_vetoes']} audit s={audit['audit_s']:.3f}")
     log(f"[{label}] phase seconds: " + json.dumps(summary))
     if not runner.has_converged:
         raise AssertionError(f"{label}: the d=8 Runner did not converge")
@@ -447,7 +542,7 @@ def bench_data(seed=0):
     return bounds, X, y
 
 
-def run_nora_bench(n_timed=3):
+def run_nora_bench(n_timed=2):
     """bench.py's NORA operating point on the port (bench.py:52-92): a
     26-restart fit, ``force_resample()`` and ``multi_add(n_points=8)``,
     once to warm up and ``n_timed`` times timed."""
@@ -520,6 +615,72 @@ def run_mcmc(runner, ns_sample):
     return summary
 
 
+def grid_truth_moments(model, n_grid=1001):
+    """Exact posterior mean and covariance of a 2-d model by quadrature on
+    an n_grid x n_grid grid over its bounds (benchmarks/nongaussian.py's
+    truth_moments_grid)."""
+    import numpy as np
+    b = model.bounds
+    g0 = np.linspace(b[0, 0], b[0, 1], n_grid)
+    g1 = np.linspace(b[1, 0], b[1, 1], n_grid)
+    X = np.stack(np.meshgrid(g0, g1, indexing="ij"), axis=-1).reshape(-1, 2)
+    logp = model.loglike_batch(X)
+    w = np.exp(logp - np.max(logp))
+    w /= w.sum()
+    mean = w @ X
+    diff = X - mean
+    return mean, (w[:, None] * diff).T @ diff
+
+
+def run_himmelblau_audit():
+    """The audited NORA Runner on Himmelblau at the default options
+    (benchmarks/nongaussian.py:110, seed 100): converged, moment-KL of the
+    final sample against the grid-quadrature truth <= KL_GATE, every
+    quadrant's mode >= 5% of the weight."""
+    import numpy as np
+    from model_generator import himmelblau
+    from gpry_tpu_torch.run import Runner
+    from gpry_tpu_torch.utils.tools import kl_norm, mean_covmat_from_samples
+    model = himmelblau()
+    mean_t, cov_t = grid_truth_moments(model)
+    t0 = time.perf_counter()
+    runner = Runner(model.loglike, bounds=model.bounds, seed=100, verbose=2,
+                    gp_acquisition="NORA")
+    audit = timed_audit(runner)
+    runner.run()
+    if runner.last_mc_result is None:
+        runner.generate_mc_sample()
+    t_run = time.perf_counter() - t0
+    s = runner.last_mc_result
+    mean, cov = mean_covmat_from_samples(s["X"], s["weights"])
+    kl = max(kl_norm(mean, cov, mean_t, cov_t),
+             kl_norm(mean_t, cov_t, mean, cov))
+    X, w = s["X"], s["weights"] / np.sum(s["weights"])
+    quadrants = [float(np.sum(w[(sx * X[:, 0] > 0) & (sy * X[:, 1] > 0)]))
+                 for sx, sy in ((1, 1), (-1, 1), (-1, -1), (1, -1))]
+    summary = {"run_s": t_run, "converged": bool(runner.has_converged),
+               "n_total": int(runner.gpr.n_total),
+               "n_total_jax": JAX_HIMMELBLAU_EVALS,
+               "iterations": int(runner.current_iteration),
+               "n_audited": int(runner._n_audited), **audit,
+               "moment_kl": float(kl), "quadrant_weights": quadrants}
+    log(f"[HIMMELBLAU] converged={runner.has_converged} n_total="
+        f"{runner.gpr.n_total} (gpry_tpu: {JAX_HIMMELBLAU_EVALS}) audited="
+        f"{runner._n_audited} audit vetoes={audit['audit_vetoes']} audit "
+        f"s={audit['audit_s']:.3f} momKL={kl:.4g} quadrants="
+        f"{np.round(quadrants, 4).tolist()}")
+    log("[HIMMELBLAU] " + json.dumps(summary))
+    if not runner.has_converged:
+        raise AssertionError("himmelblau_audit: the Runner did not converge")
+    if not (np.isfinite(kl) and kl <= KL_GATE):
+        raise AssertionError(f"himmelblau_audit: moment-KL {kl} > "
+                             f"{KL_GATE}")
+    if min(quadrants) < 0.05:
+        raise AssertionError(f"himmelblau_audit: a mode holds < 5% of the "
+                             f"weight: {quadrants}")
+    return summary
+
+
 def drive(name, fn, *args, **kwargs):
     """Run one path with the launch counts set to 0 just before it and
     read just after; fail if a kernel of the path was not launched."""
@@ -537,7 +698,7 @@ def drive(name, fn, *args, **kwargs):
 
 
 def drive_paths():
-    """The four paths in order; returns their summaries and launches."""
+    """The five paths in order; returns their summaries and launches."""
     t0 = time.perf_counter()
     paths, launches = {}, {}
     (_, _, paths["batchoptimizer"]), launches["batchoptimizer"] = drive(
@@ -545,10 +706,13 @@ def drive_paths():
     paths["nora_bench"], launches["nora_bench"] = drive(
         "nora_bench", run_nora_bench)
     (runner, ns_sample, paths["nora_runner"]), launches["nora_runner"] = \
-        drive("nora_runner", run_runner, "NORA", gp_acquisition="NORA")
+        drive("nora_runner", run_runner, "NORA", resample=False,
+              gp_acquisition="NORA", options={"audit": False})
     paths["mcmc"], launches["mcmc"] = drive("mcmc", run_mcmc, runner,
                                             ns_sample)
-    log(f"[PATHS] all four paths in {time.perf_counter() - t0:.1f} s")
+    paths["himmelblau_audit"], launches["himmelblau_audit"] = drive(
+        "himmelblau_audit", run_himmelblau_audit)
+    log(f"[PATHS] all five paths in {time.perf_counter() - t0:.1f} s")
     return paths, launches
 
 
@@ -582,7 +746,7 @@ def main():
     paths, launches = drive_paths()
     kernels = []
     for name, (src, replaces) in SOURCES.items():
-        # library_ms: no single PyTorch call computes any of the four
+        # library_ms: no single PyTorch call computes any of the five
         # functions (PERF.md, section 6, says why for each)
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces,

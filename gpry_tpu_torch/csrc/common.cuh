@@ -64,6 +64,28 @@ __device__ __forceinline__ double gpry_warp_sum(double v) {
   return v;
 }
 
+// Forward substitution L v = k for one query, by one warp: v holds k on
+// entry and L^-1 k on exit (rows 0..n-1; the padded rows of L are the
+// identity and k is zero there).  L is row-major with leading dimension
+// nmax; each step is a warp dot product with a contiguous row of L.
+// Returns ||L^-1 k||^2, the same on every lane.
+__device__ __forceinline__ double gpry_warp_forward_subst(
+    const double* __restrict__ L, int nmax, int n, double* v, int lane) {
+  double sumsq = 0.0;
+  for (int i = 0; i < n; ++i) {
+    const double* Li = L + (size_t)i * nmax;
+    double s = 0.0;
+    for (int j = lane; j < i; j += 32) s += Li[j] * v[j];
+    s = gpry_warp_sum(s);
+    const double vi = (v[i] - s) / Li[i];
+    __syncwarp();
+    if (lane == 0) v[i] = vi;
+    __syncwarp();
+    sumsq += vi * vi;
+  }
+  return sumsq;
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory when needed.
 template <typename K>
 static cudaError_t gpry_set_smem(K kernel, size_t bytes) {

@@ -116,20 +116,7 @@ __global__ void gated_meanvar_kernel(
       dec = gpry_warp_sum(dec);
     }
 
-    // forward substitution L v = k, in place; padding rows of L are the
-    // identity and k is zero there, so only the n valid rows contribute
-    double sumsq = 0.0;
-    for (int i = 0; i < n; ++i) {
-      const double* Li = L + (size_t)i * nmax;
-      double s = 0.0;
-      for (int j = lane; j < i; j += 32) s += Li[j] * v[j];
-      s = gpry_warp_sum(s);
-      const double vi = (v[i] - s) / Li[i];
-      __syncwarp();
-      if (lane == 0) v[i] = vi;
-      __syncwarp();
-      sumsq += vi * vi;
-    }
+    const double sumsq = gpry_warp_forward_subst(L, nmax, n, v, lane);
 
     if (lane == 0) {
       const int q = q0 + qi;

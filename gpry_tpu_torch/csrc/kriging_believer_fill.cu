@@ -105,18 +105,7 @@ __global__ void kb_sweep_kernel(
       continue;
     }
     double* v = kv + (size_t)qi * nmax;
-    double sumsq = 0.0;
-    for (int i = 0; i < n; ++i) {
-      const double* Li = L + (size_t)i * nmax;
-      double s = 0.0;
-      for (int j = lane; j < i; j += 32) s += Li[j] * v[j];
-      s = gpry_warp_sum(s);
-      const double vi = (v[i] - s) / Li[i];
-      __syncwarp();
-      if (lane == 0) v[i] = vi;
-      __syncwarp();
-      sumsq += vi * vi;
-    }
+    const double sumsq = gpry_warp_forward_subst(L, nmax, n, v, lane);
     if (lane == 0) {
       const double var0 = variance - sumsq;
       const double var = (var0 < 0.0) ? 0.0 : var0;  // NaN stays NaN
@@ -224,18 +213,7 @@ __global__ void kb_select_kernel(
   }
   __syncthreads();
   if (warp != 0) return;
-  double sumsq = 0.0;
-  for (int i = 0; i < n; ++i) {
-    const double* Li = L + (size_t)i * nmax;
-    double s = 0.0;
-    for (int t = lane; t < i; t += 32) s += Li[t] * kv[t];
-    s = gpry_warp_sum(s);
-    const double vi = (kv[i] - s) / Li[i];
-    __syncwarp();
-    if (lane == 0) kv[i] = vi;
-    __syncwarp();
-    sumsq += vi * vi;
-  }
+  const double sumsq = gpry_warp_forward_subst(L, nmax, n, kv, lane);
   double* Ln = L + (size_t)n * nmax;
   for (int t = lane; t < n; t += 32) Ln[t] = kv[t];
   for (int k = lane; k < d; k += 32)

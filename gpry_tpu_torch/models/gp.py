@@ -10,7 +10,7 @@ The GP surrogate model (port of gpry_tpu/models/gp.py).
   lock-step L-BFGS polish over the autograd LML.
 * The classifier, preprocessing, trust region and upper clip reproduce the
   reference's prediction semantics; the gated sweeps are the K1 / K2 CUDA
-  kernels (``ops.fused``).
+  kernels, the convergence audit's ungated sweeps K5 (``ops.fused``).
 
 The JAX package keeps a float32 search ladder, a float32 NS proposal and a
 float32 ascent for its TPU.  The port takes its CPU branch everywhere: one
@@ -28,7 +28,8 @@ from gpry_tpu_torch import config
 from gpry_tpu_torch.models.classifier import SVM, SVMParams, \
     trivial_svm_params
 from gpry_tpu_torch.models.preprocessing import DummyPreprocessor
-from gpry_tpu_torch.ops.fused import gated_mean, gated_meanvar_logexp
+from gpry_tpu_torch.ops.fused import gated_mean, gated_meanvar_logexp, \
+    meanvar_ungated
 from gpry_tpu_torch.ops.kernels import check_family, make_theta, \
     theta_bounds_dynamic
 from gpry_tpu_torch.ops.lbfgs import minimize_lbfgs_bounded
@@ -126,6 +127,14 @@ def surrogate_mean_std_smooth(family, p: SurrogateParams, Xq_raw):
     mean_, var_ = predict_meanvar(
         family, p.theta, p.X, p.n, p.noise_var, p.L, p.alpha, Xq_)
     return mean_ * p.y_scale + p.y_loc, torch.sqrt(var_) * p.y_scale
+
+
+@torch.no_grad()
+def surrogate_mean_std_sweep(family, p: SurrogateParams, Xq_raw):
+    """The values of :func:`surrogate_mean_std_smooth` for a no-grad sweep
+    (the convergence audit's screens, polishes and calibrations): raw-space
+    ``(mean, std)`` without gates or clip (K5)."""
+    return meanvar_ungated(family, p, Xq_raw)
 
 
 def surrogate_predict(family, p: SurrogateParams, Xq_raw):
@@ -923,4 +932,5 @@ class GaussianProcessRegressor:
 
 __all__ = ["GaussianProcessRegressor", "SurrogateParams", "LBFGS_CHUNK",
            "surrogate_from_numpy", "surrogate_mean_std_smooth",
-           "surrogate_predict", "surrogate_predict_mean"]
+           "surrogate_mean_std_sweep", "surrogate_predict",
+           "surrogate_predict_mean"]

@@ -17,6 +17,10 @@ versions, and the wrappers that choose between them.
 * K4 ``kriging_believer_fill`` (``csrc/kriging_believer_fill.cu``)
   replaces acquisition/ranked_pool.py:41 _bulk_fill_device; plain version
   :func:`kriging_believer_fill_plain`.
+* K5 ``meanvar_ungated`` (``csrc/meanvar_ungated.cu``) replaces
+  models/gp.py:85 surrogate_mean_std_smooth (ops/linalg.py:192
+  predict_meanvar) in the convergence audit's no-grad sweeps; plain version
+  :func:`meanvar_ungated_plain`.
 
 A wrapper runs the plain version only when its input tensor lies on the
 CPU.  For a CUDA tensor it launches the kernel or raises: there is no
@@ -24,7 +28,7 @@ fallback.  The kernels are float64-only and forward-only; a CUDA tensor
 that requires grad is refused (the autograd paths call the plain versions
 themselves, as the JAX package differentiated XLA there).
 
-The four sources build in one ``nvcc`` call into a shared library with a
+The five sources build in one ``nvcc`` call into a shared library with a
 plain C interface (``_build/libgpry_kernels.so`` inside the package), at
 first use, and load over ``ctypes``.  Every launch goes on PyTorch's
 current stream and is checked with ``cudaGetLastError``.
@@ -51,7 +55,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 _SOURCES = ("gated_mean.cu", "gated_meanvar_logexp.cu",
-            "masked_kernel_matrix.cu", "kriging_believer_fill.cu")
+            "masked_kernel_matrix.cu", "kriging_believer_fill.cu",
+            "meanvar_ungated.cu")
 _HEADERS = ("common.cuh",)
 _LIB_PATH = os.path.join(_BUILD, "libgpry_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -61,7 +66,8 @@ _FAMILY_ID = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3}
 
 #: launches per kernel made by the wrappers (never by the plain versions)
 LAUNCHES = {"gated_mean": 0, "gated_meanvar_logexp": 0,
-            "masked_kernel_matrix_batched": 0, "kriging_believer_fill": 0}
+            "masked_kernel_matrix_batched": 0, "kriging_believer_fill": 0,
+            "meanvar_ungated": 0}
 
 #: seconds the last build took (None: the library was already built)
 BUILD_SECONDS = None
@@ -148,6 +154,8 @@ def library():
         lib.gpry_kb_sweep.restype = I
         lib.gpry_kb_select.argtypes = [I] * 6 + [P] * 18
         lib.gpry_kb_select.restype = I
+        lib.gpry_meanvar_ungated.argtypes = [I] * 6 + [P] * 11
+        lib.gpry_meanvar_ungated.restype = I
         _lib = lib
         return lib
 
@@ -227,22 +235,29 @@ def gated_mean_plain(family, p, Xq_raw):
                        torch.full_like(mean, -torch.inf))
 
 
+def meanvar_ungated_plain(family, p, Xq_raw):
+    """Plain K5: the raw-space ``(mean, std)`` with no gate and no clip
+    (the values of ``surrogate_mean_std_smooth``).  The variance uses the
+    triangular-solve form."""
+    Xq_ = (Xq_raw - p.x_loc) / p.x_scale
+    Kq = _cross_masked(family, p, Xq_)
+    mean = (Kq @ p.alpha) * p.y_scale + p.y_loc
+    V = torch.linalg.solve_triangular(p.L, Kq.T, upper=False)
+    var = torch.exp(p.theta[0]) - torch.sum(V * V, dim=0)
+    return mean, torch.sqrt(torch.clamp_min(var, 0.0)) * p.y_scale
+
+
 def gated_meanvar_logexp_plain(family, p, Xq_raw, logexp=None):
     """
     Plain K2.  Without ``logexp``: the gated ``(mean, std)`` of
     ``surrogate_predict``.  With ``logexp=(zeta, noise_std)``: the gated
     LogExp values ``2 zeta (mean - y_max) + 0.5 log(std^2 - noise_std^2)``
     (-inf where that variance is <= 0 or the mean is not finite), as
-    ``_acq_values_gated``.  The variance uses the triangular-solve form.
+    ``_acq_values_gated``.
     """
-    Xq_ = (Xq_raw - p.x_loc) / p.x_scale
-    Kq = _cross_masked(family, p, Xq_)
-    mean = (Kq @ p.alpha) * p.y_scale + p.y_loc
-    V = torch.linalg.solve_triangular(p.L, Kq.T, upper=False)
-    var = torch.exp(p.theta[0]) - torch.sum(V * V, dim=0)
-    std = torch.sqrt(torch.clamp_min(var, 0.0)) * p.y_scale
+    mean, std = meanvar_ungated_plain(family, p, Xq_raw)
     mean = torch.minimum(mean, p.clip_max)
-    ok = _gates(p, Xq_raw, Xq_)
+    ok = _gates(p, Xq_raw, (Xq_raw - p.x_loc) / p.x_scale)
     mean = torch.where(ok, mean, torch.full_like(mean, -torch.inf))
     std = torch.where(ok, std, torch.zeros_like(std))
     if logexp is None:
@@ -367,17 +382,18 @@ def gated_mean(family, p, Xq_raw):
     return out
 
 
-def _k2_queries_per_block(nmax, d):
-    """Queries per K2 block: one per warp, fewer when nmax-long k vectors
-    of 8 queries do not fit in the default 48 KB of shared memory."""
+def _sweep_queries_per_block(nmax, d):
+    """Queries per block of the one-warp-per-query sweeps (K2, K4's sweep,
+    K5): one per warp, fewer when nmax-long k vectors of 8 queries do not
+    fit in the default 48 KB of shared memory."""
     per_q = 8 * (nmax + 2 * d + 1)
     q = min(_K2_MAX_Q, (_SMEM_DEFAULT - 8 * d) // per_q)
     if q >= 1:
         return q
     if 8 * d + per_q > _SMEM_MAX:
         raise ValueError(
-            f"gated_meanvar_logexp: nmax={nmax} needs more shared memory "
-            "per query than a Hopper block has.")
+            f"nmax={nmax} needs more shared memory per query than a Hopper "
+            "block has.")
     return 1
 
 
@@ -396,7 +412,7 @@ def gated_meanvar_logexp(family, p, Xq_raw, logexp=None):
     if nq == 0:
         return out0 if logexp is not None else (out0, out1)
     zeta, noise_std = (0.0, 0.0) if logexp is None else logexp
-    Q = _k2_queries_per_block(nmax, d)
+    Q = _sweep_queries_per_block(nmax, d)
     lib = library()
     rc = lib.gpry_gated_meanvar_logexp(
         _FAMILY_ID[family], int(logexp is not None), nq, int(p.n), nmax,
@@ -409,6 +425,34 @@ def gated_meanvar_logexp(family, p, Xq_raw, logexp=None):
     _raise_on("gated_meanvar_logexp", rc)
     LAUNCHES["gated_meanvar_logexp"] += 1
     return out0 if logexp is not None else (out0, out1)
+
+
+def meanvar_ungated(family, p, Xq_raw):
+    """K5: the raw-space ``(mean, std)`` at ``Xq_raw`` with no gate and no
+    clip, for no-grad sweeps (the convergence audit)."""
+    check_family(family)
+    if Xq_raw.device.type == "cpu":
+        return meanvar_ungated_plain(family, p, Xq_raw)
+    tensors = dict(Xq_raw=Xq_raw, X=p.X, alpha=p.alpha, L=p.L, theta=p.theta,
+                   x_loc=p.x_loc, x_scale=p.x_scale, scal=p.scal)
+    _check_cuda("meanvar_ungated", Xq_raw.device, **tensors)
+    nq, d = Xq_raw.shape
+    nmax = p.X.shape[0]
+    mean = torch.empty(nq, dtype=torch.float64, device=Xq_raw.device)
+    std = torch.empty_like(mean)
+    if nq == 0:
+        return mean, std
+    lib = library()
+    rc = lib.gpry_meanvar_ungated(
+        _FAMILY_ID[family], nq, int(p.n), nmax, d,
+        _sweep_queries_per_block(nmax, d),
+        *(_ptr(tensors[k]) for k in (
+            "Xq_raw", "X", "alpha", "L", "theta", "x_loc", "x_scale",
+            "scal")),
+        _ptr(mean), _ptr(std), _stream())
+    _raise_on("meanvar_ungated", rc)
+    LAUNCHES["meanvar_ungated"] += 1
+    return mean, std
 
 
 def masked_kernel_matrix_batched(family, thetas, X, n, noise_var,
@@ -494,7 +538,7 @@ def kriging_believer_fill(family, p, Xd_raw, y, sigma, acq0, alive0, size,
     n_dev = torch.tensor([p.n], dtype=torch.int32, device=dev)
     swept = torch.empty(N, dtype=dt, device=dev)
     zeta, noise_std = (0.0, 0.0) if logexp is None else logexp
-    Q = _k2_queries_per_block(nmax, d)
+    Q = _sweep_queries_per_block(nmax, d)
     fam = _FAMILY_ID[family]
     lib = library()
     for i in range(size):
@@ -528,4 +572,5 @@ __all__ = ["LAUNCHES", "KernelBuildError", "build", "library",
            "reset_launch_counts", "gated_mean", "gated_mean_plain",
            "gated_meanvar_logexp", "gated_meanvar_logexp_plain",
            "masked_kernel_matrix_batched", "masked_kernel_matrix_plain",
-           "kriging_believer_fill", "kriging_believer_fill_plain"]
+           "kriging_believer_fill", "kriging_believer_fill_plain",
+           "meanvar_ungated", "meanvar_ungated_plain"]

@@ -87,6 +87,26 @@ def test_masked_kernel_matrix_kernel(dev, family):
                                                 1e-5), 1e-12)
 
 
+@pytest.mark.parametrize("nq", [4096, 2048])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_meanvar_ungated_kernel(dev, family, nq):
+    """K5 against its plain version at the audit's screen (4,096) and
+    polish (2,048) sizes, training points included: mean within rel 1e-10;
+    std within an absolute 1e-7 sqrt(sigma^2) y_scale (sigma^2 - |v|^2
+    cancels to ~0 at a training point); one launch per call."""
+    p = surrogate(family, dev)
+    Xq = torch.rand((nq, 3), dtype=torch.float64, device=dev) * 2.2 - 1.1
+    Xq[:40] = p.X[:40] * p.x_scale + p.x_loc
+    n0 = fused.LAUNCHES["meanvar_ungated"]
+    ma, sa = fused.meanvar_ungated(family, p, Xq)
+    mb, sb = fused.meanvar_ungated_plain(family, p, Xq)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["meanvar_ungated"] == n0 + 1
+    _close(ma, mb, 1e-10)
+    atol = 1e-7 * float(torch.exp(0.5 * p.theta[0]) * p.y_scale)
+    assert float(torch.max(torch.abs(sa - sb))) <= atol
+
+
 def _fill_inputs(family, dev, noise, N=500, size=4):
     """K4's inputs on the small surrogate: candidates inside the trust box
     with their gated mean, std and LogExp values; scalar or per-row

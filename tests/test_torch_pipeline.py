@@ -1,7 +1,8 @@
 """
 End to end: gpry_tpu_torch's Runner (the default BatchOptimizer / LogExp /
-CorrectCounter loop with options={"audit": False}) against gpry_tpu's
-Runner with the same options and seed, on the CPU; plus the port's import
+CorrectCounter loop, at the default options with the convergence audit
+and with options={"audit": False}) against gpry_tpu's Runner with the same
+options and seed, on the CPU; plus the port's option defaults, import
 boundary, device policy and explicit refusals.
 """
 
@@ -29,13 +30,14 @@ KL_GATE = 0.05
 REPO = Path(__file__).resolve().parent.parent
 
 
-@pytest.mark.parametrize("d", [1, 2, 3])
-def test_runner_matches_jax(d):
+def _runners_match(d, **kwargs):
+    """Both packages' Runners on the same Gaussian and seed: converged,
+    KL(sample || truth) <= KL_GATE, truth evals within max(4, 25%)."""
     m = random_gaussian(d=d, rng=10 + d)
     out = {}
     for name, mod in (("torch", torch_run), ("jax", jax_run)):
         runner = mod.Runner(m.loglike, bounds=m.bounds, seed=1, verbose=1,
-                            options={"audit": False})
+                            **kwargs)
         runner.run()
         X, w, _ = runner.last_mc_samples()
         kl = kl_truth_gaussian(X, w, m.mean, m.cov)
@@ -44,6 +46,32 @@ def test_runner_matches_jax(d):
         out[name] = runner.gpr.n_total
     band = max(4, 0.25 * out["jax"])
     assert abs(out["torch"] - out["jax"]) <= band, out
+
+
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_runner_matches_jax(d):
+    _runners_match(d, options={"audit": False})
+
+
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_runner_defaults_match_jax(d):
+    """``Runner(loglike, bounds)`` at the default options: the convergence
+    audit runs at every declaration in both packages."""
+    _runners_match(d)
+
+
+def test_option_defaults_match_jax():
+    """The port's option defaults (the audit's included) equal the JAX
+    package's, and both Runners start with the same audit state."""
+    m = random_gaussian(d=3, rng=13)
+    j = jax_run.Runner(m.loglike, bounds=m.bounds, seed=0, verbose=0)
+    t = torch_run.Runner(m.loglike, bounds=m.bounds, seed=0, verbose=0)
+    assert t.options == j.options
+    assert t.options["audit"] is True
+    for attr in ("audit", "n_audit", "audit_rounds", "max_audit",
+                 "audit_kappa", "audit_band_nstd", "_n_audited",
+                 "_X_audit_hist", "_audit_calib", "_audit_dirty_vetoes"):
+        assert getattr(t, attr) == getattr(j, attr), attr
 
 
 def test_generate_mc_sample_and_progress():
@@ -89,8 +117,6 @@ def test_default_device_without_cuda_raises():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"options": {"audit": True}},
-    {"options": None},
     {"options": {"audit": False},
      "gp_acquisition": {"NORA": {"sampler": "polychord"}}},
     {"options": {"audit": False}, "checkpoint": "ckpt",
