@@ -2,18 +2,28 @@
 """
 Drive gpry_tpu_torch once on one CUDA card.
 
-1. Build the five CUDA kernels (K1 gated_mean, K2 gated_meanvar_logexp,
+1. Build the six CUDA kernels (K1 gated_mean, K2 gated_meanvar_logexp,
    K3 masked_kernel_matrix_batched, K4 kriging_believer_fill, K5
-   meanvar_ungated) from ``gpry_tpu_torch/csrc``.
+   meanvar_ungated, K6 ns_slice_chains) from ``gpry_tpu_torch/csrc``, one
+   nvcc per source, all at once.
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes of the main paths (d = 8, n = 224 valid rows in a bucket of
-   nmax = 320; K1 at nq = 66 and 65,536, K2 at nq = 3,200, K3 at
-   R = 2,048, K4 at N = 4,096 candidates and a pool of 8, K5 at the
-   audit screen's nq = 4,096), time both with CUDA events, and compute
-   each kernel's bound: the larger of its FP64 operations over the H100
-   SXM's FP64 peak and its bytes over 3.35 TB/s.
+   nmax = 320; K1 at nq = 16, 66, 2,000, 16,384 and 65,536 in both of
+   its designs, K2 at nq = 3,200, K3 at R = 2,048, K4 at N = 4,096 candidates
+   and a pool of 8, K5 at the audit screen's nq = 4,096, K6 at the NS's
+   B = 66 and 33 chains of 40 repeats; K1 and K6 with the SVM fitted and
+   all finite), time both with CUDA events (K1 and K6 also by their
+   kernel's own duration in a ``torch.profiler`` trace), and compute each
+   kernel's bound: the larger of its FP64 operations over the H100 SXM's
+   FP64 peak and its bytes over 3.35 TB/s.  K1's and K6's operations count
+   only the sums their inputs need: the SVM decision of a point inside the
+   trust box (and K6's prior box), the GP mean only where that decision
+   is finite, over the points K6's chains must evaluate.
 3. Drive five paths, each with the launch counts set to 0 just before it
-   and read just after, and check that each launched its kernels:
+   and read just after, and check that each launched its kernels, that
+   K1's launches on paths a, b, c and e are below 1% of what the
+   lock-step nested sampler made there (LOCKSTEP_K1_LAUNCHES), and print
+   the seconds each path spent in nested sampling:
    a. the default entry point: ``Runner(loglike, bounds).run()`` (the
       BatchOptimizer loop with the convergence audit) then
       ``generate_mc_sample()`` on the 8-dimensional correlated Gaussian
@@ -50,7 +60,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 D, N, NMAX, NSV = 8, 224, 320, 8
 KL_GATE = 0.05
-TOL_K1, TOL_K2, TOL_K3, TOL_K4 = 1e-12, 1e-10, 1e-12, 1e-10
+TOL_K1, TOL_K2, TOL_K3, TOL_K4, TOL_K6 = 1e-12, 1e-10, 1e-12, 1e-10, 1e-10
 # K5: the mean within rel TOL_K5; sigma within TOL_K5_SIGMA sqrt(sigma^2)
 # y_scale absolute (sigma^2 - |v|^2 cancels to ~0 at a training point)
 TOL_K5, TOL_K5_SIGMA = 1e-10, 1e-7
@@ -77,15 +87,27 @@ SOURCES = {
         "gpry_tpu/acquisition/ranked_pool.py:41"),
     "meanvar_ungated": ("gpry_tpu_torch/csrc/meanvar_ungated.cu",
                         "gpry_tpu/models/gp.py:85"),
+    "ns_slice_chains": ("gpry_tpu_torch/csrc/ns_slice_chains.cu",
+                        "gpry_tpu/mc/nested.py:51"),
 }
+# K6 at the NS steps of the main paths: nlive 400 (final NS) and 200
+# (NORA), num_repeats 40
+K6_B, K6_R = (66, 33), 40
+# K1's launches on paths a, b, c and e when every slice step was a K1
+# call (the chip run of the commit before K6; PERF.md, section 6)
+LOCKSTEP_K1_LAUNCHES = {"batchoptimizer": 284164, "nora_bench": 199803,
+                        "nora_runner": 720768, "himmelblau_audit": 271227}
 # the kernels each path must launch
 PATH_KERNELS = {
     "batchoptimizer": ("gated_mean", "gated_meanvar_logexp",
-                       "masked_kernel_matrix_batched", "meanvar_ungated"),
+                       "masked_kernel_matrix_batched", "meanvar_ungated",
+                       "ns_slice_chains"),
     "nora_bench": ("gated_mean", "gated_meanvar_logexp",
-                   "masked_kernel_matrix_batched", "kriging_believer_fill"),
+                   "masked_kernel_matrix_batched", "kriging_believer_fill",
+                   "ns_slice_chains"),
     "nora_runner": ("gated_mean", "gated_meanvar_logexp",
-                    "masked_kernel_matrix_batched", "kriging_believer_fill"),
+                    "masked_kernel_matrix_batched", "kriging_believer_fill",
+                    "ns_slice_chains"),
     "mcmc": ("gated_mean",),
     "himmelblau_audit": tuple(SOURCES),
 }
@@ -119,6 +141,29 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def kernel_device_ms(fn, name, reps):
+    """Mean duration in ms of the device kernels whose name contains
+    ``name`` in a ``torch.profiler`` trace of ``reps`` calls of ``fn``
+    (after one warm-up call; over the launches the trace holds, which may
+    miss one): the kernel's own time on the card, without the host's
+    launch."""
+    import torch
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    durs = [e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type == DeviceType.CUDA and name in e.name]
+    if not durs:
+        raise AssertionError(f"the profiler saw no launch of {name}")
+    return 1e-3 * sum(durs) / len(durs)
+
+
 def rel_err(a, b):
     """(max abs error, max abs error / max |b|) over finite entries, after
     requiring identical -inf masks."""
@@ -149,12 +194,15 @@ def bound(flops, nbytes):
             "flops": float(flops), "bytes": float(nbytes)}
 
 
-def synthetic_surrogate(family, dev, seed):
+def synthetic_surrogate(family, dev, seed, svm="fitted"):
     """A surrogate snapshot at the main-path shapes with every gate active:
-    a fitted SVM, a trust box inside the prior and an upper clip."""
+    a fitted SVM, a trust box inside the prior and an upper clip.  With
+    ``svm="all_finite"`` the SVM is the placeholder of a run that has seen
+    no -inf (the Gaussian paths' mode: no support vector is summed)."""
     import numpy as np
     import torch
-    from gpry_tpu_torch.models.classifier import MODE_FITTED, SVMParams
+    from gpry_tpu_torch.models.classifier import MODE_ALL_FINITE, \
+        MODE_FITTED, SVMParams, trivial_svm_params
     from gpry_tpu_torch.models.gp import SurrogateParams
     from gpry_tpu_torch.ops.linalg import factorize
     rng = np.random.default_rng(seed)
@@ -175,18 +223,43 @@ def synthetic_surrogate(family, dev, seed):
     gamma = 2.0
     Xq = rng.uniform(0, 1, (4096, D))
     dec = np.exp(-gamma * ((Xq[:, None] - sv[None]) ** 2).sum(-1)) @ dual
-    svm = SVMParams(mode=MODE_FITTED, sv=t(sv), dual=t(dual),
-                    intercept=t(-np.median(dec)), gamma=t(gamma))
+    fitted = SVMParams(mode=MODE_FITTED, sv=t(sv), dual=t(dual),
+                       intercept=t(-np.median(dec)), gamma=t(gamma))
     p = SurrogateParams(
         theta=t(theta), X=t(Xp), y=t(yp), n=N, noise_var=noise, L=L,
         alpha=alpha, x_loc=t(np.full(D, -5.0)), x_scale=t(np.full(D, 10.0)),
         y_loc=t(-3.0), y_scale=t(2.5), y_max=t(0.0), clip_max=t(np.inf),
-        svm=svm, trust_lo=t(np.full(D, -4.5)), trust_hi=t(np.full(D, 4.5)))
+        svm=fitted, trust_lo=t(np.full(D, -4.5)), trust_hi=t(np.full(D, 4.5)))
     # an upper clip below the largest mean, so that it binds somewhere
     from gpry_tpu_torch.ops.fused import gated_mean_plain
     m = gated_mean_plain(family, p, t(rng.uniform(-5, 5, (4096, D))))
     clip = torch.quantile(m[torch.isfinite(m)], 0.9)
-    return p.replace(clip_max=clip.to(torch.float64))
+    p = p.replace(clip_max=clip.to(torch.float64))
+    if svm == "all_finite":
+        p = p.replace(svm=trivial_svm_params(D, NSV, torch.float64, dev,
+                                             MODE_ALL_FINITE))
+    return p
+
+
+def needed_sums(p, X, lo=None, hi=None):
+    """(points whose SVM decision the gated mean must sum, points whose GP
+    mean it must sum) among ``X``: the SVM decision of every point inside
+    the trust box and the prior box [lo, hi] (if given) when the SVM is
+    fitted, the GP mean of those the SVM classifies finite."""
+    import torch
+    from gpry_tpu_torch.models.classifier import MODE_FITTED, svm_decision
+    inside = torch.all((X >= p.trust_lo) & (X <= p.trust_hi), dim=-1)
+    if lo is not None:
+        inside &= torch.all((X >= lo) & (X <= hi), dim=-1)
+    finite = svm_decision(p.svm, (X - p.x_loc) / p.x_scale)
+    n_svm = int(inside.sum()) if p.svm.mode == MODE_FITTED else 0
+    return n_svm, int((inside & finite).sum())
+
+
+def sum_flops(n_svm, n_gp):
+    """FP64 operations of those sums: per (point, training row or support
+    vector) r^2 over d, one exponential, one multiply-add."""
+    return (n_svm * NSV + n_gp * N) * (3 * D + 3)
 
 
 def k4_inputs(family, dev, noise_kind, rng, acqf, noise_std):
@@ -320,8 +393,125 @@ def check_k5(dev, rng):
     return row
 
 
+def k6_inputs(family, dev, B, seed, svm="fitted"):
+    """K6's arguments at an NS step of the main paths: B starts above lstar
+    (the median of a prior sample of the box [-5, 5]^D under the synthetic
+    surrogate), the survivors' covariance factor, and the draws of K6_R
+    repeats."""
+    import torch
+    from gpry_tpu_torch.ops import fused
+    p = synthetic_surrogate(family, dev, seed=15, svm=svm)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f64 = torch.float64
+    pool = torch.rand((20000, D), generator=gen, dtype=f64, device=dev) \
+        * 10.0 - 5.0
+    lp = fused.gated_mean_plain(family, p, pool)
+    lstar = torch.quantile(lp[torch.isfinite(lp)], 0.5)
+    above = pool[lp > lstar]
+    chol = torch.linalg.cholesky(torch.cov(above.T)).contiguous()
+    nrm = torch.randn((K6_R, B, D), generator=gen, dtype=f64, device=dev)
+    u = torch.rand((K6_R, 1 + fused.NS_SHRINKS, B), generator=gen,
+                   dtype=f64, device=dev)
+    lo = torch.full((D,), -5.0, dtype=f64, device=dev)
+    return p, (above[:B].contiguous(), lp[lp > lstar][:B].contiguous(),
+               lstar, chol, nrm, u, lo, -lo)
+
+
+def k6_evaluated_points(family, p, args):
+    """The points K6's chains must evaluate on these inputs, by a replay
+    of the plain lock-step loop (which evaluates every chain at every
+    step): both first step-out ends, an end again only when its doubling
+    moved it, a shrink only until its chain accepted."""
+    import torch
+    from gpry_tpu_torch.ops import fused
+    x0, lx0, lstar, chol, nrm, u, lo, hi = args
+    B = x0.shape[0]
+    seen, state = [], {"ends": None, "acc": None}
+
+    def logl_of(X):
+        in_box = torch.all((X >= lo) & (X <= hi), dim=-1)
+        out = torch.where(in_box, fused.gated_mean_plain(family, p, X),
+                          torch.full_like(X[:, 0], -torch.inf))
+        if len(X) == 2 * B:
+            need = torch.ones(2 * B, dtype=torch.bool, device=X.device) \
+                if state["ends"] is None else \
+                torch.any(X != state["ends"], dim=1)
+            state.update(ends=X, acc=None)
+        else:
+            if state["acc"] is None:
+                state.update(ends=None, acc=torch.zeros(
+                    B, dtype=torch.bool, device=X.device))
+            need = ~state["acc"]
+            state["acc"] = state["acc"] | (out > lstar)
+        seen.append(X[need])
+        return out
+
+    fused.slice_chains_lockstep(logl_of, x0, lx0, lstar, chol, nrm, u)
+    return torch.cat(seen)
+
+
+def check_k6(dev):
+    """K6 against its plain version (the lock-step loop on plain K1) on the
+    same draws, all four families, B in K6_B, with the SVM fitted and all
+    finite: identical calls and -inf masks, x and lx within rel TOL_K6.
+    Timed for the RBF family; the bound counts the sums of the points its
+    chains must evaluate (k6_evaluated_points, needed_sums)."""
+    import torch
+    from gpry_tpu_torch.ops import fused
+    worst = 0.0
+    row = {"shapes": {}}
+    for fam in ("rbf", "matern12", "matern32", "matern52"):
+        for svm in ("fitted", "all_finite"):
+            for B in K6_B:
+                p, args = k6_inputs(fam, dev, B, seed=B, svm=svm)
+                x, lx, calls = fused.ns_slice_chains(fam, p, *args)
+                sync()
+                xr, lxr, callsr = fused.ns_slice_chains_plain(fam, p, *args)
+                if not torch.equal(calls, callsr):
+                    raise AssertionError(f"K6 {fam} {svm} B={B}: calls "
+                                         "differ")
+                err_l, rel_l = rel_err(lx, lxr)
+                err_x, rel_x = rel_err(x.reshape(-1), xr.reshape(-1))
+                log(f"[K6] {fam:8s} svm {svm:10s} B={B} R={K6_R}: same calls "
+                    f"({int(calls.sum())} in all); lx max abs err "
+                    f"{err_l:.3e} rel {rel_l:.3e}; x rel {rel_x:.3e}")
+                if not (rel_l <= TOL_K6 and rel_x <= TOL_K6):
+                    raise AssertionError(f"K6 {fam} {svm} B={B}: rel "
+                                         f"{rel_l}, {rel_x} > {TOL_K6}")
+                worst = max(worst, err_l, err_x)
+                if fam != "rbf" or (svm == "all_finite" and B != 66):
+                    continue
+                call = lambda: fused.ns_slice_chains(fam, p, *args)
+                ms = time_ms(call, 20)
+                dev_ms = kernel_device_ms(call, "ns_slice_chains", 10)
+                t0 = time.perf_counter()
+                fused.ns_slice_chains_plain(fam, p, *args)
+                sync()
+                plain = 1e3 * (time.perf_counter() - t0)
+                pts = k6_evaluated_points(fam, p, args)
+                n_svm, n_gp = needed_sums(p, pts, args[6], args[7])
+                nbytes = 8 * (2 * B * D + 2 * B + K6_R * B * (D + 31) + N * D
+                              + N + NSV * (D + 1) + D * D + 2 * D) + 8 * B
+                shape = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+                         "calls": int(calls.sum()), "evaluations": len(pts),
+                         "svm_sums": n_svm, "gp_sums": n_gp,
+                         **bound(sum_flops(n_svm, n_gp), nbytes)}
+                row["shapes"][f"B={B} svm={svm}"] = shape
+                log(f"[K6] rbf svm {svm} B={B} R={K6_R}: kernel {ms:.4f} ms "
+                    f"back to back, {dev_ms:.4f} ms on the card; plain "
+                    f"{plain:.1f} ms; {shape['calls']} calls, {len(pts)} "
+                    f"evaluations, {n_svm} SVM and {n_gp} GP sums needed; "
+                    f"bound {shape['bound_ms']:.6f} ms")
+    row.update({k: v for k, v in row["shapes"]["B=66 svm=fitted"].items()
+                if k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                         "bound_by", "flops", "bytes")})
+    row["max_abs_err"] = worst
+    row["shape"] = f"B=66 R={K6_R} n={N} nmax={NMAX} d={D} svm=fitted"
+    return row
+
+
 def check_kernels(dev):
-    """Compare K1-K5 with their plain versions; returns per-kernel rows."""
+    """Compare K1-K6 with their plain versions; returns per-kernel rows."""
     import numpy as np
     import torch
     from gpry_tpu_torch.ops import fused
@@ -329,42 +519,59 @@ def check_kernels(dev):
     rng = np.random.default_rng(7)
     rows = {}
 
-    # K1: the NS kill batch (nlive = 400 -> B = 66) and the IS refine
+    # K1: the MCMC step (16 chains), the NS kill batch (nlive = 400 ->
+    # B = 66), the NS prior phase (2,000), a large sweep (16,384) and the
+    # IS refine (65,536), in both designs (block per query, tiled) and with
+    # the SVM fitted and all finite; the wrapper's own choice is timed
     worst = 0.0
     shapes = {}
     for fam in families:
-        p = synthetic_surrogate(fam, dev, seed=11)
-        for nq in (66, 65536):
-            Xq = torch.as_tensor(rng.uniform(-5, 5, (nq, D)),
-                                 dtype=torch.float64, device=dev)
-            a = fused.gated_mean(fam, p, Xq)
-            b = fused.gated_mean_plain(fam, p, Xq)
-            torch.cuda.synchronize()
-            err, rel = rel_err(a, b)
-            log(f"[K1] {fam:8s} nq={nq:6d}: max abs err {err:.3e}, "
-                f"rel {rel:.3e}, finite {int(torch.isfinite(b).sum())}")
-            if not rel <= TOL_K1:
-                raise AssertionError(f"K1 {fam} nq={nq}: rel {rel} > "
-                                     f"{TOL_K1}")
-            worst = max(worst, err)
-            if fam == "rbf":
-                reps = 200 if nq == 66 else 20
-                ms = time_ms(lambda: fused.gated_mean(fam, p, Xq), reps)
-                plain = time_ms(lambda: fused.gated_mean_plain(fam, p, Xq),
-                                reps)
-                shapes[f"nq={nq}"] = {"ms": ms, "plain_ms": plain}
-                log(f"[K1] rbf nq={nq}: kernel {ms:.4f} ms, plain "
-                    f"{plain:.4f} ms")
+        for svm in ("fitted", "all_finite"):
+            p = synthetic_surrogate(fam, dev, seed=11, svm=svm)
+            timed = fam == "rbf" and svm == "fitted"
+            for nq in (16, 66, 2000, 16384, 65536):
+                Xq = torch.as_tensor(rng.uniform(-5, 5, (nq, D)),
+                                     dtype=torch.float64, device=dev)
+                b = fused.gated_mean_plain(fam, p, Xq)
+                shape = {}
+                for design in ("block", "tiled"):
+                    a = fused.gated_mean(fam, p, Xq, _design=design)
+                    torch.cuda.synchronize()
+                    err, rel = rel_err(a, b)
+                    log(f"[K1] {fam:8s} svm {svm:10s} nq={nq:6d} {design}: "
+                        f"max abs err {err:.3e}, rel {rel:.3e}, finite "
+                        f"{int(torch.isfinite(b).sum())}")
+                    if not rel <= TOL_K1:
+                        raise AssertionError(f"K1 {fam} {svm} nq={nq} "
+                                             f"{design}: rel {rel} > {TOL_K1}")
+                    worst = max(worst, err)
+                    if timed:
+                        reps = 20 if nq == 65536 else 200
+                        call = lambda: fused.gated_mean(fam, p, Xq,
+                                                        _design=design)
+                        shape[f"ms_{design}"] = time_ms(call, reps)
+                        shape[f"device_ms_{design}"] = kernel_device_ms(
+                            call, "gated_mean", 20)
+                if not timed:
+                    continue
+                reps = 20 if nq == 65536 else 200
+                shape["ms"] = time_ms(lambda: fused.gated_mean(fam, p, Xq),
+                                      reps)
+                shape["plain_ms"] = time_ms(
+                    lambda: fused.gated_mean_plain(fam, p, Xq), reps)
+                n_svm, n_gp = needed_sums(p, Xq)
+                shape.update({"svm_sums": n_svm, "gp_sums": n_gp})
+                shape.update(bound(
+                    sum_flops(n_svm, n_gp),
+                    8 * (nq * D + nq + N * D + N + NSV * (D + 1) + 4 * D)))
+                shapes[f"nq={nq}"] = shape
+                log(f"[K1] rbf nq={nq}: " + json.dumps(shape))
+    top = shapes["nq=65536"]
     rows["gated_mean"] = {"max_abs_err": worst, "shapes": shapes,
-                          "ms": shapes["nq=65536"]["ms"],
-                          "plain_ms": shapes["nq=65536"]["plain_ms"],
-                          "shape": f"nq=65536 n={N} nmax={NMAX} d={D}"}
-    # per (query, training row or support vector): r^2 over d, one
-    # exponential, one multiply-add
-    nq = 65536
-    rows["gated_mean"].update(bound(
-        nq * (N + NSV) * (3 * D + 3),
-        8 * (nq * D + nq + N * D + N + NSV * (D + 1) + 4 * D)))
+                          "shape": f"nq=65536 n={N} nmax={NMAX} d={D}",
+                          **{k: top[k] for k in (
+                              "ms", "plain_ms", "bound_ms", "bound_by",
+                              "flops", "bytes")}}
 
     # K2: the acquisition screen, in both output modes
     worst = 0.0
@@ -457,6 +664,10 @@ def check_kernels(dev):
 
     # K5: the audit's screen
     rows["meanvar_ungated"] = check_k5(dev, rng)
+    torch.cuda.empty_cache()
+
+    # K6: the nested sampler's slice chains
+    rows["ns_slice_chains"] = check_k6(dev)
     return rows
 
 
@@ -681,37 +892,77 @@ def run_himmelblau_audit():
     return summary
 
 
+NS_RUNS = {"runs": 0, "steps": 0, "s": 0.0}
+
+
+def time_ns_runs():
+    """Wrap the nested sampler where the port calls it (the final MC and
+    NORA) to count its runs and steps and sum its wall seconds (each run
+    ends in host reads, so its wall time is its time) into NS_RUNS."""
+    from gpry_tpu_torch.acquisition import nora
+    from gpry_tpu_torch.mc import samples
+    inner = samples.run_nested_device
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        res = inner(*args, **kwargs)
+        sync()
+        NS_RUNS["s"] += time.perf_counter() - t0
+        NS_RUNS["runs"] += 1
+        NS_RUNS["steps"] += res.n_steps
+        return res
+
+    samples.run_nested_device = timed
+    nora.run_nested_device = timed
+
+
 def drive(name, fn, *args, **kwargs):
-    """Run one path with the launch counts set to 0 just before it and
-    read just after; fail if a kernel of the path was not launched."""
+    """Run one path with the launch counts and the NS clock set to 0 just
+    before it and read just after; fail if a kernel of the path was not
+    launched, or if K1 was launched more than 1% as often as when the
+    nested sampler ran its chains through K1."""
     from gpry_tpu_torch.ops import fused
     fused.reset_launch_counts()
+    NS_RUNS.update(runs=0, steps=0, s=0.0)
     out = fn(*args, **kwargs)
     sync()
     launches = dict(fused.LAUNCHES)
+    ns = dict(NS_RUNS)
     log(f"[{name}] kernel launches: {launches}")
+    log(f"[{name}] nested sampling: {ns['runs']} runs, {ns['steps']} steps, "
+        f"{ns['s']:.3f} s")
     for kernel in PATH_KERNELS[name]:
         if launches[kernel] <= 0:
             raise AssertionError(f"kernel {kernel} was not launched on the "
                                  f"{name} path")
-    return out, launches
+    before = LOCKSTEP_K1_LAUNCHES.get(name)
+    if before is not None and not launches["gated_mean"] < 0.01 * before:
+        raise AssertionError(
+            f"{name}: {launches['gated_mean']} K1 launches, not below 1% "
+            f"of the {before} of the lock-step nested sampler")
+    return out, launches, ns
 
 
 def drive_paths():
     """The five paths in order; returns their summaries and launches."""
     t0 = time.perf_counter()
-    paths, launches = {}, {}
-    (_, _, paths["batchoptimizer"]), launches["batchoptimizer"] = drive(
-        "batchoptimizer", run_runner, "SLICE")
-    paths["nora_bench"], launches["nora_bench"] = drive(
+    time_ns_runs()
+    paths, launches, ns = {}, {}, {}
+    (_, _, paths["batchoptimizer"]), launches["batchoptimizer"], \
+        ns["batchoptimizer"] = drive("batchoptimizer", run_runner, "SLICE")
+    paths["nora_bench"], launches["nora_bench"], ns["nora_bench"] = drive(
         "nora_bench", run_nora_bench)
-    (runner, ns_sample, paths["nora_runner"]), launches["nora_runner"] = \
-        drive("nora_runner", run_runner, "NORA", resample=False,
-              gp_acquisition="NORA", options={"audit": False})
-    paths["mcmc"], launches["mcmc"] = drive("mcmc", run_mcmc, runner,
-                                            ns_sample)
-    paths["himmelblau_audit"], launches["himmelblau_audit"] = drive(
-        "himmelblau_audit", run_himmelblau_audit)
+    (runner, ns_sample, paths["nora_runner"]), launches["nora_runner"], \
+        ns["nora_runner"] = drive("nora_runner", run_runner, "NORA",
+                                  resample=False, gp_acquisition="NORA",
+                                  options={"audit": False})
+    paths["mcmc"], launches["mcmc"], ns["mcmc"] = drive(
+        "mcmc", run_mcmc, runner, ns_sample)
+    paths["himmelblau_audit"], launches["himmelblau_audit"], \
+        ns["himmelblau_audit"] = drive("himmelblau_audit",
+                                       run_himmelblau_audit)
+    for name, stats in ns.items():
+        paths[name]["nested_sampling"] = stats
     log(f"[PATHS] all five paths in {time.perf_counter() - t0:.1f} s")
     return paths, launches
 
@@ -746,7 +997,7 @@ def main():
     paths, launches = drive_paths()
     kernels = []
     for name, (src, replaces) in SOURCES.items():
-        # library_ms: no single PyTorch call computes any of the five
+        # library_ms: no single PyTorch call computes any of the six
         # functions (PERF.md, section 6, says why for each)
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces,

@@ -9,23 +9,34 @@
 //   out[q] = min((sum_{j<n} s2 k(r_qj) alpha_j) * y_scale + y_loc, clip_max)
 //            if svm_finite(q) and x_q inside the trust box, else -inf
 //
-// Design.  A block owns 128 queries (one per thread).  The n valid training
-// rows and alpha are streamed through shared memory in tiles of 64 rows x d,
-// scaled by the length scales as they are loaded; the loop runs to n, not to
-// the padded nmax.  The support vectors are streamed the same way for the
-// SVM decision.  The (nq, nmax) cross-covariance never exists in memory.
+// Two designs.  The wrapper (ops/fused.py gated_mean) takes the block
+// design whenever its staged surrogate fits in a block's shared memory and
+// 2 d <= 128, and the tiled design otherwise: on an H100 the block design
+// was the faster at every batch measured, 16 to 65,536 queries (PERF.md).
 //
-// What bounds it on the H100.  On the nested-sampling path nq = nlive/6
-// (66 at d = 8), one block: the call is launch-bound, and the host-side
-// launch and the surrounding torch ops dominate.  On the IS-refine sweep
-// (nq = 65,536, n ~ 224) it is bound by the float64 exp (one per query and
-// training row, plus one per support vector): float64 runs at half the f32
-// non-tensor rate on this card, and the data (X, alpha, support vectors)
-// sits in shared memory, so memory traffic is small.
+// Tiled (any surrogate).  A block owns 128 queries (one per thread).  The n
+// valid training rows and alpha are streamed through shared memory in tiles
+// of 64 rows x d, scaled by the length scales as they are loaded; the loop
+// runs to n, not to the padded nmax.  The support vectors are streamed the
+// same way for the SVM decision.  The (nq, nmax) cross-covariance never
+// exists in memory.  On the IS-refine sweep (nq = 65,536, n ~ 224) it is
+// bound by the float64 exp (one per query and training row, plus one per
+// support vector): the data sits in shared memory, so memory traffic is
+// small.  Below a few thousand queries it fills only a few SMs, and each
+// thread runs a chain of n + nsv dependent exponentials.
+//
+// Block per query (the MCMC step, the NS prior phase, the IS refine).  Up
+// to K1_SMALL_GRID blocks each stage the surrogate in
+// shared memory once and evaluate their queries two at a time with the
+// block-cooperative routine of common.cuh (gpry_block_gated_mean2): the
+// 128 threads split the rows, so one query costs a few exponentials per
+// thread, a block reduction and two barriers.  What bounds it is that
+// latency, and the staging of the surrogate per block.
 #include "common.cuh"
 
 #define K1_THREADS 128
 #define K1_TILE 64
+#define K1_SMALL_GRID 1056
 
 __global__ void gated_mean_kernel(
     int family, int nq, int n, int nsv, int d,
@@ -118,25 +129,79 @@ __global__ void gated_mean_kernel(
   }
 }
 
+__global__ void __launch_bounds__(GPRY_BLOCK_THREADS)
+gated_mean_small_kernel(
+    int family, int nq, int n, int nsv, int d,
+    const double* __restrict__ Xq_raw, const double* __restrict__ X,
+    const double* __restrict__ alpha, const double* __restrict__ theta,
+    const double* __restrict__ x_loc, const double* __restrict__ x_scale,
+    const double* __restrict__ trust_lo, const double* __restrict__ trust_hi,
+    const double* __restrict__ sv, const double* __restrict__ dual,
+    const double* __restrict__ scal, int svm_mode, double* __restrict__ out) {
+  extern __shared__ double smem[];
+  GpryEvalScratch sc;
+  const GprySurrogate s = gpry_stage_surrogate(
+      smem, &sc, family, n, nsv, d, X, alpha, theta, x_loc, x_scale,
+      trust_lo, trust_hi, sv, dual, scal, svm_mode, nullptr, nullptr);
+  // queries q and q + gridDim.x together; the loop bound is block-uniform
+  for (int q = blockIdx.x; q < nq; q += 2 * gridDim.x) {
+    const int q1 = q + gridDim.x;
+    const int need = 1 | (q1 < nq ? 2 : 0);
+    double v[2];
+    gpry_block_gated_mean2(s, &sc, need, Xq_raw + (size_t)q * d,
+                           Xq_raw + (size_t)(need & 2 ? q1 : q) * d, nullptr,
+                           0.0, 0.0, nullptr, nullptr, v);
+    if (threadIdx.x == 0) {
+      out[q] = v[0];
+      if (need & 2) out[q1] = v[1];
+    }
+  }
+}
+
 static size_t gated_mean_smem(int d) {
   return sizeof(double) *
          ((size_t)d + 2 * (size_t)d * K1_THREADS + (size_t)K1_TILE * d +
           K1_TILE);
 }
 
+// Shared memory of the block-per-query design (0 if svm_mode does not
+// read the support vectors, they are not staged).
+extern "C" size_t gpry_gated_mean_small_smem(int n, int nsv, int d,
+                                             int svm_mode) {
+  const int nsv_eff = svm_mode == GPRY_MODE_FITTED ? nsv : 0;
+  return sizeof(double) *
+         (gpry_staged_doubles(n, nsv_eff, d) + gpry_eval_doubles(d));
+}
+
 // scal = [y_loc, y_scale, clip_max, svm intercept, svm gamma, y_max]
-extern "C" int gpry_gated_mean(int family, int nq, int n, int nsv, int d,
-                               const void* Xq_raw, const void* X,
-                               const void* alpha, const void* theta,
-                               const void* x_loc, const void* x_scale,
-                               const void* trust_lo, const void* trust_hi,
-                               const void* sv, const void* dual,
-                               const void* scal, int svm_mode, void* out,
-                               void* stream) {
+// design 0: tiled, one thread per query; 1: block per query.
+extern "C" int gpry_gated_mean(int family, int design, int nq, int n,
+                               int nsv, int d, const void* Xq_raw,
+                               const void* X, const void* alpha,
+                               const void* theta, const void* x_loc,
+                               const void* x_scale, const void* trust_lo,
+                               const void* trust_hi, const void* sv,
+                               const void* dual, const void* scal,
+                               int svm_mode, void* out, void* stream) {
+  if (nq <= 0) return 0;
+  if (design == 1) {
+    if (2 * d > GPRY_BLOCK_THREADS) return (int)cudaErrorInvalidValue;
+    const size_t smem = gpry_gated_mean_small_smem(n, nsv, d, svm_mode);
+    cudaError_t e = gpry_set_smem(gated_mean_small_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid(nq < K1_SMALL_GRID ? nq : K1_SMALL_GRID);
+    gated_mean_small_kernel<<<grid, GPRY_BLOCK_THREADS, smem,
+                              (cudaStream_t)stream>>>(
+        family, nq, n, nsv, d, (const double*)Xq_raw, (const double*)X,
+        (const double*)alpha, (const double*)theta, (const double*)x_loc,
+        (const double*)x_scale, (const double*)trust_lo,
+        (const double*)trust_hi, (const double*)sv, (const double*)dual,
+        (const double*)scal, svm_mode, (double*)out);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = gated_mean_smem(d);
   cudaError_t e = gpry_set_smem(gated_mean_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  if (nq <= 0) return 0;
   const dim3 grid((nq + K1_THREADS - 1) / K1_THREADS);
   gated_mean_kernel<<<grid, K1_THREADS, smem, (cudaStream_t)stream>>>(
       family, nq, n, nsv, d, (const double*)Xq_raw, (const double*)X,

@@ -10,17 +10,18 @@ shrinkage with an exact prior phase; the run stops when the live points'
 evidence share drops below ``precision_criterion``, on a plateau, or when
 the dead buffer is full.
 
-Torch has no vmap over while-loops, so the ``B`` chains run in lock step
-with per-chain masks: every repeat is one step-out evaluation of both
-endpoints, at most 6 step-out doublings and at most 30 shrinks, each ONE
-batched call of the log-density (the K1 kernel on the main path) for all
-chains; a chain that has finished keeps its state and does not count the
-calls.  The host reads one flag per outer step (the stop test), so there
-is no compiled segment: the JAX package's ``_ns_init``, ``_ns_segment``
-and ``_ns_finalize`` are the prior phase, the ``while`` loop and the
-final assembly of :func:`run_nested_device`.  Random
-numbers come from an explicit ``torch.Generator``, so runs differ from the
-JAX package's at the same seed; compare them by distribution.
+Each outer step's ``B`` chains go through the log-density's own slice
+route: the gated surrogate (``mc.samples.surrogate_logp_fn``) carries
+``slice_chains``, the CUDA kernel K6 that runs every chain's whole loop in
+one launch; any other log-density runs the lock-step loop of
+``ops.fused.slice_chains_lockstep``, one batched call per step-out and per
+shrink for all chains.  Both take the same draws, made here per repeat
+from the run's ``torch.Generator``.  The host reads one flag per outer
+step (the stop test), so there is no compiled segment: the JAX package's
+``_ns_init``, ``_ns_segment`` and ``_ns_finalize`` are the prior phase,
+the ``while`` loop and the final assembly of :func:`run_nested_device`.
+Random numbers come from an explicit ``torch.Generator``, so runs differ
+from the JAX package's at the same seed; compare them by distribution.
 """
 
 from typing import NamedTuple
@@ -28,8 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-_STEP_OUT = 6
-_SHRINKS = 30
+from gpry_tpu_torch.ops.fused import NS_SHRINKS, slice_chains_lockstep
 
 
 class NSResult(NamedTuple):
@@ -58,55 +58,27 @@ def _volume_consts(nlive, n_prior, max_dead):
     return logx_prev, log_shell, float(inv_n[:k0_dead].sum())
 
 
-def _slice_chains(logl_of, x, lx, lstar, chol, num_repeats, gen):
+def _slice_chains(logl_fn, params, logl_of, x, lx, lstar, chol, num_repeats,
+                  gen, lo, hi):
     """
-    ``B`` lock-step constrained slice chains from ``x`` (B, d) with
-    log-densities ``lx`` > ``lstar``.  Returns (x, lx, calls (B,)).
+    ``B`` constrained slice chains from ``x`` (B, d) with log-densities
+    ``lx`` > ``lstar``: the draws of every repeat (a direction's normals,
+    then the step-out and shrink uniforms), then ``logl_fn``'s own
+    ``slice_chains`` route if it has one, else the lock-step loop on
+    ``logl_of``.  Returns (x, lx, calls (B,)).
     """
     B, d = x.shape
     dt, dev = x.dtype, x.device
-    calls = torch.zeros(B, dtype=torch.int64, device=dev)
-    for _ in range(num_repeats):
-        nrm = torch.randn((B, d), generator=gen, dtype=dt, device=dev)
-        e = (nrm / torch.linalg.vector_norm(nrm, dim=1, keepdim=True)) \
-            @ chol.T
-        u = torch.rand((1 + _SHRINKS, B), generator=gen, dtype=dt,
-                       device=dev)
-        w0 = u[0] * 0.9 + 0.05
-        tlo, thi = -w0, 1.0 - w0
-        ends = logl_of(torch.cat([x + tlo[:, None] * e,
-                                  x + thi[:, None] * e]))
-        l_lo, l_hi = ends[:B], ends[B:]
-        calls += 2
-        # step out by doubling, capped
-        for _it in range(_STEP_OUT):
-            active = (l_lo > lstar) | (l_hi > lstar)
-            tlo = torch.where(l_lo > lstar, tlo * 2.0, tlo)
-            thi = torch.where(l_hi > lstar, thi * 2.0, thi)
-            ends = logl_of(torch.cat([x + tlo[:, None] * e,
-                                      x + thi[:, None] * e]))
-            l_lo = torch.where(active, ends[:B], l_lo)
-            l_hi = torch.where(active, ends[B:], l_hi)
-            calls += 2 * active
-        # shrinkage sampling
-        t = torch.zeros(B, dtype=dt, device=dev)
-        l_new = lx
-        accepted = torch.zeros(B, dtype=torch.bool, device=dev)
-        for it in range(_SHRINKS):
-            active = ~accepted
-            t_try = tlo + (thi - tlo) * u[1 + it]
-            l_try = logl_of(x + t_try[:, None] * e)
-            acc_try = l_try > lstar
-            t = torch.where(active, t_try, t)
-            l_new = torch.where(active, l_try, l_new)
-            accepted = accepted | (active & acc_try)
-            miss = active & ~acc_try
-            tlo = torch.where(miss & (t_try < 0), t_try, tlo)
-            thi = torch.where(miss & (t_try >= 0), t_try, thi)
-            calls += active
-        x = torch.where(accepted[:, None], x + t[:, None] * e, x)
-        lx = torch.where(accepted, l_new, lx)
-    return x, lx, calls
+    nrm = torch.empty((num_repeats, B, d), dtype=dt, device=dev)
+    u = torch.empty((num_repeats, 1 + NS_SHRINKS, B), dtype=dt, device=dev)
+    for r in range(num_repeats):
+        nrm[r] = torch.randn((B, d), generator=gen, dtype=dt, device=dev)
+        u[r] = torch.rand((1 + NS_SHRINKS, B), generator=gen, dtype=dt,
+                          device=dev)
+    route = getattr(logl_fn, "slice_chains", None)
+    if route is not None:
+        return route(params, x, lx, lstar, chol, nrm, u, lo, hi)
+    return slice_chains_lockstep(logl_of, x, lx, lstar, chol, nrm, u)
 
 
 def run_nested_device(logl_fn, params, gen, lo, hi, nlive=200,
@@ -114,7 +86,10 @@ def run_nested_device(logl_fn, params, gen, lo, hi, nlive=200,
                       max_dead=5000, kill_batch=None, n_prior=None):
     """
     Nested sampling of ``logl_fn(params, X)`` ((nq, d) -> (nq,)) under a
-    uniform prior on the box [lo, hi], on the device of ``lo``.
+    uniform prior on the box [lo, hi], on the device of ``lo``.  A
+    ``logl_fn`` with a ``slice_chains(params, x0, lx0, lstar, chol, nrm,
+    u, lo, hi)`` method runs each step's chains through it (the gated
+    surrogate: K6).
 
     ``n_prior`` (default ``nlive``): size of the initial prior sample; the
     worst ``n_prior - nlive`` draws are recorded as dead points with exact
@@ -190,9 +165,9 @@ def run_nested_device(logl_fn, params, gen, lo, hi, nlive=200,
         chol = torch.linalg.cholesky_ex(cov).L  # no host sync
         starts = torch.randint(0, nlive - B, (B,), generator=gen,
                                device=dev)
-        xs, ls, cs = _slice_chains(logl_of, Xs[starts],
+        xs, ls, cs = _slice_chains(logl_fn, params, logl_of, Xs[starts],
                                    live_logl[survive_idx][starts], lstar,
-                                   chol, int(num_repeats), gen)
+                                   chol, int(num_repeats), gen, lo, hi)
         live_X[kill_idx] = xs
         live_logl[kill_idx] = ls
         k += B

@@ -11,7 +11,6 @@ are not ported yet.
 
 import os
 import time
-from functools import partial
 
 import numpy as np
 import torch
@@ -19,13 +18,31 @@ import torch
 from gpry_tpu_torch.mc.mcmc import run_mcmc_device, split_rhat
 from gpry_tpu_torch.mc.nested import run_nested_device
 from gpry_tpu_torch.models.gp import surrogate_predict_mean
+from gpry_tpu_torch.ops.fused import ns_slice_chains
 from gpry_tpu_torch.parallel.rng import torch_generator_from_rng
 from gpry_tpu_torch.utils.tools import (check_and_return_bounds,
                                         generic_params_names, get_Xnumber)
 
+
+class _SurrogateLogp:
+    """The gated surrogate log-density ``f(params, X) -> logp`` (K1), with
+    the nested sampler's slice route (K6)."""
+
+    def __init__(self, family):
+        self.family = family
+
+    def __call__(self, params, X):
+        return surrogate_predict_mean(self.family, params, X)
+
+    def slice_chains(self, params, x0, lx0, lstar, chol, nrm, u, lo, hi):
+        return ns_slice_chains(self.family, params, x0, lx0, lstar, chol,
+                               nrm, u, lo, hi)
+
+
 def surrogate_logp_fn(family):
-    """The gated surrogate log-density ``f(params, X) -> logp`` (K1)."""
-    return partial(surrogate_predict_mean, family)
+    """The gated surrogate log-density ``f(params, X) -> logp`` (K1); its
+    ``slice_chains`` runs a nested-sampling step's chains (K6)."""
+    return _SurrogateLogp(family)
 
 
 def _rng_of(rng):

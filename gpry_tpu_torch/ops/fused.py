@@ -21,6 +21,11 @@ versions, and the wrappers that choose between them.
   models/gp.py:85 surrogate_mean_std_smooth (ops/linalg.py:192
   predict_meanvar) in the convergence audit's no-grad sweeps; plain version
   :func:`meanvar_ungated_plain`.
+* K6 ``ns_slice_chains`` (``csrc/ns_slice_chains.cu``) replaces
+  mc/nested.py:51 _slice_chain as vmapped in _ns_segment: all slice
+  updates of one nested-sampling step's chains on the gated surrogate, in
+  one launch; plain version :func:`ns_slice_chains_plain`, the lock-step
+  loop :func:`slice_chains_lockstep` on K1's plain version.
 
 A wrapper runs the plain version only when its input tensor lies on the
 CPU.  For a CUDA tensor it launches the kernel or raises: there is no
@@ -28,14 +33,16 @@ fallback.  The kernels are float64-only and forward-only; a CUDA tensor
 that requires grad is refused (the autograd paths call the plain versions
 themselves, as the JAX package differentiated XLA there).
 
-The five sources build in one ``nvcc`` call into a shared library with a
-plain C interface (``_build/libgpry_kernels.so`` inside the package), at
-first use, and load over ``ctypes``.  Every launch goes on PyTorch's
+The six sources compile in parallel, one ``nvcc`` per source, and link
+into a shared library with a plain C interface
+(``_build/libgpry_kernels.so`` inside the package), at first use, and load
+over ``ctypes``.  Every launch goes on PyTorch's
 current stream and is checked with ``cudaGetLastError``.
 
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made (for K4,
 both of its kernels: one select per round and one sweep per conditioned
-round).
+round; for K6 one per call, with the staging kernel that a surrogate too
+large for shared memory needs first).
 """
 
 import ctypes
@@ -56,18 +63,18 @@ _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 _SOURCES = ("gated_mean.cu", "gated_meanvar_logexp.cu",
             "masked_kernel_matrix.cu", "kriging_believer_fill.cu",
-            "meanvar_ungated.cu")
+            "meanvar_ungated.cu", "ns_slice_chains.cu")
 _HEADERS = ("common.cuh",)
 _LIB_PATH = os.path.join(_BUILD, "libgpry_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _FAMILY_ID = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3}
 
 #: launches per kernel made by the wrappers (never by the plain versions)
 LAUNCHES = {"gated_mean": 0, "gated_meanvar_logexp": 0,
             "masked_kernel_matrix_batched": 0, "kriging_believer_fill": 0,
-            "meanvar_ungated": 0}
+            "meanvar_ungated": 0, "ns_slice_chains": 0}
 
 #: seconds the last build took (None: the library was already built)
 BUILD_SECONDS = None
@@ -80,6 +87,13 @@ _lib_lock = threading.Lock()
 _K2_MAX_Q = 8
 _SMEM_DEFAULT = 48 * 1024
 _SMEM_MAX = 227 * 1024
+# threads of the block-cooperative designs (K1's block design, K6): one
+# thread per (point, coordinate) of two points prepares an evaluation
+_BLOCK_THREADS = 128
+
+#: the slice sampler's caps: step-out doublings and shrinks per update
+NS_STEP_OUT = 6
+NS_SHRINKS = 30
 
 
 class KernelBuildError(RuntimeError):
@@ -112,22 +126,43 @@ def _stale():
                for f in _SOURCES + _HEADERS)
 
 
+def _run_all(cmds):
+    """Run the commands at once and wait for every one; raise with the
+    output of each that failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise KernelBuildError("\n".join(failed))
+
+
 def build():
-    """Compile ``csrc/*.cu`` into the package's ``_build/`` (if stale) and
-    return the path of the shared library."""
+    """Compile ``csrc/*.cu`` into the package's ``_build/`` (if stale), one
+    ``nvcc`` per source, all at once, link them, and return the path of the
+    shared library."""
     global BUILD_SECONDS
     if not _stale():
         return _LIB_PATH
     os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(_CSRC, f) for f in _SOURCES)]
+    tag = f"{os.getpid()}.tmp"
+    tmp = f"{_LIB_PATH}.{tag}"
+    objs = [os.path.join(_BUILD, f"{f[:-3]}.{tag}.o") for f in _SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+    try:
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj,
+                   os.path.join(_CSRC, f)]
+                  for f, obj in zip(_SOURCES, objs)])
+        _run_all([[_nvcc(), "-shared", "-o", tmp, *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, _LIB_PATH)
     BUILD_SECONDS = time.perf_counter() - t0
     return _LIB_PATH
@@ -141,9 +176,16 @@ def library():
             return _lib
         lib = ctypes.CDLL(build())
         P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.gpry_gated_mean.argtypes = [I] * 5 + [P] * 11 \
+        lib.gpry_gated_mean.argtypes = [I] * 6 + [P] * 11 \
             + [I, P, P]
         lib.gpry_gated_mean.restype = I
+        lib.gpry_gated_mean_small_smem.argtypes = [I] * 4
+        lib.gpry_gated_mean_small_smem.restype = ctypes.c_size_t
+        lib.gpry_ns_slice_chains.argtypes = [I] * 6 + [P] * 18 + [I] \
+            + [P] * 5
+        lib.gpry_ns_slice_chains.restype = I
+        lib.gpry_ns_slice_chains_work.argtypes = [I] * 4
+        lib.gpry_ns_slice_chains_work.restype = ctypes.c_size_t
         lib.gpry_gated_meanvar_logexp.argtypes = [I] * 8 + [P] * 12 \
             + [I, D, D, P, P, P]
         lib.gpry_gated_meanvar_logexp.restype = I
@@ -354,13 +396,84 @@ def kriging_believer_fill_plain(family, p, Xd_raw, y, sigma, acq0, alive0,
     return outX, outY, outS, outA, outC
 
 
+def slice_chains_lockstep(logl_of, x, lx, lstar, chol, nrm, u):
+    """
+    ``B`` constrained slice-sampling chains in lock step (gpry_tpu's
+    mc/nested.py:51 _slice_chain, vmapped): from ``x`` (B, d) with
+    log-densities ``lx`` > ``lstar``, one slice update per leading index of
+    the draws ``nrm`` (R, B, d) and ``u`` (R, 1 + NS_SHRINKS, B), along
+    ``chol``-whitened directions.  Every step-out and every shrink is ONE
+    batched call of ``logl_of`` ((nq, d) -> (nq,), -inf outside the prior)
+    for all chains; a chain that has finished keeps its state and does not
+    count the calls.  Returns (x, lx, calls (B,) int64).
+    """
+    B, d = x.shape
+    dt, dev = x.dtype, x.device
+    calls = torch.zeros(B, dtype=torch.int64, device=dev)
+    for r in range(nrm.shape[0]):
+        e = (nrm[r] / torch.linalg.vector_norm(nrm[r], dim=1, keepdim=True)) \
+            @ chol.T
+        w0 = u[r, 0] * 0.9 + 0.05
+        tlo, thi = -w0, 1.0 - w0
+        ends = logl_of(torch.cat([x + tlo[:, None] * e,
+                                  x + thi[:, None] * e]))
+        l_lo, l_hi = ends[:B], ends[B:]
+        calls += 2
+        # step out by doubling, capped
+        for _it in range(NS_STEP_OUT):
+            active = (l_lo > lstar) | (l_hi > lstar)
+            tlo = torch.where(l_lo > lstar, tlo * 2.0, tlo)
+            thi = torch.where(l_hi > lstar, thi * 2.0, thi)
+            ends = logl_of(torch.cat([x + tlo[:, None] * e,
+                                      x + thi[:, None] * e]))
+            l_lo = torch.where(active, ends[:B], l_lo)
+            l_hi = torch.where(active, ends[B:], l_hi)
+            calls += 2 * active
+        # shrinkage sampling
+        t = torch.zeros(B, dtype=dt, device=dev)
+        l_new = lx
+        accepted = torch.zeros(B, dtype=torch.bool, device=dev)
+        for it in range(NS_SHRINKS):
+            active = ~accepted
+            t_try = tlo + (thi - tlo) * u[r, 1 + it]
+            l_try = logl_of(x + t_try[:, None] * e)
+            acc_try = l_try > lstar
+            t = torch.where(active, t_try, t)
+            l_new = torch.where(active, l_try, l_new)
+            accepted = accepted | (active & acc_try)
+            miss = active & ~acc_try
+            tlo = torch.where(miss & (t_try < 0), t_try, tlo)
+            thi = torch.where(miss & (t_try >= 0), t_try, thi)
+            calls += active
+        x = torch.where(accepted[:, None], x + t[:, None] * e, x)
+        lx = torch.where(accepted, l_new, lx)
+    return x, lx, calls
+
+
+def ns_slice_chains_plain(family, p, x0, lx0, lstar, chol, nrm, u, lo, hi):
+    """Plain K6: :func:`slice_chains_lockstep` on the gated surrogate
+    mean (plain K1) with -inf outside the prior box [lo, hi]."""
+
+    def logl_of(X):
+        in_box = torch.all((X >= lo) & (X <= hi), dim=-1)
+        return torch.where(in_box, gated_mean_plain(family, p, X),
+                           torch.full_like(X[:, 0], -torch.inf))
+
+    return slice_chains_lockstep(logl_of, x0, lx0, lstar, chol, nrm, u)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
 
-def gated_mean(family, p, Xq_raw):
-    """K1: gated posterior mean at ``Xq_raw`` (nq, d) for surrogate ``p``."""
+def gated_mean(family, p, Xq_raw, _design=None):
+    """K1: gated posterior mean at ``Xq_raw`` (nq, d) for surrogate ``p``.
+
+    K1 has two designs: one block per query when the surrogate fits in a
+    block's shared memory and 2 d <= 128, else the tiled one (one thread
+    per query).  ``_design`` ("block" or "tiled") forces one, for the
+    kernel's own checks."""
     check_family(family)
     if Xq_raw.device.type == "cpu":
         return gated_mean_plain(family, p, Xq_raw)
@@ -371,8 +484,17 @@ def gated_mean(family, p, Xq_raw):
     if nq == 0:
         return out
     lib = library()
+    nsv = p.svm.sv.shape[0]
+    fits = 2 * d <= _BLOCK_THREADS and lib.gpry_gated_mean_small_smem(
+        int(p.n), nsv, d, int(p.svm.mode)) <= _SMEM_MAX
+    if _design not in (None, "block", "tiled"):
+        raise ValueError(f"gated_mean: unknown design {_design!r}.")
+    if _design == "block" and not fits:
+        raise ValueError("gated_mean: the block design needs the surrogate "
+                         "in shared memory and 2 d <= 128.")
+    block = fits if _design is None else _design == "block"
     rc = lib.gpry_gated_mean(
-        _FAMILY_ID[family], nq, int(p.n), p.svm.sv.shape[0], d,
+        _FAMILY_ID[family], int(block), nq, int(p.n), nsv, d,
         *(_ptr(tensors[k]) for k in (
             "Xq_raw", "X", "alpha", "theta", "x_loc", "x_scale",
             "trust_lo", "trust_hi", "sv", "dual", "scal")),
@@ -568,9 +690,66 @@ def kriging_believer_fill(family, p, Xd_raw, y, sigma, acq0, alive0, size,
     return outX, outY, outS, outA, outC
 
 
+def ns_slice_chains(family, p, x0, lx0, lstar, chol, nrm, u, lo, hi):
+    """
+    K6: the constrained slice-sampling chains of one nested-sampling step
+    on the gated surrogate ``p`` under the prior box [lo, hi], in one launch
+    (see :func:`slice_chains_lockstep` for the arguments; ``lstar`` a 0-d
+    tensor that stays on the device).  A surrogate beyond a block's shared
+    memory is first copied into global memory in the staged layout, by a
+    staging kernel on the same stream.  Returns (x, lx, calls (B,) int64).
+    """
+    check_family(family)
+    if x0.device.type == "cpu":
+        return ns_slice_chains_plain(family, p, x0, lx0, lstar, chol, nrm,
+                                     u, lo, hi)
+    dev = x0.device
+    B, d = x0.shape
+    R = nrm.shape[0]
+    if tuple(nrm.shape) != (R, B, d) or \
+            tuple(u.shape) != (R, 1 + NS_SHRINKS, B) or \
+            tuple(lx0.shape) != (B,) or tuple(chol.shape) != (d, d):
+        raise ValueError(
+            f"ns_slice_chains: expected x0 (B, d), lx0 (B,), chol (d, d), "
+            f"nrm (R, B, d) and u (R, {1 + NS_SHRINKS}, B); got "
+            f"{tuple(x0.shape)}, {tuple(lx0.shape)}, {tuple(chol.shape)}, "
+            f"{tuple(nrm.shape)}, {tuple(u.shape)}.")
+    if 2 * d > _BLOCK_THREADS:
+        raise ValueError(f"ns_slice_chains: d={d} > {_BLOCK_THREADS // 2}.")
+    lstar = torch.as_tensor(lstar, dtype=torch.float64, device=dev)
+    tensors = dict(x0=x0, lx0=lx0, lstar=lstar.reshape(()),
+                   chol=chol.contiguous(), lo=lo.contiguous(),
+                   hi=hi.contiguous(), nrm=nrm, u=u, **_gate_tensors(p))
+    _check_cuda("ns_slice_chains", dev, **tensors)
+    x = torch.empty_like(x0)
+    lx = torch.empty_like(lx0)
+    calls = torch.empty(B, dtype=torch.int64, device=dev)
+    if B == 0:
+        return x, lx, calls
+    lib = library()
+    nsv, mode = p.svm.sv.shape[0], int(p.svm.mode)
+    # a surrogate too large for shared memory is read from a staged copy
+    # in global memory
+    nwork = lib.gpry_ns_slice_chains_work(int(p.n), nsv, d, mode)
+    work = torch.empty(nwork, dtype=torch.float64, device=dev) \
+        if nwork else None
+    rc = lib.gpry_ns_slice_chains(
+        _FAMILY_ID[family], B, R, int(p.n), nsv, d,
+        *(_ptr(tensors[k]) for k in (
+            "x0", "lx0", "lstar", "chol", "lo", "hi", "nrm", "u", "X",
+            "alpha", "theta", "x_loc", "x_scale", "trust_lo", "trust_hi",
+            "sv", "dual", "scal")),
+        mode, ctypes.c_void_p(None if work is None else work.data_ptr()),
+        _ptr(x), _ptr(lx), _ptr(calls), _stream())
+    _raise_on("ns_slice_chains", rc)
+    LAUNCHES["ns_slice_chains"] += 1
+    return x, lx, calls
+
+
 __all__ = ["LAUNCHES", "KernelBuildError", "build", "library",
            "reset_launch_counts", "gated_mean", "gated_mean_plain",
            "gated_meanvar_logexp", "gated_meanvar_logexp_plain",
            "masked_kernel_matrix_batched", "masked_kernel_matrix_plain",
            "kriging_believer_fill", "kriging_believer_fill_plain",
-           "meanvar_ungated", "meanvar_ungated_plain"]
+           "meanvar_ungated", "meanvar_ungated_plain", "ns_slice_chains",
+           "ns_slice_chains_plain", "slice_chains_lockstep"]

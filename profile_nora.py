@@ -10,13 +10,15 @@ a 26-restart fit, ``force_resample()`` and ``multi_add(n_points=8)``.
    sweep (``NORA._run_ns``), the ranked-pool fill (``RankedPool.add_bulk``,
    K4) and the rest of ``multi_add``; with the kernel launches it made.
 2. Three windows run once unprofiled and once under ``torch.profiler``: a
-   full fit, 5 NS steps at NORA's settings (nlive = 200, 40 repeats, a
-   prior sample of 2,000), and a ``multi_add`` that reuses the stored NS
-   sample (one K2 sweep and the K4 fill).  A whole NS run is not profiled:
-   its ~700k launches take the profiler longer than a run may last.  The
-   union of a window's device intervals (kernels and copies) over its wall
-   time is the device's busy share: against the profiled wall (the
-   profiler slows the host: a lower bound) and the unprofiled wall.
+   full fit, one whole NS run at NORA's settings (nlive = 200, 40
+   repeats, a prior sample of 2,000; one K6 launch per step), and a
+   ``multi_add`` that reuses the stored NS sample (one K2 sweep and the K4
+   fill).  The union of a window's device intervals (kernels and copies)
+   over its wall time is the device's busy share: against the profiled
+   wall (the profiler slows the host: a lower bound) and the unprofiled
+   wall.  The NS run is split into K6's device time and the rest of its
+   unprofiled wall: the host's bookkeeping (draws, sort, covariance, the
+   stop test) and the small kernels it launches.
 
 Prints the card's name and power limit and one JSON line.  Needs a card:
 
@@ -115,17 +117,19 @@ def main():
     phases["launches"] = dict(fused.LAUNCHES)
     print("[iteration] " + json.dumps(phases), flush=True)
 
-    def ns_5_steps():
+    def ns_run():
         p = gpr.surrogate_params()
         lo = torch.as_tensor(bounds[:, 0], dtype=p.X.dtype, device=dev)
         hi = torch.as_tensor(bounds[:, 1], dtype=p.X.dtype, device=dev)
         nlive = acq._nlive(gpr)
-        run_nested_device(
+        res = run_nested_device(
             surrogate_logp_fn(gpr.family), p,
             torch.Generator(device=dev).manual_seed(3), lo, hi, nlive=nlive,
             num_repeats=int(acq.num_repeats),
             precision_criterion=acq.precision_criterion_target,
-            max_dead=5 * (nlive // 6), n_prior=acq.nprior_per_nlive * nlive)
+            max_dead=int(nlive * max(8, 2 * D)),
+            n_prior=acq.nprior_per_nlive * nlive)
+        return {"ns_steps": res.n_steps, "ns_calls": res.n_calls}
 
     def multi_add_reuse():
         acq.multi_add(gpr, n_points=D)
@@ -133,12 +137,12 @@ def main():
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     windows = {}
-    for name, fn in (("fit", fit), ("ns_5_steps", ns_5_steps),
+    for name, fn in (("fit", fit), ("ns_run", ns_run),
                      ("multi_add_reuse", multi_add_reuse)):
         fused.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fn()
+        info = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(fused.LAUNCHES)
@@ -164,6 +168,11 @@ def main():
             "busy_share_range": [busy / wall_prof, busy / wall],
             "launches": launches,
             "device_ms_by_kernel": {k[:60]: v * 1e-3 for k, v in top}}
+        if info:
+            k6_s = 1e-6 * sum(v for k, v in by_name.items()
+                              if "ns_slice_chains" in k)
+            windows[name].update(info, k6_device_s=k6_s,
+                                 host_and_rest_s=wall - k6_s)
         print(f"[{name}] " + json.dumps(windows[name]), flush=True)
     print(card)
     print(json.dumps({"card": card, "phases_s": phases, "windows": windows}))
