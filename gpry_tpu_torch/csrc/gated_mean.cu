@@ -32,14 +32,20 @@
 // 128 threads split the rows, so one query costs a few exponentials per
 // thread, a block reduction and two barriers.  What bounds it is that
 // latency, and the staging of the surrogate per block.
+//
+// Spec mode (a composite kernel, template SPEC): both designs stage X as it
+// is (no length scale divides the whole point) with the spec program and
+// exp(+-theta), and each (query, training row) pair runs the interpreter
+// of common.cuh (gpry_spec_cov) in place of variance * k(r^2).
 #include "common.cuh"
 
 #define K1_THREADS 128
 #define K1_TILE 64
 #define K1_SMALL_GRID 1056
 
+template <bool SPEC>
 __global__ void gated_mean_kernel(
-    int family, int nq, int n, int nsv, int d,
+    GpryKern kern, int nq, int n, int nsv, int d,
     const double* __restrict__ Xq_raw, const double* __restrict__ X,
     const double* __restrict__ alpha, const double* __restrict__ theta,
     const double* __restrict__ x_loc, const double* __restrict__ x_scale,
@@ -47,6 +53,7 @@ __global__ void gated_mean_kernel(
     const double* __restrict__ sv, const double* __restrict__ dual,
     const double* __restrict__ scal, int svm_mode, double* __restrict__ out) {
   // shared layout: ls[d] | qpre[d][T] | qls[d][T] | tile[TILE][d] | tw[TILE]
+  //                | spec program (SPEC)
   extern __shared__ double smem[];
   double* ls = smem;
   double* qpre = ls + d;
@@ -57,10 +64,15 @@ __global__ void gated_mean_kernel(
   const int tid = threadIdx.x;
   const int q = blockIdx.x * K1_THREADS + tid;
   const bool active = q < nq;
+  const int family = kern.family;
 
-  for (int k = tid; k < d; k += blockDim.x) ls[k] = exp(theta[1 + k]);
+  GprySpec spec;
+  if constexpr (SPEC)
+    spec = gpry_stage_spec(tw + K1_TILE, kern, theta, tid, blockDim.x);
+  for (int k = tid; k < d; k += blockDim.x)
+    ls[k] = SPEC ? 1.0 : exp(theta[1 + k]);
   __syncthreads();
-  const double variance = exp(theta[0]);
+  const double variance = SPEC ? 1.0 : exp(theta[0]);
 
   bool in_trust = true;
   if (active) {
@@ -86,12 +98,17 @@ __global__ void gated_mean_kernel(
     __syncthreads();
     if (active) {
       for (int j = 0; j < nt; ++j) {
-        double sq = 0.0;
-        for (int k = 0; k < d; ++k) {
-          const double df = qls[k * K1_THREADS + tid] - tile[j * d + k];
-          sq += df * df;
+        if constexpr (SPEC) {
+          acc += gpry_spec_cov(spec, qpre + tid, K1_THREADS, tile + j * d, 1,
+                               d) * tw[j];
+        } else {
+          double sq = 0.0;
+          for (int k = 0; k < d; ++k) {
+            const double df = qls[k * K1_THREADS + tid] - tile[j * d + k];
+            sq += df * df;
+          }
+          acc += (variance * gpry_k_of_sq(family, sq)) * tw[j];
         }
-        acc += (variance * gpry_k_of_sq(family, sq)) * tw[j];
       }
     }
   }
@@ -129,9 +146,10 @@ __global__ void gated_mean_kernel(
   }
 }
 
+template <bool SPEC>
 __global__ void __launch_bounds__(GPRY_BLOCK_THREADS)
 gated_mean_small_kernel(
-    int family, int nq, int n, int nsv, int d,
+    GpryKern kern, int nq, int n, int nsv, int d,
     const double* __restrict__ Xq_raw, const double* __restrict__ X,
     const double* __restrict__ alpha, const double* __restrict__ theta,
     const double* __restrict__ x_loc, const double* __restrict__ x_scale,
@@ -140,15 +158,17 @@ gated_mean_small_kernel(
     const double* __restrict__ scal, int svm_mode, double* __restrict__ out) {
   extern __shared__ double smem[];
   GpryEvalScratch sc;
-  const GprySurrogate s = gpry_stage_surrogate(
-      smem, &sc, family, n, nsv, d, X, alpha, theta, x_loc, x_scale,
-      trust_lo, trust_hi, sv, dual, scal, svm_mode, nullptr, nullptr);
+  GprySpec spec;
+  const GprySurrogate s = gpry_stage_surrogate<SPEC>(
+      smem, &sc, kern, n, nsv, d, X, alpha, theta, x_loc, x_scale,
+      trust_lo, trust_hi, sv, dual, scal, svm_mode, nullptr, nullptr,
+      &spec);
   // queries q and q + gridDim.x together; the loop bound is block-uniform
   for (int q = blockIdx.x; q < nq; q += 2 * gridDim.x) {
     const int q1 = q + gridDim.x;
     const int need = 1 | (q1 < nq ? 2 : 0);
     double v[2];
-    gpry_block_gated_mean2(s, &sc, need, Xq_raw + (size_t)q * d,
+    gpry_block_gated_mean2<SPEC>(s, spec, &sc, need, Xq_raw + (size_t)q * d,
                            Xq_raw + (size_t)(need & 2 ? q1 : q) * d, nullptr,
                            0.0, 0.0, nullptr, nullptr, v);
     if (threadIdx.x == 0) {
@@ -158,24 +178,31 @@ gated_mean_small_kernel(
   }
 }
 
-static size_t gated_mean_smem(int d) {
+static size_t gated_mean_smem(const GpryKern& kern, int d) {
   return sizeof(double) *
          ((size_t)d + 2 * (size_t)d * K1_THREADS + (size_t)K1_TILE * d +
-          K1_TILE);
+          K1_TILE + gpry_spec_doubles(kern));
 }
 
-// Shared memory of the block-per-query design (0 if svm_mode does not
-// read the support vectors, they are not staged).
-extern "C" size_t gpry_gated_mean_small_smem(int n, int nsv, int d,
-                                             int svm_mode) {
+// Doubles of shared memory a block stages for kern's spec program (0 for a
+// fast family), for the wrappers' shared-memory budgets.
+extern "C" size_t gpry_spec_smem_doubles(GpryKern kern) {
+  return gpry_spec_doubles(kern);
+}
+
+// Shared memory of the block-per-query design (if svm_mode does not read
+// the support vectors, they are not staged).
+extern "C" size_t gpry_gated_mean_small_smem(GpryKern kern, int n, int nsv,
+                                             int d, int svm_mode) {
   const int nsv_eff = svm_mode == GPRY_MODE_FITTED ? nsv : 0;
   return sizeof(double) *
-         (gpry_staged_doubles(n, nsv_eff, d) + gpry_eval_doubles(d));
+         (gpry_staged_doubles(n, nsv_eff, d, gpry_spec_doubles(kern)) +
+          gpry_eval_doubles(d));
 }
 
 // scal = [y_loc, y_scale, clip_max, svm intercept, svm gamma, y_max]
 // design 0: tiled, one thread per query; 1: block per query.
-extern "C" int gpry_gated_mean(int family, int design, int nq, int n,
+extern "C" int gpry_gated_mean(GpryKern kern, int design, int nq, int n,
                                int nsv, int d, const void* Xq_raw,
                                const void* X, const void* alpha,
                                const void* theta, const void* x_loc,
@@ -186,25 +213,27 @@ extern "C" int gpry_gated_mean(int family, int design, int nq, int n,
   if (nq <= 0) return 0;
   if (design == 1) {
     if (2 * d > GPRY_BLOCK_THREADS) return (int)cudaErrorInvalidValue;
-    const size_t smem = gpry_gated_mean_small_smem(n, nsv, d, svm_mode);
-    cudaError_t e = gpry_set_smem(gated_mean_small_kernel, smem);
+    const size_t smem = gpry_gated_mean_small_smem(kern, n, nsv, d, svm_mode);
+    auto kernel = kern.nodes ? gated_mean_small_kernel<true>
+                             : gated_mean_small_kernel<false>;
+    cudaError_t e = gpry_set_smem(kernel, smem);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid(nq < K1_SMALL_GRID ? nq : K1_SMALL_GRID);
-    gated_mean_small_kernel<<<grid, GPRY_BLOCK_THREADS, smem,
-                              (cudaStream_t)stream>>>(
-        family, nq, n, nsv, d, (const double*)Xq_raw, (const double*)X,
+    kernel<<<grid, GPRY_BLOCK_THREADS, smem, (cudaStream_t)stream>>>(
+        kern, nq, n, nsv, d, (const double*)Xq_raw, (const double*)X,
         (const double*)alpha, (const double*)theta, (const double*)x_loc,
         (const double*)x_scale, (const double*)trust_lo,
         (const double*)trust_hi, (const double*)sv, (const double*)dual,
         (const double*)scal, svm_mode, (double*)out);
     return (int)cudaGetLastError();
   }
-  const size_t smem = gated_mean_smem(d);
-  cudaError_t e = gpry_set_smem(gated_mean_kernel, smem);
+  const size_t smem = gated_mean_smem(kern, d);
+  auto kernel = kern.nodes ? gated_mean_kernel<true> : gated_mean_kernel<false>;
+  cudaError_t e = gpry_set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((nq + K1_THREADS - 1) / K1_THREADS);
-  gated_mean_kernel<<<grid, K1_THREADS, smem, (cudaStream_t)stream>>>(
-      family, nq, n, nsv, d, (const double*)Xq_raw, (const double*)X,
+  kernel<<<grid, K1_THREADS, smem, (cudaStream_t)stream>>>(
+      kern, nq, n, nsv, d, (const double*)Xq_raw, (const double*)X,
       (const double*)alpha, (const double*)theta, (const double*)x_loc,
       (const double*)x_scale, (const double*)trust_lo,
       (const double*)trust_hi, (const double*)sv, (const double*)dual,

@@ -32,13 +32,19 @@
 // chain; L2 traffic is the whole lower triangle of L once per query.
 // Solving several queries per warp against one read of each L row is the
 // next step for a later change.
+//
+// Spec mode (template SPEC): the k vectors come from the interpreter of
+// common.cuh on the preprocessed coordinates, and the prior variance is the
+// query's own gpry_spec_diag (k(x, x), WhiteKernel included) in place of
+// the constant variance, as gpry_tpu/ops/linalg.py:205 kernel_diag.
 #include "common.cuh"
 
 #define K2_THREADS 256
 #define K2_WARPS (K2_THREADS / 32)
 
+template <bool SPEC>
 __global__ void gated_meanvar_kernel(
-    int family, int out_logexp, int nq, int n, int nmax, int nsv, int d,
+    GpryKern kern, int out_logexp, int nq, int n, int nmax, int nsv, int d,
     int Q, const double* __restrict__ Xq_raw, const double* __restrict__ X,
     const double* __restrict__ alpha, const double* __restrict__ L,
     const double* __restrict__ theta, const double* __restrict__ x_loc,
@@ -48,6 +54,7 @@ __global__ void gated_meanvar_kernel(
     int svm_mode, double zeta, double noise_std, double* __restrict__ out0,
     double* __restrict__ out1) {
   // shared layout: ls[d] | qpre[Q][d] | qls[Q][d] | trust[Q] | kv[Q][n]
+  //                | spec program (SPEC)
   extern __shared__ double smem[];
   double* ls = smem;
   double* qpre = ls + d;
@@ -59,10 +66,15 @@ __global__ void gated_meanvar_kernel(
   const int lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * Q;
   const int nqb = min(Q, nq - q0);
+  const int family = kern.family;
 
-  for (int k = tid; k < d; k += blockDim.x) ls[k] = exp(theta[1 + k]);
+  GprySpec spec;
+  if constexpr (SPEC)
+    spec = gpry_stage_spec(kv + (size_t)Q * n, kern, theta, tid, blockDim.x);
+  for (int k = tid; k < d; k += blockDim.x)
+    ls[k] = SPEC ? 1.0 : exp(theta[1 + k]);
   __syncthreads();
-  const double variance = exp(theta[0]);
+  const double variance = SPEC ? 1.0 : exp(theta[0]);
 
   // query coordinates: preprocessed, and scaled by the length scales
   for (int idx = tid; idx < nqb * d; idx += blockDim.x) {
@@ -84,12 +96,17 @@ __global__ void gated_meanvar_kernel(
   // phase 1: k vectors of the block's queries against the n valid rows
   for (int idx = tid; idx < nqb * n; idx += blockDim.x) {
     const int qi = idx / n, j = idx - qi * n;
-    double sq = 0.0;
-    for (int k = 0; k < d; ++k) {
-      const double df = qls[qi * d + k] - X[(size_t)j * d + k] / ls[k];
-      sq += df * df;
+    if constexpr (SPEC) {
+      kv[(size_t)qi * n + j] =
+          gpry_spec_cov(spec, qpre + qi * d, 1, X + (size_t)j * d, 1, d);
+    } else {
+      double sq = 0.0;
+      for (int k = 0; k < d; ++k) {
+        const double df = qls[qi * d + k] - X[(size_t)j * d + k] / ls[k];
+        sq += df * df;
+      }
+      kv[(size_t)qi * n + j] = variance * gpry_k_of_sq(family, sq);
     }
-    kv[(size_t)qi * n + j] = variance * gpry_k_of_sq(family, sq);
   }
   __syncthreads();
 
@@ -120,7 +137,9 @@ __global__ void gated_meanvar_kernel(
 
     if (lane == 0) {
       const int q = q0 + qi;
-      const double var0 = variance - sumsq;
+      const double prior =
+          SPEC ? gpry_spec_diag(spec, qpre + qi * d, 1, d) : variance;
+      const double var0 = prior - sumsq;
       const double var = (var0 < 0.0) ? 0.0 : var0;  // NaN stays NaN
       double mean = gpry_clip(m * y_scale + y_loc, clip_max);
       double std = sqrt(var) * y_scale;
@@ -143,26 +162,28 @@ __global__ void gated_meanvar_kernel(
   }
 }
 
-static size_t gated_meanvar_smem(int n, int d, int Q) {
+static size_t gated_meanvar_smem(const GpryKern& kern, int n, int d, int Q) {
   return sizeof(double) * ((size_t)d + 2 * (size_t)Q * d + (size_t)Q +
-                           (size_t)Q * (size_t)n);
+                           (size_t)Q * (size_t)n + gpry_spec_doubles(kern));
 }
 
 // scal = [y_loc, y_scale, clip_max, svm intercept, svm gamma, y_max]
 extern "C" int gpry_gated_meanvar_logexp(
-    int family, int out_logexp, int nq, int n, int nmax, int nsv, int d,
+    GpryKern kern, int out_logexp, int nq, int n, int nmax, int nsv, int d,
     int Q, const void* Xq_raw, const void* X, const void* alpha,
     const void* L, const void* theta, const void* x_loc,
     const void* x_scale, const void* trust_lo, const void* trust_hi,
     const void* sv, const void* dual, const void* scal, int svm_mode,
     double zeta, double noise_std, void* out0, void* out1, void* stream) {
-  const size_t smem = gated_meanvar_smem(n, d, Q);
-  cudaError_t e = gpry_set_smem(gated_meanvar_kernel, smem);
+  const size_t smem = gated_meanvar_smem(kern, n, d, Q);
+  auto kernel = kern.nodes ? gated_meanvar_kernel<true>
+                           : gated_meanvar_kernel<false>;
+  cudaError_t e = gpry_set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   if (nq <= 0) return 0;
   const dim3 grid((nq + Q - 1) / Q);
-  gated_meanvar_kernel<<<grid, K2_THREADS, smem, (cudaStream_t)stream>>>(
-      family, out_logexp, nq, n, nmax, nsv, d, Q, (const double*)Xq_raw,
+  kernel<<<grid, K2_THREADS, smem, (cudaStream_t)stream>>>(
+      kern, out_logexp, nq, n, nmax, nsv, d, Q, (const double*)Xq_raw,
       (const double*)X, (const double*)alpha, (const double*)L,
       (const double*)theta, (const double*)x_loc, (const double*)x_scale,
       (const double*)trust_lo, (const double*)trust_hi, (const double*)sv,

@@ -47,6 +47,12 @@
 // one wave of warps (8 candidates per 256-thread block) and every round on
 // the device; blocking several candidates per warp against one read of
 // each L row, and a multi-warp append, are the next steps.
+//
+// Spec mode (template SPEC, both kernels): the k vectors come from the
+// interpreter of common.cuh on the preprocessed coordinates; the sweep's
+// prior variance is the candidate's gpry_spec_diag, and the append's k22 is
+// gpry_spec_diag(x_j) + noise(n) (gpry_tpu/acquisition/ranked_pool.py:61,
+// 96-98).
 #include <limits.h>
 
 #include "common.cuh"
@@ -56,14 +62,15 @@
 #define K4_SEL_THREADS 512
 #define K4_SEL_WARPS (K4_SEL_THREADS / 32)
 
+template <bool SPEC>
 __global__ void kb_sweep_kernel(
-    int family, int out_logexp, int N, int nmax, int d, int Q,
+    GpryKern kern, int out_logexp, int N, int nmax, int d, int Q,
     const int* __restrict__ n_dev, const double* __restrict__ Xq_,
     const double* __restrict__ y, const double* __restrict__ Xbuf,
     const double* __restrict__ L, const double* __restrict__ theta,
     const double* __restrict__ scal, double zeta, double noise_std,
     unsigned char* __restrict__ alive, double* __restrict__ out) {
-  // shared layout: ls[d] | qls[Q][d] | kv[Q][nmax]
+  // shared layout: ls[d] | qls[Q][d] | kv[Q][nmax] | spec program (SPEC)
   extern __shared__ double smem[];
   double* ls = smem;
   double* qls = ls + d;
@@ -74,10 +81,16 @@ __global__ void kb_sweep_kernel(
   const int q0 = blockIdx.x * Q;
   const int nqb = min(Q, N - q0);
   const int n = *n_dev;
+  const int family = kern.family;
 
-  for (int k = tid; k < d; k += blockDim.x) ls[k] = exp(theta[1 + k]);
+  GprySpec spec;
+  if constexpr (SPEC)
+    spec = gpry_stage_spec(kv + (size_t)Q * nmax, kern, theta, tid,
+                           blockDim.x);
+  for (int k = tid; k < d; k += blockDim.x)
+    ls[k] = SPEC ? 1.0 : exp(theta[1 + k]);
   __syncthreads();
-  const double variance = exp(theta[0]);
+  const double variance = SPEC ? 1.0 : exp(theta[0]);
   for (int idx = tid; idx < nqb * d; idx += blockDim.x)
     qls[idx] = Xq_[(size_t)q0 * d + idx] / ls[idx % d];
   __syncthreads();
@@ -86,6 +99,11 @@ __global__ void kb_sweep_kernel(
   for (int idx = tid; idx < nqb * n; idx += blockDim.x) {
     const int qi = idx / n, j = idx - qi * n;
     if (!alive[q0 + qi]) continue;
+    if constexpr (SPEC) {
+      kv[(size_t)qi * nmax + j] =
+          gpry_spec_cov(spec, qls + qi * d, 1, Xbuf + (size_t)j * d, 1, d);
+      continue;
+    }
     double sq = 0.0;
     for (int k = 0; k < d; ++k) {
       const double df = qls[qi * d + k] - Xbuf[(size_t)j * d + k] / ls[k];
@@ -107,7 +125,9 @@ __global__ void kb_sweep_kernel(
     double* v = kv + (size_t)qi * nmax;
     const double sumsq = gpry_warp_forward_subst(L, nmax, n, v, lane);
     if (lane == 0) {
-      const double var0 = variance - sumsq;
+      const double prior =
+          SPEC ? gpry_spec_diag(spec, qls + qi * d, 1, d) : variance;
+      const double var0 = prior - sumsq;
       const double var = (var0 < 0.0) ? 0.0 : var0;  // NaN stays NaN
       const double sd = sqrt(var) * y_scale;
       if (out_logexp) {
@@ -131,8 +151,9 @@ __device__ __forceinline__ bool kb_better(double v, int i, double bv,
   return v > bv || (v == bv && i < bi);
 }
 
+template <bool SPEC>
 __global__ void kb_select_kernel(
-    int family, int N, int nmax, int d, int slot, int noise_is_vec,
+    GpryKern kern, int N, int nmax, int d, int slot, int noise_is_vec,
     const double* __restrict__ Xd_raw, const double* __restrict__ Xq_,
     const double* __restrict__ y, const double* __restrict__ sigma,
     const double* __restrict__ acq0, const double* __restrict__ ac,
@@ -142,10 +163,11 @@ __global__ void kb_select_kernel(
     double* __restrict__ outX, double* __restrict__ outY,
     double* __restrict__ outS, double* __restrict__ outA,
     double* __restrict__ outC) {
-  // shared layout: ls[d] | kv[nmax]
+  // shared layout: ls[d] | kv[nmax] | spec program (SPEC)
   extern __shared__ double smem[];
   double* ls = smem;
   double* kv = ls + d;
+  const int family = kern.family;
   __shared__ double red_v[K4_SEL_WARPS];
   __shared__ int red_i[K4_SEL_WARPS];
 
@@ -174,7 +196,11 @@ __global__ void kb_select_kernel(
     red_v[warp] = bv;
     red_i[warp] = bi;
   }
-  for (int k = tid; k < d; k += blockDim.x) ls[k] = exp(theta[1 + k]);
+  GprySpec spec;
+  if constexpr (SPEC)
+    spec = gpry_stage_spec(kv + nmax, kern, theta, tid, blockDim.x);
+  for (int k = tid; k < d; k += blockDim.x)
+    ls[k] = SPEC ? 1.0 : exp(theta[1 + k]);
   __syncthreads();
   bv = red_v[0];
   bi = red_i[0];
@@ -201,8 +227,13 @@ __global__ void kb_select_kernel(
   if (!valid || n >= nmax) return;
 
   // rank-1 Cholesky append of the believer row n
-  const double variance = exp(theta[0]);
+  const double variance = SPEC ? 1.0 : exp(theta[0]);
+  const double* xj = Xq_ + (size_t)j * d;
   for (int t = tid; t < n; t += blockDim.x) {
+    if constexpr (SPEC) {
+      kv[t] = gpry_spec_cov(spec, Xbuf + (size_t)t * d, 1, xj, 1, d);
+      continue;
+    }
     double sq = 0.0;
     for (int k = 0; k < d; ++k) {
       const double df =
@@ -219,7 +250,8 @@ __global__ void kb_select_kernel(
   for (int k = lane; k < d; k += 32)
     Xbuf[(size_t)n * d + k] = Xq_[(size_t)j * d + k];
   if (lane == 0) {
-    const double k22 = variance + (noise_is_vec ? noise[n] : noise[0]);
+    const double prior = SPEC ? gpry_spec_diag(spec, xj, 1, d) : variance;
+    const double k22 = prior + (noise_is_vec ? noise[n] : noise[0]);
     double r = k22 - sumsq;
     r = (r < 1e-12) ? 1e-12 : r;  // NaN stays NaN
     Ln[n] = sqrt(r);
@@ -227,33 +259,34 @@ __global__ void kb_select_kernel(
   }
 }
 
-static size_t kb_sweep_smem(int nmax, int d, int Q) {
-  return sizeof(double) *
-         ((size_t)d + (size_t)Q * d + (size_t)Q * (size_t)nmax);
+static size_t kb_sweep_smem(const GpryKern& kern, int nmax, int d, int Q) {
+  return sizeof(double) * ((size_t)d + (size_t)Q * d +
+                           (size_t)Q * (size_t)nmax + gpry_spec_doubles(kern));
 }
 
 // scal = [y_loc, y_scale, clip_max, svm intercept, svm gamma, y_max]
-extern "C" int gpry_kb_sweep(int family, int out_logexp, int N, int nmax,
+extern "C" int gpry_kb_sweep(GpryKern kern, int out_logexp, int N, int nmax,
                              int d, int Q, const void* n_dev,
                              const void* Xq_, const void* y,
                              const void* Xbuf, const void* L,
                              const void* theta, const void* scal,
                              double zeta, double noise_std, void* alive,
                              void* out, void* stream) {
-  const size_t smem = kb_sweep_smem(nmax, d, Q);
-  cudaError_t e = gpry_set_smem(kb_sweep_kernel, smem);
+  const size_t smem = kb_sweep_smem(kern, nmax, d, Q);
+  auto kernel = kern.nodes ? kb_sweep_kernel<true> : kb_sweep_kernel<false>;
+  cudaError_t e = gpry_set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   if (N <= 0) return 0;
   const dim3 grid((N + Q - 1) / Q);
-  kb_sweep_kernel<<<grid, K4_THREADS, smem, (cudaStream_t)stream>>>(
-      family, out_logexp, N, nmax, d, Q, (const int*)n_dev,
+  kernel<<<grid, K4_THREADS, smem, (cudaStream_t)stream>>>(
+      kern, out_logexp, N, nmax, d, Q, (const int*)n_dev,
       (const double*)Xq_, (const double*)y, (const double*)Xbuf,
       (const double*)L, (const double*)theta, (const double*)scal, zeta,
       noise_std, (unsigned char*)alive, (double*)out);
   return (int)cudaGetLastError();
 }
 
-extern "C" int gpry_kb_select(int family, int N, int nmax, int d, int slot,
+extern "C" int gpry_kb_select(GpryKern kern, int N, int nmax, int d, int slot,
                               int noise_is_vec, const void* Xd_raw,
                               const void* Xq_, const void* y,
                               const void* sigma, const void* acq0,
@@ -261,11 +294,13 @@ extern "C" int gpry_kb_select(int family, int N, int nmax, int d, int slot,
                               const void* noise, void* n_dev, void* Xbuf,
                               void* L, void* outX, void* outY, void* outS,
                               void* outA, void* outC, void* stream) {
-  const size_t smem = sizeof(double) * ((size_t)d + (size_t)nmax);
-  cudaError_t e = gpry_set_smem(kb_select_kernel, smem);
+  const size_t smem = sizeof(double) * ((size_t)d + (size_t)nmax +
+                                        gpry_spec_doubles(kern));
+  auto kernel = kern.nodes ? kb_select_kernel<true> : kb_select_kernel<false>;
+  cudaError_t e = gpry_set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  kb_select_kernel<<<1, K4_SEL_THREADS, smem, (cudaStream_t)stream>>>(
-      family, N, nmax, d, slot, noise_is_vec, (const double*)Xd_raw,
+  kernel<<<1, K4_SEL_THREADS, smem, (cudaStream_t)stream>>>(
+      kern, N, nmax, d, slot, noise_is_vec, (const double*)Xd_raw,
       (const double*)Xq_, (const double*)y, (const double*)sigma,
       (const double*)acq0, (const double*)ac, (unsigned char*)alive,
       (const double*)theta, (const double*)noise, (int*)n_dev,

@@ -37,6 +37,11 @@
 // work is 10-20 evaluations per repeat.  B = 33-66 chains fill a quarter
 // to a half of the 132 SMs.  The operations bound, counting only the sums
 // the chains need, is about a microsecond at B = 66, R = 40 (PERF.md).
+//
+// Spec mode (template SPEC): the staged surrogate holds X as it is plus the
+// spec program, and each evaluation's rows run the interpreter of
+// common.cuh (gpry_block_gated_mean2<true>); the staging kernel then copies
+// X unscaled.
 #include "common.cuh"
 
 #define K6_SHRINKS 30
@@ -46,10 +51,10 @@
 // GX / GSV: X / l / the support vectors are read from the staged copy in
 // global memory (g_xt / g_svt).  Without them the pointers are known to be
 // null, so that the shared-memory path compiles to shared-memory loads.
-template <bool GX, bool GSV>
+template <bool SPEC, bool GX, bool GSV>
 __global__ void __launch_bounds__(GPRY_BLOCK_THREADS)
 ns_slice_chains_kernel(
-    int family, int B, int R, int n, int nsv, int d,
+    GpryKern kern, int B, int R, int n, int nsv, int d,
     const double* __restrict__ x0, const double* __restrict__ lx0,
     const double* __restrict__ lstar_p, const double* __restrict__ chol,
     const double* __restrict__ box_lo, const double* __restrict__ box_hi,
@@ -66,10 +71,11 @@ ns_slice_chains_kernel(
   const int tid = threadIdx.x;
   const int b = blockIdx.x;
   GpryEvalScratch sc;
-  const GprySurrogate s = gpry_stage_surrogate(
-      smem, &sc, family, n, nsv, d, X, alpha, theta, x_loc, x_scale,
+  GprySpec spec;
+  const GprySurrogate s = gpry_stage_surrogate<SPEC>(
+      smem, &sc, kern, n, nsv, d, X, alpha, theta, x_loc, x_scale,
       trust_lo, trust_hi, sv, dual, scal, svm_mode, GX ? g_xt : nullptr,
-      GSV ? g_svt : nullptr);
+      GSV ? g_svt : nullptr, &spec);
   // chain state behind the evaluation scratch: x, e, the box, the uniforms
   double* x = sc.tail;
   double* e = x + d;
@@ -106,7 +112,7 @@ ns_slice_chains_kernel(
     const double w0 = __dadd_rn(__dmul_rn(su[0], 0.9), 0.05);
     double tlo = -w0, thi = __dsub_rn(1.0, w0);
     double v[2];
-    gpry_block_gated_mean2(s, &sc, 3, x, x, e, tlo, thi, lo, hi, v);
+    gpry_block_gated_mean2<SPEC>(s, spec, &sc, 3, x, x, e, tlo, thi, lo, hi, v);
     double l_lo = v[0], l_hi = v[1];
     calls += 2;
     for (int it = 0; it < K6_STEP_OUT; ++it) {
@@ -114,8 +120,9 @@ ns_slice_chains_kernel(
       if (!(up_lo || up_hi)) break;
       if (up_lo) tlo = tlo * 2.0;
       if (up_hi) thi = thi * 2.0;
-      gpry_block_gated_mean2(s, &sc, (up_lo ? 1 : 0) | (up_hi ? 2 : 0), x, x,
-                             e, tlo, thi, lo, hi, v);
+      gpry_block_gated_mean2<SPEC>(s, spec, &sc,
+                                   (up_lo ? 1 : 0) | (up_hi ? 2 : 0), x, x,
+                                   e, tlo, thi, lo, hi, v);
       if (up_lo) l_lo = v[0];
       if (up_hi) l_hi = v[1];
       calls += 2;
@@ -128,7 +135,8 @@ ns_slice_chains_kernel(
     for (int it = 0; it < K6_SHRINKS; ++it) {
       const double t_try =
           __dadd_rn(tlo, __dmul_rn(__dsub_rn(thi, tlo), su[1 + it]));
-      gpry_block_gated_mean2(s, &sc, 1, x, x, e, t_try, t_try, lo, hi, v);
+      gpry_block_gated_mean2<SPEC>(s, spec, &sc, 1, x, x, e, t_try, t_try,
+                                   lo, hi, v);
       calls += 1;
       t = t_try;
       l_new = v[0];
@@ -155,8 +163,9 @@ ns_slice_chains_kernel(
 
 // X / l and the support vectors in the staged (column-major) layout, for a
 // surrogate that does not fit in shared memory; the arithmetic of
-// gpry_stage_surrogate, so that both copies hold the same numbers.
-__global__ void ns_stage_global_kernel(int n, int nsv, int d,
+// gpry_stage_surrogate, so that both copies hold the same numbers (X as it
+// is in spec mode).
+__global__ void ns_stage_global_kernel(int spec, int n, int nsv, int d,
                                        const double* __restrict__ X,
                                        const double* __restrict__ theta,
                                        const double* __restrict__ sv,
@@ -166,7 +175,7 @@ __global__ void ns_stage_global_kernel(int n, int nsv, int d,
   if (xt) {
     for (int idx = i0; idx < n * d; idx += stride) {
       const int j = idx / d, k = idx - j * d;
-      xt[(size_t)k * n + j] = X[idx] / exp(theta[1 + k]);
+      xt[(size_t)k * n + j] = X[idx] / (spec ? 1.0 : exp(theta[1 + k]));
     }
   }
   if (svt) {
@@ -179,29 +188,31 @@ __global__ void ns_stage_global_kernel(int n, int nsv, int d,
 
 // Where K6 keeps the surrogate: 0 all of it in shared memory, 1 the support
 // vectors in global memory, 2 X / l as well.  nsv_eff counts the support
-// vectors of the fitted SVM mode only.
-static int ns_stage_plan(int n, int nsv_eff, int d) {
+// vectors of the fitted SVM mode only; spec the staged program's doubles.
+static int ns_stage_plan(int n, int nsv_eff, int d, size_t spec) {
   const size_t rest = gpry_eval_doubles(d) + 4 * (size_t)d + K6_U;
-  if (sizeof(double) * (gpry_staged_doubles(n, nsv_eff, d) + rest) <=
+  if (sizeof(double) * (gpry_staged_doubles(n, nsv_eff, d, spec) + rest) <=
       GPRY_MAX_SMEM)
     return 0;
-  if (sizeof(double) * (gpry_staged_doubles(n, 0, d) + rest) <= GPRY_MAX_SMEM)
+  if (sizeof(double) * (gpry_staged_doubles(n, 0, d, spec) + rest) <=
+      GPRY_MAX_SMEM)
     return 1;
   return 2;
 }
 
-static size_t ns_smem(int plan, int n, int nsv_eff, int d) {
-  return sizeof(double) * (gpry_staged_doubles(plan == 2 ? 0 : n,
-                                               plan >= 1 ? 0 : nsv_eff, d) +
-                           gpry_eval_doubles(d) + 4 * (size_t)d + K6_U);
+static size_t ns_smem(int plan, int n, int nsv_eff, int d, size_t spec) {
+  return sizeof(double) *
+         (gpry_staged_doubles(plan == 2 ? 0 : n, plan >= 1 ? 0 : nsv_eff, d,
+                              spec) +
+          gpry_eval_doubles(d) + 4 * (size_t)d + K6_U);
 }
 
 // Doubles of global memory K6 needs for a surrogate of n valid rows and
 // nsv support vectors (0 when it fits in shared memory).
-extern "C" size_t gpry_ns_slice_chains_work(int n, int nsv, int d,
-                                            int svm_mode) {
+extern "C" size_t gpry_ns_slice_chains_work(GpryKern kern, int n, int nsv,
+                                            int d, int svm_mode) {
   const int nsv_eff = svm_mode == GPRY_MODE_FITTED ? nsv : 0;
-  const int plan = ns_stage_plan(n, nsv_eff, d);
+  const int plan = ns_stage_plan(n, nsv_eff, d, gpry_spec_doubles(kern));
   return (size_t)d * ((plan == 2 ? (size_t)n : 0) +
                       (plan >= 1 ? (size_t)nsv_eff : 0));
 }
@@ -211,7 +222,7 @@ extern "C" size_t gpry_ns_slice_chains_work(int n, int nsv, int d,
 // calls (B,) int64.  scal as K1's.  work: gpry_ns_slice_chains_work doubles
 // of device memory (may be null when that is 0).
 extern "C" int gpry_ns_slice_chains(
-    int family, int B, int R, int n, int nsv, int d, const void* x0,
+    GpryKern kern, int B, int R, int n, int nsv, int d, const void* x0,
     const void* lx0, const void* lstar, const void* chol, const void* lo,
     const void* hi, const void* nrm, const void* u, const void* X,
     const void* alpha, const void* theta, const void* x_loc,
@@ -221,7 +232,8 @@ extern "C" int gpry_ns_slice_chains(
   if (B <= 0) return 0;
   if (2 * d > GPRY_BLOCK_THREADS) return (int)cudaErrorInvalidValue;
   const int nsv_eff = svm_mode == GPRY_MODE_FITTED ? nsv : 0;
-  const int plan = ns_stage_plan(n, nsv_eff, d);
+  const size_t spec = gpry_spec_doubles(kern);
+  const int plan = ns_stage_plan(n, nsv_eff, d, spec);
   double* g_xt = plan == 2 ? (double*)work : nullptr;
   double* g_svt = plan >= 1 && nsv_eff > 0
                       ? (double*)work + (plan == 2 ? (size_t)d * n : 0)
@@ -231,19 +243,23 @@ extern "C" int gpry_ns_slice_chains(
     const int items = (n > nsv_eff ? n : nsv_eff) * d;
     const int blocks = (items + 255) / 256 < 1024 ? (items + 255) / 256 : 1024;
     ns_stage_global_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
-        n, nsv_eff, d, (const double*)X, (const double*)theta,
+        kern.nodes > 0, n, nsv_eff, d, (const double*)X, (const double*)theta,
         (const double*)sv, g_xt, g_svt);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const size_t smem = ns_smem(plan, n, nsv_eff, d);
-  auto kernel = g_xt    ? ns_slice_chains_kernel<true, true>
-                : g_svt ? ns_slice_chains_kernel<false, true>
-                        : ns_slice_chains_kernel<false, false>;
+  const size_t smem = ns_smem(plan, n, nsv_eff, d, spec);
+  auto kernel =
+      kern.nodes ? (g_xt    ? ns_slice_chains_kernel<true, true, true>
+                    : g_svt ? ns_slice_chains_kernel<true, false, true>
+                            : ns_slice_chains_kernel<true, false, false>)
+                 : (g_xt    ? ns_slice_chains_kernel<false, true, true>
+                    : g_svt ? ns_slice_chains_kernel<false, false, true>
+                            : ns_slice_chains_kernel<false, false, false>);
   cudaError_t err = gpry_set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<B, GPRY_BLOCK_THREADS, smem, (cudaStream_t)stream>>>(
-      family, B, R, n, nsv, d, (const double*)x0, (const double*)lx0,
+      kern, B, R, n, nsv, d, (const double*)x0, (const double*)lx0,
       (const double*)lstar, (const double*)chol, (const double*)lo,
       (const double*)hi, (const double*)nrm, (const double*)u,
       (const double*)X, (const double*)alpha, (const double*)theta,

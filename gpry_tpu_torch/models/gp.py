@@ -10,7 +10,12 @@ The GP surrogate model (port of gpry_tpu/models/gp.py).
   lock-step L-BFGS polish over the autograd LML.
 * The classifier, preprocessing, trust region and upper clip reproduce the
   reference's prediction semantics; the gated sweeps are the K1 / K2 CUDA
-  kernels, the convergence audit's ungated sweeps K5 (``ops.fused``).
+  kernels, the convergence audit's ungated sweeps K5, the full covariance
+  of ``predict(return_cov=True)`` K7 (``ops.fused``).
+* ``kernel`` is the reference's auto-built C() * RBF / Matern (a fast
+  family) or any sklearn-style kernel expression, compiled to a spec tree
+  (``ops.kernels.build_kernel_spec``) that every kernel runs in its spec
+  mode.
 
 The JAX package keeps a float32 search ladder, a float32 NS proposal and a
 float32 ascent for its TPU.  The port takes its CPU branch everywhere: one
@@ -30,11 +35,11 @@ from gpry_tpu_torch.models.classifier import SVM, SVMParams, \
 from gpry_tpu_torch.models.preprocessing import DummyPreprocessor
 from gpry_tpu_torch.ops.fused import gated_mean, gated_meanvar_logexp, \
     meanvar_ungated
-from gpry_tpu_torch.ops.kernels import check_family, make_theta, \
-    theta_bounds_dynamic
+from gpry_tpu_torch.ops.kernels import build_kernel_spec, make_theta, \
+    spec_diag, theta_bounds_dynamic
 from gpry_tpu_torch.ops.lbfgs import minimize_lbfgs_bounded
 from gpry_tpu_torch.ops.linalg import chol_append, factorize, masked_lml, \
-    predict_meanvar
+    predict_meancov, predict_meanvar
 from gpry_tpu_torch.ops.linalg import lml_batch as _lml_batch
 from gpry_tpu_torch.utils.tools import check_and_return_bounds, \
     delta_logp_of_1d_nstd, get_Xnumber, shrink_bounds
@@ -63,7 +68,7 @@ class SurrogateParams:
     are in user coordinates; the GP core works in preprocessed ones.
     ``n`` is a host int; ``scal`` packs the gate scalars for the kernels.
     """
-    theta: torch.Tensor      # (1 + d,) log kernel hyperparameters
+    theta: torch.Tensor      # (p,) log kernel hyperparameters
     X: torch.Tensor          # (nmax, d) transformed training inputs
     y: torch.Tensor          # (nmax,) transformed targets
     n: int                   # number of valid rows
@@ -254,7 +259,7 @@ class GaussianProcessRegressor:
         else:
             self._diff_threshold = np.inf
 
-        # --- kernel (fast path only) -----------------------------------------
+        # --- kernel ---------------------------------------------------------
         self.output_scale_prior = tuple(output_scale_prior)
         self.length_scale_prior = tuple(length_scale_prior)
         if isinstance(kernel, str):
@@ -262,27 +267,39 @@ class GaussianProcessRegressor:
         if not isinstance(kernel, dict) or len(kernel) != 1:
             raise ValueError("'kernel' must be a name or single-key dict.")
         kname = list(kernel)[0]
-        kargs = dict(kernel[kname] or {})
+        kargs = kernel[kname] or {}
         fam = _KERNEL_ALIASES.get(kname.lower())
-        if fam is None or set(kargs) - {"nu", "length_scale"}:
-            check_family((kname,))  # raises: spec trees are not ported
-        if "nu" in kargs:
-            try:
-                fam = _NU_TO_FAMILY[float(kargs.pop("nu"))]
-            except KeyError as excpt:
-                raise ValueError(
-                    "Matern nu must be one of 0.5, 1.5, 2.5.") from excpt
-        self.family = fam
-        # Initial hyperparameters at the geometric mean of the priors
-        # (reference: gpry/gpr.py:352-363), in preprocessed coordinates.
-        out0 = float(np.sqrt(output_scale_prior[0] * output_scale_prior[1]))
-        ls0 = kargs.pop("length_scale", None)
-        if ls0 is None:
-            ls0 = [float(np.sqrt(
-                length_scale_prior[0] * length_scale_prior[1]))] * self.d
-        elif np.isscalar(ls0):
-            ls0 = [float(ls0)] * self.d
-        self._theta = make_theta(out0, ls0, device="cpu").numpy()
+        self._theta_bounds_spec = None
+        if fam is not None and isinstance(kargs, dict) and \
+                not (set(kargs) - {"nu", "length_scale"}):
+            # Fast path: the reference's auto-built C() * RBF|Matern with
+            # ARD length scales (gpry/gpr.py:328-363).
+            kargs = dict(kargs)
+            if "nu" in kargs:
+                try:
+                    fam = _NU_TO_FAMILY[float(kargs.pop("nu"))]
+                except KeyError as excpt:
+                    raise ValueError(
+                        "Matern nu must be one of 0.5, 1.5, 2.5.") from excpt
+            self.family = fam
+            # Initial hyperparameters at the geometric mean of the priors
+            # (reference: gpry/gpr.py:352-363), in preprocessed coordinates.
+            out0 = float(np.sqrt(
+                output_scale_prior[0] * output_scale_prior[1]))
+            ls0 = kargs.pop("length_scale", None)
+            if ls0 is None:
+                ls0 = [float(np.sqrt(
+                    length_scale_prior[0] * length_scale_prior[1]))] * self.d
+            elif np.isscalar(ls0):
+                ls0 = [float(ls0)] * self.d
+            self._theta = make_theta(out0, ls0, device="cpu").numpy()
+        else:
+            # Extended kernel library (gpry_tpu/models/gp.py:380-392): any
+            # sklearn-style kernel expression compiled to a spec tree.
+            spec, theta0, bounds = build_kernel_spec(kernel, self.d)
+            self.family = spec
+            self._theta = np.asarray(theta0)
+            self._theta_bounds_spec = np.asarray(bounds)
         self.bounds_ = self.preprocessing_X.transform_bounds(self.bounds) \
             if hasattr(self.preprocessing_X, "transform_bounds") \
             else self.bounds
@@ -385,7 +402,12 @@ class GaussianProcessRegressor:
 
     @property
     def scales(self):
-        """(output_scale, length_scales) in raw coordinates."""
+        """(output_scale, length_scales) in raw coordinates.  Only defined
+        for the auto-built C()*RBF/Matern kernels."""
+        if isinstance(self.family, tuple):
+            raise ValueError(
+                "'scales' is only defined for the auto-built C()*RBF/Matern"
+                " kernels; inspect 'kernel_theta' for extended kernels.")
         out = float(np.exp(0.5 * self._theta[0]))
         ls = np.exp(self._theta[1:])
         return (self.preprocessing_y.inverse_transform_scale(out),
@@ -395,6 +417,8 @@ class GaussianProcessRegressor:
     @property
     def theta_bounds(self):
         """Log-space hyperparameter optimization bounds."""
+        if self._theta_bounds_spec is not None:
+            return np.asarray(self._theta_bounds_spec)
         widths = None
         if hasattr(self.preprocessing_X, "transform_bounds"):
             b = self.preprocessing_X.transform_bounds(self.bounds)
@@ -877,12 +901,14 @@ class GaussianProcessRegressor:
         """
         Host-facing prediction with reference semantics
         (gpry/gpr.py:1022-1265).  Returns numpy arrays.
+        ``return_cov`` returns the full posterior covariance (raw-y units,
+        ungated, through K7) as the second output beside the gated mean; it
+        is exclusive with return_std and the gradients, as in sklearn.
         """
-        if return_cov:
-            raise NotImplementedError(
-                "predict(return_cov=True) needs predict_meancov, which is "
-                "not ported yet (ROADMAP.md §A, 'predict_meancov and the "
-                "spec trees').")
+        if return_cov and (return_std or return_mean_grad
+                           or return_std_grad):
+            raise ValueError(
+                "return_cov is exclusive with return_std and gradients.")
         X = np.atleast_2d(np.asarray(X, dtype=float))
         if validate:
             if X.ndim != 2 or X.shape[1] != self.d:
@@ -895,8 +921,13 @@ class GaussianProcessRegressor:
             # Not fit: prior mean zero / prior std.
             out = [np.zeros(len(X))]
             if return_std:
-                out.append(np.full(len(X),
-                                   float(np.exp(0.5 * self._theta[0]))))
+                if isinstance(self.family, tuple):
+                    out.append(np.sqrt(spec_diag(
+                        self.family, torch.as_tensor(self._theta),
+                        torch.as_tensor(X)).numpy()))
+                else:
+                    out.append(np.full(len(X),
+                                       float(np.exp(0.5 * self._theta[0]))))
             if return_mean_grad:
                 out.append(np.zeros_like(X))
             if return_std_grad:
@@ -908,6 +939,12 @@ class GaussianProcessRegressor:
                           trust_hi=self._t(np.full(self.d, np.inf)))
         Xd = self._t(X)
         mean, std = surrogate_predict(self.family, p, Xd)
+        if return_cov:
+            Xq_ = ((Xd - p.x_loc) / p.x_scale).contiguous()
+            _, cov_ = predict_meancov(self.family, p.theta, p.X, p.n,
+                                      p.noise_var, p.L, p.alpha, Xq_)
+            cov = cov_.cpu().numpy() * float(p.y_scale) ** 2
+            return mean.cpu().numpy(), cov
         out = [mean.cpu().numpy()]
         if return_std:
             out.append(std.cpu().numpy())

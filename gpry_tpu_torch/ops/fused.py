@@ -26,6 +26,16 @@ versions, and the wrappers that choose between them.
   updates of one nested-sampling step's chains on the gated surrogate, in
   one launch; plain version :func:`ns_slice_chains_plain`, the lock-step
   loop :func:`slice_chains_lockstep` on K1's plain version.
+* K7 ``predict_meancov`` (``csrc/predict_meancov.cu``) replaces
+  ops/linalg.py:172 predict_meancov (``predict(return_cov=True)``); plain
+  version :func:`predict_meancov_plain`.
+
+Every kernel takes the covariance as a fast family (C() * RBF / Matern
+with ARD length scales) or as a kernel spec tree (ops/kernels.py), which
+:func:`encode_spec` turns into a post-order program that the kernels'
+spec mode interprets (``csrc/common.cuh``).  A tree beyond
+``SPEC_MAX_NODES`` nodes or ``SPEC_MAX_STACK`` stack entries raises
+``ValueError`` for CUDA tensors.
 
 A wrapper runs the plain version only when its input tensor lies on the
 CPU.  For a CUDA tensor it launches the kernel or raises: there is no
@@ -33,7 +43,7 @@ fallback.  The kernels are float64-only and forward-only; a CUDA tensor
 that requires grad is refused (the autograd paths call the plain versions
 themselves, as the JAX package differentiated XLA there).
 
-The six sources compile in parallel, one ``nvcc`` per source, and link
+The seven sources compile in parallel, one ``nvcc`` per source, and link
 into a shared library with a plain C interface
 (``_build/libgpry_kernels.so`` inside the package), at first use, and load
 over ``ctypes``.  Every launch goes on PyTorch's
@@ -42,7 +52,8 @@ current stream and is checked with ``cudaGetLastError``.
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made (for K4,
 both of its kernels: one select per round and one sweep per conditioned
 round; for K6 one per call, with the staging kernel that a surrogate too
-large for shared memory needs first).
+large for shared memory needs first; for K7 both of its kernels, two per
+call).  Launches in spec mode count under ``"<name>/spec"``.
 """
 
 import ctypes
@@ -56,25 +67,33 @@ import torch
 
 from gpry_tpu_torch.models.classifier import svm_decision
 from gpry_tpu_torch.ops.kernels import check_family, cross_kernel, \
-    kernel_diag
+    kernel_diag, spec_n_params
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 _SOURCES = ("gated_mean.cu", "gated_meanvar_logexp.cu",
             "masked_kernel_matrix.cu", "kriging_believer_fill.cu",
-            "meanvar_ungated.cu", "ns_slice_chains.cu")
+            "meanvar_ungated.cu", "ns_slice_chains.cu", "predict_meancov.cu")
 _HEADERS = ("common.cuh",)
 _LIB_PATH = os.path.join(_BUILD, "libgpry_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _FAMILY_ID = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3}
+#: spec-program op codes (csrc/common.cuh GPRY_OP_*; the ARD leaves share
+#: the fast families' ids)
+SPEC_OPS = {**_FAMILY_ID, "rq": 4, "expsine": 5, "dotproduct": 6,
+             "white": 7, "constant": 8, "sum": 9, "product": 10, "pow": 11}
+#: the largest spec program and evaluation stack the kernels take
+SPEC_MAX_NODES, SPEC_MAX_STACK = 32, 16
 
-#: launches per kernel made by the wrappers (never by the plain versions)
-LAUNCHES = {"gated_mean": 0, "gated_meanvar_logexp": 0,
-            "masked_kernel_matrix_batched": 0, "kriging_believer_fill": 0,
-            "meanvar_ungated": 0, "ns_slice_chains": 0}
+KERNELS = ("gated_mean", "gated_meanvar_logexp",
+           "masked_kernel_matrix_batched", "kriging_believer_fill",
+           "meanvar_ungated", "ns_slice_chains", "predict_meancov")
+#: launches per kernel made by the wrappers (never by the plain versions),
+#: spec-mode launches under "<name>/spec"
+LAUNCHES = {f"{k}{m}": 0 for k in KERNELS for m in ("", "/spec")}
 
 #: seconds the last build took (None: the library was already built)
 BUILD_SECONDS = None
@@ -98,6 +117,13 @@ NS_SHRINKS = 30
 
 class KernelBuildError(RuntimeError):
     """nvcc is missing or refused the sources."""
+
+
+class _Kern(ctypes.Structure):
+    """``GpryKern`` of csrc/common.cuh, passed by value."""
+    _fields_ = [("family", ctypes.c_int), ("nodes", ctypes.c_int),
+                ("ntheta", ctypes.c_int), ("prog", ctypes.c_void_p),
+                ("expo", ctypes.c_void_p)]
 
 
 def reset_launch_counts():
@@ -175,31 +201,113 @@ def library():
         if _lib is not None:
             return _lib
         lib = ctypes.CDLL(build())
-        P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.gpry_gated_mean.argtypes = [I] * 6 + [P] * 11 \
+        P, I, D, K = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, _Kern
+        lib.gpry_gated_mean.argtypes = [K] + [I] * 5 + [P] * 11 \
             + [I, P, P]
         lib.gpry_gated_mean.restype = I
-        lib.gpry_gated_mean_small_smem.argtypes = [I] * 4
+        lib.gpry_gated_mean_small_smem.argtypes = [K] + [I] * 4
         lib.gpry_gated_mean_small_smem.restype = ctypes.c_size_t
-        lib.gpry_ns_slice_chains.argtypes = [I] * 6 + [P] * 18 + [I] \
-            + [P] * 5
+        lib.gpry_spec_smem_doubles.argtypes = [K]
+        lib.gpry_spec_smem_doubles.restype = ctypes.c_size_t
+        lib.gpry_ns_slice_chains.argtypes = [K] + [I] * 5 + [P] * 18 \
+            + [I] + [P] * 5
         lib.gpry_ns_slice_chains.restype = I
-        lib.gpry_ns_slice_chains_work.argtypes = [I] * 4
+        lib.gpry_ns_slice_chains_work.argtypes = [K] + [I] * 4
         lib.gpry_ns_slice_chains_work.restype = ctypes.c_size_t
-        lib.gpry_gated_meanvar_logexp.argtypes = [I] * 8 + [P] * 12 \
+        lib.gpry_gated_meanvar_logexp.argtypes = [K] + [I] * 7 + [P] * 12 \
             + [I, D, D, P, P, P]
         lib.gpry_gated_meanvar_logexp.restype = I
-        lib.gpry_masked_kernel_matrix.argtypes = [I] * 5 + [P] * 3 \
+        lib.gpry_masked_kernel_matrix.argtypes = [K] + [I] * 4 + [P] * 3 \
             + [I, D, P, P]
         lib.gpry_masked_kernel_matrix.restype = I
-        lib.gpry_kb_sweep.argtypes = [I] * 6 + [P] * 7 + [D, D, P, P, P]
+        lib.gpry_kb_sweep.argtypes = [K] + [I] * 5 + [P] * 7 \
+            + [D, D, P, P, P]
         lib.gpry_kb_sweep.restype = I
-        lib.gpry_kb_select.argtypes = [I] * 6 + [P] * 18
+        lib.gpry_kb_select.argtypes = [K] + [I] * 5 + [P] * 18
         lib.gpry_kb_select.restype = I
-        lib.gpry_meanvar_ungated.argtypes = [I] * 6 + [P] * 11
+        lib.gpry_meanvar_ungated.argtypes = [K] + [I] * 5 + [P] * 11
         lib.gpry_meanvar_ungated.restype = I
+        lib.gpry_predict_meancov.argtypes = [K] + [I] * 5 + [P] * 9
+        lib.gpry_predict_meancov.restype = I
         _lib = lib
         return lib
+
+
+# ---------------------------------------------------------------------------
+# the covariance argument: a fast family or a spec program
+# ---------------------------------------------------------------------------
+
+
+def encode_spec(spec, d):
+    """
+    The post-order program of a kernel spec tree for the kernels' spec
+    mode: ``(ops, offsets, exponents, depth)``, one entry per node (the
+    theta offset of the node's first parameter; the static exponent of a
+    ``pow`` node, else 0), and the evaluation stack depth it needs.
+    Raises ``ValueError`` for a malformed tree, an ARD leaf whose dimension
+    is not ``d``, or a tree beyond ``SPEC_MAX_NODES`` / ``SPEC_MAX_STACK``.
+    """
+    check_family(spec)
+    ops, offs, expo = [], [], []
+
+    def walk(node, off, below):
+        """Append node's program; returns (params used, deepest stack)."""
+        kind = node[0]
+        if kind in ("sum", "product"):
+            n1, d1 = walk(node[1], off, below)
+            n2, d2 = walk(node[2], off + n1, below + 1)
+            used, depth = n1 + n2, max(d1, d2)
+        elif kind == "pow":
+            used, depth = walk(node[1], off, below)
+        else:
+            if kind in _FAMILY_ID and int(node[1]) != d:
+                raise ValueError(f"kernel spec leaf {node!r} does not match "
+                                 f"the data's dimension d={d}.")
+            used, depth = spec_n_params(node), below + 1
+        ops.append(SPEC_OPS[kind])
+        offs.append(off)
+        expo.append(float(node[2]) if kind == "pow" else 0.0)
+        return used, depth
+
+    _, depth = walk(spec, 0, 0)
+    if len(ops) > SPEC_MAX_NODES or depth > SPEC_MAX_STACK:
+        raise ValueError(
+            f"kernel spec of {len(ops)} nodes and stack depth {depth}: the "
+            f"CUDA kernels take at most {SPEC_MAX_NODES} nodes and depth "
+            f"{SPEC_MAX_STACK}.")
+    return ops, offs, expo, depth
+
+
+_KERN_CACHE = {}
+
+
+def _kern(family, d, device):
+    """The ``GpryKern`` argument for ``family`` at dimension ``d``: the
+    fast family's id, or the spec program as int32 / float64 tensors on
+    ``device`` (cached per spec, d and device; the cache keeps the tensors
+    alive)."""
+    if not isinstance(family, tuple):
+        check_family(family)
+        return _Kern(_FAMILY_ID[family], 0, 1 + d, None, None)
+    key = (family, d, str(device))
+    if key not in _KERN_CACHE:
+        ops, offs, expo, _ = encode_spec(family, d)
+        prog = torch.tensor(ops + offs, dtype=torch.int32, device=device)
+        ex = torch.tensor(expo, dtype=torch.float64, device=device)
+        _KERN_CACHE[key] = (_Kern(-1, len(ops), spec_n_params(family),
+                                  prog.data_ptr(), ex.data_ptr()), prog, ex)
+    return _KERN_CACHE[key][0]
+
+
+def _count(name, family, launches=1):
+    LAUNCHES[name + ("/spec" if isinstance(family, tuple) else "")] += \
+        launches
+
+
+def _check_theta(name, kern, theta):
+    if theta.shape[-1] != kern.ntheta:
+        raise ValueError(f"{name}: theta has {theta.shape[-1]} entries per "
+                         f"row, the kernel takes {kern.ntheta}.")
 
 
 # ---------------------------------------------------------------------------
@@ -285,7 +393,7 @@ def meanvar_ungated_plain(family, p, Xq_raw):
     Kq = _cross_masked(family, p, Xq_)
     mean = (Kq @ p.alpha) * p.y_scale + p.y_loc
     V = torch.linalg.solve_triangular(p.L, Kq.T, upper=False)
-    var = torch.exp(p.theta[0]) - torch.sum(V * V, dim=0)
+    var = kernel_diag(family, p.theta, Xq_) - torch.sum(V * V, dim=0)
     return mean, torch.sqrt(torch.clamp_min(var, 0.0)) * p.y_scale
 
 
@@ -316,13 +424,23 @@ def masked_kernel_matrix_plain(family, thetas, X, n, noise_var,
                                rel_jitter=0.0):
     """
     Plain K3 (differentiable in ``thetas``): the padded training covariance
-    ``[[K_valid + (noise + rel_jitter * s2) I, 0], [0, I]]`` for every
-    leading index of ``thetas`` (..., 1 + d).  ``noise_var`` is a scalar or
-    an (nmax,) vector.
+    ``[[K_valid + (noise + rel_jitter * exp(theta[0])) I, 0], [0, I]]`` for
+    every leading index of ``thetas`` (..., p), its diagonal the same-point
+    covariance (``kernel_diag``: a WhiteKernel term enters only there), as
+    gpry_tpu/ops/linalg.py:34.  ``noise_var`` is a scalar or an (nmax,)
+    vector.
     """
     nmax = X.shape[0]
     m = (torch.arange(nmax, device=X.device) < n).to(X.dtype)
-    K = cross_kernel(family, thetas, X, X) * (m[:, None] * m[None, :])
+    K = cross_kernel(family, thetas, X, X)
+    if isinstance(family, tuple):
+        # gpry_tpu/ops/linalg.py:47 restores it for every kernel; a fast
+        # family's k(x, x) is its diagonal already, exactly, but adding the
+        # zero difference reorders the autograd fit's sums, which moves the
+        # fast-family Runner trajectories (ROADMAP.md §C)
+        K = K + torch.diag_embed(kernel_diag(family, thetas, X)
+                                 - torch.diagonal(K, dim1=-2, dim2=-1))
+    K = K * (m[:, None] * m[None, :])
     noise = torch.as_tensor(noise_var, dtype=X.dtype, device=X.device)
     diag = noise.expand(nmax) + \
         rel_jitter * torch.exp(thetas[..., 0])[..., None]
@@ -394,6 +512,23 @@ def kriging_believer_fill_plain(family, p, Xd_raw, y, sigma, acq0, alive0,
         Xbuf[n] = xj_
         n += 1
     return outX, outY, outS, outA, outC
+
+
+def predict_meancov_plain(family, theta, X, n, noise_var, L, alpha, Xq):
+    """
+    Plain K7 (gpry_tpu/ops/linalg.py:172 predict_meancov): the posterior
+    mean and full covariance at ``Xq`` (nq, d), in the GP's (preprocessed)
+    coordinates, given the padded factorization; the covariance's diagonal
+    is the same-point variance ``kernel_diag - |V|^2``.
+    """
+    m = (torch.arange(X.shape[0], device=X.device) < n).to(X.dtype)
+    Kq = cross_kernel(family, theta, Xq, X) * m[None, :]
+    mean = Kq @ alpha
+    V = torch.linalg.solve_triangular(L, Kq.T, upper=False)
+    Kqq = cross_kernel(family, theta, Xq, Xq)
+    Kqq = Kqq + torch.diag(kernel_diag(family, theta, Xq)
+                           - torch.diagonal(Kqq))
+    return mean, Kqq - V.T @ V
 
 
 def slice_chains_lockstep(logl_of, x, lx, lstar, chol, nrm, u):
@@ -480,13 +615,15 @@ def gated_mean(family, p, Xq_raw, _design=None):
     tensors = dict(Xq_raw=Xq_raw, **_gate_tensors(p))
     _check_cuda("gated_mean", Xq_raw.device, **tensors)
     nq, d = Xq_raw.shape
+    kern = _kern(family, d, Xq_raw.device)
+    _check_theta("gated_mean", kern, p.theta)
     out = torch.empty(nq, dtype=torch.float64, device=Xq_raw.device)
     if nq == 0:
         return out
     lib = library()
     nsv = p.svm.sv.shape[0]
     fits = 2 * d <= _BLOCK_THREADS and lib.gpry_gated_mean_small_smem(
-        int(p.n), nsv, d, int(p.svm.mode)) <= _SMEM_MAX
+        kern, int(p.n), nsv, d, int(p.svm.mode)) <= _SMEM_MAX
     if _design not in (None, "block", "tiled"):
         raise ValueError(f"gated_mean: unknown design {_design!r}.")
     if _design == "block" and not fits:
@@ -494,25 +631,27 @@ def gated_mean(family, p, Xq_raw, _design=None):
                          "in shared memory and 2 d <= 128.")
     block = fits if _design is None else _design == "block"
     rc = lib.gpry_gated_mean(
-        _FAMILY_ID[family], int(block), nq, int(p.n), nsv, d,
+        kern, int(block), nq, int(p.n), nsv, d,
         *(_ptr(tensors[k]) for k in (
             "Xq_raw", "X", "alpha", "theta", "x_loc", "x_scale",
             "trust_lo", "trust_hi", "sv", "dual", "scal")),
         int(p.svm.mode), _ptr(out), _stream())
     _raise_on("gated_mean", rc)
-    LAUNCHES["gated_mean"] += 1
+    _count("gated_mean", family)
     return out
 
 
-def _sweep_queries_per_block(nmax, d):
+def _sweep_queries_per_block(nmax, d, kern):
     """Queries per block of the one-warp-per-query sweeps (K2, K4's sweep,
-    K5): one per warp, fewer when nmax-long k vectors of 8 queries do not
-    fit in the default 48 KB of shared memory."""
+    K5, K7's solve): one per warp, fewer when nmax-long k vectors of 8
+    queries (and the spec program) do not fit in the default 48 KB of
+    shared memory."""
     per_q = 8 * (nmax + 2 * d + 1)
-    q = min(_K2_MAX_Q, (_SMEM_DEFAULT - 8 * d) // per_q)
+    fixed = 8 * (d + library().gpry_spec_smem_doubles(kern))
+    q = min(_K2_MAX_Q, (_SMEM_DEFAULT - fixed) // per_q)
     if q >= 1:
         return q
-    if 8 * d + per_q > _SMEM_MAX:
+    if fixed + per_q > _SMEM_MAX:
         raise ValueError(
             f"nmax={nmax} needs more shared memory per query than a Hopper "
             "block has.")
@@ -529,15 +668,17 @@ def gated_meanvar_logexp(family, p, Xq_raw, logexp=None):
     _check_cuda("gated_meanvar_logexp", Xq_raw.device, **tensors)
     nq, d = Xq_raw.shape
     nmax = p.X.shape[0]
+    kern = _kern(family, d, Xq_raw.device)
+    _check_theta("gated_meanvar_logexp", kern, p.theta)
     out0 = torch.empty(nq, dtype=torch.float64, device=Xq_raw.device)
     out1 = out0 if logexp is not None else torch.empty_like(out0)
     if nq == 0:
         return out0 if logexp is not None else (out0, out1)
     zeta, noise_std = (0.0, 0.0) if logexp is None else logexp
-    Q = _sweep_queries_per_block(nmax, d)
+    Q = _sweep_queries_per_block(nmax, d, kern)
     lib = library()
     rc = lib.gpry_gated_meanvar_logexp(
-        _FAMILY_ID[family], int(logexp is not None), nq, int(p.n), nmax,
+        kern, int(logexp is not None), nq, int(p.n), nmax,
         p.svm.sv.shape[0], d, Q,
         *(_ptr(tensors[k]) for k in (
             "Xq_raw", "X", "alpha", "L", "theta", "x_loc", "x_scale",
@@ -545,7 +686,7 @@ def gated_meanvar_logexp(family, p, Xq_raw, logexp=None):
         int(p.svm.mode), float(zeta), float(noise_std), _ptr(out0),
         _ptr(out1), _stream())
     _raise_on("gated_meanvar_logexp", rc)
-    LAUNCHES["gated_meanvar_logexp"] += 1
+    _count("gated_meanvar_logexp", family)
     return out0 if logexp is not None else (out0, out1)
 
 
@@ -560,35 +701,37 @@ def meanvar_ungated(family, p, Xq_raw):
     _check_cuda("meanvar_ungated", Xq_raw.device, **tensors)
     nq, d = Xq_raw.shape
     nmax = p.X.shape[0]
+    kern = _kern(family, d, Xq_raw.device)
+    _check_theta("meanvar_ungated", kern, p.theta)
     mean = torch.empty(nq, dtype=torch.float64, device=Xq_raw.device)
     std = torch.empty_like(mean)
     if nq == 0:
         return mean, std
     lib = library()
     rc = lib.gpry_meanvar_ungated(
-        _FAMILY_ID[family], nq, int(p.n), nmax, d,
-        _sweep_queries_per_block(nmax, d),
+        kern, nq, int(p.n), nmax, d, _sweep_queries_per_block(nmax, d, kern),
         *(_ptr(tensors[k]) for k in (
             "Xq_raw", "X", "alpha", "L", "theta", "x_loc", "x_scale",
             "scal")),
         _ptr(mean), _ptr(std), _stream())
     _raise_on("meanvar_ungated", rc)
-    LAUNCHES["meanvar_ungated"] += 1
+    _count("meanvar_ungated", family)
     return mean, std
 
 
 def masked_kernel_matrix_batched(family, thetas, X, n, noise_var,
                                  rel_jitter=0.0):
     """K3: padded training covariances (R, nmax, nmax) for ``thetas``
-    (R, 1 + d); ``noise_var`` a scalar or an (nmax,) vector."""
+    (R, p); ``noise_var`` a scalar or an (nmax,) vector."""
     check_family(family)
     if X.device.type == "cpu":
         return masked_kernel_matrix_plain(family, thetas, X, n, noise_var,
                                           rel_jitter)
     R = thetas.shape[0]
     nmax, d = X.shape
-    if thetas.shape != (R, d + 1):
-        raise ValueError(f"thetas must be (R, {d + 1}); got "
+    kern = _kern(family, d, X.device)
+    if thetas.shape != (R, kern.ntheta):
+        raise ValueError(f"thetas must be (R, {kern.ntheta}); got "
                          f"{tuple(thetas.shape)}.")
     if R > 65535:
         raise ValueError("masked_kernel_matrix_batched: R > 65535.")
@@ -603,11 +746,11 @@ def masked_kernel_matrix_batched(family, thetas, X, n, noise_var,
         return out
     lib = library()
     rc = lib.gpry_masked_kernel_matrix(
-        _FAMILY_ID[family], R, nmax, int(n), d, _ptr(thetas), _ptr(X),
+        kern, R, nmax, int(n), d, _ptr(thetas), _ptr(X),
         _ptr(noise), int(noise.numel() == nmax), float(rel_jitter),
         _ptr(out), _stream())
     _raise_on("masked_kernel_matrix_batched", rc)
-    LAUNCHES["masked_kernel_matrix_batched"] += 1
+    _count("masked_kernel_matrix_batched", family)
     return out
 
 
@@ -647,6 +790,8 @@ def kriging_believer_fill(family, p, Xd_raw, y, sigma, acq0, alive0, size,
     if alive0.device != dev:
         raise ValueError(f"kriging_believer_fill: 'alive0' is on "
                          f"{alive0.device}, expected {dev}.")
+    kern = _kern(family, d, dev)
+    _check_theta("kriging_believer_fill", kern, p.theta)
     dt = torch.float64
     outX = torch.empty((size, d), dtype=dt, device=dev)
     outY, outS, outA, outC = (torch.empty(size, dtype=dt, device=dev)
@@ -660,33 +805,32 @@ def kriging_believer_fill(family, p, Xd_raw, y, sigma, acq0, alive0, size,
     n_dev = torch.tensor([p.n], dtype=torch.int32, device=dev)
     swept = torch.empty(N, dtype=dt, device=dev)
     zeta, noise_std = (0.0, 0.0) if logexp is None else logexp
-    Q = _sweep_queries_per_block(nmax, d)
-    fam = _FAMILY_ID[family]
+    Q = _sweep_queries_per_block(nmax, d, kern)
     lib = library()
     for i in range(size):
         if i == 0:
             ac = acq0
         else:
             rc = lib.gpry_kb_sweep(
-                fam, int(logexp is not None), N, nmax, d, Q, _ptr(n_dev),
+                kern, int(logexp is not None), N, nmax, d, Q, _ptr(n_dev),
                 _ptr(Xq_), _ptr(y), _ptr(Xbuf), _ptr(L), _ptr(p.theta),
                 _ptr(p.scal), float(zeta), float(noise_std), _ptr(alive),
                 _ptr(swept), _stream())
             _raise_on("kriging_believer_fill (sweep)", rc)
-            LAUNCHES["kriging_believer_fill"] += 1
+            _count("kriging_believer_fill", family)
             if logexp is None:
                 ac = acq_values(y, swept).to(dt).contiguous()
                 alive &= torch.isfinite(ac)
             else:
                 ac = swept
         rc = lib.gpry_kb_select(
-            fam, N, nmax, d, i, int(noise.numel() == nmax), _ptr(Xd_raw),
+            kern, N, nmax, d, i, int(noise.numel() == nmax), _ptr(Xd_raw),
             _ptr(Xq_), _ptr(y), _ptr(sigma), _ptr(acq0), _ptr(ac),
             _ptr(alive), _ptr(p.theta), _ptr(noise), _ptr(n_dev),
             _ptr(Xbuf), _ptr(L), _ptr(outX), _ptr(outY), _ptr(outS),
             _ptr(outA), _ptr(outC), _stream())
         _raise_on("kriging_believer_fill (select)", rc)
-        LAUNCHES["kriging_believer_fill"] += 1
+        _count("kriging_believer_fill", family)
     return outX, outY, outS, outA, outC
 
 
@@ -721,6 +865,8 @@ def ns_slice_chains(family, p, x0, lx0, lstar, chol, nrm, u, lo, hi):
                    chol=chol.contiguous(), lo=lo.contiguous(),
                    hi=hi.contiguous(), nrm=nrm, u=u, **_gate_tensors(p))
     _check_cuda("ns_slice_chains", dev, **tensors)
+    kern = _kern(family, d, dev)
+    _check_theta("ns_slice_chains", kern, p.theta)
     x = torch.empty_like(x0)
     lx = torch.empty_like(lx0)
     calls = torch.empty(B, dtype=torch.int64, device=dev)
@@ -730,11 +876,11 @@ def ns_slice_chains(family, p, x0, lx0, lstar, chol, nrm, u, lo, hi):
     nsv, mode = p.svm.sv.shape[0], int(p.svm.mode)
     # a surrogate too large for shared memory is read from a staged copy
     # in global memory
-    nwork = lib.gpry_ns_slice_chains_work(int(p.n), nsv, d, mode)
+    nwork = lib.gpry_ns_slice_chains_work(kern, int(p.n), nsv, d, mode)
     work = torch.empty(nwork, dtype=torch.float64, device=dev) \
         if nwork else None
     rc = lib.gpry_ns_slice_chains(
-        _FAMILY_ID[family], B, R, int(p.n), nsv, d,
+        kern, B, R, int(p.n), nsv, d,
         *(_ptr(tensors[k]) for k in (
             "x0", "lx0", "lstar", "chol", "lo", "hi", "nrm", "u", "X",
             "alpha", "theta", "x_loc", "x_scale", "trust_lo", "trust_hi",
@@ -742,14 +888,51 @@ def ns_slice_chains(family, p, x0, lx0, lstar, chol, nrm, u, lo, hi):
         mode, ctypes.c_void_p(None if work is None else work.data_ptr()),
         _ptr(x), _ptr(lx), _ptr(calls), _stream())
     _raise_on("ns_slice_chains", rc)
-    LAUNCHES["ns_slice_chains"] += 1
+    _count("ns_slice_chains", family)
     return x, lx, calls
 
 
-__all__ = ["LAUNCHES", "KernelBuildError", "build", "library",
+def predict_meancov(family, theta, X, n, noise_var, L, alpha, Xq):
+    """
+    K7: the posterior mean and full covariance at ``Xq`` (nq, d), in the
+    GP's coordinates (the arguments of :func:`predict_meancov_plain`; ``L``
+    row-major).  Two launches: the solve of every query's column of V,
+    then the tiled ``K(Xq, Xq) - V^T V``.
+    """
+    check_family(family)
+    if Xq.device.type == "cpu":
+        return predict_meancov_plain(family, theta, X, n, noise_var, L,
+                                     alpha, Xq)
+    dev = Xq.device
+    nq, d = Xq.shape
+    nmax = X.shape[0]
+    if tuple(L.shape) != (nmax, nmax):
+        raise ValueError("predict_meancov: L must be (nmax, nmax).")
+    _check_cuda("predict_meancov", dev, Xq=Xq, X=X, alpha=alpha, L=L,
+                theta=theta)
+    kern = _kern(family, d, dev)
+    _check_theta("predict_meancov", kern, theta)
+    mean = torch.empty(nq, dtype=torch.float64, device=dev)
+    cov = torch.empty((nq, nq), dtype=torch.float64, device=dev)
+    if nq == 0:
+        return mean, cov
+    V = torch.empty(nq * int(n), dtype=torch.float64, device=dev)
+    lib = library()
+    rc = lib.gpry_predict_meancov(
+        kern, nq, int(n), nmax, d, _sweep_queries_per_block(nmax, d, kern),
+        _ptr(Xq), _ptr(X), _ptr(alpha), _ptr(L), _ptr(theta), _ptr(V),
+        _ptr(mean), _ptr(cov), _stream())
+    _raise_on("predict_meancov", rc)
+    _count("predict_meancov", family, 2)
+    return mean, cov
+
+
+__all__ = ["KERNELS", "LAUNCHES", "KernelBuildError", "SPEC_MAX_NODES",
+           "SPEC_MAX_STACK", "build", "encode_spec", "library",
            "reset_launch_counts", "gated_mean", "gated_mean_plain",
            "gated_meanvar_logexp", "gated_meanvar_logexp_plain",
            "masked_kernel_matrix_batched", "masked_kernel_matrix_plain",
            "kriging_believer_fill", "kriging_believer_fill_plain",
            "meanvar_ungated", "meanvar_ungated_plain", "ns_slice_chains",
-           "ns_slice_chains_plain", "slice_chains_lockstep"]
+           "ns_slice_chains_plain", "predict_meancov",
+           "predict_meancov_plain", "slice_chains_lockstep"]

@@ -7,7 +7,9 @@ and ``y`` are zero, and the padded kernel matrix is ``[[K_valid, 0],
 [0, I]]`` so its Cholesky factor is ``[[L, 0], [0, I]]``.
 
 The padded matrices come from the K3 kernel (``ops.fused``); the Cholesky
-factorizations and triangular solves are torch.  A lane whose matrix is
+factorizations and triangular solves are torch.  ``predict_meancov`` (the
+mean and full covariance, gpry_tpu/ops/linalg.py:172) is the K7 kernel's
+wrapper, re-exported from ``ops.fused``.  A lane whose matrix is
 not positive definite gives NaN (as JAX's Cholesky does) instead of an
 exception: the callers test for NaN.
 """
@@ -16,8 +18,9 @@ import math
 
 import torch
 
-from gpry_tpu_torch.ops.fused import (masked_kernel_matrix_batched,
-                                      masked_kernel_matrix_plain)
+from gpry_tpu_torch.ops.fused import (  # noqa: F401
+    masked_kernel_matrix_batched, masked_kernel_matrix_plain,
+    predict_meancov)
 from gpry_tpu_torch.ops.kernels import cross_kernel, kernel_diag
 
 

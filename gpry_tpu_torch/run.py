@@ -6,8 +6,10 @@ Same API and loop as the JAX package: initial truth sampling, then
 acquire / evaluate / fit / check-convergence until converged or the budget
 is spent, then a final MC run on the surrogate.  The host runs the outer
 loop, truth evaluation and bookkeeping; GP fits, acquisition and the final
-MC run on the package device (``config.get_device()``) through the K1-K3
-CUDA kernels.
+MC run on the package device (``config.get_device()``) through the CUDA
+kernels of ``ops.fused``, with the reference's auto-built kernel or any
+composite kernel (``gpr={"kernel": {...}}``, run in the kernels' spec
+mode).
 
 The port runs the BatchOptimizer loop (LogExp, CorrectCounter) and the
 NORA loop (CorrectCounter + GaussianKL + TrainAlignment, with the

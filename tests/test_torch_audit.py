@@ -37,6 +37,9 @@ config.set_device("cpu")
 # not oversubscribe the cores
 torch.set_num_threads(1)
 FAMILIES = ("RBF", "Matern12", "Matern32", "Matern52")
+# a composite kernel (spec tree): C() * RBF + WhiteKernel
+SPEC = {"Sum": [{"Product": [{"ConstantKernel": {}}, {"RBF": {}}]},
+                {"WhiteKernel": {"noise_level": 1e-4}}]}
 # Himmelblau's four maxima; the audit fixtures train on the first three
 MODES = np.array([[3.0, 2.0], [-2.805118, 3.131312],
                   [-3.779310, -3.283186], [3.584428, -1.848126]])
@@ -104,7 +107,8 @@ def runner_pair(X, fit=False, seed=4):
 
 
 @pytest.mark.parametrize("noise", ["scalar", "vector"])
-@pytest.mark.parametrize("kernel", FAMILIES)
+@pytest.mark.parametrize("kernel", FAMILIES + (pytest.param(SPEC,
+                                                            id="spec"),))
 def test_meanvar_ungated_plain_matches_jax(kernel, noise):
     """K5's plain version (and the port's sweep entry point) against JAX's
     ``surrogate_mean_std_smooth``: mean within rel 1e-9; std within rel

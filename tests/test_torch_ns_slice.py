@@ -129,7 +129,9 @@ def assert_same(j, t):
 
 @pytest.mark.parametrize("with_inf", [True, False],
                          ids=["svm-fitted", "all-finite"])
-@pytest.mark.parametrize("family", ["rbf", "matern52"])
+@pytest.mark.parametrize("family", ["rbf", "matern52", pytest.param(
+    {"Sum": [{"Product": [{"ConstantKernel": {}}, {"RBF": {}}]},
+             {"WhiteKernel": {"noise_level": 1e-4}}]}, id="spec")])
 def test_plain_chains_match_jax(family, with_inf):
     family, p_j = jax_surrogate(family, with_inf)
     x0, l0, lstar, chol = chain_inputs(family, p_j)

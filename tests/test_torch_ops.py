@@ -23,7 +23,40 @@ config.set_device("cpu")
 # tiny shapes: one intra-op thread, so that parallel test workers do
 # not oversubscribe the cores
 torch.set_num_threads(1)
-FAMILIES = ("rbf", "matern12", "matern32", "matern52")
+FAST = ("rbf", "matern12", "matern32", "matern52")
+# composite kernels (gpry_tpu/ops/kernels.py spec trees): every node kind,
+# and C() * RBF + WhiteKernel
+SPECS = {
+    "spec_all_nodes": lambda d: {"Sum": [
+        {"Product": [{"ConstantKernel": {"constant_value": 1.3}},
+                     {"Exponentiation": {"kernel": {"Matern": {
+                         "nu": 2.5, "length_scale": 0.5}},
+                         "exponent": 2.0}}]},
+        {"Sum": [{"Product": [{"ConstantKernel": {"constant_value": 0.5}},
+                              {"RationalQuadratic": {"alpha": 1.5,
+                                                     "length_scale": 0.5}}]},
+                 {"Sum": [{"ExpSineSquared": {"length_scale": 1.0,
+                                              "periodicity": 3.0}},
+                          {"Sum": [{"DotProduct": {"sigma_0": 0.3}},
+                                   {"WhiteKernel": {"noise_level": 1e-3}}]}
+                          ]}]}]},
+    "spec_c_rbf_white": lambda d: {"Sum": [
+        {"Product": [{"ConstantKernel": {"constant_value": 1.5}},
+                     {"RBF": {"length_scale": [0.3 + 0.1 * i
+                                               for i in range(d)]}}]},
+        {"WhiteKernel": {"noise_level": 1e-3}}]},
+}
+FAMILIES = FAST + tuple(SPECS)
+
+
+def family_theta(name, theta, d):
+    """The kernel argument and theta of a test case: a fast family with the
+    test's ``theta``, or a spec (by name) at its theta0, in ``d``
+    dimensions."""
+    if name in SPECS:
+        spec, theta0, _ = tk.build_kernel_spec(SPECS[name](d), d)
+        return spec, np.asarray(theta0)
+    return name, theta
 
 
 def T(a):
@@ -50,7 +83,8 @@ def test_cross_kernel_and_diag(family):
     rng = np.random.default_rng(0)
     X1, X2 = rng.uniform(-1, 2, (13, 4)), rng.uniform(-1, 2, (7, 4))
     X2[0] = X1[0]  # r = 0: the Matern square root must stay zero-safe
-    theta = np.log([1.7, 0.5, 0.8, 1.3, 2.0])
+    family, theta = family_theta(family, np.log([1.7, 0.5, 0.8, 1.3, 2.0]),
+                                 4)
     K_j = np.asarray(jk.cross_kernel(family, J(theta), J(X1), J(X2)))
     K_t = tk.cross_kernel(family, T(theta), T(X1), T(X2)).numpy()
     np.testing.assert_allclose(K_t, K_j, rtol=1e-12, atol=0)
@@ -73,15 +107,21 @@ def test_make_theta_and_bounds():
 
 
 def test_spec_trees_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.cross_kernel(("rbf", 2), T([0.0, 0.0, 0.0]), T(np.zeros((2, 2))),
-                        T(np.zeros((2, 2))))
+    """Spec trees run (tests/test_torch_spec.py); a node that is not a
+    spec node is refused."""
+    for bad in (("rbf3", 2), ("sum", ("white",)), ("pow", ("white",), "x")):
+        with pytest.raises(ValueError):
+            tk.cross_kernel(bad, T([0.0, 0.0, 0.0]), T(np.zeros((2, 2))),
+                            T(np.zeros((2, 2))))
+        with pytest.raises(ValueError):
+            tk.check_family(bad)
 
 
 @pytest.mark.parametrize("family", FAMILIES)
 @pytest.mark.parametrize("noise", ["scalar", "vector"])
 def test_masked_kernel_matrix_k3_plain(family, noise):
     X, y, n, theta, nv = padded_problem(1, noise=noise)
+    family, theta = family_theta(family, theta, 3)
     thetas = np.stack([theta, theta + 0.3, theta - 0.2])
     for rel_jitter in (0.0, 1e-5):
         K_t = fused.masked_kernel_matrix_batched(
@@ -98,6 +138,7 @@ def test_masked_kernel_matrix_k3_plain(family, noise):
 @pytest.mark.parametrize("family", FAMILIES)
 def test_factorize(family):
     X, y, n, theta, nv = padded_problem(2)
+    family, theta = family_theta(family, theta, 3)
     L_t, a_t = tl.factorize(family, T(theta), T(X), T(y), n, T(nv))
     L_j, a_j = jl.factorize(family, J(theta), J(X), J(y), n, nv)
     np.testing.assert_allclose(L_t.numpy(), np.asarray(L_j), rtol=1e-10,
@@ -149,6 +190,7 @@ def test_chol_append_non_pd_gives_nan():
 @pytest.mark.parametrize("family", FAMILIES)
 def test_masked_lml_and_lml_batch(family):
     X, y, n, theta, nv = padded_problem(5)
+    family, theta = family_theta(family, theta, 3)
     rng = np.random.default_rng(5)
     thetas = theta + rng.uniform(-1, 1, (6, len(theta)))
     thetas[-1, 0] = -40.0  # tiny variance: still PD through the noise
@@ -171,6 +213,7 @@ def test_lml_non_pd_lane_is_nan():
 @pytest.mark.parametrize("family", FAMILIES)
 def test_predict_mean_and_meanvar(family):
     X, y, n, theta, nv = padded_problem(7)
+    family, theta = family_theta(family, theta, 3)
     L, a = tl.factorize(family, T(theta), T(X), T(y), n, T(nv))
     Lj, aj = jl.factorize(family, J(theta), J(X), J(y), n, nv)
     Xq = np.random.default_rng(7).uniform(-0.2, 1.2, (30, 3))

@@ -123,8 +123,6 @@ def test_default_device_without_cuda_raises():
      "load_checkpoint": "overwrite"},
     {"options": {"audit": False}, "mc": "polychord"},
     {"options": {"audit": False}, "truth_executor": "processes"},
-    {"options": {"audit": False}, "gpr": {"kernel": {"RationalQuadratic":
-                                                     {}}}},
     {"options": {"audit": False}, "mc": "cobaya_mcmc"},
     {"options": {"audit": False},
      "gp_acquisition": {"BatchOptimizer": {"acq_optimizer": "sampling"}}},
