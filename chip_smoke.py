@@ -2,16 +2,19 @@
 """
 Drive gpry_tpu_torch once on one CUDA card.
 
-1. Build the seven CUDA kernels (K1 gated_mean, K2 gated_meanvar_logexp,
+1. Build the nine CUDA kernels (K1 gated_mean, K2 gated_meanvar_logexp,
    K3 masked_kernel_matrix_batched, K4 kriging_believer_fill, K5
-   meanvar_ungated, K6 ns_slice_chains, K7 predict_meancov) from
-   ``gpry_tpu_torch/csrc``, one nvcc per source, all at once.
+   meanvar_ungated, K6 ns_slice_chains, K7 predict_meancov, K8
+   meanstd_grad, K9 lbfgs_logexp_ascent) from ``gpry_tpu_torch/csrc``, one
+   nvcc per source, all at once.
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes of the main paths (d = 8, n = 224 valid rows in a bucket of
    nmax = 320; K1 at nq = 16, 66, 2,000, 16,384 and 65,536 in both of
    its designs, K2 at nq = 3,200, K3 at R = 2,048, K4 at N = 4,096 candidates
    and a pool of 8, K5 at the audit screen's nq = 4,096, K6 at the NS's
-   B = 66 and 33 chains of 40 repeats, K7 at nq = 1, 64 and 1,024; K1 and
+   B = 66 and 33 chains of 40 repeats, K7 and K8 at nq = 1, 64 and 1,024,
+   K9 at 8 restart lanes, lane 0 on a training point, with no upper
+   clip and with one that binds at half of the starts; K1 and
    K6 with the SVM fitted and all finite), for the four fast families and,
    in each kernel's spec mode, for a composite kernel with every node kind
    (ALL_NODES); time both with CUDA events (K1 and K6 also by their
@@ -20,9 +23,11 @@ Drive gpry_tpu_torch once on one CUDA card.
    FP64 peak and its bytes over 3.35 TB/s.  K1's and K6's operations count
    only the sums their inputs need: the SVM decision of a point inside the
    trust box (and K6's prior box), the GP mean only where that decision
-   is finite, over the points K6's chains must evaluate.
-3. Drive seven paths, each with the launch counts set to 0 just before it
-   and read just after, and check that each launched its kernels, that
+   is finite, over the points K6's chains must evaluate; K9's the sums
+   of the evaluations its plain version makes (its iterations and nev).
+3. Drive eight paths, each with the launch counts set to 0 just before it
+   and read just after, and check that each launched its kernels (K9 once
+   per believer step on paths a, f and h), that
    K1's launches on paths a, b, c and e are below 1% of what the
    lock-step nested sampler made there (LOCKSTEP_K1_LAUNCHES), and print
    the seconds each path spent in nested sampling:
@@ -31,7 +36,9 @@ Drive gpry_tpu_torch once on one CUDA card.
       ``generate_mc_sample()`` on the 8-dimensional correlated Gaussian
       of ``tests/model_generator.py`` (converged, KL(sample || truth)
       <= 0.05), then ``predict(X, return_cov=True)`` at 1,024 prior
-      draws (K7; its diagonal against ``return_std``);
+      draws (K7; its diagonal against ``return_std``) and
+      ``predict(X, return_std=True, return_mean_grad=True,
+      return_std_grad=True)`` at the same draws (K8);
    b. bench.py's NORA operating point (d = 8, N = 224): 1 warm-up and 2
       timed iterations of a 26-restart fit, ``force_resample()`` and
       ``multi_add(n_points=8)``;
@@ -50,8 +57,12 @@ Drive gpry_tpu_torch once on one CUDA card.
       in spec mode (converged, KL <= 0.05; truth evals beside the JAX
       package's at the same seed, JAX_SPEC_EVALS);
    g. on f's surrogate: ``predict(X, return_cov=True)`` at 1,024 prior
-      draws (its diagonal against ``return_std``), then one NORA
-      ``multi_add(n_points=8)`` (K7 and K4 in spec mode).
+      draws (its diagonal against ``return_std``) and the gradients of
+      path a (K8 in spec mode), then one NORA
+      ``multi_add(n_points=8)`` (K7 and K4 in spec mode);
+   h. bench.py's BatchOptimizer operating point (d = 8, N = 224): 1
+      warm-up and 2 timed iterations of a 26-restart fit and
+      ``BatchOptimizer(...).multi_add(n_points=8)`` (K9 at n = 224).
 
 Prints the card's ``nvidia-smi`` name and power limit, a JSON line with the
 kernel results (spec-mode rows named "<kernel>/spec"), and as the last line
@@ -62,6 +73,7 @@ the contract line ``{"ok": true, "device": {...}}``.  Any failure raises
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -83,6 +95,13 @@ NQ_COV, TOL_COV_DIAG = 1024, 1e-9
 TOL_K5, TOL_K5_SIGMA = 1e-10, 1e-7
 # K5 at the audit screen
 NQ_SCREEN = 4096
+# K8: mean and std within rel TOL_K8, both gradients within TOL_K8_GRAD of
+# their max |.|
+TOL_K8, TOL_K8_GRAD = 1e-10, 1e-8
+# K9 per lane: x within TOL_K9_X of the box width, f within
+# TOL_K9_F (1 + |f|); step for step (the same nev) over K9_STEPS
+# iterations
+TOL_K9_X, TOL_K9_F, K9_STEPS = 1e-7, 1e-9, 3
 # the JAX package's truth evals to convergence on path e's run
 # (benchmarks/results_nongaussian.json, Himmelblau seed 100)
 JAX_HIMMELBLAU_EVALS = 61
@@ -131,6 +150,10 @@ SOURCES = {
                         "gpry_tpu/mc/nested.py:51"),
     "predict_meancov": ("gpry_tpu_torch/csrc/predict_meancov.cu",
                         "gpry_tpu/ops/linalg.py:172"),
+    "meanstd_grad": ("gpry_tpu_torch/csrc/meanstd_grad.cu",
+                     "gpry_tpu/models/gp.py:1272"),
+    "lbfgs_logexp_ascent": ("gpry_tpu_torch/csrc/lbfgs_logexp_ascent.cu",
+                            "gpry_tpu/acquisition/batch_optimizer.py:78"),
 }
 # K6 at the NS steps of the main paths: nlive 400 (final NS) and 200
 # (NORA), num_repeats 40
@@ -143,7 +166,8 @@ LOCKSTEP_K1_LAUNCHES = {"batchoptimizer": 284164, "nora_bench": 199803,
 PATH_KERNELS = {
     "batchoptimizer": ("gated_mean", "gated_meanvar_logexp",
                        "masked_kernel_matrix_batched", "meanvar_ungated",
-                       "ns_slice_chains", "predict_meancov"),
+                       "ns_slice_chains", "predict_meancov", "meanstd_grad",
+                       "lbfgs_logexp_ascent"),
     "nora_bench": ("gated_mean", "gated_meanvar_logexp",
                    "masked_kernel_matrix_batched", "kriging_believer_fill",
                    "ns_slice_chains"),
@@ -157,9 +181,17 @@ PATH_KERNELS = {
                          "ns_slice_chains"),
     "spec_runner": ("gated_mean/spec", "gated_meanvar_logexp/spec",
                     "masked_kernel_matrix_batched/spec",
-                    "meanvar_ungated/spec", "ns_slice_chains/spec"),
-    "spec_cov_nora": ("predict_meancov/spec", "kriging_believer_fill/spec"),
+                    "meanvar_ungated/spec", "ns_slice_chains/spec",
+                    "lbfgs_logexp_ascent/spec"),
+    "spec_cov_nora": ("predict_meancov/spec", "kriging_believer_fill/spec",
+                      "meanstd_grad/spec"),
+    "bo_bench": ("gated_meanvar_logexp", "masked_kernel_matrix_batched",
+                 "lbfgs_logexp_ascent"),
 }
+# the paths whose BatchOptimizer must launch K9 once per believer step
+BELIEVER_PATHS = {"batchoptimizer": "lbfgs_logexp_ascent",
+                  "spec_runner": "lbfgs_logexp_ascent/spec",
+                  "bo_bench": "lbfgs_logexp_ascent"}
 
 
 def log(msg):
@@ -821,8 +853,198 @@ def check_k7(dev, rng, families, timed):
     return row
 
 
+def grad_row_flops(family):
+    """FP64 operations of one training row's gradient contribution
+    dk(x, X_j)/dx weighted twice (alpha_j and w_j): for a fast family r^2
+    again and dk/d(r^2) (3 D + 3) and two multiply-adds per coordinate;
+    in spec mode the forward mode carries D partials beside each value
+    ((1 + D) pair_flops)."""
+    if not is_spec(family):
+        return 3 * D + 3 + 5 * D
+    return (1 + D) * pair_flops(family) + 4 * D
+
+
+def check_k8(dev, rng, families, timed):
+    """K8 against its plain version (autograd) at nq = 1, 64 and NQ_COV,
+    the first queries on training points: mean and std within rel TOL_K8,
+    both gradients within TOL_K8_GRAD of their max |.|; its mean and std
+    also against K5's on the same points (the mean within rel TOL_K8, the
+    std within K5's absolute TOL_K5_SIGMA sqrt(sigma^2) y_scale)."""
+    import torch
+    from gpry_tpu_torch.ops import fused
+    from gpry_tpu_torch.ops.kernels import kernel_diag
+    worst = 0.0
+    row = {}
+    for fam in families:
+        label = "spec" if is_spec(fam) else fam
+        p = synthetic_surrogate(fam, dev, seed=17)
+        for nq in (1, 64, NQ_COV):
+            Xq = torch.as_tensor(rng.uniform(-5, 5, (nq, D)),
+                                 dtype=torch.float64, device=dev)
+            Xq[:min(nq, 32)] = p.X[:min(nq, 32)] * p.x_scale + p.x_loc
+            out = fused.meanstd_grad(fam, p, Xq)
+            ref = fused.meanstd_grad_plain(fam, p, Xq)
+            m5, s5 = fused.meanvar_ungated(fam, p, Xq)
+            sync()
+            errs = []
+            for what, a, b, tol in zip(("mean", "std", "dmean", "dstd"),
+                                       out, ref, (TOL_K8, TOL_K8,
+                                                  TOL_K8_GRAD,
+                                                  TOL_K8_GRAD)):
+                err, rel = rel_err(a.reshape(-1), b.reshape(-1))
+                errs.append(f"{what} rel {rel:.3e}")
+                if not rel <= tol:
+                    raise AssertionError(f"K8 {label} nq={nq} {what}: rel "
+                                         f"{rel} > {tol}")
+                worst = max(worst, err)
+            _, rel_m5 = rel_err(out[0], m5)
+            err_s5 = float(torch.max(torch.abs(out[1] - s5)))
+            prior = kernel_diag(fam, p.theta, (Xq - p.x_loc) / p.x_scale)
+            tol_s5 = TOL_K5_SIGMA * float(torch.sqrt(prior.max())
+                                          * p.y_scale)
+            log(f"[K8] {label:8s} nq={nq:5d}: " + "; ".join(errs)
+                + f"; against K5: mean rel {rel_m5:.3e}, std abs "
+                f"{err_s5:.3e} (tol {tol_s5:.3e})")
+            if not (rel_m5 <= TOL_K8 and err_s5 <= tol_s5):
+                raise AssertionError(f"K8 {label} nq={nq}: against K5 mean "
+                                     f"rel {rel_m5}, std abs {err_s5}")
+            if fam == timed and nq == NQ_COV:
+                ms = time_ms(lambda: fused.meanstd_grad(fam, p, Xq), 20)
+                plain = time_ms(
+                    lambda: fused.meanstd_grad_plain(fam, p, Xq), 5)
+                log(f"[K8] {label} nq={nq}: kernel {ms:.4f} ms, plain "
+                    f"{plain:.4f} ms")
+                row = {"ms": ms, "plain_ms": plain}
+    nq = NQ_COV
+    row.update({"max_abs_err": worst,
+                "shape": f"nq={nq} n={N} nmax={NMAX} d={D}"})
+    # per query: k and k . alpha, the two substitutions (n^2 / 2
+    # multiply-adds each), each row's gradient; bytes: the queries, the
+    # training rows, alpha, the valid triangle of L, the four outputs
+    row.update(bound(
+        nq * (N * (pair_flops(timed) + 2) + 2 * N * N
+              + N * grad_row_flops(timed)),
+        8 * (nq * D + N * D + N + N * (N + 1) // 2 + nq * (2 + 2 * D))))
+    return row
+
+
+def k9_inputs(family, dev, seed, clip=False):
+    """K9's arguments at the main paths' believer step: the synthetic
+    surrogate with a classifier that has seen no -inf, no trust box and no
+    upper clip (the ascent runs on the smooth surrogate; the synthetic clip
+    at the 90% quantile of the mean would flatten the centre of the box,
+    where a run's clip sits above its data), 8 restarts in the prior box
+    [-5, 5]^D, lane 0 on the last training point (as multi_add places
+    it), LogExp's zeta at D and a noise std of 0.01.  With ``clip``, an
+    upper clip at the median of the mean at the 8 starts: 4 lanes start
+    above it, where min(mean, clip_max) passes no gradient."""
+    import torch
+    from gpry_tpu_torch.ops import fused
+    p = synthetic_surrogate(family, dev, seed=18, svm="all_finite")
+    inf = torch.full((D,), torch.inf, dtype=torch.float64, device=dev)
+    p = p.replace(clip_max=torch.tensor(torch.inf, dtype=torch.float64,
+                                        device=dev),
+                  trust_lo=-inf, trust_hi=inf)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lo = torch.full((D,), -5.0, dtype=torch.float64, device=dev)
+    x0s = torch.rand((8, D), generator=gen, dtype=torch.float64,
+                     device=dev) * 10.0 - 5.0
+    x0s[0] = p.X[N - 1] * p.x_scale + p.x_loc
+    if clip:
+        mu0 = fused.meanvar_ungated_plain(family, p, x0s)[0]
+        p = p.replace(clip_max=torch.quantile(mu0, 0.5))
+    return p, (D ** -0.85, 0.01, x0s, lo, -lo)
+
+
+def check_k9(dev, families, timed):
+    """K9 against its plain version lane by lane on 8 restarts at d = D,
+    n = N (lane 0 on a training point), with no upper clip and with one
+    that binds at half of the starts (k9_inputs): step for step over
+    K9_STEPS iterations, the same nev, x within TOL_K9_X of the box width
+    and f within TOL_K9_F (1 + |f|) per lane.  With no clip also to the
+    end (maxiter 100): the same per-lane tolerances on x and f, and the
+    pick (the largest gated rescore of the endpoints, K2) within
+    TOL_K9_F (1 + |v|).  nev at the end is reported, not compared: near an
+    optimum the stall test and the last line search decide on rounding
+    that the kernel and the plain version do not share.  ``timed`` is
+    timed, and its bound counts the sums of the evaluations its plain
+    version makes: 1 + iterations value-and-gradient calls per lane, the
+    rest of its nev probes."""
+    import torch
+    from gpry_tpu_torch.ops import fused
+    worst = 0.0
+    row = {}
+    for fam, clip in ((fam, clip) for fam in families
+                      for clip in (False, True)):
+        label = ("spec" if is_spec(fam) else fam) + (" clip" if clip else "")
+        p, args = k9_inputs(fam, dev, seed=19, clip=clip)
+        zeta, noise, x0s, lo, hi = args
+        width = float(torch.max(hi - lo))
+        xs, f, nev = fused.lbfgs_logexp_ascent(fam, p, *args,
+                                               maxiter=K9_STEPS)
+        xr, fr, nevr = fused.lbfgs_logexp_ascent_plain(fam, p, *args,
+                                                       maxiter=K9_STEPS)
+        sync()
+        err_x = float(torch.max(torch.abs(xs - xr)))
+        err_f = float(torch.max(torch.abs(f - fr) / (1 + torch.abs(fr))))
+        log(f"[K9] {label:12s}: over {K9_STEPS} iterations nev "
+            f"{nev.tolist()} (plain {nevr.tolist()}), x max abs err "
+            f"{err_x:.3e}, f rel {err_f:.3e}")
+        if not (nev.tolist() == nevr.tolist() and err_x <= TOL_K9_X * width
+                and err_f <= TOL_K9_F):
+            raise AssertionError(f"K9 {label}: after {K9_STEPS} iterations "
+                                 f"nev {nev.tolist()} against "
+                                 f"{nevr.tolist()}, x {err_x}, f {err_f}")
+        worst = max(worst, err_x, float(torch.max(torch.abs(f - fr))))
+        if clip:
+            continue
+        xs, f, nev = fused.lbfgs_logexp_ascent(fam, p, *args)
+        t0 = time.perf_counter()
+        xr, fr, nevr, iters = fused.lbfgs_logexp_ascent_plain(
+            fam, p, *args, return_iters=True)
+        sync()
+        plain_once = 1e3 * (time.perf_counter() - t0)
+        err_x = float(torch.max(torch.abs(xs - xr)))
+        err_f = torch.abs(f - fr) / (1 + torch.abs(fr))
+        vk = fused.gated_meanvar_logexp(fam, p, xs, logexp=(zeta, noise))
+        vr = fused.gated_meanvar_logexp(fam, p, xr, logexp=(zeta, noise))
+        pick_k, pick_r = float(vk.max()), float(vr.max())
+        err_pick = abs(pick_k - pick_r) / (1 + abs(pick_r))
+        log(f"[K9] {label:12s}: to the end x max abs err {err_x:.3e} (tol "
+            f"{TOL_K9_X * width:.1e}), f rel {float(err_f.max()):.3e}, pick "
+            f"rel {err_pick:.3e}; nev {nev.tolist()} (plain "
+            f"{nevr.tolist()})")
+        if not (err_x <= TOL_K9_X * width and bool(torch.all(
+                err_f <= TOL_K9_F)) and err_pick <= TOL_K9_F
+                and math.isfinite(pick_k)):
+            raise AssertionError(f"K9 {label}: x {err_x}, f "
+                                 f"{float(err_f.max())} or pick "
+                                 f"{err_pick} beyond tolerance")
+        worst = max(worst, err_x, float(torch.max(torch.abs(f - fr))))
+        if fam == timed:
+            ms = time_ms(lambda: fused.lbfgs_logexp_ascent(fam, p, *args),
+                         10)
+            n_vg = int((1 + iters).sum())
+            n_probe = int((nevr - 1 - iters).sum())
+            probe = N * (pair_flops(fam) + 2) + N * N
+            vg = probe + N * N + N * grad_row_flops(fam)
+            log(f"[K9] {label}: kernel {ms:.4f} ms, plain {plain_once:.1f} "
+                f"ms; {n_vg} value-and-gradient calls and {n_probe} probes "
+                "in the plain run")
+            row = {"ms": ms, "plain_ms": plain_once,
+                   "nev": nev.tolist(), "nev_plain": nevr.tolist(),
+                   "value_grad_calls": n_vg, "probes": n_probe}
+            R = x0s.shape[0]
+            row.update(bound(n_vg * vg + n_probe * probe,
+                             8 * (R * D + 2 * D + N * D + N
+                                  + N * (N + 1) // 2 + R * (D + 2))))
+    row.update({"max_abs_err": worst,
+                "shape": f"R=8 n={N} nmax={NMAX} d={D} maxiter=100"})
+    return row
+
+
 def check_kernels(dev):
-    """Compare K1-K7 with their plain versions, the fast families and the
+    """Compare K1-K9 with their plain versions, the fast families and the
     ALL_NODES spec; returns per-kernel rows (spec mode as "<name>/spec")."""
     import numpy as np
     import torch
@@ -844,6 +1066,8 @@ def check_kernels(dev):
             [("fitted", 66), ("all_finite", 33)]
         rows["ns_slice_chains" + sfx] = check_k6(dev, fams, timed, configs)
         rows["predict_meancov" + sfx] = check_k7(dev, rng, fams, timed)
+        rows["meanstd_grad" + sfx] = check_k8(dev, rng, fams, timed)
+        rows["lbfgs_logexp_ascent" + sfx] = check_k9(dev, fams, timed)
         torch.cuda.empty_cache()
         log(f"[CHECKS] {'spec' if sfx else 'fast families'}: "
             f"{time.perf_counter() - t0:.1f} s")
@@ -955,10 +1179,41 @@ def check_cov(label, gpr, seed):
     return summary
 
 
+def check_grad(label, gpr, seed):
+    """``predict(X, return_std=True, return_mean_grad=True,
+    return_std_grad=True)`` at NQ_COV prior draws (K8): finite gradients
+    of shape (NQ_COV, d), the mean and std those of ``return_std``.
+    Returns the summary."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    b = gpr.bounds
+    X = rng.uniform(b[:, 0], b[:, 1], (NQ_COV, b.shape[0]))
+    t0 = time.perf_counter()
+    mean, std, g_mean, g_std = gpr.predict(
+        X, return_std=True, return_mean_grad=True, return_std_grad=True)
+    sync()
+    t_grad = time.perf_counter() - t0
+    mean_s, std_s = gpr.predict(X, return_std=True)
+    summary = {"nq": NQ_COV, "predict_grad_s": t_grad,
+               "max_abs_mean_grad": float(np.max(np.abs(g_mean))),
+               "max_abs_std_grad": float(np.max(np.abs(g_std)))}
+    log(f"[{label}] predict(return_mean_grad, return_std_grad): "
+        + json.dumps(summary))
+    if g_mean.shape != X.shape or g_std.shape != X.shape or \
+            not (np.all(np.isfinite(g_mean)) and np.all(np.isfinite(g_std))):
+        raise AssertionError(f"{label}: malformed gradients")
+    if not (np.array_equal(mean, mean_s, equal_nan=True)
+            and np.array_equal(std, std_s)):
+        raise AssertionError(f"{label}: the gradient call's mean and std "
+                             "are not return_std's")
+    return summary
+
+
 def run_default_with_cov():
-    """Path a: the default Runner, then K7 on its surrogate."""
+    """Path a: the default Runner, then K7 and K8 on its surrogate."""
     runner, sample, summary = run_runner("SLICE")
     summary["cov"] = check_cov("SLICE", runner.gpr, seed=21)
+    summary["grad"] = check_grad("SLICE", runner.gpr, seed=21)
     return summary
 
 
@@ -976,12 +1231,13 @@ def run_spec_runner():
 
 
 def run_spec_cov_nora(runner):
-    """Path g on f's surrogate: K7 in spec mode, then one NORA
+    """Path g on f's surrogate: K7 and K8 in spec mode, then one NORA
     ``multi_add(n_points=8)`` (its ranked pool: K4 in spec mode)."""
     import numpy as np
     from gpry_tpu_torch.acquisition import NORA
     gpr = runner.gpr
-    summary = {"cov": check_cov("SPEC-COV", gpr, seed=22)}
+    summary = {"cov": check_cov("SPEC-COV", gpr, seed=22),
+               "grad": check_grad("SPEC-COV", gpr, seed=22)}
     acq = NORA(gpr.bounds, rng=np.random.default_rng(2), verbose=1)
     t0 = time.perf_counter()
     Xn, _, vals = acq.multi_add(gpr, n_points=D)
@@ -1006,23 +1262,31 @@ def bench_data(seed=0):
     return bounds, X, y
 
 
-def run_nora_bench(n_timed=2):
-    """bench.py's NORA operating point on the port (bench.py:52-92): a
-    26-restart fit, ``force_resample()`` and ``multi_add(n_points=8)``,
-    once to warm up and ``n_timed`` times timed."""
+def run_bench(engine, n_timed=2):
+    """bench.py's operating point on the port (bench.py:52-92) for
+    ``engine`` "nora" (path b: ``force_resample()`` before each
+    ``multi_add``) or "batchoptimizer" (path h: ``BatchOptimizer(...,
+    random_state=1)``, ``multi_add(..., rng=np.random.default_rng(1))``):
+    a 26-restart fit and ``multi_add(n_points=8)``, once to warm up and
+    ``n_timed`` times timed."""
     import numpy as np
-    from gpry_tpu_torch.acquisition import NORA
+    from gpry_tpu_torch.acquisition import NORA, BatchOptimizer
     from gpry_tpu_torch.models.gp import GaussianProcessRegressor
     from gpry_tpu_torch.models.preprocessing import Normalize_bounds, \
         Normalize_y
     from gpry_tpu_torch.ops import fused
+    tag = "NORA-BENCH" if engine == "nora" else "BO-BENCH"
     bounds, X, y = bench_data()
     gpr = GaussianProcessRegressor(
         bounds=bounds, preprocessing_X=Normalize_bounds(bounds),
         preprocessing_y=Normalize_y(), random_state=0, verbose=1)
     gpr.append_to_data(X, y, fit_gpr=False)
-    acq = NORA(bounds, acq_func={"LogExp": {"dimension": D}},
-               rng=np.random.default_rng(1), verbose=1)
+    if engine == "nora":
+        acq = NORA(bounds, acq_func={"LogExp": {"dimension": D}},
+                   rng=np.random.default_rng(1), verbose=1)
+    else:
+        acq = BatchOptimizer(bounds, acq_func={"LogExp": {"dimension": D}},
+                             random_state=1, verbose=1)
     iters = []
     for i in range(1 + n_timed):
         acq.force_resample()
@@ -1031,24 +1295,30 @@ def run_nora_bench(n_timed=2):
         gpr.fit_gpr_hyperparameters(n_restarts=10 + 2 * D)
         sync()
         t_fit = time.perf_counter() - t0
-        Xn, _, acq_vals = acq.multi_add(gpr, n_points=D)
+        if engine == "nora":
+            Xn, _, acq_vals = acq.multi_add(gpr, n_points=D)
+        else:
+            Xn, _, acq_vals = acq.multi_add(gpr, n_points=D,
+                                            rng=np.random.default_rng(1))
         sync()
         t_acq = time.perf_counter() - t0 - t_fit
         if Xn.shape != (D, D) or not np.all(np.isfinite(acq_vals)) or \
                 not np.all((Xn >= bounds[:, 0]) & (Xn <= bounds[:, 1])):
-            raise AssertionError(f"NORA bench iteration {i}: malformed "
+            raise AssertionError(f"{tag} iteration {i}: malformed "
                                  f"proposal {Xn.shape}")
-        it = {"fit_s": t_fit, "acq_s": t_acq, "nlive": acq._nlive(gpr),
-              "ns_samples": int(len(acq.last_MC_X)),
+        it = {"fit_s": t_fit, "acq_s": t_acq,
               "launches": {k: fused.LAUNCHES[k] - before[k]
                            for k in before}}
-        log(f"[NORA-BENCH] {'warm-up' if i == 0 else f'iter {i}'}: "
+        if engine == "nora":
+            it.update(nlive=acq._nlive(gpr),
+                      ns_samples=int(len(acq.last_MC_X)))
+        log(f"[{tag}] {'warm-up' if i == 0 else f'iter {i}'}: "
             + json.dumps(it))
         iters.append(it)
     timed = [it["fit_s"] + it["acq_s"] for it in iters[1:]]
     summary = {"iters": iters, "fit_acq_s_min": min(timed),
                "fit_acq_s_median": float(np.median(timed))}
-    log(f"[NORA-BENCH] fit + acquisition s/iter: min {min(timed):.4f}, "
+    log(f"[{tag}] fit + acquisition s/iter: min {min(timed):.4f}, "
         f"median {summary['fit_acq_s_median']:.4f}")
     return summary
 
@@ -1146,6 +1416,21 @@ def run_himmelblau_audit():
 
 
 NS_RUNS = {"runs": 0, "steps": 0, "s": 0.0}
+# the believer steps of the BatchOptimizer (its LogExp ascents) per path
+BELIEVER = {"steps": 0}
+
+
+def count_believer_steps():
+    """Wrap the BatchOptimizer's LogExp ascent, called once per believer
+    step, to count its calls into BELIEVER."""
+    from gpry_tpu_torch.acquisition import batch_optimizer
+    inner = batch_optimizer._optimize_restarts
+
+    def counted(*args, **kwargs):
+        BELIEVER["steps"] += 1
+        return inner(*args, **kwargs)
+
+    batch_optimizer._optimize_restarts = counted
 
 
 def time_ns_runs():
@@ -1170,24 +1455,32 @@ def time_ns_runs():
 
 
 def drive(name, fn, *args, **kwargs):
-    """Run one path with the launch counts and the NS clock set to 0 just
-    before it and read just after; fail if a kernel of the path was not
-    launched, or if K1 was launched more than 1% as often as when the
-    nested sampler ran its chains through K1."""
+    """Run one path with the launch counts, the NS clock and the believer
+    steps set to 0 just before it and read just after; fail if a kernel of
+    the path was not launched, if K9 was not launched once per believer
+    step (BELIEVER_PATHS), or if K1 was launched more than 1% as often as
+    when the nested sampler ran its chains through K1."""
     from gpry_tpu_torch.ops import fused
     fused.reset_launch_counts()
     NS_RUNS.update(runs=0, steps=0, s=0.0)
+    BELIEVER.update(steps=0)
     out = fn(*args, **kwargs)
     sync()
     launches = dict(fused.LAUNCHES)
-    ns = dict(NS_RUNS)
+    ns = dict(NS_RUNS, believer_steps=BELIEVER["steps"])
     log(f"[{name}] kernel launches: {launches}")
     log(f"[{name}] nested sampling: {ns['runs']} runs, {ns['steps']} steps, "
-        f"{ns['s']:.3f} s")
+        f"{ns['s']:.3f} s; BatchOptimizer believer steps "
+        f"{ns['believer_steps']}")
     for kernel in PATH_KERNELS[name]:
         if launches[kernel] <= 0:
             raise AssertionError(f"kernel {kernel} was not launched on the "
                                  f"{name} path")
+    k9 = BELIEVER_PATHS.get(name)
+    if k9 is not None and launches[k9] != ns["believer_steps"]:
+        raise AssertionError(
+            f"{name}: {launches[k9]} K9 launches for "
+            f"{ns['believer_steps']} believer steps")
     before = LOCKSTEP_K1_LAUNCHES.get(name)
     if before is not None and not launches["gated_mean"] < 0.01 * before:
         raise AssertionError(
@@ -1197,14 +1490,15 @@ def drive(name, fn, *args, **kwargs):
 
 
 def drive_paths():
-    """The seven paths in order; returns their summaries and launches."""
+    """The eight paths in order; returns their summaries and launches."""
     t0 = time.perf_counter()
     time_ns_runs()
+    count_believer_steps()
     paths, launches, ns = {}, {}, {}
     paths["batchoptimizer"], launches["batchoptimizer"], \
         ns["batchoptimizer"] = drive("batchoptimizer", run_default_with_cov)
     paths["nora_bench"], launches["nora_bench"], ns["nora_bench"] = drive(
-        "nora_bench", run_nora_bench)
+        "nora_bench", run_bench, "nora")
     (runner, ns_sample, paths["nora_runner"]), launches["nora_runner"], \
         ns["nora_runner"] = drive("nora_runner", run_runner, "NORA",
                                   resample=False, gp_acquisition="NORA",
@@ -1219,9 +1513,12 @@ def drive_paths():
     paths["spec_cov_nora"], launches["spec_cov_nora"], \
         ns["spec_cov_nora"] = drive("spec_cov_nora", run_spec_cov_nora,
                                     runner)
+    paths["bo_bench"], launches["bo_bench"], ns["bo_bench"] = drive(
+        "bo_bench", run_bench, "batchoptimizer")
     for name, stats in ns.items():
+        paths[name]["believer_steps"] = stats.pop("believer_steps")
         paths[name]["nested_sampling"] = stats
-    log(f"[PATHS] all seven paths in {time.perf_counter() - t0:.1f} s")
+    log(f"[PATHS] all eight paths in {time.perf_counter() - t0:.1f} s")
     return paths, launches
 
 
@@ -1259,7 +1556,7 @@ def main():
     for base, (src, replaces) in SOURCES.items():
         for name in (base, base + "/spec"):
             # library_ms: no single PyTorch call computes any of the
-            # seven functions (PERF.md, section 6, says why for each)
+            # nine functions (PERF.md, section 6, says why for each)
             row = {"name": name, "route": "cuda", "source": src,
                    "replaces": replaces,
                    "launches": sum(c[name] for c in launches.values()),

@@ -1,27 +1,61 @@
 #!/bin/bash
-# Time bench.py's NORA operating point (chip_smoke.run_nora_bench: one
-# warm-up and one timed iteration of a 26-restart fit + NORA multi_add) in
-# each checkout given, in the order given, on one CUDA card; each runs in
-# its own process and builds its own kernels.  To compare two commits on
-# one card, unpack the other one into a git-ignored directory and
-# alternate them:
+# Time one operating point of gpry_tpu_torch in each checkout given, in the
+# order given, on one CUDA card; each runs in its own process and builds
+# its own kernels.  ENGINE is one of
+#   nora    bench.py's NORA point (d = 8, N = 224): a 26-restart fit and
+#           force_resample() + NORA multi_add(n_points=8), warm-up + 2 timed
+#   bo      bench.py's BatchOptimizer point (chip_smoke.py's path h): a
+#           26-restart fit and BatchOptimizer(random_state=1).multi_add(
+#           n_points=8, rng=default_rng(1)), warm-up + 2 timed
+#   runner  chip_smoke.py's path a: the default Runner on the d = 8
+#           Gaussian (its run, acquisition and fit seconds)
+#   spec    chip_smoke.py's path f: path a with C() * RBF + WhiteKernel
+# The driving code is this script's own chip_smoke.py (run_bench,
+# run_runner), loaded by path; only gpry_tpu_torch comes from each
+# checkout, so every checkout times the same work, an older one whose
+# chip_smoke.py lacks path h too.
+# To compare two commits on one card, unpack the other one into a
+# git-ignored directory and alternate them:
 #
-#   git archive <commit> | tar -x -C _archive/parent
-#   bash compare_trees.sh _archive/parent . . _archive/parent
+#   mkdir -p _archive/parent && git archive <commit> | tar -x -C _archive/parent
+#   bash compare_trees.sh bo _archive/parent . . _archive/parent
 #
-# Prints the card's name and power limit, then one line per checkout with
-# the seconds of its warm-up and timed iterations.
+# Prints the card's name and power limit, then one line per checkout.
 set -e
+engine=$1
+shift
+case "$engine" in
+  nora|bo|runner|spec) ;;
+  *) echo "usage: compare_trees.sh nora|bo|runner|spec TREE..." >&2; exit 2;;
+esac
+here=$(cd "$(dirname "$0")" && pwd)
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 for tree in "$@"; do
-  (cd "$tree" && python3 -c "
+  (cd "$tree" && python3 - "$here" "$tree" "$engine" <<'PY' | grep '^RES')
+import importlib.util
+import json
+import os
 import sys
-sys.path[:0] = ['.', 'tests']
-import chip_smoke as cs
+
+here, tree, engine = sys.argv[1:4]
+sys.path[:0] = [os.getcwd(), os.path.join(here, 'tests')]
+spec = importlib.util.spec_from_file_location(
+    'chip_smoke', os.path.join(here, 'chip_smoke.py'))
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
 from gpry_tpu_torch import config
+
 config.set_device('cuda')
-s = cs.run_nora_bench(n_timed=1)
-print('RES', sys.argv[1], [round(i['fit_s'] + i['acq_s'], 4)
-                           for i in s['iters']], flush=True)
-" "$tree" | grep '^RES')
+if engine in ('nora', 'bo'):
+    s = cs.run_bench('nora' if engine == 'nora' else 'batchoptimizer')
+    print('RES', tree, engine, 'warm-up, timed:', json.dumps(
+        [{k: it[k] for k in ('fit_s', 'acq_s')} for it in s['iters']]),
+        flush=True)
+else:
+    kw = {} if engine == 'runner' else {'gpr': {'kernel': cs.SPEC_F}}
+    _, _, summary = cs.run_runner(engine.upper(), **kw)
+    print('RES', tree, engine, json.dumps(
+        {k: summary[k] for k in ('run_s', 'acquisition_s', 'fit_s',
+                                 'n_total', 'kl')}), flush=True)
+PY
 done

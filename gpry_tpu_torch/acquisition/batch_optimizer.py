@@ -4,14 +4,16 @@ BatchOptimizer: gradient-based batch acquisition with Kriging-believer
 gpry/gp_acquisition.py:121-523).
 
 Each believer step is one batched screen of proposer draws (the K2 kernel
-in its LogExp mode), a batched lock-step L-BFGS ascent of the smooth
-acquisition over the polished starts (plain torch + autograd), a K2 rescore
-of the endpoints, and an O(nmax^2) block-Cholesky append of the lie.
+in its LogExp mode), the multistart L-BFGS ascent of the smooth LogExp over
+the polished starts in one K9 launch (any other acquisition: the lock-step
+torch L-BFGS over K8's gradients), a K2 rescore of the endpoints, and an
+O(nmax^2) block-Cholesky append of the lie.
 """
 
 import numpy as np
 import torch
 
+from gpry_tpu_torch import config
 from gpry_tpu_torch.acquisition.base import GenericGPAcquisition, \
     append_lie
 from gpry_tpu_torch.acquisition.functions import LogExp
@@ -20,7 +22,8 @@ from gpry_tpu_torch.acquisition.proposal import CentroidsProposer, \
 from gpry_tpu_torch.models.gp import (LBFGS_CHUNK, SurrogateParams,
                                       surrogate_mean_std_smooth,
                                       surrogate_predict)
-from gpry_tpu_torch.ops.fused import gated_meanvar_logexp
+from gpry_tpu_torch.ops.fused import GRAD_MAX_D, gated_meanvar_logexp, \
+    lbfgs_logexp_ascent
 from gpry_tpu_torch.ops.lbfgs import minimize_lbfgs_bounded
 from gpry_tpu_torch.utils.tools import check_and_return_bounds
 
@@ -62,20 +65,11 @@ def _optimize_restarts(family, p: SurrogateParams, zeta, noise_std_raw,
     """
     Batched multistart bounded maximization of the *smooth* LogExp
     acquisition (gates applied to the final values only, as the
-    reference's analytic smooth gradients, gpry/gp_acquisition.py:316-334).
-    Returns (xs, gated acq values).
+    reference's analytic smooth gradients, gpry/gp_acquisition.py:316-334):
+    one K9 launch, then one K2 rescore.  Returns (xs, gated acq values).
     """
-
-    def neg_acq(X):
-        mu, std = surrogate_mean_std_smooth(family, p, X)
-        var = std * std - noise_std_raw * noise_std_raw
-        mu_c = torch.minimum(mu, p.clip_max)
-        # clipped from below to keep the objective finite in line searches
-        return -(2.0 * zeta * (mu_c - p.y_max)
-                 + 0.5 * torch.log(torch.clamp_min(var, 1e-300)))
-
-    xs, _, _ = minimize_lbfgs_bounded(neg_acq, x0s, lo, hi, maxiter=maxiter,
-                                      tol=1e-8)
+    xs, _, _ = lbfgs_logexp_ascent(family, p, zeta, noise_std_raw, x0s, lo,
+                                   hi, maxiter=maxiter)
     return xs, _acq_values_gated(family, p, zeta, noise_std_raw, xs)
 
 
@@ -96,6 +90,12 @@ class BatchOptimizer(GenericGPAcquisition):
         super().__init__(bounds, acq_func=acq_func,
                          preprocessing_X=preprocessing_X,
                          zeta_scaling=zeta_scaling, verbose=verbose)
+        if self.d > GRAD_MAX_D and config.get_device().type == "cuda":
+            # the ascent's gradients are K8's / K9's, one warp lane per
+            # coordinate
+            raise ValueError(
+                f"BatchOptimizer: d={self.d} > {GRAD_MAX_D}, the most its "
+                "gradient kernels hold on the card; use the CPU.")
         self.acq_optimizer = acq_optimizer
         self.n_restarts_optimizer = self._parse_dim_spec(
             n_restarts_optimizer, "n_restarts_optimizer")

@@ -524,3 +524,390 @@ __device__ __forceinline__ void gpry_block_gated_mean2(
   if (tid == 0) *bad = 0;
   sc->parity ^= 1;
 }
+
+// ---------------------------------------------------------------------------
+// Derivatives in x (K8, K9).  The rules are those of torch's autograd
+// through ops/kernels.py (the plain versions K8 and K9 are held to): the
+// zero-safe square roots of the Matern and ExpSineSquared kernels have a
+// zero gradient at r = 0 (_safe_sqrt), so every stationary kernel's
+// gradient is 0 at a training point.
+// ---------------------------------------------------------------------------
+
+// the largest d whose gradients the per-thread arrays hold (the wrappers
+// refuse a larger one)
+#define GPRY_GRAD_MAX_D 32
+
+// dk / d(r^2) of the unit-variance correlation gpry_k_of_sq; 0 at r^2 = 0
+// for the Matern families, as the zero-safe square root's gradient.
+__device__ __forceinline__ double gpry_dk_dsq(int family, double sq) {
+  switch (family) {
+    case GPRY_FAMILY_RBF:
+      return -0.5 * exp(-0.5 * sq);
+    case GPRY_FAMILY_MATERN12: {
+      if (!(sq > 0.0)) return 0.0;
+      const double r = sqrt(sq);
+      return -exp(-r) * (0.5 / r);
+    }
+    case GPRY_FAMILY_MATERN32: {
+      const double s = 3.0 * sq;
+      if (!(s > 0.0)) return 0.0;
+      return -1.5 * exp(-sqrt(s));
+    }
+    case GPRY_FAMILY_MATERN52: {
+      const double s = 5.0 * sq;
+      if (!(s > 0.0)) return 0.0;
+      const double r = sqrt(s);
+      return -(5.0 / 6.0) * (1.0 + r) * exp(-r);
+    }
+  }
+  return NAN;
+}
+
+// d(v ** e) / dv as torch's pow_backward: e v^(e - 1), and 0 for e = 0.
+__device__ __forceinline__ double gpry_dpow(double v, double e) {
+  if (e == 0.0) return 0.0;
+  const double em1 = e - 1.0;
+  if (em1 == -0.5) return e / sqrt(v);
+  if (em1 == -1.0) return e / v;
+  return e * gpry_pow(v, em1);
+}
+
+// Forward mode of gpry_spec_cov (diag false: k(a, b)) or gpry_spec_diag
+// (diag true: k(a, a); b unused): returns the value and writes its d
+// partial derivatives in a to grad (d <= GPRY_GRAD_MAX_D).  Each stack entry
+// carries a value and its d partials.  Per node: an ARD leaf dk/d(r^2)
+// 2 (a - b) / l^2; RationalQuadratic the chain rule through pow;
+// ExpSineSquared 0 at r = 0; DotProduct b in the cross form and 2 a on the
+// diagonal (the only prior term with a gradient); WhiteKernel and
+// ConstantKernel 0; sum, product and pow the usual rules (gpry_dpow).
+static __device__ __noinline__ double gpry_spec_grad(const GprySpec s,
+                                                     const double* a, int sa,
+                                                     const double* b, int sb,
+                                                     int d, bool diag,
+                                                     double* grad) {
+  double st[GPRY_SPEC_MAX_STACK];
+  double gs[GPRY_SPEC_MAX_STACK][GPRY_GRAD_MAX_D];
+  int top = 0;
+  for (int i = 0; i < s.nodes; ++i) {
+    const int op = s.op[i], off = s.off[i];
+    if (op == GPRY_OP_POW) {
+      const double v = st[top - 1], e = s.expo[i];
+      const double dv = gpry_dpow(v, e);
+      st[top - 1] = gpry_pow(v, e);
+      for (int k = 0; k < d; ++k) gs[top - 1][k] *= dv;
+      continue;
+    }
+    if (op >= GPRY_OP_SUM) {
+      const double bv = st[--top];
+      const double av = st[top - 1];
+      double* ga = gs[top - 1];
+      const double* gb = gs[top];
+      if (op == GPRY_OP_SUM) {
+        st[top - 1] = av + bv;
+        for (int k = 0; k < d; ++k) ga[k] += gb[k];
+      } else {
+        st[top - 1] = av * bv;
+        for (int k = 0; k < d; ++k) ga[k] = ga[k] * bv + av * gb[k];
+      }
+      continue;
+    }
+    double v;
+    double* gv = gs[top];
+    for (int k = 0; k < d; ++k) gv[k] = 0.0;
+    if (diag) {
+      if (op == GPRY_OP_DOT) {
+        double acc = 0.0;
+        for (int k = 0; k < d; ++k) {
+          acc += a[k * sa] * a[k * sa];
+          gv[k] = 2.0 * a[k * sa];
+        }
+        const double s0 = s.et[off];
+        v = s0 * s0 + acc;
+      } else {
+        v = op <= GPRY_OP_EXPSINE ? 1.0 : s.et[off];
+      }
+    } else if (op <= GPRY_FAMILY_MATERN52) {
+      double sq = 0.0;
+      for (int k = 0; k < d; ++k) {
+        const double df = (a[k * sa] - b[k * sb]) * s.iet[off + k];
+        sq += df * df;
+      }
+      v = gpry_k_of_sq(op, sq);
+      const double c = 2.0 * gpry_dk_dsq(op, sq);
+      for (int k = 0; k < d; ++k) {
+        const double il = s.iet[off + k];
+        gv[k] = c * ((a[k * sa] - b[k * sb]) * il) * il;
+      }
+    } else if (op == GPRY_OP_RQ) {
+      const double il = s.iet[off + 1], al = s.et[off];
+      double sq = 0.0;
+      for (int k = 0; k < d; ++k) {
+        const double df = (a[k * sa] - b[k * sb]) * il;
+        sq += df * df;
+      }
+      const double base = 1.0 + sq / (2.0 * al);
+      v = pow(base, -al);
+      const double c = 2.0 * (-al * pow(base, -al - 1.0) / (2.0 * al));
+      for (int k = 0; k < d; ++k)
+        gv[k] = c * ((a[k * sa] - b[k * sb]) * il) * il;
+    } else if (op == GPRY_OP_EXPSINE) {
+      double sq = 0.0;
+      for (int k = 0; k < d; ++k) {
+        const double df = a[k * sa] - b[k * sb];
+        sq += df * df;
+      }
+      const double r = sq > 0.0 ? sqrt(sq) : 0.0;
+      const double arg = GPRY_PI * r / s.et[off + 1];
+      const double sn = sin(arg) / s.et[off];
+      v = exp(-2.0 * sn * sn);
+      if (r > 0.0) {
+        const double dvdr =
+            v * (-4.0 * sn) * (cos(arg) / s.et[off]) * (GPRY_PI / s.et[off + 1]);
+        for (int k = 0; k < d; ++k)
+          gv[k] = dvdr * ((a[k * sa] - b[k * sb]) / r);
+      }
+    } else if (op == GPRY_OP_DOT) {
+      double acc = 0.0;
+      for (int k = 0; k < d; ++k) {
+        acc += a[k * sa] * b[k * sb];
+        gv[k] = b[k * sb];
+      }
+      const double s0 = s.et[off];
+      v = s0 * s0 + acc;
+    } else if (op == GPRY_OP_WHITE) {
+      v = 0.0;
+    } else {  // GPRY_OP_CONST
+      v = s.et[off];
+    }
+    st[top++] = v;
+  }
+  for (int k = 0; k < d; ++k) grad[k] = gs[0][k];
+  return st[0];
+}
+
+// Back substitution L^T w = v for one query, by one warp, in the axpy
+// form: v holds L^-1 k on entry and w = L^-T L^-1 k on exit (rows
+// 0..n-1).  Step i (from n - 1 down) fixes w_i = r_i / L_ii and subtracts
+// w_i times the contiguous row i of L from the residuals of rows 0..i-1,
+// so that L is read by rows, as in gpry_warp_forward_subst.
+__device__ __forceinline__ void gpry_warp_back_subst(
+    const double* __restrict__ L, int nmax, int n, double* v, int lane) {
+  for (int i = n - 1; i >= 0; --i) {
+    const double* Li = L + (size_t)i * nmax;
+    const double wi = v[i] / Li[i];
+    __syncwarp();
+    for (int j = lane; j < i; j += 32) v[j] -= Li[j] * wi;
+    if (lane == 0) v[i] = wi;
+    __syncwarp();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The ungated GP mean and latent variance of one point, and their
+// gradients, by a whole block of GPRY_BLOCK_THREADS (K8 one block per
+// query, K9 one block per restart lane).  The block stages ls, x_loc,
+// x_scale, alpha, a work vector and X / ls (column-major; X as it is in
+// spec mode) in shared memory; L stays in global memory (the 50 MB L2
+// holds it).  A training set too large for shared memory reads X from
+// global memory instead (row-major, divided by ls on the fly with the same
+// arithmetic).
+// ---------------------------------------------------------------------------
+
+struct GpryGP {
+  int family, n, nmax, d;
+  double variance;       // exp(theta[0]); 1 in spec mode
+  const double* ls;      // (d) length scales; 1 in spec mode
+  const double* x_loc;   // (d)
+  const double* x_scale; // (d)
+  const double* Xt;      // training row j, coordinate k at Xt[k xk + j xj]
+  int xk, xj;
+  bool scale_x;          // Xt is X in global memory: divide by ls on read
+  const double* alpha;   // (n)
+  const double* L;       // (nmax, nmax) row-major, global memory
+  double* kv;            // (n): k, then L^-1 k, then L^-T L^-1 k
+  double* red;           // partial sums (gpry_grad_red_doubles)
+  double* res;           // (2 + 2 d): mean, var, grad mean, grad var
+};
+
+__host__ __device__ inline size_t gpry_grad_red_doubles(int d) {
+  return (size_t)GPRY_BLOCK_WARPS * (2 * (size_t)d + 1) + (size_t)d + 1;
+}
+
+// Doubles of the staged GP: ls, x_loc, x_scale (d each), res (2 + 2 d),
+// the partial sums, alpha and kv (n each), X (d n, when staged) and the
+// spec program.
+__host__ __device__ inline size_t gpry_gp_doubles(int n, int d, bool stage_x,
+                                                  size_t spec) {
+  return 3 * (size_t)d + 2 + 2 * (size_t)d + gpry_grad_red_doubles(d) +
+         2 * (size_t)n + (stage_x ? (size_t)d * n : 0) + spec;
+}
+
+// Stage the GP at smem (gpry_gp_doubles) and return it; *tail is the
+// first free double behind it.  SPEC: the spec program is staged too
+// (*spec) and ls is 1.  Ends with a barrier.
+template <bool SPEC>
+__device__ __forceinline__ GpryGP gpry_stage_gp(
+    double* smem, const GpryKern& kern, int n, int nmax, int d,
+    bool stage_x, const double* __restrict__ X,
+    const double* __restrict__ alpha, const double* __restrict__ L,
+    const double* __restrict__ theta, const double* __restrict__ x_loc,
+    const double* __restrict__ x_scale, GprySpec* spec, double** tail) {
+  const int tid = threadIdx.x;
+  double* ls = smem;
+  double* xl = ls + d;
+  double* xs = xl + d;
+  double* res = xs + d;
+  double* red = res + 2 + 2 * d;
+  double* al = red + gpry_grad_red_doubles(d);
+  double* kv = al + n;
+  double* Xt = kv + n;
+  double* sp = Xt + (stage_x ? (size_t)d * n : 0);
+  for (int k = tid; k < d; k += blockDim.x) {
+    ls[k] = SPEC ? 1.0 : exp(theta[1 + k]);
+    xl[k] = x_loc[k];
+    xs[k] = x_scale[k];
+  }
+  __syncthreads();
+  if (stage_x)
+    for (int idx = tid; idx < n * d; idx += blockDim.x) {
+      const int j = idx / d, k = idx - j * d;
+      Xt[(size_t)k * n + j] = X[idx] / ls[k];
+    }
+  for (int j = tid; j < n; j += blockDim.x) al[j] = alpha[j];
+  if constexpr (SPEC) *spec = gpry_stage_spec(sp, kern, theta, tid, blockDim.x);
+  GpryGP g;
+  g.family = kern.family;
+  g.n = n;
+  g.nmax = nmax;
+  g.d = d;
+  g.variance = SPEC ? 1.0 : exp(theta[0]);
+  g.ls = ls;
+  g.x_loc = xl;
+  g.x_scale = xs;
+  g.Xt = stage_x ? Xt : X;
+  g.xk = stage_x ? n : 1;
+  g.xj = stage_x ? 1 : d;
+  g.scale_x = !stage_x;
+  g.alpha = al;
+  g.L = L;
+  g.kv = kv;
+  g.red = red;
+  g.res = res;
+  *tail = sp + gpry_spec_doubles(kern);
+  __syncthreads();
+  return g;
+}
+
+// Training row j, coordinate k, in the staged coordinates.
+__device__ __forceinline__ double gpry_xt(const GpryGP& g, int j, int k) {
+  const double v = g.Xt[(size_t)k * g.xk + (size_t)j * g.xj];
+  return g.scale_x ? v / g.ls[k] : v;
+}
+
+// The mean k . alpha and the latent variance prior - |L^-1 k|^2 (not
+// clamped) of the point q (d: preprocessed, divided by ls in fast mode;
+// visible to the block) in the GP's coordinates, into res[0], res[1]; with
+// GRAD also, in the preprocessed coordinates,
+//   res[2 + k]     = d mean / dq_k = sum_j alpha_j dk_j / dq_k,
+//   res[2 + d + k] = d var / dq_k  = d prior / dq_k - 2 sum_j w_j dk_j / dq_k
+// with w = L^-T L^-1 k.  The threads split the rows for k and its
+// gradient (block reductions of 1 and 2 d sums); one warp runs the two
+// substitution chains.  Every thread calls it; it ends with a barrier,
+// after which res is visible.
+template <bool SPEC, bool GRAD>
+__device__ void gpry_block_meanvar_grad(const GpryGP& g, const GprySpec& spec,
+                                        const double* q) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = g.n, d = g.d;
+  double m = 0.0;
+  for (int j = tid; j < n; j += blockDim.x) {
+    double kj;
+    if constexpr (SPEC) {
+      kj = gpry_spec_cov(spec, q, 1, g.Xt + (size_t)j * g.xj, g.xk, d);
+    } else {
+      double sq = 0.0;
+      for (int k = 0; k < d; ++k) {
+        const double df = q[k] - gpry_xt(g, j, k);
+        sq += df * df;
+      }
+      kj = g.variance * gpry_k_of_sq(g.family, sq);
+    }
+    g.kv[j] = kj;
+    m += kj * g.alpha[j];
+  }
+  m = gpry_warp_sum(m);
+  if (lane == 0) g.red[warp] = m;
+  __syncthreads();
+  if (warp == 0) {
+    const double sumsq = gpry_warp_forward_subst(g.L, g.nmax, n, g.kv, lane);
+    if constexpr (GRAD) gpry_warp_back_subst(g.L, g.nmax, n, g.kv, lane);
+    if (lane == 0) {
+      double mm = 0.0;
+      for (int w = 0; w < GPRY_BLOCK_WARPS; ++w) mm += g.red[w];
+      const double prior = SPEC ? gpry_spec_diag(spec, q, 1, d) : g.variance;
+      g.res[0] = mm;
+      g.res[1] = prior - sumsq;
+    }
+  }
+  __syncthreads();
+  if constexpr (GRAD) {
+    // per thread: sum_j alpha_j grad k_j and sum_j w_j grad k_j over its
+    // rows (fast mode: without the common 1 / ls_k)
+    double am[GPRY_GRAD_MAX_D], aw[GPRY_GRAD_MAX_D];
+    for (int k = 0; k < d; ++k) am[k] = aw[k] = 0.0;
+    for (int j = tid; j < n; j += blockDim.x) {
+      const double a = g.alpha[j], w = g.kv[j];
+      if constexpr (SPEC) {
+        double gk[GPRY_GRAD_MAX_D];
+        gpry_spec_grad(spec, q, 1, g.Xt + (size_t)j * g.xj, g.xk, d, false,
+                       gk);
+        for (int k = 0; k < d; ++k) {
+          am[k] += a * gk[k];
+          aw[k] += w * gk[k];
+        }
+      } else {
+        double sq = 0.0;
+        for (int k = 0; k < d; ++k) {
+          const double df = q[k] - gpry_xt(g, j, k);
+          sq += df * df;
+        }
+        const double c = 2.0 * g.variance * gpry_dk_dsq(g.family, sq);
+        const double ca = c * a, cw = c * w;
+        for (int k = 0; k < d; ++k) {
+          const double df = q[k] - gpry_xt(g, j, k);
+          am[k] += ca * df;
+          aw[k] += cw * df;
+        }
+      }
+    }
+    double* part = g.red + GPRY_BLOCK_WARPS;  // [warp][2 d]
+    double* gprior = part + GPRY_BLOCK_WARPS * 2 * d;
+    for (int k = 0; k < d; ++k) {
+      const double sa = gpry_warp_sum(am[k]);
+      const double sw = gpry_warp_sum(aw[k]);
+      if (lane == 0) {
+        part[warp * 2 * d + k] = sa;
+        part[warp * 2 * d + d + k] = sw;
+      }
+    }
+    if (tid == 0) {
+      if constexpr (SPEC) {
+        gpry_spec_grad(spec, q, 1, q, 1, d, true, gprior);
+      } else {
+        for (int k = 0; k < d; ++k) gprior[k] = 0.0;
+      }
+    }
+    __syncthreads();
+    if (tid < 2 * d) {
+      double s = 0.0;
+      for (int w = 0; w < GPRY_BLOCK_WARPS; ++w) s += part[w * 2 * d + tid];
+      const int k = tid < d ? tid : tid - d;
+      s = s / g.ls[k];
+      if (tid < d)
+        g.res[2 + k] = s;
+      else
+        g.res[2 + d + k] = gprior[k] - 2.0 * s;
+    }
+    __syncthreads();
+  }
+}

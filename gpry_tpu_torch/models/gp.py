@@ -28,13 +28,14 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from gpry_tpu_torch import config
 from gpry_tpu_torch.models.classifier import SVM, SVMParams, \
     trivial_svm_params
 from gpry_tpu_torch.models.preprocessing import DummyPreprocessor
 from gpry_tpu_torch.ops.fused import gated_mean, gated_meanvar_logexp, \
-    meanvar_ungated
+    meanstd_grad, meanvar_ungated
 from gpry_tpu_torch.ops.kernels import build_kernel_spec, make_theta, \
     spec_diag, theta_bounds_dynamic
 from gpry_tpu_torch.ops.lbfgs import minimize_lbfgs_bounded
@@ -123,11 +124,40 @@ def surrogate_from_numpy(d, device=None):
 # ---------------------------------------------------------------------------
 
 
+class _MeanStdSmooth(torch.autograd.Function):
+    """:func:`surrogate_mean_std_smooth` on the card: K8 computes the values
+    and both gradients in one launch; the backward combines them per row,
+    ``g_mean d mean/dx + g_std d std/dx``.  Differentiable once."""
+
+    @staticmethod
+    def forward(ctx, Xq_raw, family, p):
+        mean, std, g_mean, g_std = meanstd_grad(family, p, Xq_raw.detach())
+        ctx.save_for_backward(g_mean, g_std)
+        # an output that is not used passes None, and adds no 0 * NaN
+        ctx.set_materialize_grads(False)
+        return mean, std
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_mean, grad_std):
+        g_mean, g_std = ctx.saved_tensors
+        grad = None
+        if grad_mean is not None:
+            grad = grad_mean[:, None] * g_mean
+        if grad_std is not None:
+            part = grad_std[:, None] * g_std
+            grad = part if grad is None else grad + part
+        return grad, None, None
+
+
 def surrogate_mean_std_smooth(family, p: SurrogateParams, Xq_raw):
     """
     Raw-space posterior mean and std WITHOUT the classifier/trust/clip
     gates: the smooth, differentiable part the acquisition ascent uses.
+    On the card it is K8 (differentiable once, through its own gradients).
     """
+    if Xq_raw.device.type == "cuda":
+        return _MeanStdSmooth.apply(Xq_raw, family, p)
     Xq_ = (Xq_raw - p.x_loc) / p.x_scale
     mean_, var_ = predict_meanvar(
         family, p.theta, p.X, p.n, p.noise_var, p.L, p.alpha, Xq_)
@@ -949,17 +979,11 @@ class GaussianProcessRegressor:
         if return_std:
             out.append(std.cpu().numpy())
         if return_mean_grad or return_std_grad:
-            with torch.enable_grad():
-                Xg = Xd.clone().requires_grad_(True)
-                m_s, s_s = surrogate_mean_std_smooth(self.family, p, Xg)
-                # rows are independent: the gradient of the sum is per row
-                if return_mean_grad:
-                    g, = torch.autograd.grad(m_s.sum(), Xg,
-                                             retain_graph=return_std_grad)
-                    out.append(g.cpu().numpy())
-                if return_std_grad:
-                    g, = torch.autograd.grad(s_s.sum(), Xg)
-                    out.append(g.cpu().numpy())
+            _, _, g_mean, g_std = meanstd_grad(self.family, p, Xd)
+            if return_mean_grad:
+                out.append(g_mean.cpu().numpy())
+            if return_std_grad:
+                out.append(g_std.cpu().numpy())
         return tuple(out) if len(out) > 1 else out[0]
 
     def predict_std(self, X, validate=True):

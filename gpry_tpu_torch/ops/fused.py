@@ -29,6 +29,16 @@ versions, and the wrappers that choose between them.
 * K7 ``predict_meancov`` (``csrc/predict_meancov.cu``) replaces
   ops/linalg.py:172 predict_meancov (``predict(return_cov=True)``); plain
   version :func:`predict_meancov_plain`.
+* K8 ``meanstd_grad`` (``csrc/meanstd_grad.cu``) replaces the
+  ``jax.vmap(jax.jacfwd(surrogate_mean_std_smooth))`` of models/gp.py:1272
+  (``predict(return_mean_grad=, return_std_grad=)``) and serves the
+  autograd of ``surrogate_mean_std_smooth`` on the card; plain version
+  :func:`meanstd_grad_plain`.
+* K9 ``lbfgs_logexp_ascent`` (``csrc/lbfgs_logexp_ascent.cu``) replaces
+  acquisition/batch_optimizer.py:78 _optimize_restarts over
+  ops/lbfgs.py:168 minimize_lbfgs_bounded: the whole multistart LogExp
+  ascent of one believer step in one launch; plain version
+  :func:`lbfgs_logexp_ascent_plain`.
 
 Every kernel takes the covariance as a fast family (C() * RBF / Matern
 with ARD length scales) or as a kernel spec tree (ops/kernels.py), which
@@ -40,10 +50,11 @@ spec mode interprets (``csrc/common.cuh``).  A tree beyond
 A wrapper runs the plain version only when its input tensor lies on the
 CPU.  For a CUDA tensor it launches the kernel or raises: there is no
 fallback.  The kernels are float64-only and forward-only; a CUDA tensor
-that requires grad is refused (the autograd paths call the plain versions
-themselves, as the JAX package differentiated XLA there).
+that requires grad is refused.  The gradients in x of the smooth
+surrogate are K8's own outputs (models/gp.py wraps it in an autograd
+Function); the fit's gradients in theta stay with the plain versions.
 
-The seven sources compile in parallel, one ``nvcc`` per source, and link
+The nine sources compile in parallel, one ``nvcc`` per source, and link
 into a shared library with a plain C interface
 (``_build/libgpry_kernels.so`` inside the package), at first use, and load
 over ``ctypes``.  Every launch goes on PyTorch's
@@ -68,13 +79,15 @@ import torch
 from gpry_tpu_torch.models.classifier import svm_decision
 from gpry_tpu_torch.ops.kernels import check_family, cross_kernel, \
     kernel_diag, spec_n_params
+from gpry_tpu_torch.ops.lbfgs import minimize_lbfgs_bounded
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 _SOURCES = ("gated_mean.cu", "gated_meanvar_logexp.cu",
             "masked_kernel_matrix.cu", "kriging_believer_fill.cu",
-            "meanvar_ungated.cu", "ns_slice_chains.cu", "predict_meancov.cu")
+            "meanvar_ungated.cu", "ns_slice_chains.cu", "predict_meancov.cu",
+            "meanstd_grad.cu", "lbfgs_logexp_ascent.cu")
 _HEADERS = ("common.cuh",)
 _LIB_PATH = os.path.join(_BUILD, "libgpry_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -90,7 +103,8 @@ SPEC_MAX_NODES, SPEC_MAX_STACK = 32, 16
 
 KERNELS = ("gated_mean", "gated_meanvar_logexp",
            "masked_kernel_matrix_batched", "kriging_believer_fill",
-           "meanvar_ungated", "ns_slice_chains", "predict_meancov")
+           "meanvar_ungated", "ns_slice_chains", "predict_meancov",
+           "meanstd_grad", "lbfgs_logexp_ascent")
 #: launches per kernel made by the wrappers (never by the plain versions),
 #: spec-mode launches under "<name>/spec"
 LAUNCHES = {f"{k}{m}": 0 for k in KERNELS for m in ("", "/spec")}
@@ -109,6 +123,10 @@ _SMEM_MAX = 227 * 1024
 # threads of the block-cooperative designs (K1's block design, K6): one
 # thread per (point, coordinate) of two points prepares an evaluation
 _BLOCK_THREADS = 128
+
+#: the largest d whose gradients K8 and K9 take (csrc/common.cuh
+#: GPRY_GRAD_MAX_D)
+GRAD_MAX_D = 32
 
 #: the slice sampler's caps: step-out doublings and shrinks per update
 NS_STEP_OUT = 6
@@ -229,6 +247,11 @@ def library():
         lib.gpry_meanvar_ungated.restype = I
         lib.gpry_predict_meancov.argtypes = [K] + [I] * 5 + [P] * 9
         lib.gpry_predict_meancov.restype = I
+        lib.gpry_meanstd_grad.argtypes = [K] + [I] * 4 + [P] * 13
+        lib.gpry_meanstd_grad.restype = I
+        lib.gpry_lbfgs_logexp_ascent.argtypes = [K] + [I] * 5 + [P] * 10 \
+            + [D, D] + [P] * 4
+        lib.gpry_lbfgs_logexp_ascent.restype = I
         _lib = lib
         return lib
 
@@ -529,6 +552,44 @@ def predict_meancov_plain(family, theta, X, n, noise_var, L, alpha, Xq):
     Kqq = Kqq + torch.diag(kernel_diag(family, theta, Xq)
                            - torch.diagonal(Kqq))
     return mean, Kqq - V.T @ V
+
+
+def meanstd_grad_plain(family, p, Xq_raw):
+    """
+    Plain K8: the raw-space ``(mean, std, d mean/dx, d std/dx)`` of
+    ``surrogate_mean_std_smooth`` at ``Xq_raw`` (nq, d), the gradients by
+    autograd of :func:`meanvar_ungated_plain` (its arithmetic; the rows are
+    independent, so the gradient of a sum is per row).
+    """
+    with torch.enable_grad():
+        Xg = Xq_raw.detach().clone().requires_grad_(True)
+        mean, std = meanvar_ungated_plain(family, p, Xg)
+        g_mean, = torch.autograd.grad(mean.sum(), Xg, retain_graph=True)
+        g_std, = torch.autograd.grad(std.sum(), Xg)
+    return mean.detach(), std.detach(), g_mean, g_std
+
+
+def lbfgs_logexp_ascent_plain(family, p, zeta, noise_std_raw, x0s, lo, hi,
+                              maxiter=100, return_iters=False):
+    """
+    Plain K9: the lock-step L-BFGS (ops/lbfgs.py) over the restarts ``x0s``
+    (R, d) in the box [lo, hi], minimizing the negated smooth LogExp
+    ``-(2 zeta (min(mean, clip_max) - y_max) + 0.5 log(max(std^2 -
+    noise_std_raw^2, 1e-300)))`` of :func:`meanvar_ungated_plain` with its
+    autograd gradient.  Returns ``(xs, f, nev)`` per lane (and, with
+    ``return_iters``, the iterations, see ops/lbfgs.py).
+    """
+
+    def neg_acq(X):
+        mu, std = meanvar_ungated_plain(family, p, X)
+        var = std * std - noise_std_raw * noise_std_raw
+        mu_c = torch.minimum(mu, p.clip_max)
+        # clipped from below to keep the objective finite in line searches
+        return -(2.0 * zeta * (mu_c - p.y_max)
+                 + 0.5 * torch.log(torch.clamp_min(var, 1e-300)))
+
+    return minimize_lbfgs_bounded(neg_acq, x0s, lo, hi, maxiter=maxiter,
+                                  tol=1e-8, return_iters=return_iters)
 
 
 def slice_chains_lockstep(logl_of, x, lx, lstar, chol, nrm, u):
@@ -927,6 +988,94 @@ def predict_meancov(family, theta, X, n, noise_var, L, alpha, Xq):
     return mean, cov
 
 
+def _check_grad_d(name, d):
+    if d > GRAD_MAX_D:
+        raise ValueError(f"{name}: d={d} > {GRAD_MAX_D}, the most the "
+                         "kernel's per-thread gradient arrays hold.")
+
+
+def meanstd_grad(family, p, Xq_raw):
+    """
+    K8: the raw-space ``(mean, std, d mean/dx, d std/dx)`` of the ungated,
+    unclipped surrogate at ``Xq_raw`` (nq, d), one block per query, in one
+    launch (see :func:`meanstd_grad_plain`).
+    """
+    check_family(family)
+    if Xq_raw.device.type == "cpu":
+        return meanstd_grad_plain(family, p, Xq_raw)
+    dev = Xq_raw.device
+    tensors = dict(Xq_raw=Xq_raw, X=p.X, alpha=p.alpha, L=p.L, theta=p.theta,
+                   x_loc=p.x_loc, x_scale=p.x_scale, scal=p.scal)
+    _check_cuda("meanstd_grad", dev, **tensors)
+    nq, d = Xq_raw.shape
+    _check_grad_d("meanstd_grad", d)
+    nmax = p.X.shape[0]
+    kern = _kern(family, d, dev)
+    _check_theta("meanstd_grad", kern, p.theta)
+    mean = torch.empty(nq, dtype=torch.float64, device=dev)
+    std = torch.empty_like(mean)
+    g_mean = torch.empty((nq, d), dtype=torch.float64, device=dev)
+    g_std = torch.empty_like(g_mean)
+    if nq == 0:
+        return mean, std, g_mean, g_std
+    rc = library().gpry_meanstd_grad(
+        kern, nq, int(p.n), nmax, d,
+        *(_ptr(tensors[k]) for k in (
+            "Xq_raw", "X", "alpha", "L", "theta", "x_loc", "x_scale",
+            "scal")),
+        _ptr(mean), _ptr(std), _ptr(g_mean), _ptr(g_std), _stream())
+    _raise_on("meanstd_grad", rc)
+    _count("meanstd_grad", family)
+    return mean, std, g_mean, g_std
+
+
+def lbfgs_logexp_ascent(family, p, zeta, noise_std_raw, x0s, lo, hi,
+                        maxiter=100):
+    """
+    K9: the multistart bounded L-BFGS ascent of the smooth LogExp from
+    ``x0s`` (R, d) in the box [lo, hi] (see
+    :func:`lbfgs_logexp_ascent_plain`), one block per lane, every line
+    search inside the launch.  ``zeta`` and ``noise_std_raw`` are host
+    floats.  Returns ``(xs, f, nev)``.
+    """
+    check_family(family)
+    if x0s.device.type == "cpu":
+        return lbfgs_logexp_ascent_plain(family, p, zeta, noise_std_raw, x0s,
+                                         lo, hi, maxiter)
+    dev = x0s.device
+    R, d = x0s.shape
+    if tuple(lo.shape) != (d,) or tuple(hi.shape) != (d,):
+        raise ValueError(f"lbfgs_logexp_ascent: lo and hi must be ({d},).")
+    if R > 65535:
+        raise ValueError("lbfgs_logexp_ascent: R > 65535.")
+    tensors = dict(x0s=x0s, lo=lo.contiguous(), hi=hi.contiguous(), X=p.X,
+                   alpha=p.alpha, L=p.L, theta=p.theta, x_loc=p.x_loc,
+                   x_scale=p.x_scale, scal=p.scal)
+    _check_cuda("lbfgs_logexp_ascent", dev, **tensors)
+    _check_grad_d("lbfgs_logexp_ascent", d)
+    nmax = p.X.shape[0]
+    kern = _kern(family, d, dev)
+    _check_theta("lbfgs_logexp_ascent", kern, p.theta)
+    xs = torch.empty_like(x0s)
+    f = torch.empty(R, dtype=torch.float64, device=dev)
+    nev = torch.empty(R, dtype=torch.int64, device=dev)
+    if R == 0:
+        return xs, f, nev
+    # the constants as the plain version rounds them: 2.0 * zeta and
+    # noise_std_raw * noise_std_raw on the host
+    zeta, noise_std_raw = float(zeta), float(noise_std_raw)
+    rc = library().gpry_lbfgs_logexp_ascent(
+        kern, R, int(p.n), nmax, d, int(maxiter),
+        *(_ptr(tensors[k]) for k in (
+            "x0s", "lo", "hi", "X", "alpha", "L", "theta", "x_loc",
+            "x_scale", "scal")),
+        2.0 * zeta, noise_std_raw * noise_std_raw, _ptr(xs), _ptr(f),
+        _ptr(nev), _stream())
+    _raise_on("lbfgs_logexp_ascent", rc)
+    _count("lbfgs_logexp_ascent", family)
+    return xs, f, nev
+
+
 __all__ = ["KERNELS", "LAUNCHES", "KernelBuildError", "SPEC_MAX_NODES",
            "SPEC_MAX_STACK", "build", "encode_spec", "library",
            "reset_launch_counts", "gated_mean", "gated_mean_plain",
@@ -935,4 +1084,6 @@ __all__ = ["KERNELS", "LAUNCHES", "KernelBuildError", "SPEC_MAX_NODES",
            "kriging_believer_fill", "kriging_believer_fill_plain",
            "meanvar_ungated", "meanvar_ungated_plain", "ns_slice_chains",
            "ns_slice_chains_plain", "predict_meancov",
-           "predict_meancov_plain", "slice_chains_lockstep"]
+           "predict_meancov_plain", "slice_chains_lockstep",
+           "meanstd_grad", "meanstd_grad_plain", "lbfgs_logexp_ascent",
+           "lbfgs_logexp_ascent_plain", "GRAD_MAX_D"]

@@ -81,12 +81,14 @@ def _two_loop(g, S, Y, rho, kh, eps):
 @torch.no_grad()
 def minimize_lbfgs(fun, x0, maxiter=100, tol=1e-8, memory_size=8,
                    max_linesearch_steps=18, stall_patience=5,
-                   stall_rtol=None):
+                   stall_rtol=None, return_iters=False):
     """
     Minimize the lane objectives ``fun`` (R, n) -> (R,) from ``x0`` (R, n).
     Returns ``(x_opt, f_opt, n_evals)``; ``n_evals`` (R,) counts each
     lane's value-and-gradient calls and line-search probes.  A lane with a
-    non-finite start returns ``(x0, fun(x0))``.
+    non-finite start returns ``(x0, fun(x0))``.  With ``return_iters``,
+    also each lane's iterations (R,): its value-and-gradient calls are
+    ``1 + iters``, its probes ``n_evals - 1 - iters``.
     """
     R, n = x0.shape
     M = memory_size
@@ -103,6 +105,7 @@ def minimize_lbfgs(fun, x0, maxiter=100, tol=1e-8, memory_size=8,
     stall = torch.zeros(R, dtype=torch.int64, device=dev)
     stop = ~torch.isfinite(f0)
     nev = torch.ones(R, dtype=torch.int64, device=dev)
+    iters = torch.zeros(R, dtype=torch.int64, device=dev)
     for _ in range(maxiter):
         active = ~stop
         if not bool(active.any()):
@@ -126,6 +129,7 @@ def minimize_lbfgs(fun, x0, maxiter=100, tol=1e-8, memory_size=8,
             n_ls = n_ls + searching.to(n_ls.dtype)
         t = torch.where(ok, t, torch.zeros_like(t))
         nev = nev + torch.where(active, n_ls + 1, torch.zeros_like(n_ls))
+        iters = iters + active.to(iters.dtype)
         x_new = x + t[:, None] * d
         f_new2, g_new = _value_and_grad(fun, x_new)
         s = x_new - x
@@ -155,16 +159,16 @@ def minimize_lbfgs(fun, x0, maxiter=100, tol=1e-8, memory_size=8,
     bad = ~torch.isfinite(f)
     x = torch.where(bad[:, None], x0, x)
     f = torch.where(bad, f0, f)
-    return x, f, nev
+    return (x, f, nev, iters) if return_iters else (x, f, nev)
 
 
 def minimize_lbfgs_bounded(fun, x0, lo, hi, maxiter=100, tol=1e-8, **kw):
     """
     Box-constrained minimization via the sigmoid reparametrization.
-    Returns ``(x_opt, f_opt, n_evals)`` with x_opt strictly inside
-    [lo, hi].
+    Returns ``(x_opt, f_opt, n_evals)`` (and the iterations, see
+    :func:`minimize_lbfgs`) with x_opt strictly inside [lo, hi].
     """
     u0 = to_unconstrained(x0, lo, hi)
-    x, f, nev = minimize_lbfgs(lambda u: fun(to_constrained(u, lo, hi)),
-                               u0, maxiter=maxiter, tol=tol, **kw)
-    return to_constrained(x, lo, hi), f, nev
+    u, *rest = minimize_lbfgs(lambda u: fun(to_constrained(u, lo, hi)),
+                              u0, maxiter=maxiter, tol=tol, **kw)
+    return (to_constrained(u, lo, hi), *rest)

@@ -229,3 +229,57 @@ def test_feed_offbatch_convergence_matches_jax():
         assert t.convergence_criterion[0].n_pred \
             == j.convergence_criterion[0].n_pred
     assert t.convergence_criterion[0].n_pred == 1
+
+
+@pytest.mark.xfail(strict=True, reason=(
+    "a fault shared with gpry_tpu (ROADMAP.md section C): the budget is "
+    "spent first, as the rule says, but then the amplitude-underfit veto "
+    "(gpry_tpu_torch/run.py:571-614, gpry_tpu/run.py:761-806) refuses "
+    "every later declaration on this genuinely flat target (fitted "
+    "output scale ~0.0012 of the training-y span < amp_underfit_frac "
+    "0.05), so the run ends at max_total unconverged"))
+def test_flat_veto_spends_explore_budget():
+    """The port's twin of tests/test_round3.py::
+    test_flat_convergence_vetoed_until_explore_budget_spent, on the rule of
+    its docstring (gpry_tpu_torch/run.py:445-546): convergence declared on
+    a FLAT surrogate (training span < flat_span) is vetoed and the Sobol
+    exploration budget spent first; once the budget is exhausted a
+    genuinely flat posterior is allowed to converge."""
+    bounds = np.array([[-1.0, 1.0]] * 2)
+    explored_before_accept = []
+
+    # a gently sloped target (span 0.02 << flat_span): the surrogate is
+    # flat but the (stubbed) acquisition keeps proposing full batches, so
+    # only the flat veto stands between declaration and acceptance
+    runner = torch_run.Runner(
+        lambda x: 0.01 * float(np.atleast_1d(x)[0]), bounds=bounds, seed=6,
+        verbose=0, options={"max_total": 60, "max_initial": 20,
+                            "n_initial": 4, "n_points_per_acq": 2,
+                            "max_starved_explore": 6},
+        convergence_criterion="DontConverge")
+
+    class _FullBatchAcq:
+        mean = None
+        cov = None
+        _i = 0
+
+        def multi_add(self, gpr, n_points=1, bounds=None, rng=None,
+                      force_resample=False):
+            X = 1e-4 * (np.arange(n_points)[:, None] + 1) \
+                * np.ones((1, 2)) + 1e-3 * type(self)._i
+            type(self)._i += 1
+            return X, np.zeros(n_points), np.zeros(n_points)
+
+    runner._check_convergence = lambda *a, **k: (True, 0.0)
+    orig_mc = runner.generate_mc_sample
+    runner.generate_mc_sample = lambda *a, **k: (
+        explored_before_accept.append(runner._n_explored),
+        orig_mc(*a, **k))[1]
+    runner.do_initial_training()
+    runner.acquisition = _FullBatchAcq()
+    runner._resumed = True
+    runner._run_main_loop()
+    assert runner.has_converged
+    # the exploration budget was fully spent BEFORE the MC/acceptance
+    assert runner._n_explored == 6
+    assert explored_before_accept[0] == 6

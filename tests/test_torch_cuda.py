@@ -378,3 +378,168 @@ def test_spec_beyond_the_kernel_limits_raises(dev):
         fused.predict_meancov(spec, theta, p.X, p.n, p.noise_var, p.L,
                               p.alpha, Xq)
     assert fused.LAUNCHES == n0
+
+
+# K8 and K9 at d = 2, 8 (the main paths' n 224 of nmax 320) and 16: n 1,100
+# of nmax 1,152 stages X in more than 48 KB of shared memory, n 1,800 reads
+# it from global memory (beyond the 227 KB a block holds)
+GRAD_SHAPES = [(2, 40, 64), (8, 224, 320), (16, 1100, 1152),
+               (16, 1800, 1856)]
+
+
+def grad_cases(shapes):
+    """(family, d, n, nmax): every family at d <= 8; RBF and the specs at
+    d = 16 (as K6's d = 16 test)."""
+    return [(f, *sh) for sh in shapes for f in FAMILIES
+            if sh[0] < 16 or f not in FAST[1:]]
+
+
+def _grad_surrogate(family, dev, d, n, nmax):
+    """The small surrogate at (d, n, nmax), with no upper clip (the
+    smooth objective's clip is checked on the CPU)."""
+    p = surrogate(family, dev, n=n, nmax=nmax, d=d)
+    return p.replace(clip_max=torch.tensor(torch.inf, dtype=torch.float64,
+                                           device=dev))
+
+
+def _rel_max(a, b):
+    """max |a - b| / max |b| over all entries (both finite)."""
+    assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())
+    return float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(b)))
+
+
+@pytest.mark.parametrize("family,d,n,nmax", grad_cases(GRAD_SHAPES))
+def test_meanstd_grad_kernel(dev, family, d, n, nmax):
+    """K8 against its plain version (autograd), the first 16 queries on
+    training points: mean and std within rel 1e-10, both gradients within
+    1e-8 of their max |.|; one launch per call."""
+    p = _grad_surrogate(family, dev, d, n, nmax)
+    key = count_key("meanstd_grad", family)
+    family = family_and_theta(family, d)[0]
+    Xq = torch.rand((300, d), dtype=torch.float64, device=dev) * 2.0 - 1.0
+    Xq[:16] = p.X[:16] * p.x_scale + p.x_loc
+    n0 = fused.LAUNCHES[key]
+    out = fused.meanstd_grad(family, p, Xq)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[key] == n0 + 1
+    ref = fused.meanstd_grad_plain(family, p, Xq)
+    for a, b, tol in zip(out, ref, (1e-10, 1e-10, 1e-8, 1e-8)):
+        assert _rel_max(a, b) <= tol
+
+
+@pytest.mark.parametrize("clip", (False, True), ids=("noclip", "clip"))
+@pytest.mark.parametrize("family,d,n,nmax", grad_cases(GRAD_SHAPES[:3]))
+def test_lbfgs_logexp_ascent_kernel(dev, family, d, n, nmax, clip):
+    """K9 against its plain version (the lock-step torch L-BFGS over the
+    autograd LogExp), lane 0 starting on a training point; with ``clip``,
+    an upper clip at the median of the mean at the starts, so that half
+    of the lanes start where min(mean, clip_max) passes no gradient.
+    Lane by lane and step for step over 3 iterations (no lane near its
+    stall yet): the same nev, x within 1e-9 of the box width, f within
+    1e-10 (1 + |f|).  With no clip also to the end (maxiter 100), by the
+    pick: the best f within 1e-9 (1 + |f|) and its x within 1e-7 of the
+    box width.  Lanes are not compared at the end: near an optimum the
+    stall test (an improvement of 16 eps (1 + |f|)) and the last line
+    search decide on rounding that the two summation orders do not share
+    (nev differs), and on a multimodal surface such a flip can send a lane
+    to another optimum (ALL_NODES at d = 16: one lane of 8 ended 0.70
+    away); with the clip, lanes on the flat side climb the std to maxiter.
+    One launch per call."""
+    p = _grad_surrogate(family, dev, d, n, nmax)
+    key = count_key("lbfgs_logexp_ascent", family)
+    family = family_and_theta(family, d)[0]
+    lo = torch.full((d,), -1.0, dtype=torch.float64, device=dev)
+    hi = -lo
+    gen = torch.Generator(device=dev).manual_seed(d)
+    x0s = torch.rand((8, d), generator=gen, dtype=torch.float64,
+                     device=dev) * 2.0 - 1.0
+    x0s[0] = p.X[n - 1] * p.x_scale + p.x_loc
+    if clip:
+        mu0 = fused.meanvar_ungated_plain(family, p, x0s)[0]
+        p = p.replace(clip_max=torch.quantile(mu0, 0.5))
+    zeta, noise = d ** -0.85, 0.01
+    stages = ((3, 1e-9, 1e-10),) + (() if clip else ((100, 1e-7, 1e-9),))
+    for maxiter, tol_x, tol_f in stages:
+        n0 = fused.LAUNCHES[key]
+        xs, f, nev = fused.lbfgs_logexp_ascent(family, p, zeta, noise, x0s,
+                                               lo, hi, maxiter=maxiter)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES[key] == n0 + 1
+        xr, fr, nevr = fused.lbfgs_logexp_ascent_plain(
+            family, p, zeta, noise, x0s, lo, hi, maxiter=maxiter)
+        if maxiter == 3:
+            assert nev.tolist() == nevr.tolist()
+        else:
+            # the pick
+            xs, f, xr, fr = xs[f.argmin()], f.min(), xr[fr.argmin()], fr.min()
+        assert float(torch.max(torch.abs(xs - xr))) <= tol_x * 2.0
+        assert bool(torch.all(torch.abs(f - fr)
+                              <= tol_f * (1 + torch.abs(fr))))
+
+
+def test_grad_kernels_refuse(dev):
+    """K8 and K9 refuse float32, tensors that require grad, and d above
+    the per-thread arrays, before any launch."""
+    p = surrogate("rbf", dev)
+    d = fused.GRAD_MAX_D + 1
+    big = surrogate("rbf", dev, n=8, nmax=16, d=d, nsv=2)
+    Xq = torch.zeros((4, 3), dtype=torch.float64, device=dev)
+    lo, hi = Xq[0] - 1.0, Xq[0] + 1.0
+    n0 = dict(fused.LAUNCHES)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fused.meanstd_grad("rbf", p, Xq.clone().requires_grad_(True))
+    with pytest.raises(TypeError, match="float64"):
+        fused.meanstd_grad("rbf", p, Xq.float())
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fused.lbfgs_logexp_ascent("rbf", p, 0.5, 0.01,
+                                  Xq.clone().requires_grad_(True), lo, hi)
+    with pytest.raises(TypeError, match="float64"):
+        fused.lbfgs_logexp_ascent("rbf", p, 0.5, 0.01, Xq.float(), lo, hi)
+    Xb = torch.zeros((2, d), dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="per-thread"):
+        fused.meanstd_grad("rbf", big, Xb)
+    with pytest.raises(ValueError, match="per-thread"):
+        fused.lbfgs_logexp_ascent("rbf", big, 0.5, 0.01, Xb, Xb[0] - 1.0,
+                                  Xb[0] + 1.0)
+    assert fused.LAUNCHES == n0
+
+
+def test_runner_refuses_d_above_grad_kernels(dev):
+    """On the card the BatchOptimizer's ascent runs K8 / K9, which hold
+    d <= GRAD_MAX_D: a default Runner at d = GRAD_MAX_D + 1 raises
+    ValueError when it is built, before any truth evaluation."""
+    from gpry_tpu_torch.run import Runner
+    d = fused.GRAD_MAX_D + 1
+    calls = []
+
+    def loglike(X):
+        calls.append(X)
+        return -0.5 * float(np.sum(np.asarray(X) ** 2))
+
+    with pytest.raises(ValueError, match=f"d={d} > {fused.GRAD_MAX_D}"):
+        Runner(loglike, [[-1.0, 1.0]] * d, verbose=0)
+    assert not calls
+
+
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+def test_smooth_surrogate_autograd_on_k8(dev, family):
+    """surrogate_mean_std_smooth on the card is K8 in an autograd Function:
+    its gradient of any weighting of mean and std is the plain autograd's
+    (rel 1e-8), one K8 launch per forward, and double backward raises."""
+    from gpry_tpu_torch.models.gp import surrogate_mean_std_smooth
+    p = _grad_surrogate(family, dev, 3, 40, 64)
+    key = count_key("meanstd_grad", family)
+    family = family_and_theta(family)[0]
+    Xq = torch.rand((20, 3), dtype=torch.float64, device=dev) * 2.0 - 1.0
+    w = torch.linspace(-1.0, 2.0, 20, dtype=torch.float64, device=dev)
+    n0 = fused.LAUNCHES[key]
+    Xg = Xq.clone().requires_grad_(True)
+    m, s = surrogate_mean_std_smooth(family, p, Xg)
+    g, = torch.autograd.grad((w * m + s * s).sum(), Xg, create_graph=True)
+    assert fused.LAUNCHES[key] == n0 + 1
+    Xr = Xq.clone().requires_grad_(True)
+    mr, sr = fused.meanvar_ungated_plain(family, p, Xr)
+    gr, = torch.autograd.grad((w * mr + sr * sr).sum(), Xr)
+    assert _rel_max(g.detach(), gr) <= 1e-8
+    with pytest.raises(RuntimeError, match="twice"):
+        g.sum().backward()

@@ -269,6 +269,31 @@ def test_lbfgs_nonfinite_start_returns_start():
     np.testing.assert_allclose(xs[1].numpy(), [0.3, 0.3], atol=1e-5)
 
 
+@pytest.mark.parametrize("x0", ([-0.5, 0.8], [0.9, -0.9], [0.1, 0.2]))
+def test_lbfgs_iteration_counts(x0):
+    """With ``return_iters`` the solver also returns each lane's
+    iterations, and (x, f, nev) as without it; on one lane, a spying
+    objective sees 1 + iters value-and-gradient calls and nev - 1 - iters
+    line-search probes."""
+    lo, hi = T([-1.0, -1.0]), T([1.0, 1.0])
+    grad_calls = []
+
+    def rosen(x):
+        grad_calls.append(torch.is_grad_enabled())
+        return (0.1 - x[:, 0]) ** 2 + 10.0 * (x[:, 1] - x[:, 0] ** 2) ** 2
+
+    x, f, nev = minimize_lbfgs_bounded(rosen, T([x0]), lo, hi, maxiter=40)
+    grad_calls.clear()
+    x2, f2, nev2, iters = minimize_lbfgs_bounded(rosen, T([x0]), lo, hi,
+                                                 maxiter=40,
+                                                 return_iters=True)
+    assert torch.equal(x, x2) and torch.equal(f, f2)
+    assert torch.equal(nev, nev2)
+    assert 0 < int(iters[0]) <= 40
+    assert sum(grad_calls) == 1 + int(iters[0])
+    assert len(grad_calls) - sum(grad_calls) == int(nev[0] - 1 - iters[0])
+
+
 def test_wrapper_argument_checks():
     """The kernel wrappers refuse what the kernels do not take."""
     ok = torch.zeros((4, 2), dtype=torch.float64)
