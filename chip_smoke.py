@@ -2,11 +2,12 @@
 """
 Drive gpry_tpu_torch once on one CUDA card.
 
-1. Build the nine CUDA kernels (K1 gated_mean, K2 gated_meanvar_logexp,
+1. Build the eleven CUDA kernels (K1 gated_mean, K2 gated_meanvar_logexp,
    K3 masked_kernel_matrix_batched, K4 kriging_believer_fill, K5
    meanvar_ungated, K6 ns_slice_chains, K7 predict_meancov, K8
-   meanstd_grad, K9 lbfgs_logexp_ascent) from ``gpry_tpu_torch/csrc``, one
-   nvcc per source, all at once.
+   meanstd_grad, K9 lbfgs_logexp_ascent, K10 lml_value_grad, K11
+   lbfgs_lml_fit) from ``gpry_tpu_torch/csrc``, one nvcc per source, all
+   at once.
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes of the main paths (d = 8, n = 224 valid rows in a bucket of
    nmax = 320; K1 at nq = 16, 66, 2,000, 16,384 and 65,536 in both of
@@ -14,7 +15,11 @@ Drive gpry_tpu_torch once on one CUDA card.
    and a pool of 8, K5 at the audit screen's nq = 4,096, K6 at the NS's
    B = 66 and 33 chains of 40 repeats, K7 and K8 at nq = 1, 64 and 1,024,
    K9 at 8 restart lanes, lane 0 on a training point, with no upper
-   clip and with one that binds at half of the starts; K1 and
+   clip and with one that binds at half of the starts; K10 at the fit's
+   LML screen of R = 2,048 theta rows, scalar and vector noise, and in
+   its gradient mode on 8 rows and one that is not positive definite;
+   K11 on path h's data, 8 lanes and the 2 of a simple fit, step for step
+   over 3 iterations and then to maxiter 120; K1 and
    K6 with the SVM fitted and all finite), for the four fast families and,
    in each kernel's spec mode, for a composite kernel with every node kind
    (ALL_NODES); time both with CUDA events (K1 and K6 also by their
@@ -23,11 +28,19 @@ Drive gpry_tpu_torch once on one CUDA card.
    FP64 peak and its bytes over 3.35 TB/s.  K1's and K6's operations count
    only the sums their inputs need: the SVM decision of a point inside the
    trust box (and K6's prior box), the GP mean only where that decision
-   is finite, over the points K6's chains must evaluate; K9's the sums
-   of the evaluations its plain version makes (its iterations and nev).
+   is finite, over the points K6's chains must evaluate; K9's and K11's
+   the sums of the evaluations their plain versions make (iterations and
+   nev).  K10 is also timed against the route it replaces (K3,
+   ``cholesky_ex`` and ``solve_triangular``).
 3. Drive eight paths, each with the launch counts set to 0 just before it
    and read just after, and check that each launched its kernels (K9 once
-   per believer step on paths a, f and h), that
+   per believer step on paths a, f and h; on the paths that fit, a, b, c,
+   e, f and h, K11 once per fit that polishes and K10 once per LML screen
+   and re-score, with no call of the torch L-BFGS or of cholesky_ex inside
+   them; each path's fits and fit seconds are printed, and its polishes
+   are replayed through K11's plain version, the two winners compared by
+   each solver's own -LML and, for the fast families up to n = 128, by
+   a 30-digit one), that
    K1's launches on paths a, b, c and e are below 1% of what the
    lock-step nested sampler made there (LOCKSTEP_K1_LAUNCHES), and print
    the seconds each path spent in nested sampling:
@@ -154,7 +167,29 @@ SOURCES = {
                      "gpry_tpu/models/gp.py:1272"),
     "lbfgs_logexp_ascent": ("gpry_tpu_torch/csrc/lbfgs_logexp_ascent.cu",
                             "gpry_tpu/acquisition/batch_optimizer.py:78"),
+    "lml_value_grad": ("gpry_tpu_torch/csrc/lml_value_grad.cu",
+                       "gpry_tpu/models/gp.py:189"),
+    "lbfgs_lml_fit": ("gpry_tpu_torch/csrc/lbfgs_lml_fit.cu",
+                      "gpry_tpu/models/gp.py:236"),
 }
+# K10: the LML within rel TOL_K10 on well-conditioned rows (the plain
+# factor's smallest pivot^2 at least K10_WELL max diag(K)); the NaN masks
+# identical except on rows whose K has an eigenvalue below K10_SINGULAR max
+# diag(K) (counted and printed); the gradient within TOL_K10_GRAD of max |g|
+TOL_K10, TOL_K10_GRAD, K10_WELL, K10_SINGULAR = 1e-10, 1e-8, 1e-6, 1e-12
+# K11 per lane over K11_STEPS iterations: the same nev, theta within
+# TOL_K11_X of the box width, f within TOL_K11_F (1 + |f|); at maxiter
+# K11_MAXITER the same winning lane, or the best f within TOL_K11_END
+# (1 + |f|) or within the LML's own rounding spread at the two winners
+# (lml_spread over K11_PERMS row orders), whichever is larger: path h's
+# optimum sits at the box's edge with cond(K) ~ 3e11, where two summation
+# orders of one LML differ by ~1e-5 (~2e-8 of |f|)
+TOL_K11_X, TOL_K11_F, TOL_K11_END, K11_STEPS = 1e-7, 1e-9, 1e-8, 3
+K11_MAXITER, K11_PERMS = 120, 8
+# the paths that fit hyperparameters: K11 once per fit that polishes, K10
+# for every screen and re-score (the spec-mode key on path f)
+FIT_PATHS = {"batchoptimizer": "", "nora_bench": "", "nora_runner": "",
+             "himmelblau_audit": "", "spec_runner": "/spec", "bo_bench": ""}
 # K6 at the NS steps of the main paths: nlive 400 (final NS) and 200
 # (NORA), num_repeats 40
 K6_B, K6_R = (66, 33), 40
@@ -167,26 +202,29 @@ PATH_KERNELS = {
     "batchoptimizer": ("gated_mean", "gated_meanvar_logexp",
                        "masked_kernel_matrix_batched", "meanvar_ungated",
                        "ns_slice_chains", "predict_meancov", "meanstd_grad",
-                       "lbfgs_logexp_ascent"),
+                       "lbfgs_logexp_ascent", "lml_value_grad",
+                       "lbfgs_lml_fit"),
     "nora_bench": ("gated_mean", "gated_meanvar_logexp",
                    "masked_kernel_matrix_batched", "kriging_believer_fill",
-                   "ns_slice_chains"),
+                   "ns_slice_chains", "lml_value_grad", "lbfgs_lml_fit"),
     "nora_runner": ("gated_mean", "gated_meanvar_logexp",
                     "masked_kernel_matrix_batched", "kriging_believer_fill",
-                    "ns_slice_chains"),
+                    "ns_slice_chains", "lml_value_grad", "lbfgs_lml_fit"),
     "mcmc": ("gated_mean",),
     "himmelblau_audit": ("gated_mean", "gated_meanvar_logexp",
                          "masked_kernel_matrix_batched",
                          "kriging_believer_fill", "meanvar_ungated",
-                         "ns_slice_chains"),
+                         "ns_slice_chains", "lml_value_grad",
+                         "lbfgs_lml_fit"),
     "spec_runner": ("gated_mean/spec", "gated_meanvar_logexp/spec",
                     "masked_kernel_matrix_batched/spec",
                     "meanvar_ungated/spec", "ns_slice_chains/spec",
-                    "lbfgs_logexp_ascent/spec"),
+                    "lbfgs_logexp_ascent/spec", "lml_value_grad/spec",
+                    "lbfgs_lml_fit/spec"),
     "spec_cov_nora": ("predict_meancov/spec", "kriging_believer_fill/spec",
                       "meanstd_grad/spec"),
     "bo_bench": ("gated_meanvar_logexp", "masked_kernel_matrix_batched",
-                 "lbfgs_logexp_ascent"),
+                 "lbfgs_logexp_ascent", "lml_value_grad", "lbfgs_lml_fit"),
 }
 # the paths whose BatchOptimizer must launch K9 once per believer step
 BELIEVER_PATHS = {"batchoptimizer": "lbfgs_logexp_ascent",
@@ -1043,8 +1081,311 @@ def check_k9(dev, families, timed):
     return row
 
 
+def lml_flops(family, n, p=0, grad=False):
+    """FP64 operations of one row's LML: the pair build (n (n + 1) / 2
+    kernel values), the Cholesky (n^3 / 3) and the substitution for z
+    (n^2); with ``grad`` also L^-1 and K^-1 = L^-T L^-1 (n^3 / 3 each) and
+    the contraction with the p tangents of each pair (p n^2)."""
+    ops = n * (n + 1) // 2 * pair_flops(family) + n ** 3 / 3 + n * n
+    if grad:
+        ops += 2 * n ** 3 / 3 + p * n * n
+    return ops
+
+
+def fit_data(dev):
+    """Path h's data (bench_data) in a GPR: the padded transformed X and
+    y (n = N of nmax = NMAX), the noise, the fit's box and the incumbent
+    theta after one 26-restart fit (the plain versions serve the fit: the
+    launch counts stay untouched)."""
+    import numpy as np
+    import torch
+    from gpry_tpu_torch.models.gp import GaussianProcessRegressor
+    from gpry_tpu_torch.models.preprocessing import Normalize_bounds, \
+        Normalize_y
+    bounds, X, y = bench_data()
+    gpr = GaussianProcessRegressor(
+        bounds=bounds, preprocessing_X=Normalize_bounds(bounds),
+        preprocessing_y=Normalize_y(), random_state=0, verbose=0)
+    gpr.append_to_data(X, y, fit_gpr=False)
+    gpr._refresh_buffers()
+    if gpr._dX.shape != (NMAX, D) or gpr.n != N:
+        raise AssertionError(f"path h's data: {tuple(gpr._dX.shape)}, "
+                             f"n {gpr.n}")
+    t = lambda a: torch.as_tensor(np.asarray(a, float), dtype=torch.float64,
+                                  device=dev)
+    return gpr, t
+
+
+def check_k10(dev, rng, families, timed):
+    """K10 at the fit's LML screen: R = 2,048 theta rows drawn in the fit's
+    box (variance 1e-4 to 1e6, length scales 1e-3 to 10; a spec's theta0
+    +- 1) at n = N of nmax = NMAX, scalar and vector noise, value mode:
+    the NaN masks identical except on rows with an eigenvalue of K below
+    K10_SINGULAR max diag(K) (counted), the LML within rel TOL_K10 on the
+    well-conditioned rows.  Gradient mode on 8 moderate rows and one that
+    is not positive definite (a zero first pivot; a NaN theta in spec
+    mode): the gradient within TOL_K10_GRAD of max |g|, NaN on that row in both.
+    ``timed`` is timed against its plain version and the route it
+    replaces (K3, ``cholesky_ex`` and ``solve_triangular``)."""
+    import numpy as np
+    import torch
+    from gpry_tpu_torch.ops import fused
+    worst = 0.0
+    R = 2048
+    X = torch.zeros((NMAX, D), dtype=torch.float64, device=dev)
+    X[:N] = torch.as_tensor(rng.uniform(0, 1, (N, D)), device=dev)
+    y = torch.zeros(NMAX, dtype=torch.float64, device=dev)
+    y[:N] = torch.sin(3 * X[:N]).sum(1)
+    noise_vec = torch.as_tensor(rng.uniform(1e-5, 1e-3, NMAX),
+                                dtype=torch.float64, device=dev)
+    row, counts = {}, {}
+    for fam in families:
+        label = "spec" if is_spec(fam) else fam
+        if is_spec(fam):
+            theta0 = np.asarray(spec_kernel()[1])
+            th = theta0 + rng.uniform(-1.0, 1.0, (R, len(theta0)))
+            mid = theta0
+        else:
+            th = np.column_stack([
+                rng.uniform(np.log(1e-4), np.log(1e6), R),
+                rng.uniform(np.log(1e-3), np.log(10.0), (R, D))])
+            mid = np.log([2.0] + [0.5] * D)
+        thetas = torch.as_tensor(th, dtype=torch.float64, device=dev)
+        for noise in (torch.tensor(1e-4, dtype=torch.float64, device=dev),
+                      noise_vec):
+            kind = "vector" if noise.ndim else "scalar"
+            a = fused.lml_value_grad(fam, thetas, X, y, N, noise)
+            K = fused.masked_kernel_matrix_plain(fam, thetas, X, N, noise)
+            L = fused.cholesky_nan(K)
+            b = fused.lml_of_K(K, y, N)
+            sync()
+            dK = torch.diagonal(K, dim1=-2, dim2=-1)[:, :N]
+            piv2 = torch.diagonal(L, dim1=-2, dim2=-1)[:, :N] ** 2
+            well = torch.isfinite(b) & (piv2.min(1).values
+                                        >= K10_WELL * dK.max(1).values)
+            differ = torch.isfinite(a) != torch.isfinite(b)
+            singular = 0
+            for r in torch.nonzero(differ).flatten().tolist():
+                ev = torch.linalg.eigvalsh(K[r, :N, :N])
+                if not float(ev.min()) < K10_SINGULAR * float(dK[r].max()):
+                    raise AssertionError(
+                        f"K10 {label} {kind}: row {r} NaN in one version "
+                        f"only, smallest eigenvalue {float(ev.min())} of "
+                        f"max diag {float(dK[r].max())}")
+                singular += 1
+            rel = torch.abs(a - b)[well] / torch.abs(b[well])
+            rel_w = float(rel.max()) if bool(well.any()) else 0.0
+            fin = torch.isfinite(a) & torch.isfinite(b)
+            rel_all = float((torch.abs(a - b)[fin]
+                             / torch.abs(b[fin])).max())
+            log(f"[K10] {label:8s} R={R} noise {kind}: {int(well.sum())} "
+                f"well-conditioned rows, LML rel {rel_w:.3e} there "
+                f"({rel_all:.3e} over all {int(fin.sum())} finite rows); "
+                f"NaN {int((~torch.isfinite(b)).sum())} plain, "
+                f"{int((~torch.isfinite(a)).sum())} kernel, masks differ "
+                f"on {singular} near-singular rows")
+            counts[f"{label}/{kind}"] = {
+                "well": int(well.sum()), "finite": int(fin.sum()),
+                "nan_mask_differs": singular}
+            if not (rel_w <= TOL_K10 and int(well.sum()) >= 8):
+                raise AssertionError(f"K10 {label} {kind}: rel {rel_w} > "
+                                     f"{TOL_K10} on well-conditioned rows")
+            worst = max(worst, float(torch.abs(a - b)[well].max()))
+            del K, L
+            # gradient mode: 8 moderate rows and one that is not PD (fast:
+            # a variance that underflows to 0 over a zero noise entry, so
+            # the first pivot is 0; spec: a NaN theta)
+            tg = torch.as_tensor(mid + rng.uniform(-0.3, 0.3, (9, len(mid))),
+                                 dtype=torch.float64, device=dev)
+            nz = noise.expand(NMAX).clone()
+            nz[0] = 0.0
+            if is_spec(fam):
+                tg[8] = torch.nan
+            else:
+                tg[8, 0] = -800.0
+            ag, gg = fused.lml_value_grad(fam, tg, X, y, N, nz, grad=True)
+            bg, gr = fused.lml_value_grad_plain(fam, tg, X, y, N, nz,
+                                                grad=True)
+            sync()
+            if not (bool(torch.isnan(ag[8])) and bool(torch.isnan(bg[8]))
+                    and bool(torch.isnan(gg[8]).all())
+                    and bool(torch.isfinite(gg[:8]).all())):
+                raise AssertionError(f"K10 {label} {kind}: the non-PD row "
+                                     "is not NaN in both, or a PD row is")
+            rel_v = float((torch.abs(ag[:8] - bg[:8])
+                           / torch.abs(bg[:8])).max())
+            rel_g = float(torch.abs(gg[:8] - gr[:8]).max()
+                          / torch.abs(gr[:8]).max())
+            log(f"[K10] {label:8s} gradient mode, noise {kind}: LML rel "
+                f"{rel_v:.3e}, gradient rel {rel_g:.3e} of max |g|; the "
+                "non-PD row NaN in both")
+            if not (rel_v <= TOL_K10 and rel_g <= TOL_K10_GRAD):
+                raise AssertionError(f"K10 {label} {kind} gradient mode: "
+                                     f"LML rel {rel_v}, gradient {rel_g}")
+            worst = max(worst, float(torch.abs(gg[:8] - gr[:8]).max()))
+            if fam == timed and noise.ndim == 0:
+                ms = time_ms(lambda: fused.lml_value_grad(
+                    fam, thetas, X, y, N, noise), 10)
+                plain = time_ms(lambda: fused.lml_value_grad_plain(
+                    fam, thetas, X, y, N, noise), 3)
+                route = time_ms(lambda: fused.lml_of_K(
+                    fused.masked_kernel_matrix_batched(
+                        fam, thetas, X, N, noise), y, N), 3)
+                ms_g = time_ms(lambda: fused.lml_value_grad(
+                    fam, tg[:8], X, y, N, noise, grad=True), 10)
+                plain_g = time_ms(lambda: fused.lml_value_grad_plain(
+                    fam, tg[:8], X, y, N, noise, grad=True), 3)
+                log(f"[K10] {label} R={R}: kernel {ms:.4f} ms, plain "
+                    f"{plain:.4f} ms, route (K3 + cholesky_ex + "
+                    f"solve_triangular) {route:.4f} ms; gradient mode R=8: "
+                    f"kernel {ms_g:.4f} ms, plain {plain_g:.4f} ms")
+                p = thetas.shape[1]
+                row = {"ms": ms, "plain_ms": plain, "route_ms": route,
+                       "grad_ms": ms_g, "grad_plain_ms": plain_g,
+                       "grad_bound_ms": bound(
+                           8 * lml_flops(fam, N, p, grad=True),
+                           8 * (8 * p + NMAX * D + 2 * NMAX + 8 * (1 + p)))
+                       ["bound_ms"]}
+                row.update(bound(R * lml_flops(fam, N),
+                                 8 * (R * p + NMAX * D + NMAX + 1 + R)))
+        torch.cuda.empty_cache()
+    row.update({"max_abs_err": worst, "rows": counts,
+                "shape": f"R={R} n={N} nmax={NMAX} d={D}"})
+    return row
+
+
+def lml_spread(fam, theta, X, y, n, noise, perms=K11_PERMS):
+    """The rounding spread of the plain LML at ``theta`` (p,): max - min
+    over ``perms`` orders of the n valid training rows (the same matrix,
+    other summation orders), the first the identity."""
+    import numpy as np
+    import torch
+    from gpry_tpu_torch.ops import fused
+    rng = np.random.default_rng(0)
+    vals = []
+    for k in range(perms):
+        order = np.arange(X.shape[0])
+        if k:
+            order[:n] = rng.permutation(n)
+        idx = torch.as_tensor(order, device=X.device)
+        nz = noise[idx] if noise.ndim else noise
+        vals.append(float(fused.lml_value_grad_plain(
+            fam, theta[None], X[idx], y[idx], n, nz)[0]))
+    return max(vals) - min(vals)
+
+
+def check_k11(dev, families, timed):
+    """K11 against its plain version lane by lane on path h's data: 8 lanes
+    (lane 0 at the incumbent theta, the rest uniform in the fit's box; a
+    spec's lanes in theta0 +- 2) and the 2 lanes of a ``simple`` fit: step
+    for step over K11_STEPS iterations (the same nev, theta within
+    TOL_K11_X of the box width, f within TOL_K11_F (1 + |f|)), then to
+    K11_MAXITER: the same winning lane, or the best f within TOL_K11_END
+    (1 + |f|) or within the LML's rounding spread at the two winners
+    (``lml_spread``), whichever is larger.  ``timed`` on 8
+    lanes is timed, and its bound counts the evaluations its plain
+    version makes: 1 + iterations value-and-gradient calls per lane, the
+    rest of its nev probes."""
+    import numpy as np
+    import torch
+    from gpry_tpu_torch.ops import fused
+    gpr, t = fit_data(dev)
+    lo_f, hi_f = gpr.theta_bounds[:, 0], gpr.theta_bounds[:, 1]
+    incumbent = np.log([2.0] + [0.3] * D)
+    worst = 0.0
+    row = {}
+    for fam in families:
+        if is_spec(fam):
+            theta0 = np.asarray(spec_kernel()[1])
+            lo, hi = theta0 - 2.0, theta0 + 2.0
+            first = theta0
+        else:
+            lo, hi, first = lo_f, hi_f, incumbent
+        for lanes in (8, 2):
+            label = f"{'spec' if is_spec(fam) else fam} {lanes} lanes"
+            th0 = np.random.default_rng(lanes).uniform(lo, hi,
+                                                       (lanes, len(lo)))
+            th0[0] = first
+            args = (fam, gpr._dX, gpr._dy, N, gpr._noise_t(), t(th0), t(lo),
+                    t(hi))
+            width = float(np.max(hi - lo))
+            th, f, nev = fused.lbfgs_lml_fit(*args, maxiter=K11_STEPS)
+            thr, fr, nevr = fused.lbfgs_lml_fit_plain(*args,
+                                                      maxiter=K11_STEPS)
+            sync()
+            # a lane whose start is not positive definite returns it with
+            # a NaN f, in both
+            same_nan = torch.equal(torch.isnan(f), torch.isnan(fr))
+            fin = torch.isfinite(fr)
+            err_x = float(torch.max(torch.abs(th - thr)))
+            err_f = float(torch.max(torch.abs(f - fr)[fin]
+                                    / (1 + torch.abs(fr[fin]))))
+            log(f"[K11] {label:16s}: over {K11_STEPS} iterations nev "
+                f"{nev.tolist()} (plain {nevr.tolist()}), theta max abs err "
+                f"{err_x:.3e}, f rel {err_f:.3e} ({int((~fin).sum())} lanes "
+                "NaN at the start)")
+            if not (nev.tolist() == nevr.tolist() and same_nan
+                    and err_x <= TOL_K11_X * width and err_f <= TOL_K11_F):
+                raise AssertionError(
+                    f"K11 {label}: after {K11_STEPS} iterations nev "
+                    f"{nev.tolist()} against {nevr.tolist()}, theta {err_x},"
+                    f" f {err_f}")
+            worst = max(worst, err_x, float(torch.max(torch.abs(f - fr)[fin])))
+            th, f, nev, it = fused.lbfgs_lml_fit(
+                *args, maxiter=K11_MAXITER, return_iters=True)
+            t0 = time.perf_counter()
+            thr, fr, nevr, itr = fused.lbfgs_lml_fit_plain(
+                *args, maxiter=K11_MAXITER, return_iters=True)
+            sync()
+            plain_once = 1e3 * (time.perf_counter() - t0)
+            f = torch.where(torch.isnan(f), torch.inf, f)
+            fr = torch.where(torch.isnan(fr), torch.inf, fr)
+            best, best_r = float(f.min()), float(fr.min())
+            win, win_r = int(f.argmin()), int(fr.argmin())
+            err_best = abs(best - best_r) / (1 + abs(best_r))
+            spread = max(lml_spread(fam, th[win], *args[1:5]),
+                         lml_spread(fam, thr[win_r], *args[1:5]))
+            tol_end = max(TOL_K11_END, spread / (1 + abs(best_r)))
+            ev = torch.linalg.eigvalsh(fused.masked_kernel_matrix_plain(
+                fam, thr[win_r], gpr._dX, N, gpr._noise_t())[:N, :N])
+            cond = float(ev[-1] / ev[0]) if float(ev[0]) > 0 else math.inf
+            log(f"[K11] {label:16s}: to maxiter {K11_MAXITER} best f "
+                f"{best:.12g} (plain {best_r:.12g}, rel {err_best:.3e}; the "
+                f"LML's rounding spread there {spread:.3e}, "
+                f"{spread / (1 + abs(best_r)):.3e} rel, cond(K) at the plain "
+                f"winner {cond:.3e}), winner lane {win} "
+                f"(plain {win_r}); f {f.tolist()} (plain {fr.tolist()}); nev "
+                f"{nev.tolist()} (plain {nevr.tolist()}), iterations "
+                f"{it.tolist()} (plain {itr.tolist()})")
+            if not (math.isfinite(best)
+                    and (win == win_r or err_best <= tol_end)):
+                raise AssertionError(f"K11 {label}: best f {best} against "
+                                     f"{best_r}, spread {spread}")
+            if fam == timed and lanes == 8:
+                ms = time_ms(lambda: fused.lbfgs_lml_fit(
+                    *args, maxiter=K11_MAXITER), 3)
+                n_vg = int((1 + itr).sum())
+                n_probe = int((nevr - 1 - itr).sum())
+                p = len(lo)
+                log(f"[K11] {label}: kernel {ms:.4f} ms, plain "
+                    f"{plain_once:.1f} ms; {n_vg} value-and-gradient calls "
+                    f"and {n_probe} probes in the plain run")
+                row = {"ms": ms, "plain_ms": plain_once,
+                       "nev": nev.tolist(), "nev_plain": nevr.tolist(),
+                       "value_grad_calls": n_vg, "probes": n_probe}
+                row.update(bound(
+                    n_vg * lml_flops(fam, N, p, grad=True)
+                    + n_probe * lml_flops(fam, N),
+                    8 * (2 * lanes * p + 2 * p + NMAX * D + 2 * NMAX
+                         + 3 * lanes)))
+    row.update({"max_abs_err": worst,
+                "shape": f"R=8 n={N} nmax={NMAX} d={D} "
+                         f"maxiter={K11_MAXITER}"})
+    return row
+
+
 def check_kernels(dev):
-    """Compare K1-K9 with their plain versions, the fast families and the
+    """Compare K1-K11 with their plain versions, the fast families and the
     ALL_NODES spec; returns per-kernel rows (spec mode as "<name>/spec")."""
     import numpy as np
     import torch
@@ -1068,6 +1409,8 @@ def check_kernels(dev):
         rows["predict_meancov" + sfx] = check_k7(dev, rng, fams, timed)
         rows["meanstd_grad" + sfx] = check_k8(dev, rng, fams, timed)
         rows["lbfgs_logexp_ascent" + sfx] = check_k9(dev, fams, timed)
+        rows["lml_value_grad" + sfx] = check_k10(dev, rng, fams, timed)
+        rows["lbfgs_lml_fit" + sfx] = check_k11(dev, fams, timed)
         torch.cuda.empty_cache()
         log(f"[CHECKS] {'spec' if sfx else 'fast families'}: "
             f"{time.perf_counter() - t0:.1f} s")
@@ -1366,11 +1709,12 @@ def grid_truth_moments(model, n_grid=1001):
     return mean, (w[:, None] * diff).T @ diff
 
 
-def run_himmelblau_audit():
+def run_himmelblau_audit(seed=100):
     """The audited NORA Runner on Himmelblau at the default options
     (benchmarks/nongaussian.py:110, seed 100): converged, moment-KL of the
     final sample against the grid-quadrature truth <= KL_GATE, every
-    quadrant's mode >= 5% of the weight."""
+    quadrant's mode >= 5% of the weight.  Other seeds serve
+    compare_trees.sh's spread of the truth evals."""
     import numpy as np
     from model_generator import himmelblau
     from gpry_tpu_torch.run import Runner
@@ -1378,8 +1722,8 @@ def run_himmelblau_audit():
     model = himmelblau()
     mean_t, cov_t = grid_truth_moments(model)
     t0 = time.perf_counter()
-    runner = Runner(model.loglike, bounds=model.bounds, seed=100, verbose=2,
-                    gp_acquisition="NORA")
+    runner = Runner(model.loglike, bounds=model.bounds, seed=seed,
+                    verbose=2, gp_acquisition="NORA")
     audit = timed_audit(runner)
     runner.run()
     if runner.last_mc_result is None:
@@ -1454,20 +1798,235 @@ def time_ns_runs():
     nora.run_nested_device = timed
 
 
+# the GP fits per path: fits and their wall seconds, polishes (calls of
+# _fit_theta_restarts), LML screens and re-scores (calls of
+# _lml_batch_chunked) and the K10 launches they made, and the calls of the
+# torch L-BFGS and of cholesky_ex made inside a polish, screen or re-score
+FITS = {"fits": 0, "fit_s": 0.0, "polishes": 0, "lml_calls": 0,
+        "k10_in_lml": 0, "torch_lbfgs_in_fit": 0, "cholesky_ex_in_fit": 0}
+_IN_FIT = {"depth": 0}
+# the polishes of the path being driven: each call's arguments and K11's
+# results, for replay_fits
+POLISHES = []
+
+
+def instrument_fits():
+    """Wrap the GP fit and its parts to fill FITS."""
+    import torch
+    from gpry_tpu_torch.models import gp as gpm
+    from gpry_tpu_torch.ops import fused, lbfgs
+    k10 = ("lml_value_grad", "lml_value_grad/spec")
+
+    def inside(fn):
+        def wrapped(*args, **kwargs):
+            _IN_FIT["depth"] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _IN_FIT["depth"] -= 1
+        return wrapped
+
+    fit = gpm.GaussianProcessRegressor.fit_gpr_hyperparameters
+
+    def timed_fit(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fit(self, *args, **kwargs)
+        finally:
+            sync()
+            FITS["fit_s"] += time.perf_counter() - t0
+            FITS["fits"] += 1
+
+    polish = inside(gpm._fit_theta_restarts)
+
+    def counted_polish(*args, **kwargs):
+        FITS["polishes"] += 1
+        out = polish(*args, **kwargs)
+        POLISHES.append((args, kwargs, out))
+        return out
+
+    screen = inside(gpm._lml_batch_chunked)
+
+    def counted_screen(*args, **kwargs):
+        before = sum(fused.LAUNCHES[k] for k in k10)
+        out = screen(*args, **kwargs)
+        FITS["lml_calls"] += 1
+        FITS["k10_in_lml"] += sum(fused.LAUNCHES[k] for k in k10) - before
+        return out
+
+    def watch(fn, key):
+        def watched(*args, **kwargs):
+            FITS[key] += _IN_FIT["depth"] > 0
+            return fn(*args, **kwargs)
+        return watched
+
+    gpm.GaussianProcessRegressor.fit_gpr_hyperparameters = timed_fit
+    gpm._fit_theta_restarts = counted_polish
+    gpm._lml_batch_chunked = counted_screen
+    lbfgs.minimize_lbfgs = watch(lbfgs.minimize_lbfgs, "torch_lbfgs_in_fit")
+    torch.linalg.cholesky_ex = watch(torch.linalg.cholesky_ex,
+                                     "cholesky_ex_in_fit")
+
+
+def check_fits(name, launches, fits):
+    """On a path that fits (FIT_PATHS): one K11 launch per polish, one K10
+    launch per screen and re-score, no torch L-BFGS and no cholesky_ex
+    inside them."""
+    sfx = FIT_PATHS.get(name)
+    if sfx is None:
+        return
+    k11 = launches["lbfgs_lml_fit" + sfx]
+    log(f"[{name}] GP fits: {fits['fits']} in {fits['fit_s']:.3f} s; "
+        f"{fits['polishes']} polishes ({k11} K11 launches), "
+        f"{fits['lml_calls']} screens and re-scores ({fits['k10_in_lml']} K10"
+        f" launches); inside them {fits['torch_lbfgs_in_fit']} torch L-BFGS "
+        f"and {fits['cholesky_ex_in_fit']} cholesky_ex calls")
+    if not (fits["polishes"] > 0 and k11 == fits["polishes"]):
+        raise AssertionError(f"{name}: {k11} K11 launches for "
+                             f"{fits['polishes']} fits that polish")
+    if not (fits["lml_calls"] > 0
+            and fits["k10_in_lml"] == fits["lml_calls"]):
+        raise AssertionError(f"{name}: {fits['k10_in_lml']} K10 launches "
+                             f"for {fits['lml_calls']} screens and re-scores")
+    if fits["torch_lbfgs_in_fit"] or fits["cholesky_ex_in_fit"]:
+        raise AssertionError(f"{name}: the fit ran the torch L-BFGS or "
+                             "cholesky_ex on the card")
+
+
+# replay_fits scores the two winners of a fast-family fit with n <= this
+# by their LML in TRUE_LML_DIGITS-digit arithmetic (mpmath, which torch
+# installs through sympy)
+TRUE_LML_MAX_N, TRUE_LML_DIGITS = 128, 30
+
+
+def true_nll(family, theta, X, y, n, noise, rel_jitter=0.0):
+    """-LML of a fast family at ``theta`` in TRUE_LML_DIGITS digits (K
+    built from the float64 inputs as masked_kernel_matrix_plain does), or
+    None for a spec tree, n > TRUE_LML_MAX_N or no mpmath.  At the fit's
+    box edges cond(K) reaches ~1e15, where a float64 LML is off by ~1e-2."""
+    if is_spec(family) or n > TRUE_LML_MAX_N:
+        return None
+    try:
+        import mpmath
+    except ImportError:
+        return None
+    mp = mpmath.mp
+    with mpmath.workdps(TRUE_LML_DIGITS):
+        th = [mp.mpf(float(v)) for v in theta]
+        var, ls = mp.exp(th[0]), [mp.exp(v) for v in th[1:]]
+        Xs = [[mp.mpf(v) / ls[k] for k, v in enumerate(row)]
+              for row in X[:n].tolist()]
+        nz = (noise.expand(n) if noise.ndim == 0 else noise[:n]).tolist()
+
+        def k_of(sq):
+            if family == "rbf":
+                return mp.exp(-sq / 2)
+            r = mp.sqrt({"matern12": 1, "matern32": 3,
+                         "matern52": 5}[family] * sq)
+            return {"matern12": 1, "matern32": 1 + r,
+                    "matern52": 1 + r + r * r / 3}[family] * mp.exp(-r)
+
+        K = mp.matrix(n, n)
+        for a in range(n):
+            for b in range(a):
+                K[a, b] = K[b, a] = var * k_of(
+                    sum((u - v) ** 2 for u, v in zip(Xs[a], Xs[b])))
+            K[a, a] = var + mp.mpf(nz[a]) + mp.mpf(float(rel_jitter)) * var
+        L = mp.cholesky(K)
+        z, quad = [], mp.mpf(0)
+        for i, yi in enumerate(y[:n].tolist()):
+            zi = (mp.mpf(yi) - sum(L[i, k] * z[k] for k in range(i))) / L[i, i]
+            z.append(zi)
+            quad += zi * zi
+        lml = -quad / 2 - sum(mp.log(L[i, i]) for i in range(n)) \
+            - n * mp.log(2 * mp.pi) / 2
+        return -float(lml)
+
+
+def replay_fits(name):
+    """The path's polishes again through K11's plain version on the same
+    inputs (it launches nothing).  Per fit, by each solver's own reported
+    best -LML: K11's lower, higher, or the same within the larger of
+    TOL_K11_END (1 + |f|) and the LML's rounding spread at the two winners
+    (lml_spread); and, for a fast family with n <= TRUE_LML_MAX_N, by the
+    true -LML of the two winners (true_nll): which solver found the better
+    hyperparameters.  Printed, not gated: the lanes part at rounding level
+    and may end in other basins, and where K is near singular each
+    solver's reported f is low by its own rounding noise, so only the
+    true values rank them; the kernel is held step for step by check_k11.
+    """
+    import torch
+    from gpry_tpu_torch.ops import fused
+    t0 = time.perf_counter()
+    tally = {"fits": len(POLISHES), "kernel_lower": 0, "kernel_higher": 0,
+             "same": 0, "max_rel_diff": 0.0, "true_scored": 0,
+             "true_kernel_better": 0, "true_plain_better": 0, "true_tie": 0,
+             "kernel_f_err": 0.0, "plain_f_err": 0.0}
+    for args, kwargs, (th, f, _) in POLISHES:
+        thr, fr, _ = fused.lbfgs_lml_fit_plain(*args, **kwargs)
+        f = torch.where(torch.isnan(f), torch.inf, f)
+        fr = torch.where(torch.isnan(fr), torch.inf, fr)
+        best, best_r = float(f.min()), float(fr.min())
+        if not (math.isfinite(best) and math.isfinite(best_r)):
+            key = "same" if best == best_r else (
+                "kernel_lower" if best < best_r else "kernel_higher")
+            tally[key] += 1
+            continue
+        win, win_r = th[int(f.argmin())], thr[int(fr.argmin())]
+        data = args[1:5]
+        spread = max(lml_spread(args[0], win, *data),
+                     lml_spread(args[0], win_r, *data))
+        diff = best - best_r
+        if abs(diff) <= max(TOL_K11_END * (1 + abs(best_r)), spread):
+            tally["same"] += 1
+        else:
+            tally["kernel_lower" if diff < 0 else "kernel_higher"] += 1
+        tally["max_rel_diff"] = max(tally["max_rel_diff"],
+                                    abs(diff) / (1 + abs(best_r)))
+        rj = kwargs.get("rel_jitter", 0.0)
+        tk = true_nll(args[0], win.tolist(), *data, rj)
+        tp = true_nll(args[0], win_r.tolist(), *data, rj)
+        if tk is None or tp is None:
+            continue
+        tally["true_scored"] += 1
+        tally["kernel_f_err"] = max(tally["kernel_f_err"], abs(best - tk))
+        tally["plain_f_err"] = max(tally["plain_f_err"], abs(best_r - tp))
+        if abs(tk - tp) <= TOL_K11_END * (1 + abs(tp)):
+            tally["true_tie"] += 1
+        else:
+            tally["true_kernel_better" if tk < tp
+                  else "true_plain_better"] += 1
+    log(f"[{name}] the path's {tally['fits']} polishes replayed through the "
+        f"plain version: by the reported f, K11's best lower on "
+        f"{tally['kernel_lower']}, higher on {tally['kernel_higher']}, the "
+        f"same within the rounding spread on {tally['same']} (max rel diff "
+        f"{tally['max_rel_diff']:.3e}); by the {TRUE_LML_DIGITS}-digit LML "
+        f"of the two winners on {tally['true_scored']} of them, K11's better "
+        f"on {tally['true_kernel_better']}, the plain's on "
+        f"{tally['true_plain_better']}, tied on {tally['true_tie']}; the "
+        f"reported f of the winners off the 30-digit one by up to "
+        f"{tally['kernel_f_err']:.3e} (K11) and {tally['plain_f_err']:.3e} "
+        f"(plain) ({time.perf_counter() - t0:.1f} s)")
+    return tally
+
+
 def drive(name, fn, *args, **kwargs):
-    """Run one path with the launch counts, the NS clock and the believer
-    steps set to 0 just before it and read just after; fail if a kernel of
-    the path was not launched, if K9 was not launched once per believer
-    step (BELIEVER_PATHS), or if K1 was launched more than 1% as often as
-    when the nested sampler ran its chains through K1."""
+    """Run one path with the launch counts, the NS clock, the believer
+    steps and the fit counts set to 0 just before it and read just after;
+    fail if a kernel of the path was not launched, if K9 was not launched
+    once per believer step (BELIEVER_PATHS), if the fits did not run on
+    K10 and K11 alone (check_fits), or if K1 was launched more than 1% as
+    often as when the nested sampler ran its chains through K1."""
     from gpry_tpu_torch.ops import fused
     fused.reset_launch_counts()
     NS_RUNS.update(runs=0, steps=0, s=0.0)
     BELIEVER.update(steps=0)
+    FITS.update({k: 0 for k in FITS})
+    POLISHES.clear()
     out = fn(*args, **kwargs)
     sync()
     launches = dict(fused.LAUNCHES)
-    ns = dict(NS_RUNS, believer_steps=BELIEVER["steps"])
+    ns = dict(NS_RUNS, believer_steps=BELIEVER["steps"], fits=dict(FITS))
     log(f"[{name}] kernel launches: {launches}")
     log(f"[{name}] nested sampling: {ns['runs']} runs, {ns['steps']} steps, "
         f"{ns['s']:.3f} s; BatchOptimizer believer steps "
@@ -1481,6 +2040,10 @@ def drive(name, fn, *args, **kwargs):
         raise AssertionError(
             f"{name}: {launches[k9]} K9 launches for "
             f"{ns['believer_steps']} believer steps")
+    check_fits(name, launches, ns["fits"])
+    if name in FIT_PATHS:
+        ns["fits"]["replay"] = replay_fits(name)
+    POLISHES.clear()
     before = LOCKSTEP_K1_LAUNCHES.get(name)
     if before is not None and not launches["gated_mean"] < 0.01 * before:
         raise AssertionError(
@@ -1494,6 +2057,7 @@ def drive_paths():
     t0 = time.perf_counter()
     time_ns_runs()
     count_believer_steps()
+    instrument_fits()
     paths, launches, ns = {}, {}, {}
     paths["batchoptimizer"], launches["batchoptimizer"], \
         ns["batchoptimizer"] = drive("batchoptimizer", run_default_with_cov)
@@ -1517,6 +2081,7 @@ def drive_paths():
         "bo_bench", run_bench, "batchoptimizer")
     for name, stats in ns.items():
         paths[name]["believer_steps"] = stats.pop("believer_steps")
+        paths[name]["gp_fits"] = stats.pop("fits")
         paths[name]["nested_sampling"] = stats
     log(f"[PATHS] all eight paths in {time.perf_counter() - t0:.1f} s")
     return paths, launches
@@ -1556,7 +2121,7 @@ def main():
     for base, (src, replaces) in SOURCES.items():
         for name in (base, base + "/spec"):
             # library_ms: no single PyTorch call computes any of the
-            # nine functions (PERF.md, section 6, says why for each)
+            # eleven functions (PERF.md, section 6, says why for each)
             row = {"name": name, "route": "cuda", "source": src,
                    "replaces": replaces,
                    "launches": sum(c[name] for c in launches.values()),

@@ -10,6 +10,9 @@
 #   runner  chip_smoke.py's path a: the default Runner on the d = 8
 #           Gaussian (its run, acquisition and fit seconds)
 #   spec    chip_smoke.py's path f: path a with C() * RBF + WhiteKernel
+#   himmelblau  chip_smoke.py's path e: the audited NORA Runner on
+#           Himmelblau, once per seed in $SEEDS (default 100), each with
+#           its truth evals, moment-KL and fit seconds
 # The driving code is this script's own chip_smoke.py (run_bench,
 # run_runner), loaded by path; only gpry_tpu_torch comes from each
 # checkout, so every checkout times the same work, an older one whose
@@ -25,8 +28,9 @@ set -e
 engine=$1
 shift
 case "$engine" in
-  nora|bo|runner|spec) ;;
-  *) echo "usage: compare_trees.sh nora|bo|runner|spec TREE..." >&2; exit 2;;
+  nora|bo|runner|spec|himmelblau) ;;
+  *) echo "usage: compare_trees.sh nora|bo|runner|spec|himmelblau TREE..." >&2
+     exit 2;;
 esac
 here=$(cd "$(dirname "$0")" && pwd)
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
@@ -51,6 +55,30 @@ if engine in ('nora', 'bo'):
     print('RES', tree, engine, 'warm-up, timed:', json.dumps(
         [{k: it[k] for k in ('fit_s', 'acq_s')} for it in s['iters']]),
         flush=True)
+elif engine == 'himmelblau':
+    from gpry_tpu_torch.models import gp as gpm
+    fit = gpm.GaussianProcessRegressor.fit_gpr_hyperparameters
+    clock = {'fit_s': 0.0}
+
+    def timed_fit(self, *args, **kwargs):
+        t0 = cs.time.perf_counter()
+        try:
+            return fit(self, *args, **kwargs)
+        finally:
+            cs.sync()
+            clock['fit_s'] += cs.time.perf_counter() - t0
+
+    gpm.GaussianProcessRegressor.fit_gpr_hyperparameters = timed_fit
+    for seed in os.environ.get('SEEDS', '100').split():
+        clock['fit_s'] = 0.0
+        try:
+            s = cs.run_himmelblau_audit(int(seed))
+            res = {k: s[k] for k in ('run_s', 'n_total', 'converged',
+                                     'moment_kl')}
+        except AssertionError as e:
+            res = {'error': str(e)}
+        print('RES', tree, engine, 'seed', seed, json.dumps(
+            dict(res, fit_s=clock['fit_s'])), flush=True)
 else:
     kw = {} if engine == 'runner' else {'gpr': {'kernel': cs.SPEC_F}}
     _, _, summary = cs.run_runner(engine.upper(), **kw)

@@ -911,3 +911,443 @@ __device__ void gpry_block_meanvar_grad(const GpryGP& g, const GprySpec& spec,
     __syncthreads();
   }
 }
+
+// ---------------------------------------------------------------------------
+// The log marginal likelihood of the valid block and its theta-gradient
+// (K10 one block per theta row, K11 one block per restart lane), by a block
+// of GPRY_LML_THREADS: gpry_tpu/ops/linalg.py:139 masked_lml,
+//
+//   lml = -1/2 z^T z - sum_i log L_ii - n/2 log 2 pi,   L L^T = K,  L z = y,
+//   d lml / d theta_j = 1/2 sum_ab (alpha alpha^T - K^-1)_ab dK_ab/dtheta_j,
+//
+// with K = k(X, X) on the n x n valid block, its diagonal the same-point
+// covariance plus noise_i + rel_jitter exp(theta_0) (the padding is the
+// identity with y = 0: it adds nothing).
+//
+// Storage.  Only the lower triangle, packed by rows (row i at i (i + 1) / 2),
+// with y appended as row n: (n + 1) (n + 2) / 2 doubles, and three n-vectors.
+// Where that fits beside the rest of the block's shared memory (n <= ~230)
+// it lives there; otherwise in the block's workspace in global memory
+// (gpry_lml_in_smem decides on the host).  X divided by the length scales
+// is staged, transposed, in the global workspace.
+//
+// Factorization.  The bordered matrix [[K, .], [y^T, .]] is eliminated
+// right-looking with unscaled columns (A_ij -= A_ik A_jk / p_k for j > k,
+// p_k the pivot), one block barrier per column, a warp per row and its
+// lanes along the row; row n then holds z_k sqrt(p_k), so L and
+// z = L^-1 y come out together.  Column k + 1 is copied into a shared
+// buffer by the threads that update it, for step k + 1 to read.  A pivot
+// that is not > 0 (or NaN) makes the row's lml NaN, as cholesky_nan does.
+//
+// Gradient (GRAD).  L = A / sqrt(p) column by column, then L^-1 in place,
+// column by column from the right (M_ij = -sum_{j<k<=i} M_ik L_kj / L_jj,
+// one thread per row, one barrier per column), alpha = M^T z, and one pass
+// over the pairs (a, b <= a) per GPRY_LML_PCHUNK parameters: each pair's
+// W_ab = alpha_a alpha_b - (M^T M)_ab and its tangents of K_ab in those
+// parameters, weighted 1/2 on the diagonal and 1 off it, summed into
+// per-thread accumulators and reduced over the block.
+// ---------------------------------------------------------------------------
+
+#define GPRY_LML_THREADS 256
+#define GPRY_LML_WARPS (GPRY_LML_THREADS / 32)
+// parameters whose derivatives one contraction pass carries
+#define GPRY_LML_PCHUNK 16
+// log(2 pi) as math.log(2.0 * math.pi)
+#define GPRY_LOG_2PI 1.8378770664093453
+
+// Offset of row i of a packed lower triangle.
+__host__ __device__ inline size_t gpry_tri(int i) {
+  return (size_t)i * ((size_t)i + 1) / 2;
+}
+
+// Doubles of the matrix part: the packed bordered triangle and sqrt(p),
+// z and alpha.
+__host__ __device__ inline size_t gpry_lml_mat_doubles(int n) {
+  return gpry_tri(n + 1) + 3 * (size_t)n;
+}
+
+// Shared doubles besides the matrix part: two column buffers (n + 1 each),
+// the block reduction (GPRY_LML_WARPS x GPRY_LML_PCHUNK), ls (d) and the
+// spec program.
+__host__ __device__ inline size_t gpry_lml_smem_base(int n, int d,
+                                                     size_t spec) {
+  return 2 * ((size_t)n + 1) + GPRY_LML_WARPS * GPRY_LML_PCHUNK + d + spec;
+}
+
+// Whether the matrix part fits in shared memory beside the base and
+// `extra` more doubles (K11's lane state).
+__host__ __device__ inline bool gpry_lml_in_smem(int n, int d, size_t spec,
+                                                 size_t extra) {
+  return sizeof(double) * (gpry_lml_smem_base(n, d, spec) + extra +
+                           gpry_lml_mat_doubles(n)) <= GPRY_MAX_SMEM;
+}
+
+// Shared doubles of the routine (without `extra`).
+__host__ __device__ inline size_t gpry_lml_smem_doubles(int n, int d,
+                                                        size_t spec,
+                                                        bool in_smem) {
+  return gpry_lml_smem_base(n, d, spec) +
+         (in_smem ? gpry_lml_mat_doubles(n) : 0);
+}
+
+// Global workspace doubles of one block: X / ls transposed (d n) and,
+// unless it is in shared memory, the matrix part.
+__host__ __device__ inline size_t gpry_lml_work_doubles(int n, int d,
+                                                        bool in_smem) {
+  return (size_t)d * n + (in_smem ? 0 : gpry_lml_mat_doubles(n));
+}
+
+// The data of one LML: the first n rows of X (row-major, d columns) and
+// of y, the noise (one value, or one per row) and the relative jitter.
+struct GpryLmlData {
+  int n, d, noise_is_vec;
+  const double* X;
+  const double* y;
+  const double* noise;
+  double rel_jitter;
+};
+
+// Forward mode of gpry_spec_cov (diag false) / gpry_spec_diag (diag true)
+// in theta: returns the value and writes to tan[c] its derivative in
+// theta[j0 + c], c < GPRY_LML_PCHUNK (theta in log space, as the leaves
+// read exp(theta)).  Per leaf: an ARD leaf dk/d(r^2) (-2 df_k^2) in its
+// log length scale k (df_k the scaled difference), 0 on the diagonal;
+// RationalQuadratic v (sq / (2 base) - alpha log base) in log alpha and
+// sq base^(-alpha - 1) in log l; ExpSineSquared 4 v s^2 in log l and
+// 4 v s cos(arg) arg / l in log p (0 at r = 0); DotProduct 2 sigma_0^2;
+// WhiteKernel its value on the diagonal, 0 off it; ConstantKernel its
+// value; sum, product and pow the usual rules (gpry_dpow).
+static __device__ __noinline__ double gpry_spec_dtheta(
+    const GprySpec s, const double* a, int sa, const double* b, int sb,
+    int d, bool diag, int j0, double* tan) {
+  double st[GPRY_SPEC_MAX_STACK];
+  double tg[GPRY_SPEC_MAX_STACK][GPRY_LML_PCHUNK];
+  int top = 0;
+  for (int i = 0; i < s.nodes; ++i) {
+    const int op = s.op[i], off = s.off[i];
+    if (op == GPRY_OP_POW) {
+      const double v = st[top - 1], e = s.expo[i];
+      const double dv = gpry_dpow(v, e);
+      st[top - 1] = gpry_pow(v, e);
+      for (int c = 0; c < GPRY_LML_PCHUNK; ++c) tg[top - 1][c] *= dv;
+      continue;
+    }
+    if (op >= GPRY_OP_SUM) {
+      const double bv = st[--top];
+      const double av = st[top - 1];
+      double* ta = tg[top - 1];
+      const double* tb = tg[top];
+      if (op == GPRY_OP_SUM) {
+        st[top - 1] = av + bv;
+        for (int c = 0; c < GPRY_LML_PCHUNK; ++c) ta[c] += tb[c];
+      } else {
+        st[top - 1] = av * bv;
+        for (int c = 0; c < GPRY_LML_PCHUNK; ++c)
+          ta[c] = ta[c] * bv + av * tb[c];
+      }
+      continue;
+    }
+    double v;
+    double* tv = tg[top];
+    for (int c = 0; c < GPRY_LML_PCHUNK; ++c) tv[c] = 0.0;
+    // the chunk slot of parameter off + m, or -1 outside the chunk
+    auto slot = [&](int m) {
+      const int c = off + m - j0;
+      return (c >= 0 && c < GPRY_LML_PCHUNK) ? c : -1;
+    };
+    if (op <= GPRY_FAMILY_MATERN52) {
+      if (diag) {
+        v = 1.0;
+      } else {
+        double sq = 0.0;
+        for (int k = 0; k < d; ++k) {
+          const double df = (a[k * sa] - b[k * sb]) * s.iet[off + k];
+          sq += df * df;
+        }
+        v = gpry_k_of_sq(op, sq);
+        const double dk = gpry_dk_dsq(op, sq);
+        for (int c = 0; c < GPRY_LML_PCHUNK; ++c) {
+          const int k = j0 + c - off;
+          if (k < 0 || k >= d) continue;
+          const double df = (a[k * sa] - b[k * sb]) * s.iet[off + k];
+          tv[c] = dk * (-2.0 * df * df);
+        }
+      }
+    } else if (op == GPRY_OP_RQ) {
+      if (diag) {
+        v = 1.0;
+      } else {
+        const double il = s.iet[off + 1], al = s.et[off];
+        double sq = 0.0;
+        for (int k = 0; k < d; ++k) {
+          const double df = (a[k * sa] - b[k * sb]) * il;
+          sq += df * df;
+        }
+        const double base = 1.0 + sq / (2.0 * al);
+        v = pow(base, -al);
+        int c = slot(0);
+        if (c >= 0) tv[c] = v * (sq / (2.0 * base) - al * log(base));
+        c = slot(1);
+        if (c >= 0) tv[c] = sq * pow(base, -al - 1.0);
+      }
+    } else if (op == GPRY_OP_EXPSINE) {
+      if (diag) {
+        v = 1.0;
+      } else {
+        double sq = 0.0;
+        for (int k = 0; k < d; ++k) {
+          const double df = a[k * sa] - b[k * sb];
+          sq += df * df;
+        }
+        const double r = sq > 0.0 ? sqrt(sq) : 0.0;
+        const double arg = GPRY_PI * r / s.et[off + 1];
+        const double sn = sin(arg) / s.et[off];
+        v = exp(-2.0 * sn * sn);
+        int c = slot(0);
+        if (c >= 0) tv[c] = 4.0 * v * sn * sn;
+        c = slot(1);
+        if (c >= 0) tv[c] = 4.0 * v * sn * (cos(arg) / s.et[off]) * arg;
+      }
+    } else if (op == GPRY_OP_DOT) {
+      double acc = 0.0;
+      for (int k = 0; k < d; ++k)
+        acc += a[k * sa] * (diag ? a[k * sa] : b[k * sb]);
+      const double s0 = s.et[off];
+      v = s0 * s0 + acc;
+      const int c = slot(0);
+      if (c >= 0) tv[c] = 2.0 * s0 * s0;
+    } else if (op == GPRY_OP_WHITE) {
+      v = diag ? s.et[off] : 0.0;
+      const int c = slot(0);
+      if (diag && c >= 0) tv[c] = v;
+    } else {  // GPRY_OP_CONST
+      v = s.et[off];
+      const int c = slot(0);
+      if (c >= 0) tv[c] = v;
+    }
+    st[top++] = v;
+  }
+  for (int c = 0; c < GPRY_LML_PCHUNK; ++c) tan[c] = tg[0][c];
+  return st[0];
+}
+
+// The LML of theta (p = kern.ntheta entries, visible to the block) on the
+// data D, returned in every thread; with GRAD, its p derivatives into
+// grad[j] (any memory; NaN for a matrix that is not positive definite).
+// work: gpry_lml_work_doubles(n, d, in_smem) doubles of global memory, sm:
+// gpry_lml_smem_doubles(n, d, gpry_spec_doubles(kern), in_smem) of shared
+// memory, both the block's own.  Every thread calls it; it starts and ends
+// with a block barrier.
+template <bool SPEC, bool GRAD>
+__device__ double gpry_block_lml(const GpryKern& kern, const GpryLmlData& D,
+                                 const double* theta, double* work,
+                                 double* sm, bool in_smem, double* grad) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nt = blockDim.x, nw = nt >> 5;
+  const int n = D.n, d = D.d, p = kern.ntheta;
+  double* col0 = sm;
+  double* col1 = col0 + n + 1;
+  double* red = col1 + n + 1;
+  double* ls = red + GPRY_LML_WARPS * GPRY_LML_PCHUNK;
+  double* spx = ls + d;
+  double* Xt = work;
+  double* A = in_smem ? spx + gpry_spec_doubles(kern) : Xt + (size_t)d * n;
+  double* sp = A + gpry_tri(n + 1);
+  double* z = sp + n;
+  double* al = z + n;
+  __syncthreads();
+  GprySpec spec;
+  if constexpr (SPEC)
+    spec = gpry_stage_spec(spx, kern, theta, tid, nt);
+  else
+    for (int k = tid; k < d; k += nt) ls[k] = exp(theta[1 + k]);
+  const double variance = exp(theta[0]);
+  const double jitter = D.rel_jitter * variance;
+  __syncthreads();
+  if constexpr (!SPEC) {
+    for (int idx = tid; idx < n * d; idx += nt) {
+      const int j = idx / d, k = idx - j * d;
+      Xt[(size_t)k * n + j] = D.X[idx] / ls[k];
+    }
+    __syncthreads();
+  }
+  // the bordered lower triangle: K (rows < n), y (row n); column 0 also
+  // into the first column buffer
+  for (int a = warp; a <= n; a += nw) {
+    const int bmax = a < n ? a : n - 1;
+    double* Aa = A + gpry_tri(a);
+    for (int b = lane; b <= bmax; b += 32) {
+      double v;
+      if (a == n) {
+        v = D.y[b];
+      } else if (a == b) {
+        const double kd =
+            SPEC ? gpry_spec_diag(spec, D.X + (size_t)a * d, 1, d) : variance;
+        const double nz = D.noise_is_vec ? D.noise[a] : D.noise[0];
+        v = kd + (nz + jitter);
+      } else if constexpr (SPEC) {
+        v = gpry_spec_cov(spec, D.X + (size_t)a * d, 1, D.X + (size_t)b * d,
+                          1, d);
+      } else {
+        double sq = 0.0;
+        for (int k = 0; k < d; ++k) {
+          const double df = Xt[(size_t)k * n + a] - Xt[(size_t)k * n + b];
+          sq += df * df;
+        }
+        v = variance * gpry_k_of_sq(kern.family, sq);
+      }
+      Aa[b] = v;
+      if (b == 0) col0[a] = v;
+    }
+  }
+  __syncthreads();
+  // right-looking elimination, one barrier per column
+  bool bad = false;
+  for (int k = 0; k < n; ++k) {
+    const double* ck = (k & 1) ? col1 : col0;
+    double* cn = (k & 1) ? col0 : col1;
+    const double piv = ck[k];
+    if (!(piv > 0.0)) {
+      bad = true;
+      break;
+    }
+    const double inv = 1.0 / piv;
+    for (int i = k + 1 + warp; i <= n; i += nw) {
+      const double f = ck[i] * inv;
+      const int jmax = i < n ? i : n - 1;
+      double* Ai = A + gpry_tri(i);
+      for (int j = k + 1 + lane; j <= jmax; j += 32) {
+        const double v = Ai[j] - f * ck[j];
+        Ai[j] = v;
+        if (j == k + 1) cn[i] = v;
+      }
+    }
+    __syncthreads();
+  }
+  if (bad) {
+    if (GRAD)
+      for (int j = tid; j < p; j += nt) grad[j] = NAN;
+    __syncthreads();
+    return NAN;
+  }
+  // log det and z^T z
+  double ld = 0.0, qq = 0.0;
+  for (int k = tid; k < n; k += nt) {
+    const double s = sqrt(A[gpry_tri(k) + k]);
+    const double zk = A[gpry_tri(n) + k] / s;
+    sp[k] = s;
+    z[k] = zk;
+    ld += log(s);
+    qq += zk * zk;
+  }
+  ld = gpry_warp_sum(ld);
+  qq = gpry_warp_sum(qq);
+  if (lane == 0) {
+    red[2 * warp] = ld;
+    red[2 * warp + 1] = qq;
+  }
+  __syncthreads();
+  ld = qq = 0.0;
+  for (int w = 0; w < nw; ++w) {
+    ld += red[2 * w];
+    qq += red[2 * w + 1];
+  }
+  const double lml = (-0.5 * qq - ld) - (0.5 * n) * GPRY_LOG_2PI;
+  if constexpr (GRAD) {
+    // L in place
+    for (int a = warp; a < n; a += nw) {
+      double* Aa = A + gpry_tri(a);
+      for (int b = lane; b <= a; b += 32)
+        Aa[b] = a == b ? sp[a] : Aa[b] / sp[b];
+    }
+    __syncthreads();
+    // M = L^-1 in place, columns from the right; column j - 1 of L is
+    // copied into the other buffer while column j is inverted
+    for (int j = n - 1; j >= 0; --j) {
+      const double* cj = (j & 1) ? col1 : col0;
+      double* cn = (j & 1) ? col0 : col1;
+      const double ij = 1.0 / sp[j];
+      for (int i = j + 1 + tid; i < n; i += nt) {
+        const double* Mi = A + gpry_tri(i);
+        double s0 = 0.0, s1 = 0.0;
+        int k = j + 1;
+        for (; k + 1 <= i; k += 2) {
+          s0 += Mi[k] * cj[k];
+          s1 += Mi[k + 1] * cj[k + 1];
+        }
+        if (k <= i) s0 += Mi[k] * cj[k];
+        A[gpry_tri(i) + j] = -(s0 + s1) * ij;
+      }
+      if (tid == 0) A[gpry_tri(j) + j] = ij;
+      if (j > 0)
+        for (int i = j + tid; i < n; i += nt) cn[i] = A[gpry_tri(i) + j - 1];
+      __syncthreads();
+    }
+    // alpha = M^T z
+    for (int a = tid; a < n; a += nt) {
+      double s = 0.0;
+      for (int c = a; c < n; ++c) s += A[gpry_tri(c) + a] * z[c];
+      al[a] = s;
+    }
+    __syncthreads();
+    // the contraction, GPRY_LML_PCHUNK parameters a pass
+    for (int j0 = 0; j0 < p; j0 += GPRY_LML_PCHUNK) {
+      double acc[GPRY_LML_PCHUNK];
+      for (int c = 0; c < GPRY_LML_PCHUNK; ++c) acc[c] = 0.0;
+      for (int a = warp; a < n; a += nw) {
+        for (int b = lane; b <= a; b += 32) {
+          double kinv = 0.0;
+          for (int c = a; c < n; ++c) {
+            const double* Mc = A + gpry_tri(c);
+            kinv += Mc[a] * Mc[b];
+          }
+          const double w = (a == b ? 0.5 : 1.0) * (al[a] * al[b] - kinv);
+          double t[GPRY_LML_PCHUNK];
+          if constexpr (SPEC) {
+            gpry_spec_dtheta(spec, D.X + (size_t)a * d, 1, D.X + (size_t)b * d,
+                             1, d, a == b, j0, t);
+            if (a == b && j0 == 0) t[0] += jitter;
+          } else {
+            double sq = 0.0;
+            if (a != b)
+              for (int k = 0; k < d; ++k) {
+                const double df =
+                    Xt[(size_t)k * n + a] - Xt[(size_t)k * n + b];
+                sq += df * df;
+              }
+            const double dk =
+                variance * (a == b ? 0.0 : gpry_dk_dsq(kern.family, sq));
+            for (int c = 0; c < GPRY_LML_PCHUNK; ++c) {
+              const int j = j0 + c;
+              if (j == 0) {
+                t[c] = a == b ? variance + jitter
+                              : variance * gpry_k_of_sq(kern.family, sq);
+              } else if (j <= d) {
+                const double df = Xt[(size_t)(j - 1) * n + a] -
+                                  Xt[(size_t)(j - 1) * n + b];
+                t[c] = dk * (-2.0 * df * df);
+              } else {
+                t[c] = 0.0;
+              }
+            }
+          }
+          for (int c = 0; c < GPRY_LML_PCHUNK; ++c) acc[c] += w * t[c];
+        }
+      }
+      for (int c = 0; c < GPRY_LML_PCHUNK; ++c) {
+        const double s = gpry_warp_sum(acc[c]);
+        if (lane == 0) red[warp * GPRY_LML_PCHUNK + c] = s;
+      }
+      __syncthreads();
+      if (tid < GPRY_LML_PCHUNK && j0 + tid < p) {
+        double s = 0.0;
+        for (int w = 0; w < nw; ++w) s += red[w * GPRY_LML_PCHUNK + tid];
+        grad[j0 + tid] = s;
+      }
+      __syncthreads();
+    }
+  } else {
+    __syncthreads();
+  }
+  return lml;
+}

@@ -1,0 +1,353 @@
+// K11 lbfgs_lml_fit: the whole multistart bounded L-BFGS fit of the GP
+// hyperparameters, in one launch.
+//
+// Replaces gpry_tpu/models/gp.py:236 _fit_theta_restarts: jax.vmap over
+// the restarts of gpry_tpu/ops/lbfgs.py:168 minimize_lbfgs_bounded (the
+// while_loop L-BFGS of :44-165, its Armijo while_loop :103-119) on
+//
+//   F(u) = -masked_lml(theta)  at  theta = lo + (hi - lo) sigmoid(clip(u,
+//          -15, 15)),
+//
+// tol 1e-8.  Per lane, step for step the algorithm of
+// gpry_tpu_torch/ops/lbfgs.py (the plain version's solver), as K9
+// (csrc/lbfgs_logexp_ascent.cu) runs it for the LogExp ascent: u0 from
+// to_unconstrained; the two-loop recursion over a history of 8 pairs
+// (newest at slot 0) with gamma clipped to [1e-8, 1e8]; steepest descent
+// when that is no descent direction; Armijo with at most 18 halvings,
+// f(u + t d) <= f + 1e-4 t g.d; a pair stored only after a successful line
+// search with s.y > 1e-10; a stop on a failed line search, |g| < 1e-8, a
+// non-finite f or 5 iterations in a row that improve f by less than
+// 16 eps (1 + |f|); at most maxiter iterations; a lane whose f ends
+// non-finite returns (theta0 as mapped, f(theta0)).  nev counts the
+// value-and-gradient calls and the line-search probes (1 + sum (n_ls + 1));
+// the iterations are returned too.
+//
+// Design.  One block of GPRY_LML_THREADS per lane (2 to 8 lanes in a fit);
+// the lane's state (u, f, g, the (S, Y, rho) history, kh, the stall count,
+// nev) lives in shared memory, so a block exits when its own lane stops
+// and the host reads nothing until the launch ends.  Every evaluation is
+// K10's block routine gpry_block_lml of common.cuh on the block's own
+// scratch (the packed matrix in shared memory up to n ~230, else in
+// global memory): value and gradient at an accepted step, the
+// value only (no L^-1, no contraction) at a line-search probe.  p = 1 + d
+// (or a tree's parameter count) may exceed a warp, so warp 0 runs the
+// L-BFGS arithmetic with its lanes striding over the coordinates; dot
+// products are warp reductions.  The updates whose rounding decides a line
+// search or a stall (u + t d, the Armijo threshold) and the map to theta
+// are written with explicit roundings, as torch evaluates them.
+//
+// What bounds it on the H100.  Per lane a chain of dependent evaluations,
+// each n dependent elimination steps with a block barrier apiece (and, for
+// a gradient, n more for L^-1): latency.  2 to 8
+// lanes use 2 to 8 of the 132 SMs.  The operations those evaluations need
+// (about n^3 / 3 per probe, n^3 + p n^2 per value and gradient) take
+// microseconds at 67 TFLOP/s.
+//
+// Spec mode (template SPEC) as K10's.
+#include "common.cuh"
+
+#define K11_M 8
+#define K11_LS 18
+#define K11_STALL 5
+#define K11_UCLIP 15.0
+
+struct K11State {
+  double f, f0, t, gd;
+  long long nev;
+  int kh, stall, nls, ok, stop, iters;
+};
+
+struct K11Lane {
+  double *u, *u0, *g, *dir, *un, *gn, *lo, *A, *th, *sig, *gl, *q;
+  double *S, *Y, *rho;
+  K11State* st;
+};
+
+// Doubles of a lane's state: twelve p-vectors, the (S, Y) history, rho
+// and the scalars.
+__host__ __device__ inline size_t k11_lane_doubles(int p) {
+  return 12 * (size_t)p + 2 * K11_M * (size_t)p + K11_M +
+         sizeof(K11State) / sizeof(double);
+}
+
+// A dot product of two p-vectors by warp 0, lane k summing coordinates
+// k, k + 32, ...; the same value in every lane.
+__device__ __forceinline__ double k11_dot(const double* a, const double* b,
+                                          int p, int lane) {
+  double s = 0.0;
+  for (int k = lane; k < p; k += 32) s += a[k] * b[k];
+  return gpry_warp_sum(s);
+}
+
+// F = -lml at the u-space point pu (p; coordinate k written by thread
+// k mod blockDim.x), returned in every thread; with GRAD, dF/du into gout.
+// Every thread calls it; it ends with a barrier.
+template <bool SPEC, bool GRAD>
+__device__ double k11_eval(const GpryKern& kern, const GpryLmlData& D,
+                           const K11Lane& ln, int p, const double* pu,
+                           double* gout, double* work, double* sm,
+                           bool in_smem) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int k = tid; k < p; k += nt) {
+    const double u = pu[k];
+    const double uc =
+        u < -K11_UCLIP ? -K11_UCLIP : (u > K11_UCLIP ? K11_UCLIP : u);
+    const double s = 1.0 / (1.0 + exp(-uc));
+    ln.sig[k] = s;
+    ln.th[k] = __dadd_rn(ln.lo[k], __dmul_rn(ln.A[k], s));
+  }
+  const double F = -gpry_block_lml<SPEC, GRAD>(kern, D, ln.th, work, sm,
+                                               in_smem, ln.gl);
+  if constexpr (GRAD) {
+    for (int k = tid; k < p; k += nt) {
+      const double s = ln.sig[k];
+      const double gsig = -ln.gl[k] * ln.A[k];
+      const double gu = (gsig * (1.0 - s)) * s;
+      const double u = pu[k];
+      gout[k] = (u >= -K11_UCLIP && u <= K11_UCLIP) ? gu : 0.0;
+    }
+    __syncthreads();
+  }
+  return F;
+}
+
+template <bool SPEC>
+__global__ void __launch_bounds__(GPRY_LML_THREADS) lbfgs_lml_fit_kernel(
+    GpryKern kern, int R, GpryLmlData D, int in_smem_i, int maxiter,
+    const double* __restrict__ theta0s, const double* __restrict__ lo_g,
+    const double* __restrict__ hi_g, double* __restrict__ work,
+    size_t work_per_block, double* __restrict__ th_out,
+    double* __restrict__ f_out, long long* __restrict__ nev_out,
+    long long* __restrict__ it_out) {
+  extern __shared__ double smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nt = blockDim.x;
+  const int r = blockIdx.x, p = kern.ntheta;
+  const bool in_smem = in_smem_i != 0;
+  double* wk = work + (size_t)r * work_per_block;
+  // the lane's state first, then the LML routine's shared memory
+  K11Lane ln;
+  ln.u = smem;
+  ln.u0 = ln.u + p;
+  ln.g = ln.u0 + p;
+  ln.dir = ln.g + p;
+  ln.un = ln.dir + p;
+  ln.gn = ln.un + p;
+  ln.lo = ln.gn + p;
+  ln.A = ln.lo + p;
+  ln.th = ln.A + p;
+  ln.sig = ln.th + p;
+  ln.gl = ln.sig + p;
+  ln.q = ln.gl + p;
+  ln.S = ln.q + p;
+  ln.Y = ln.S + K11_M * p;
+  ln.rho = ln.Y + K11_M * p;
+  ln.st = (K11State*)(ln.rho + K11_M);
+  K11State* st = ln.st;
+  double* sm = smem + k11_lane_doubles(p);
+  const double eps = 1e-12;
+  const double stall_rtol = 16.0 * 2.220446049250313e-16;
+
+  // u0 = to_unconstrained(theta0)
+  for (int k = tid; k < p; k += nt) {
+    const double lo = lo_g[k], A = hi_g[k] - lo;
+    ln.lo[k] = lo;
+    ln.A[k] = A;
+    double t = (theta0s[(size_t)r * p + k] - lo) / A;
+    t = t < 1e-9 ? 1e-9 : (t > 1.0 - 1e-9 ? 1.0 - 1e-9 : t);
+    double u = log(t) - log1p(-t);
+    u = u < -K11_UCLIP ? -K11_UCLIP : (u > K11_UCLIP ? K11_UCLIP : u);
+    ln.u[k] = ln.u0[k] = u;
+  }
+  for (int i = tid; i < 2 * K11_M * p + K11_M; i += nt) ln.S[i] = 0.0;
+  {
+    const double F = k11_eval<SPEC, true>(kern, D, ln, p, ln.u, ln.g, wk, sm,
+                                          in_smem);
+    if (tid == 0) {
+      st->f = st->f0 = F;
+      st->stop = !isfinite(F);
+      st->nev = 1;
+      st->kh = 0;
+      st->stall = 0;
+      st->iters = 0;
+    }
+  }
+  __syncthreads();
+
+  for (int it = 0; it < maxiter; ++it) {
+    if (st->stop) break;
+    // the two-loop direction and the steepest-descent safeguard (warp 0)
+    if (warp == 0) {
+      const int kh = st->kh;
+      double* q = ln.q;
+      for (int k = lane; k < p; k += 32) q[k] = ln.g[k];
+      double alf[K11_M];
+#pragma unroll
+      for (int j = 0; j < K11_M; ++j) {
+        const double dot = k11_dot(ln.S + j * p, q, p, lane);
+        const double a = j < kh ? ln.rho[j] * dot : 0.0;
+        for (int k = lane; k < p; k += 32)
+          q[k] = __dsub_rn(q[k], __dmul_rn(a, ln.Y[j * p + k]));
+        alf[j] = a;
+      }
+      const double yy = k11_dot(ln.Y, ln.Y, p, lane);
+      const double sy0 = k11_dot(ln.S, ln.Y, p, lane);
+      double gamma = kh > 0 ? sy0 / (yy < eps ? eps : yy) : 1.0;
+      gamma = gamma < 1e-8 ? 1e-8 : (gamma > 1e8 ? 1e8 : gamma);
+      for (int k = lane; k < p; k += 32) q[k] = __dmul_rn(gamma, q[k]);
+#pragma unroll
+      for (int j = K11_M - 1; j >= 0; --j) {
+        const double dot = k11_dot(ln.Y + j * p, q, p, lane);
+        const double b = j < kh ? ln.rho[j] * dot : 0.0;
+        const double c = j < kh ? alf[j] - b : 0.0;
+        for (int k = lane; k < p; k += 32)
+          q[k] = __dadd_rn(q[k], __dmul_rn(c, ln.S[j * p + k]));
+      }
+      for (int k = lane; k < p; k += 32) ln.dir[k] = -q[k];
+      double gd = k11_dot(ln.g, ln.dir, p, lane);
+      if (!(gd < 0.0)) {
+        for (int k = lane; k < p; k += 32) ln.dir[k] = -ln.g[k];
+        gd = k11_dot(ln.g, ln.dir, p, lane);
+      }
+      if (lane == 0) {
+        st->gd = gd;
+        st->t = 1.0;
+        st->ok = 0;
+        st->nls = 0;
+      }
+    }
+    __syncthreads();
+    // Armijo backtracking: the probes are value-only evaluations
+    for (int ls = 0; ls < K11_LS; ++ls) {
+      for (int k = tid; k < p; k += nt)
+        ln.un[k] = __dadd_rn(ln.u[k], __dmul_rn(st->t, ln.dir[k]));
+      const double Ft =
+          k11_eval<SPEC, false>(kern, D, ln, p, ln.un, nullptr, wk, sm,
+                                in_smem);
+      if (tid == 0) {
+        st->nls += 1;
+        const double thr =
+            __dadd_rn(st->f, __dmul_rn(__dmul_rn(1e-4, st->t), st->gd));
+        if (isfinite(Ft) && Ft <= thr)
+          st->ok = 1;
+        else
+          st->t *= 0.5;
+      }
+      __syncthreads();
+      if (st->ok) break;
+    }
+    if (tid == 0) {
+      if (!st->ok) st->t = 0.0;
+      st->nev += st->nls + 1;
+      st->iters += 1;
+    }
+    __syncthreads();
+    for (int k = tid; k < p; k += nt)
+      ln.un[k] = __dadd_rn(ln.u[k], __dmul_rn(st->t, ln.dir[k]));
+    const double Fn =
+        k11_eval<SPEC, true>(kern, D, ln, p, ln.un, ln.gn, wk, sm,
+                             in_smem);
+    // the history, the stops and the step (warp 0)
+    if (warp == 0) {
+      double sy = 0.0, gg = 0.0;
+      for (int k = lane; k < p; k += 32) {
+        const double s = __dsub_rn(ln.un[k], ln.u[k]);
+        const double y = __dsub_rn(ln.gn[k], ln.g[k]);
+        sy += s * y;
+        gg += ln.gn[k] * ln.gn[k];
+      }
+      sy = gpry_warp_sum(sy);
+      const double gnorm = sqrt(gpry_warp_sum(gg));
+      const bool store = st->ok && sy > 1e-10;
+      for (int k = lane; k < p; k += 32) {
+        if (store) {
+          for (int j = K11_M - 1; j > 0; --j) {
+            ln.S[j * p + k] = ln.S[(j - 1) * p + k];
+            ln.Y[j * p + k] = ln.Y[(j - 1) * p + k];
+          }
+          ln.S[k] = __dsub_rn(ln.un[k], ln.u[k]);
+          ln.Y[k] = __dsub_rn(ln.gn[k], ln.g[k]);
+        }
+        ln.u[k] = ln.un[k];
+        ln.g[k] = ln.gn[k];
+      }
+      __syncwarp();
+      if (lane == 0) {
+        if (store) {
+          for (int j = K11_M - 1; j > 0; --j) ln.rho[j] = ln.rho[j - 1];
+          ln.rho[0] = 1.0 / (sy < eps ? eps : sy);
+          st->kh += 1;
+        }
+        const bool improved = (st->f - Fn) > stall_rtol * (1.0 + fabs(Fn));
+        const int stall = improved ? 0 : st->stall + 1;
+        st->stall = stall;
+        st->stop = !st->ok || gnorm < 1e-8 || !isfinite(Fn) ||
+                   stall >= K11_STALL;
+        st->f = Fn;
+      }
+    }
+    __syncthreads();
+  }
+  // the loop ends after a barrier: every thread reads the same f
+  const bool bad = !isfinite(st->f);
+  for (int k = tid; k < p; k += nt) {
+    const double u = bad ? ln.u0[k] : ln.u[k];
+    const double uc =
+        u < -K11_UCLIP ? -K11_UCLIP : (u > K11_UCLIP ? K11_UCLIP : u);
+    const double s = 1.0 / (1.0 + exp(-uc));
+    th_out[(size_t)r * p + k] = __dadd_rn(ln.lo[k], __dmul_rn(ln.A[k], s));
+  }
+  if (tid == 0) {
+    f_out[r] = bad ? st->f0 : st->f;
+    nev_out[r] = st->nev;
+    it_out[r] = st->iters;
+  }
+}
+
+// Global doubles of one lane's workspace.
+extern "C" size_t gpry_lbfgs_lml_fit_work(GpryKern kern, int n, int d) {
+  return gpry_lml_work_doubles(
+      n, d, gpry_lml_in_smem(n, d, gpry_spec_doubles(kern),
+                             k11_lane_doubles(kern.ntheta)));
+}
+
+// theta0s (R, kern.ntheta) inside [lo, hi]; X (>= n rows, d); y (>= n);
+// noise one value or one per row; work R x gpry_lbfgs_lml_fit_work
+// doubles.  Outputs: theta (R, kern.ntheta), -lml (R), nev and iterations
+// (R, int64).
+extern "C" int gpry_lbfgs_lml_fit(GpryKern kern, int R, int n, int d,
+                                  int maxiter, const void* theta0s,
+                                  const void* lo, const void* hi,
+                                  const void* X, const void* y,
+                                  const void* noise, int noise_is_vec,
+                                  double rel_jitter, void* work,
+                                  void* th_out, void* f_out, void* nev_out,
+                                  void* it_out, void* stream) {
+  if (R < 0 || n < 0) return (int)cudaErrorInvalidValue;
+  if (R == 0) return 0;
+  const size_t spec = gpry_spec_doubles(kern);
+  const size_t lane = k11_lane_doubles(kern.ntheta);
+  const bool in_smem = gpry_lml_in_smem(n, d, spec, lane);
+  const size_t smem =
+      sizeof(double) * (gpry_lml_smem_doubles(n, d, spec, in_smem) + lane);
+  if (smem > GPRY_MAX_SMEM) return (int)cudaErrorInvalidConfiguration;
+  auto kernel =
+      kern.nodes ? lbfgs_lml_fit_kernel<true> : lbfgs_lml_fit_kernel<false>;
+  cudaError_t e = gpry_set_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  GpryLmlData D;
+  D.n = n;
+  D.d = d;
+  D.noise_is_vec = noise_is_vec;
+  D.X = (const double*)X;
+  D.y = (const double*)y;
+  D.noise = (const double*)noise;
+  D.rel_jitter = rel_jitter;
+  kernel<<<R, GPRY_LML_THREADS, smem, (cudaStream_t)stream>>>(
+      kern, R, D, (int)in_smem, maxiter, (const double*)theta0s,
+      (const double*)lo, (const double*)hi, (double*)work,
+      gpry_lml_work_doubles(n, d, in_smem),
+      (double*)th_out, (double*)f_out, (long long*)nev_out,
+      (long long*)it_out);
+  return (int)cudaGetLastError();
+}

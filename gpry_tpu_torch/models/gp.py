@@ -6,8 +6,10 @@ The GP surrogate model (port of gpry_tpu/models/gp.py).
 * Appending data uses the incremental block-Cholesky update
   (``ops.linalg.chol_append``); a NaN in the new rows refactorizes.
 * Hyperparameters are fit screen-then-polish: one batched LML sweep over a
-  dense candidate set (K3 builds the matrices) picks the seeds of a batched
-  lock-step L-BFGS polish over the autograd LML.
+  dense candidate set (the K10 kernel) picks the seeds of a multistart
+  L-BFGS polish of the LML (the K11 kernel, one launch per fit; on the CPU
+  their plain versions, the lock-step torch solver over the analytic
+  gradient).
 * The classifier, preprocessing, trust region and upper clip reproduce the
   reference's prediction semantics; the gated sweeps are the K1 / K2 CUDA
   kernels, the convergence audit's ungated sweeps K5, the full covariance
@@ -35,11 +37,10 @@ from gpry_tpu_torch.models.classifier import SVM, SVMParams, \
     trivial_svm_params
 from gpry_tpu_torch.models.preprocessing import DummyPreprocessor
 from gpry_tpu_torch.ops.fused import gated_mean, gated_meanvar_logexp, \
-    meanstd_grad, meanvar_ungated
+    lbfgs_lml_fit, meanstd_grad, meanvar_ungated
 from gpry_tpu_torch.ops.kernels import build_kernel_spec, make_theta, \
     spec_diag, theta_bounds_dynamic
-from gpry_tpu_torch.ops.lbfgs import minimize_lbfgs_bounded
-from gpry_tpu_torch.ops.linalg import chol_append, factorize, masked_lml, \
+from gpry_tpu_torch.ops.linalg import chol_append, factorize, \
     predict_meancov, predict_meanvar
 from gpry_tpu_torch.ops.linalg import lml_batch as _lml_batch
 from gpry_tpu_torch.utils.tools import check_and_return_bounds, \
@@ -185,11 +186,14 @@ def surrogate_predict_mean(family, p: SurrogateParams, Xq_raw):
 
 def _lml_batch_chunked(family, X, y, n, noise_var, thetas, rel_jitter=0.0):
     """
-    Memory-budgeted LML sweep (gpry_tpu/models/gp.py:196-232): each lane
-    holds about three nmax^2 temporaries (K, its factor, the solve), so a
-    dense screen over a large buffer is cut into power-of-two chunks of at
-    most ``LML_SCREEN_BUDGET`` bytes.
+    Memory-budgeted LML sweep (gpry_tpu/models/gp.py:196-232).  On CUDA
+    tensors one K10 launch, whose workspace does not grow with the rows.
+    On the CPU each lane holds about three nmax^2 temporaries (K, its
+    factor, the solve), so a dense screen over a large buffer is cut into
+    power-of-two chunks of at most ``LML_SCREEN_BUDGET`` bytes.
     """
+    if X.device.type == "cuda":
+        return _lml_batch(family, X, y, n, noise_var, thetas, rel_jitter)
     nmax = int(X.shape[0])
     n_theta = int(thetas.shape[0])
     per_lane = 3 * nmax * nmax * X.element_size()
@@ -205,14 +209,10 @@ def _lml_batch_chunked(family, X, y, n, noise_var, thetas, rel_jitter=0.0):
 
 def _fit_theta_restarts(family, X, y, n, noise_var, theta0s, lo, hi,
                         maxiter=200, rel_jitter=0.0):
-    """Batched multi-restart LML maximization; returns
-    ``(thetas, nlls, n_evals)`` per lane."""
-
-    def nll(thetas):
-        return -masked_lml(family, thetas, X, y, n, noise_var, rel_jitter)
-
-    return minimize_lbfgs_bounded(nll, theta0s, lo, hi, maxiter=maxiter,
-                                  tol=1e-8)
+    """Multi-restart LML maximization (K11 on CUDA tensors: one launch);
+    returns ``(thetas, nlls, n_evals)`` per lane."""
+    return lbfgs_lml_fit(family, X, y, n, noise_var, theta0s, lo, hi,
+                         maxiter=maxiter, rel_jitter=rel_jitter)
 
 
 class GaussianProcessRegressor:
@@ -859,17 +859,16 @@ class GaussianProcessRegressor:
         return self
 
     def log_marginal_likelihood(self, theta=None):
-        """LML at ``theta`` (default: current)."""
+        """LML at ``theta`` (default: current; K10 on the card)."""
         if self.n == 0:
             return -np.inf
         theta = self._theta if theta is None else np.asarray(theta)
         if self._dX is None:
             self._update_model()
         self.n_eval_loglike += 1
-        with torch.no_grad():
-            return float(masked_lml(
-                self.family, self._t(theta), self._dX, self._dy, self.n,
-                self._noise_t()))
+        return float(_lml_batch(
+            self.family, self._dX, self._dy, self.n, self._noise_t(),
+            self._t(np.atleast_2d(theta)))[0])
 
     # -------------------------------------------------------- trust region
 

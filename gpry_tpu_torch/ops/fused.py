@@ -39,6 +39,15 @@ versions, and the wrappers that choose between them.
   ops/lbfgs.py:168 minimize_lbfgs_bounded: the whole multistart LogExp
   ascent of one believer step in one launch; plain version
   :func:`lbfgs_logexp_ascent_plain`.
+* K10 ``lml_value_grad`` (``csrc/lml_value_grad.cu``) replaces
+  models/gp.py:189 _lml_batch / :196 _lml_batch_chunked (ops/linalg.py:139
+  masked_lml over R theta rows): the log marginal likelihood of every row
+  and, in its gradient mode, its gradient in theta, with no R x nmax^2
+  tensor; plain version :func:`lml_value_grad_plain`.
+* K11 ``lbfgs_lml_fit`` (``csrc/lbfgs_lml_fit.cu``) replaces
+  models/gp.py:236 _fit_theta_restarts: the whole multistart bounded
+  L-BFGS fit of the hyperparameters in one launch; plain version
+  :func:`lbfgs_lml_fit_plain`.
 
 Every kernel takes the covariance as a fast family (C() * RBF / Matern
 with ARD length scales) or as a kernel spec tree (ops/kernels.py), which
@@ -52,9 +61,9 @@ CPU.  For a CUDA tensor it launches the kernel or raises: there is no
 fallback.  The kernels are float64-only and forward-only; a CUDA tensor
 that requires grad is refused.  The gradients in x of the smooth
 surrogate are K8's own outputs (models/gp.py wraps it in an autograd
-Function); the fit's gradients in theta stay with the plain versions.
+Function); the fit's gradients in theta are K10's (inside K11).
 
-The nine sources compile in parallel, one ``nvcc`` per source, and link
+The eleven sources compile in parallel, one ``nvcc`` per source, and link
 into a shared library with a plain C interface
 (``_build/libgpry_kernels.so`` inside the package), at first use, and load
 over ``ctypes``.  Every launch goes on PyTorch's
@@ -68,6 +77,7 @@ call).  Launches in spec mode count under ``"<name>/spec"``.
 """
 
 import ctypes
+import math
 import os
 import shutil
 import subprocess
@@ -87,7 +97,8 @@ _BUILD = os.path.join(_PKG, "_build")
 _SOURCES = ("gated_mean.cu", "gated_meanvar_logexp.cu",
             "masked_kernel_matrix.cu", "kriging_believer_fill.cu",
             "meanvar_ungated.cu", "ns_slice_chains.cu", "predict_meancov.cu",
-            "meanstd_grad.cu", "lbfgs_logexp_ascent.cu")
+            "meanstd_grad.cu", "lbfgs_logexp_ascent.cu", "lml_value_grad.cu",
+            "lbfgs_lml_fit.cu")
 _HEADERS = ("common.cuh",)
 _LIB_PATH = os.path.join(_BUILD, "libgpry_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -104,7 +115,8 @@ SPEC_MAX_NODES, SPEC_MAX_STACK = 32, 16
 KERNELS = ("gated_mean", "gated_meanvar_logexp",
            "masked_kernel_matrix_batched", "kriging_believer_fill",
            "meanvar_ungated", "ns_slice_chains", "predict_meancov",
-           "meanstd_grad", "lbfgs_logexp_ascent")
+           "meanstd_grad", "lbfgs_logexp_ascent", "lml_value_grad",
+           "lbfgs_lml_fit")
 #: launches per kernel made by the wrappers (never by the plain versions),
 #: spec-mode launches under "<name>/spec"
 LAUNCHES = {f"{k}{m}": 0 for k in KERNELS for m in ("", "/spec")}
@@ -252,6 +264,16 @@ def library():
         lib.gpry_lbfgs_logexp_ascent.argtypes = [K] + [I] * 5 + [P] * 10 \
             + [D, D] + [P] * 4
         lib.gpry_lbfgs_logexp_ascent.restype = I
+        lib.gpry_lml_work_per_block.argtypes = [K, I, I]
+        lib.gpry_lml_work_per_block.restype = ctypes.c_size_t
+        lib.gpry_lml_value_grad.argtypes = [K] + [I] * 5 + [P] * 4 \
+            + [I, D] + [P] * 4
+        lib.gpry_lml_value_grad.restype = I
+        lib.gpry_lbfgs_lml_fit_work.argtypes = [K, I, I]
+        lib.gpry_lbfgs_lml_fit_work.restype = ctypes.c_size_t
+        lib.gpry_lbfgs_lml_fit.argtypes = [K] + [I] * 4 + [P] * 6 \
+            + [I, D] + [P] * 6
+        lib.gpry_lbfgs_lml_fit.restype = I
         _lib = lib
         return lib
 
@@ -589,6 +611,104 @@ def lbfgs_logexp_ascent_plain(family, p, zeta, noise_std_raw, x0s, lo, hi,
                  + 0.5 * torch.log(torch.clamp_min(var, 1e-300)))
 
     return minimize_lbfgs_bounded(neg_acq, x0s, lo, hi, maxiter=maxiter,
+                                  tol=1e-8, return_iters=return_iters)
+
+
+def cholesky_nan(K):
+    """Batched Cholesky; lanes that are not positive definite become NaN
+    (as JAX's Cholesky) instead of an exception."""
+    L, info = torch.linalg.cholesky_ex(K)
+    bad = (info != 0)[..., None, None]
+    return torch.where(bad, torch.full_like(L, torch.nan), L)
+
+
+def _lml_of_L(L, y, n):
+    """LML of padded factor(s) ``L`` (..., nmax, nmax) of K for ``y``, and
+    ``z = L^-1 y``."""
+    nmax = L.shape[-1]
+    m = (torch.arange(nmax, device=L.device) < n).to(L.dtype)
+    z = torch.linalg.solve_triangular(
+        L, y.expand(L.shape[:-1])[..., None], upper=False)[..., 0]
+    quad = torch.sum(z * z, dim=-1)
+    logdet = torch.sum(m * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)),
+                       dim=-1)
+    return -0.5 * quad - logdet - 0.5 * n * math.log(2.0 * math.pi), z
+
+
+def lml_of_K(K, y, n):
+    """LML of padded covariance(s) ``K`` (..., nmax, nmax) for ``y``."""
+    return _lml_of_L(cholesky_nan(K), y, n)[0]
+
+
+def lml_value_grad_plain(family, thetas, X, y, n, noise_var, rel_jitter=0.0,
+                         grad=False):
+    """
+    Plain K10: the log marginal likelihood of the valid block (the padded
+    ``masked_kernel_matrix_plain``, its Cholesky and ``z = L^-1 y``) for
+    every row of ``thetas`` (R, p); with ``grad``, ``(lml, dlml/dtheta)``
+    by the formula the kernel implements,
+    ``1/2 sum_ab (alpha alpha^T - K^-1)_ab dK_ab/dtheta`` with
+    ``alpha = L^-T z`` and ``K^-1 = L^-T L^-1``, the contraction with dK/dtheta
+    taken as the vector-Jacobian product of the kernel matrix (one reverse
+    pass gives all p derivatives).  A row whose K is not positive definite
+    gives NaN (value and gradient).
+    """
+    if not grad:
+        with torch.no_grad():
+            return lml_of_K(masked_kernel_matrix_plain(
+                family, thetas, X, n, noise_var, rel_jitter), y, n)
+    with torch.enable_grad():
+        th = thetas.detach().requires_grad_(True)
+        K = masked_kernel_matrix_plain(family, th, X, n, noise_var,
+                                       rel_jitter)
+    with torch.no_grad():
+        L = cholesky_nan(K.detach())
+        lml, z = _lml_of_L(L, y, n)
+        alpha = torch.linalg.solve_triangular(L.mT, z[..., None],
+                                              upper=True)[..., 0]
+        eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+        M = torch.linalg.solve_triangular(L, eye.expand(L.shape),
+                                          upper=False)
+        W = alpha[..., :, None] * alpha[..., None, :] - M.mT @ M
+    g, = torch.autograd.grad(K, th, grad_outputs=0.5 * W)
+    return lml, g
+
+
+class _NegLML(torch.autograd.Function):
+    """``-lml`` of the rows of ``thetas`` with the gradient of
+    :func:`lml_value_grad_plain` (the plain K11's objective)."""
+
+    @staticmethod
+    def forward(ctx, thetas, family, X, y, n, noise_var, rel_jitter):
+        lml, g = lml_value_grad_plain(family, thetas, X, y, n, noise_var,
+                                      rel_jitter, grad=True)
+        ctx.save_for_backward(g)
+        return -lml
+
+    @staticmethod
+    def backward(ctx, go):
+        g, = ctx.saved_tensors
+        return -go[:, None] * g, None, None, None, None, None, None
+
+
+def lbfgs_lml_fit_plain(family, X, y, n, noise_var, theta0s, lo, hi,
+                        maxiter=200, rel_jitter=0.0, return_iters=False):
+    """
+    Plain K11: the lock-step bounded L-BFGS (ops/lbfgs.py, tol 1e-8) of
+    ``-lml`` over the restarts ``theta0s`` (R, p) in the box [lo, hi], with
+    :func:`lml_value_grad_plain`'s gradient at the value-and-gradient calls
+    and its value at the line-search probes.  Returns ``(thetas, -lml,
+    nev)`` per lane (and, with ``return_iters``, the iterations).
+    """
+
+    def nll(thetas):
+        if thetas.requires_grad:
+            return _NegLML.apply(thetas, family, X, y, n, noise_var,
+                                 rel_jitter)
+        return -lml_value_grad_plain(family, thetas, X, y, n, noise_var,
+                                     rel_jitter)
+
+    return minimize_lbfgs_bounded(nll, theta0s, lo, hi, maxiter=maxiter,
                                   tol=1e-8, return_iters=return_iters)
 
 
@@ -1076,6 +1196,106 @@ def lbfgs_logexp_ascent(family, p, zeta, noise_std_raw, x0s, lo, hi,
     return xs, f, nev
 
 
+#: the most global memory K10's per-block workspaces take together (bytes)
+LML_WORK_BUDGET = 1 << 30
+
+
+def _lml_args(name, family, thetas, X, y, n, noise_var):
+    """Check K10's / K11's common arguments; returns (kern, noise (1,) or
+    (nmax,), d)."""
+    dev = thetas.device
+    nmax, d = X.shape
+    noise = torch.as_tensor(noise_var, dtype=torch.float64,
+                            device=dev).reshape(-1).contiguous()
+    if noise.numel() not in (1, nmax):
+        raise ValueError(f"{name}: noise_var must be a scalar or an "
+                         "(nmax,) vector.")
+    if tuple(y.shape) != (nmax,) or not 0 <= int(n) <= nmax:
+        raise ValueError(f"{name}: y must be ({nmax},) and 0 <= n <= {nmax}.")
+    _check_cuda(name, dev, thetas=thetas, X=X, y=y, noise=noise)
+    kern = _kern(family, d, dev)
+    _check_theta(name, kern, thetas)
+    return kern, noise, d
+
+
+def lml_value_grad(family, thetas, X, y, n, noise_var, rel_jitter=0.0,
+                   grad=False):
+    """
+    K10: the log marginal likelihood of the valid block for every row of
+    ``thetas`` (R, p) on the padded data ``X`` (nmax, d), ``y`` (nmax,)
+    with ``n`` valid rows and ``noise_var`` a scalar or an (nmax,) vector
+    (see :func:`lml_value_grad_plain`); with ``grad``, ``(lml, dlml /
+    dtheta)``.  One launch; a bounded number of blocks loop over the rows,
+    each on its own workspace.
+    """
+    check_family(family)
+    if thetas.device.type == "cpu":
+        return lml_value_grad_plain(family, thetas, X, y, n, noise_var,
+                                    rel_jitter, grad)
+    dev = thetas.device
+    kern, noise, d = _lml_args("lml_value_grad", family, thetas, X, y, n,
+                               noise_var)
+    R, p = thetas.shape
+    lml = torch.empty(R, dtype=torch.float64, device=dev)
+    g = torch.empty((R, p), dtype=torch.float64, device=dev) if grad \
+        else None
+    if R == 0:
+        return (lml, g) if grad else lml
+    lib = library()
+    per_block = lib.gpry_lml_work_per_block(kern, int(n), d)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = max(1, min(R, 2 * sms, LML_WORK_BUDGET // (8 * per_block)))
+    work = torch.empty(blocks * per_block, dtype=torch.float64, device=dev)
+    rc = lib.gpry_lml_value_grad(
+        kern, R, int(n), d, int(grad), blocks, _ptr(thetas), _ptr(X),
+        _ptr(y), _ptr(noise), int(noise.numel() > 1), float(rel_jitter),
+        _ptr(work), _ptr(lml), ctypes.c_void_p(g.data_ptr() if grad
+                                                else None), _stream())
+    _raise_on("lml_value_grad", rc)
+    _count("lml_value_grad", family)
+    return (lml, g) if grad else lml
+
+
+def lbfgs_lml_fit(family, X, y, n, noise_var, theta0s, lo, hi, maxiter=200,
+                  rel_jitter=0.0, return_iters=False):
+    """
+    K11: the multistart bounded L-BFGS fit of ``-lml`` from ``theta0s``
+    (R, p) in the box [lo, hi] (see :func:`lbfgs_lml_fit_plain`), one block
+    per lane, every line search inside the launch.  Returns ``(thetas,
+    -lml, nev)`` (and, with ``return_iters``, the iterations).
+    """
+    check_family(family)
+    if theta0s.device.type == "cpu":
+        return lbfgs_lml_fit_plain(family, X, y, n, noise_var, theta0s, lo,
+                                   hi, maxiter, rel_jitter, return_iters)
+    dev = theta0s.device
+    kern, noise, d = _lml_args("lbfgs_lml_fit", family, theta0s, X, y, n,
+                               noise_var)
+    R, p = theta0s.shape
+    lo, hi = lo.contiguous(), hi.contiguous()
+    if tuple(lo.shape) != (p,) or tuple(hi.shape) != (p,):
+        raise ValueError(f"lbfgs_lml_fit: lo and hi must be ({p},).")
+    if R > 65535:
+        raise ValueError("lbfgs_lml_fit: R > 65535.")
+    _check_cuda("lbfgs_lml_fit", dev, lo=lo, hi=hi)
+    thetas = torch.empty_like(theta0s)
+    f = torch.empty(R, dtype=torch.float64, device=dev)
+    nev = torch.empty(R, dtype=torch.int64, device=dev)
+    iters = torch.empty(R, dtype=torch.int64, device=dev)
+    if R > 0:
+        lib = library()
+        work = torch.empty(R * lib.gpry_lbfgs_lml_fit_work(kern, int(n), d),
+                           dtype=torch.float64, device=dev)
+        rc = lib.gpry_lbfgs_lml_fit(
+            kern, R, int(n), d, int(maxiter), _ptr(theta0s), _ptr(lo),
+            _ptr(hi), _ptr(X), _ptr(y), _ptr(noise), int(noise.numel() > 1),
+            float(rel_jitter), _ptr(work), _ptr(thetas), _ptr(f), _ptr(nev),
+            _ptr(iters), _stream())
+        _raise_on("lbfgs_lml_fit", rc)
+        _count("lbfgs_lml_fit", family)
+    return (thetas, f, nev, iters) if return_iters else (thetas, f, nev)
+
+
 __all__ = ["KERNELS", "LAUNCHES", "KernelBuildError", "SPEC_MAX_NODES",
            "SPEC_MAX_STACK", "build", "encode_spec", "library",
            "reset_launch_counts", "gated_mean", "gated_mean_plain",
@@ -1086,4 +1306,6 @@ __all__ = ["KERNELS", "LAUNCHES", "KernelBuildError", "SPEC_MAX_NODES",
            "ns_slice_chains_plain", "predict_meancov",
            "predict_meancov_plain", "slice_chains_lockstep",
            "meanstd_grad", "meanstd_grad_plain", "lbfgs_logexp_ascent",
-           "lbfgs_logexp_ascent_plain", "GRAD_MAX_D"]
+           "lbfgs_logexp_ascent_plain", "GRAD_MAX_D", "cholesky_nan",
+           "lml_of_K", "lml_value_grad", "lml_value_grad_plain",
+           "lbfgs_lml_fit", "lbfgs_lml_fit_plain"]

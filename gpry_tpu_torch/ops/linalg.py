@@ -6,33 +6,26 @@ As in gpry_tpu/ops/linalg.py, training arrays are padded to a bucket size
 and ``y`` are zero, and the padded kernel matrix is ``[[K_valid, 0],
 [0, I]]`` so its Cholesky factor is ``[[L, 0], [0, I]]``.
 
-The padded matrices come from the K3 kernel (``ops.fused``); the Cholesky
-factorizations and triangular solves are torch.  ``predict_meancov`` (the
-mean and full covariance, gpry_tpu/ops/linalg.py:172) is the K7 kernel's
-wrapper, re-exported from ``ops.fused``.  A lane whose matrix is
-not positive definite gives NaN (as JAX's Cholesky does) instead of an
-exception: the callers test for NaN.
+The padded matrices of ``factorize`` and ``chol_append`` come from the K3
+kernel (``ops.fused``); their Cholesky factorizations and triangular
+solves are torch.  The batched LML (``lml_batch``: the fit's screen and
+re-score) is the K10 kernel's wrapper, and ``predict_meancov`` (the mean
+and full covariance, gpry_tpu/ops/linalg.py:172) the K7 kernel's, both
+from ``ops.fused``.  A lane whose matrix is not positive definite gives
+NaN (as JAX's Cholesky does) instead of an exception: the callers test
+for NaN.
 """
-
-import math
 
 import torch
 
 from gpry_tpu_torch.ops.fused import (  # noqa: F401
-    masked_kernel_matrix_batched, masked_kernel_matrix_plain,
-    predict_meancov)
+    cholesky_nan, lml_of_K, lml_value_grad, masked_kernel_matrix_batched,
+    masked_kernel_matrix_plain, predict_meancov)
 from gpry_tpu_torch.ops.kernels import cross_kernel, kernel_diag
 
 
 def _row_mask(n, nmax, dtype, device):
     return (torch.arange(nmax, device=device) < n).to(dtype)
-
-
-def cholesky_nan(K):
-    """Batched Cholesky; lanes that are not positive definite become NaN."""
-    L, info = torch.linalg.cholesky_ex(K)
-    bad = (info != 0)[..., None, None]
-    return torch.where(bad, torch.full_like(L, torch.nan), L)
 
 
 def masked_kernel_matrix(family, theta, X, n, noise_var, rel_jitter=0.0):
@@ -82,36 +75,23 @@ def chol_append(family, theta, X, y, n, noise_var, L, X_new, y_new):
     return X2, y2, n + k, L2, _solve_alpha(L2, y2)
 
 
-def _lml_of_K(K, y, n):
-    """LML of padded covariance(s) ``K`` (..., nmax, nmax) for ``y``."""
-    nmax = K.shape[-1]
-    m = _row_mask(n, nmax, K.dtype, K.device)
-    L = cholesky_nan(K)
-    z = torch.linalg.solve_triangular(
-        L, y.expand(K.shape[:-1])[..., None], upper=False)[..., 0]
-    quad = torch.sum(z * z, dim=-1)
-    logdet = torch.sum(m * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)),
-                       dim=-1)
-    return -0.5 * quad - logdet - 0.5 * n * math.log(2.0 * math.pi)
-
-
 def masked_lml(family, theta, X, y, n, noise_var, rel_jitter=0.0):
     """
     Log marginal likelihood of the valid block for ``theta`` (..., 1 + d):
     ``-1/2 y^T K^-1 y - sum log diag L - n/2 log 2pi``.  Plain torch and
-    differentiable in ``theta`` (the L-BFGS fit's objective).
+    differentiable in ``theta`` (autograd through the Cholesky).
     """
     K = masked_kernel_matrix_plain(family, theta, X, n, noise_var,
                                    rel_jitter)
-    return _lml_of_K(K, y, n)
+    return lml_of_K(K, y, n)
 
 
 @torch.no_grad()
 def lml_batch(family, X, y, n, noise_var, thetas, rel_jitter=0.0):
-    """LML for each row of ``thetas`` (R, 1 + d), K built by K3."""
-    K = masked_kernel_matrix_batched(family, thetas.contiguous(), X, n,
-                                     noise_var, rel_jitter)
-    return _lml_of_K(K, y, n)
+    """LML for each row of ``thetas`` (R, 1 + d): K10 on CUDA tensors, its
+    plain version (``masked_lml``'s arithmetic) on the CPU."""
+    return lml_value_grad(family, thetas.contiguous(), X, y, n, noise_var,
+                          rel_jitter)
 
 
 def predict_mean(family, theta, X, n, alpha, Xq):

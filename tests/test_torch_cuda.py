@@ -543,3 +543,182 @@ def test_smooth_surrogate_autograd_on_k8(dev, family):
     assert _rel_max(g.detach(), gr) <= 1e-8
     with pytest.raises(RuntimeError, match="twice"):
         g.sum().backward()
+
+
+def _lml_data(dev, n, nmax, d=3, seed=0):
+    """Padded training data for the fit's kernels: n points in the unit
+    cube (a smooth target), the rest zero."""
+    rng = np.random.default_rng(seed)
+    X = torch.zeros((nmax, d), dtype=torch.float64, device=dev)
+    X[:n] = torch.as_tensor(rng.uniform(0, 1, (n, d)), device=dev)
+    y = torch.zeros(nmax, dtype=torch.float64, device=dev)
+    y[:n] = torch.sin(3 * X[:n]).sum(1)
+    return X, y
+
+
+def _lml_thetas(family, dev, R, d=3, seed=1):
+    """R moderate theta rows (well-conditioned K) around the family's
+    theta; the kernel argument."""
+    fam, theta = family_and_theta(family, d)
+    rng = np.random.default_rng(seed)
+    th = theta + rng.uniform(-0.3, 0.3, (R, len(theta)))
+    return fam, torch.as_tensor(th, dtype=torch.float64, device=dev)
+
+
+@pytest.mark.parametrize("n,nmax", [(25, 32), (224, 320), (700, 704)])
+@pytest.mark.parametrize("noise", ["scalar", "vector"])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_lml_value_grad_kernel(dev, family, noise, n, nmax):
+    """K10 against its plain version: value mode on 40 rows (more rows
+    than blocks at n = 700 is not needed: every block loops) and gradient
+    mode on 4; the LML within rel 1e-10, the gradient within 1e-8 of max
+    |g|; n = 700 factors far beyond shared memory.  One launch a call."""
+    X, y = _lml_data(dev, n, nmax)
+    key = count_key("lml_value_grad", family)
+    fam, th = _lml_thetas(family, dev, 40)
+    nv = torch.tensor(1e-4, dtype=torch.float64, device=dev) \
+        if noise == "scalar" else torch.linspace(
+            1e-5, 1e-3, nmax, dtype=torch.float64, device=dev)
+    n0 = fused.LAUNCHES[key]
+    lml = fused.lml_value_grad(fam, th, X, y, n, nv)
+    lml_g, g = fused.lml_value_grad(fam, th[:4], X, y, n, nv, grad=True)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[key] == n0 + 2
+    ref = fused.lml_value_grad_plain(fam, th, X, y, n, nv)
+    ref_g, gr = fused.lml_value_grad_plain(fam, th[:4], X, y, n, nv,
+                                           grad=True)
+    assert bool(torch.isfinite(ref).all())
+    assert float(torch.max(torch.abs(lml - ref) / torch.abs(ref))) <= 1e-10
+    assert float(torch.max(torch.abs(lml_g - ref_g)
+                           / torch.abs(ref_g))) <= 1e-10
+    assert _rel_max(g, gr) <= 1e-8
+
+
+def test_lml_value_grad_non_pd_row(dev):
+    """A variance that underflows to 0 over a zero noise entry makes the
+    first pivot 0: the row is NaN in K10 and its plain version, value and
+    gradient, and the other rows stay finite."""
+    X, y = _lml_data(dev, 30, 32)
+    fam, th = _lml_thetas("rbf", dev, 3)
+    th[0, 0] = -800.0
+    nv = torch.full((32,), 1e-4, dtype=torch.float64, device=dev)
+    nv[0] = 0.0
+    lml = fused.lml_value_grad(fam, th, X, y, 30, nv)
+    _, g = fused.lml_value_grad(fam, th, X, y, 30, nv, grad=True)
+    ref, gr = fused.lml_value_grad_plain(fam, th, X, y, 30, nv, grad=True)
+    assert bool(torch.isnan(ref[0])) and bool(torch.isnan(lml[0]))
+    assert bool(torch.isnan(g[0]).all())
+    assert bool(torch.isfinite(lml[1:]).all())
+    assert float(torch.max(torch.abs(lml[1:] - ref[1:])
+                           / torch.abs(ref[1:]))) <= 1e-10
+    assert _rel_max(g[1:], gr[1:]) <= 1e-8
+
+
+def _fit_args(family, dev, lanes, d=3, n=60, nmax=64):
+    """K11's arguments: lanes starts in a box of +-2 around the family's
+    theta, lane 0 at that theta."""
+    X, y = _lml_data(dev, n, nmax, d)
+    fam, theta = family_and_theta(family, d)
+    lo, hi = theta - 2.0, theta + 2.0
+    rng = np.random.default_rng(lanes)
+    th0 = rng.uniform(lo, hi, (lanes, len(theta)))
+    th0[0] = theta
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    nv = torch.tensor(1e-4, dtype=torch.float64, device=dev)
+    return fam, (fam, X, y, n, nv, t(th0), t(lo), t(hi))
+
+
+def _lanes_close(f, fr, tol):
+    """The same lanes NaN (a start that is not positive definite returns
+    it with a NaN f, in both), the others within tol (1 + |f|)."""
+    assert torch.equal(torch.isnan(f), torch.isnan(fr))
+    fin = ~torch.isnan(fr)
+    assert bool(torch.all(torch.abs(f - fr)[fin]
+                          <= tol * (1 + torch.abs(fr[fin]))))
+
+
+def _best(f):
+    return float(torch.where(torch.isnan(f), torch.inf, f).min())
+
+
+@pytest.mark.parametrize("lanes", (8, 2))
+@pytest.mark.parametrize("family", ("rbf", "matern52") + tuple(SPECS))
+def test_lbfgs_lml_fit_kernel(dev, family, lanes):
+    """K11 against its plain version lane by lane and step for step over
+    3 iterations: the same nev and iterations, theta within 1e-7 of the
+    box width, f within 1e-9 (1 + |f|); to maxiter 120, the best f within
+    1e-8 (1 + |f|).  One launch a call."""
+    key = count_key("lbfgs_lml_fit", family)
+    _, args = _fit_args(family, dev, lanes)
+    n0 = fused.LAUNCHES[key]
+    th, f, nev, it = fused.lbfgs_lml_fit(*args, maxiter=3,
+                                         return_iters=True)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[key] == n0 + 1
+    thr, fr, nevr, itr = fused.lbfgs_lml_fit_plain(*args, maxiter=3,
+                                                   return_iters=True)
+    assert nev.tolist() == nevr.tolist() and it.tolist() == itr.tolist()
+    assert float(torch.max(torch.abs(th - thr))) <= 1e-7 * 4.0
+    _lanes_close(f, fr, 1e-9)
+    _, f, _ = fused.lbfgs_lml_fit(*args, maxiter=120)
+    _, fr, _ = fused.lbfgs_lml_fit_plain(*args, maxiter=120)
+    assert abs(_best(f) - _best(fr)) <= 1e-8 * (1 + abs(_best(fr)))
+
+
+def test_lbfgs_lml_fit_kernel_d40(dev):
+    """K11 at d = 40 (p = 41, beyond a warp's lanes) on the fast family:
+    step for step over 3 iterations as above."""
+    _, args = _fit_args("rbf", dev, 8, d=40, n=120, nmax=128)
+    th, f, nev = fused.lbfgs_lml_fit(*args, maxiter=3)
+    thr, fr, nevr = fused.lbfgs_lml_fit_plain(*args, maxiter=3)
+    assert nev.tolist() == nevr.tolist()
+    assert float(torch.max(torch.abs(th - thr))) <= 1e-7 * 4.0
+    _lanes_close(f, fr, 1e-9)
+
+
+def test_lbfgs_lml_fit_nan_lanes(dev):
+    """A lane whose start is not finite (a NaN theta) stops at once with
+    nev 1 and returns its start and a NaN f, as the plain version's lane,
+    while the other lanes run; when every lane fails (a NaN noise level:
+    no theta gives a finite LML), the fit raises LinAlgError after one
+    K11 launch."""
+    from gpry_tpu_torch.models.gp import GaussianProcessRegressor
+    _, args = _fit_args("rbf", dev, 4)
+    fam, X, y, n, nv, th0, lo, hi = args
+    th0 = th0.clone()
+    th0[0, 1] = torch.nan
+    th, f, nev = fused.lbfgs_lml_fit(fam, X, y, n, nv, th0, lo, hi)
+    thr, fr, nevr = fused.lbfgs_lml_fit_plain(fam, X, y, n, nv, th0, lo, hi)
+    assert bool(torch.isnan(fr[0])) and bool(torch.isnan(f[0]))
+    assert int(nev[0]) == int(nevr[0]) == 1
+    assert torch.equal(torch.isnan(th[0]), torch.isnan(thr[0]))
+    assert bool(torch.isfinite(f[1:]).all())
+    assert abs(_best(f) - _best(fr)) <= 1e-8 * (1 + abs(_best(fr)))
+    Xd = np.random.default_rng(3).uniform(0, 1, (20, 2))
+    gpr = GaussianProcessRegressor(bounds=[[0.0, 1.0]] * 2, random_state=0,
+                                   verbose=0)
+    gpr.append_to_data(Xd, np.sin(Xd).sum(1), fit_gpr=False)
+    gpr.noise_level_default = float("nan")
+    n0 = fused.LAUNCHES["lbfgs_lml_fit"]
+    with pytest.raises(np.linalg.LinAlgError):
+        gpr.fit_gpr_hyperparameters(n_restarts=2)
+    assert fused.LAUNCHES["lbfgs_lml_fit"] == n0 + 1
+
+
+def test_fit_kernels_raise_when_the_build_fails(dev, monkeypatch):
+    """No fallback: with the library unbuilt and nvcc refusing, K10 and
+    K11 raise KernelBuildError for CUDA tensors and launch nothing."""
+    def refuse():
+        raise fused.KernelBuildError("nvcc refused the sources")
+
+    monkeypatch.setattr(fused, "_lib", None)
+    monkeypatch.setattr(fused, "_stale", lambda: True)
+    monkeypatch.setattr(fused, "_nvcc", refuse)
+    fam, args = _fit_args("rbf", dev, 2)
+    _, X, y, n, nv, th0, _, _ = args
+    n0 = dict(fused.LAUNCHES)
+    with pytest.raises(fused.KernelBuildError):
+        fused.lml_value_grad(fam, th0, X, y, n, nv)
+    with pytest.raises(fused.KernelBuildError):
+        fused.lbfgs_lml_fit(*args)
+    assert fused.LAUNCHES == n0
