@@ -2,12 +2,12 @@
 """
 Drive gpry_tpu_torch once on one CUDA card.
 
-1. Build the eleven CUDA kernels (K1 gated_mean, K2 gated_meanvar_logexp,
-   K3 masked_kernel_matrix_batched, K4 kriging_believer_fill, K5
-   meanvar_ungated, K6 ns_slice_chains, K7 predict_meancov, K8
-   meanstd_grad, K9 lbfgs_logexp_ascent, K10 lml_value_grad, K11
-   lbfgs_lml_fit) from ``gpry_tpu_torch/csrc``, one nvcc per source, all
-   at once.
+1. Build the thirteen CUDA kernels (K1 gated_mean, K2
+   gated_meanvar_logexp, K3 masked_kernel_matrix_batched, K4
+   kriging_believer_fill, K5 meanvar_ungated, K6 ns_slice_chains, K7
+   predict_meancov, K8 meanstd_grad, K9 lbfgs_logexp_ascent, K10
+   lml_value_grad, K11 lbfgs_lml_fit, K12 mcmc_chains, K13 ns_step) from
+   ``gpry_tpu_torch/csrc``, one nvcc per source, all at once.
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes of the main paths (d = 8, n = 224 valid rows in a bucket of
    nmax = 320; K1 at nq = 16, 66, 2,000, 16,384 and 65,536 in both of
@@ -19,16 +19,22 @@ Drive gpry_tpu_torch once on one CUDA card.
    LML screen of R = 2,048 theta rows, scalar and vector noise, and in
    its gradient mode on 8 rows and one that is not positive definite;
    K11 on path h's data, 8 lanes and the 2 of a simple fit, step for step
-   over 3 iterations and then to maxiter 120; K1 and
-   K6 with the SVM fitted and all finite), for the four fast families and,
+   over 3 iterations and then to maxiter 120; K12 at path d's ensemble
+   (d = 8, 16 chains) and at d = 32 (64 chains) and beyond shared memory,
+   step for step over the first 50 steps of each phase, then whole
+   1,000 + 2,000-step runs by their statistics; K13 on crafted states at
+   nlive 200, 400 and 3,200 (d = 64); K1, K6 and K12 with the SVM fitted
+   and all finite), for the four fast families and,
    in each kernel's spec mode, for a composite kernel with every node kind
    (ALL_NODES); time both with CUDA events (K1 and K6 also by their
    kernel's own duration in a ``torch.profiler`` trace), and compute each
    kernel's bound: the larger of its FP64 operations over the H100 SXM's
-   FP64 peak and its bytes over 3.35 TB/s.  K1's and K6's operations count
-   only the sums their inputs need: the SVM decision of a point inside the
-   trust box (and K6's prior box), the GP mean only where that decision
-   is finite, over the points K6's chains must evaluate; K9's and K11's
+   FP64 peak and its bytes over 3.35 TB/s.  K1's, K6's and K12's
+   operations count only the sums their inputs need: the SVM decision of a
+   point inside the trust box (and the prior box), the GP mean only where
+   that decision is finite, over the points K6's chains must evaluate and
+   the proposals K12's chains score; K13's the bytes of the live and dead
+   buffers it touches and its few operations; K9's and K11's
    the sums of the evaluations their plain versions make (iterations and
    nev).  K10 is also timed against the route it replaces (K3,
    ``cholesky_ex`` and ``solve_triangular``).
@@ -42,8 +48,12 @@ Drive gpry_tpu_torch once on one CUDA card.
    each solver's own -LML and, for the fast families up to n = 128, by
    a 30-digit one), that
    K1's launches on paths a, b, c and e are below 1% of what the
-   lock-step nested sampler made there (LOCKSTEP_K1_LAUNCHES), and print
-   the seconds each path spent in nested sampling:
+   lock-step nested sampler made there (LOCKSTEP_K1_LAUNCHES), that every
+   MCMC run launched K12 twice (and path d K1 twice: the start tries and
+   the IS refine), that every NS run launched K13 once per queued step
+   and once per segment end and K6 once per queued step, reading the host
+   at most ceil(steps / 8) + 2 times, and print the seconds each path
+   spent in nested sampling:
    a. the default entry point: ``Runner(loglike, bounds).run()`` (the
       BatchOptimizer loop with the convergence audit) then
       ``generate_mc_sample()`` on the 8-dimensional correlated Gaussian
@@ -127,19 +137,29 @@ SPEC_F = {"Sum": [
     {"WhiteKernel": {"noise_level": 1e-4,
                      "noise_level_bounds": [1e-8, 0.1]}}]}
 JAX_SPEC_EVALS = 76
-# the spec-mode kernel checks' composite kernel: every node kind
-ALL_NODES = {"Sum": [
-    {"Product": [{"ConstantKernel": {"constant_value": 1.3}},
-                 {"Exponentiation": {"kernel": {"Matern": {
-                     "nu": 2.5, "length_scale": [0.6] * D}},
-                     "exponent": 2.0}}]},
-    {"Sum": [{"Product": [{"ConstantKernel": {"constant_value": 0.5}},
-                          {"RationalQuadratic": {"alpha": 1.5,
-                                                 "length_scale": 0.7}}]},
-             {"Sum": [{"ExpSineSquared": {"length_scale": 1.0,
-                                          "periodicity": 3.0}},
-                      {"Sum": [{"DotProduct": {"sigma_0": 0.3}},
-                               {"WhiteKernel": {"noise_level": 1e-3}}]}]}]}]}
+
+
+def all_nodes(d):
+    """The spec-mode kernel checks' composite kernel at d dimensions: every
+    node kind (ExpSineSquared of a Euclidean distance is not positive
+    definite in general, so its period grows with d beyond D)."""
+    return {"Sum": [
+        {"Product": [{"ConstantKernel": {"constant_value": 1.3}},
+                     {"Exponentiation": {"kernel": {"Matern": {
+                         "nu": 2.5, "length_scale": [0.6] * d}},
+                         "exponent": 2.0}}]},
+        {"Sum": [{"Product": [{"ConstantKernel": {"constant_value": 0.5}},
+                              {"RationalQuadratic": {
+                                  "alpha": 1.5, "length_scale": 0.7}}]},
+                 {"Sum": [{"ExpSineSquared": {
+                     "length_scale": 1.0,
+                     "periodicity": 3.0 * max(1.0, d / D)}},
+                          {"Sum": [{"DotProduct": {"sigma_0": 0.3}},
+                                   {"WhiteKernel": {
+                                       "noise_level": 1e-3}}]}]}]}]}
+
+
+ALL_NODES = all_nodes(D)
 FAST = ("rbf", "matern12", "matern32", "matern52")
 # K4 at bench.py's NORA operating point: N candidates, a pool of SIZE
 N_CAND, SIZE = 4096, 8
@@ -171,6 +191,10 @@ SOURCES = {
                        "gpry_tpu/models/gp.py:189"),
     "lbfgs_lml_fit": ("gpry_tpu_torch/csrc/lbfgs_lml_fit.cu",
                       "gpry_tpu/models/gp.py:236"),
+    "mcmc_chains": ("gpry_tpu_torch/csrc/mcmc_chains.cu",
+                    "gpry_tpu/mc/mcmc.py:44"),
+    "ns_step": ("gpry_tpu_torch/csrc/ns_step.cu",
+                "gpry_tpu/mc/nested.py:184"),
 }
 # K10: the LML within rel TOL_K10 on well-conditioned rows (the plain
 # factor's smallest pivot^2 at least K10_WELL max diag(K)); the NaN masks
@@ -193,6 +217,23 @@ FIT_PATHS = {"batchoptimizer": "", "nora_bench": "", "nora_runner": "",
 # K6 at the NS steps of the main paths: nlive 400 (final NS) and 200
 # (NORA), num_repeats 40
 K6_B, K6_R = (66, 33), 40
+# K12 at path d's ensemble (d = 8, 16 chains) and at d = 32 (64 chains),
+# and beyond shared memory at d = 8 (n valid rows of nmax); the prior box
+# [-K12_BOX / 2, K12_BOX / 2]^d.  Step for step over the first K12_STEPS
+# steps of each phase: the same accept decisions, x within TOL_K12_X of
+# the box width, the log-densities within rel TOL_K12_LP (K6's: at n =
+# 4,000 the mean sums rows whose alpha cancel, 3e-12 apart), the step
+# size identical; whole runs of K12_WARMUP +
+# K12_SAMPLING steps: means and covariances within K12_SE standard errors
+# of their difference, acceptance within TOL_K12_ACC, split-R-hat below
+# K12_RHAT on both
+K12_CONFIGS, K12_BIG, K12_BOX = ((8, 16), (32, 64)), (4000, 4096), 10.0
+K12_WARMUP, K12_SAMPLING, K12_STEPS = 1000, 2000, 50
+TOL_K12_X, TOL_K12_LP, K12_SE, TOL_K12_ACC, K12_RHAT = \
+    1e-12, 1e-10, 4.0, 0.02, 1.2
+# K13 on crafted states at these (nlive, d), timed at the final NS's
+K13_SHAPES, K13_TIMED, TOL_K13_CHOL = ((200, 8), (400, 8), (3200, 64)), \
+    (400, 8), 1e-12
 # K1's launches on paths a, b, c and e when every slice step was a K1
 # call (the chip run of the commit before K6; PERF.md, section 6)
 LOCKSTEP_K1_LAUNCHES = {"batchoptimizer": 284164, "nora_bench": 199803,
@@ -203,26 +244,28 @@ PATH_KERNELS = {
                        "masked_kernel_matrix_batched", "meanvar_ungated",
                        "ns_slice_chains", "predict_meancov", "meanstd_grad",
                        "lbfgs_logexp_ascent", "lml_value_grad",
-                       "lbfgs_lml_fit"),
+                       "lbfgs_lml_fit", "ns_step"),
     "nora_bench": ("gated_mean", "gated_meanvar_logexp",
                    "masked_kernel_matrix_batched", "kriging_believer_fill",
-                   "ns_slice_chains", "lml_value_grad", "lbfgs_lml_fit"),
+                   "ns_slice_chains", "lml_value_grad", "lbfgs_lml_fit",
+                   "ns_step"),
     "nora_runner": ("gated_mean", "gated_meanvar_logexp",
                     "masked_kernel_matrix_batched", "kriging_believer_fill",
-                    "ns_slice_chains", "lml_value_grad", "lbfgs_lml_fit"),
-    "mcmc": ("gated_mean",),
+                    "ns_slice_chains", "lml_value_grad", "lbfgs_lml_fit",
+                    "ns_step"),
+    "mcmc": ("gated_mean", "mcmc_chains"),
     "himmelblau_audit": ("gated_mean", "gated_meanvar_logexp",
                          "masked_kernel_matrix_batched",
                          "kriging_believer_fill", "meanvar_ungated",
                          "ns_slice_chains", "lml_value_grad",
-                         "lbfgs_lml_fit"),
+                         "lbfgs_lml_fit", "ns_step"),
     "spec_runner": ("gated_mean/spec", "gated_meanvar_logexp/spec",
                     "masked_kernel_matrix_batched/spec",
                     "meanvar_ungated/spec", "ns_slice_chains/spec",
                     "lbfgs_logexp_ascent/spec", "lml_value_grad/spec",
-                    "lbfgs_lml_fit/spec"),
+                    "lbfgs_lml_fit/spec", "ns_step"),
     "spec_cov_nora": ("predict_meancov/spec", "kriging_believer_fill/spec",
-                      "meanstd_grad/spec"),
+                      "meanstd_grad/spec", "ns_step"),
     "bo_bench": ("gated_meanvar_logexp", "masked_kernel_matrix_batched",
                  "lbfgs_logexp_ascent", "lml_value_grad", "lbfgs_lml_fit"),
 }
@@ -313,11 +356,11 @@ def bound(flops, nbytes):
             "flops": float(flops), "bytes": float(nbytes)}
 
 
-def spec_kernel():
-    """(spec, theta0) of ALL_NODES at D dimensions (the port's own
+def spec_kernel(d=D):
+    """(spec, theta0) of all_nodes(d) at d dimensions (the port's own
     build_kernel_spec)."""
     from gpry_tpu_torch.ops.kernels import build_kernel_spec
-    spec, theta0, _ = build_kernel_spec(ALL_NODES, D)
+    spec, theta0, _ = build_kernel_spec(all_nodes(d), d)
     return spec, theta0
 
 
@@ -325,27 +368,38 @@ def is_spec(family):
     return isinstance(family, tuple)
 
 
-def pair_flops(family):
-    """FP64 operations of one kernel value k(x, x') at D dimensions and its
+def pair_flops(family, d=D):
+    """FP64 operations of one kernel value k(x, x') at d dimensions and its
     multiply-add into a sum: per stationary ARD leaf r^2 over d and one
     exponential, per dot product d multiply-adds, per operator one (the
-    fast families: 3 D + 3, as PR 4 counted them)."""
+    fast families: 3 d + 3, as PR 4 counted them)."""
     if not is_spec(family):
-        return 3 * D + 3
+        return 3 * d + 3
     from gpry_tpu_torch.ops import fused
-    ops, _, _, _ = fused.encode_spec(family, D)
+    ops, _, _, _ = fused.encode_spec(family, d)
     names = {v: k for k, v in fused.SPEC_OPS.items()}
-    cost = {"rq": 3 * D + 5, "expsine": 3 * D + 6, "dotproduct": 2 * D + 2,
+    cost = {"rq": 3 * d + 5, "expsine": 3 * d + 6, "dotproduct": 2 * d + 2,
             "white": 0, "constant": 0, "sum": 1, "product": 1, "pow": 1}
-    return sum(cost.get(names[o], 3 * D + 3) for o in ops)
+    return sum(cost.get(names[o], 3 * d + 3) for o in ops)
 
 
-def synthetic_surrogate(family, dev, seed, svm="fitted"):
-    """A surrogate snapshot at the main-path shapes with every gate active:
-    a fitted SVM, a trust box inside the prior and an upper clip.  With
-    ``svm="all_finite"`` the SVM is the placeholder of a run that has seen
-    no -inf (the Gaussian paths' mode: no support vector is summed).
-    ``family`` is a fast family or the ALL_NODES spec tree."""
+def synthetic_surrogate(family, dev, seed, svm="fitted", d=D, n=N,
+                        nmax=NMAX, mode=False):
+    """A surrogate snapshot at the main-path shapes (or d, n valid rows of
+    nmax) with every gate active: a fitted SVM, a trust box inside the
+    prior and an upper clip.  With ``svm="all_finite"`` the SVM is the
+    placeholder of a run that has seen no -inf (the Gaussian paths' mode:
+    no support vector is summed); with ``svm="ball"`` it is fitted and
+    finite inside the ball of radius 3.5 about the prior box's centre (one
+    posterior mode), the clip then at the 90% quantile of the mean at draws
+    inside it.  With ``mode`` (the MCMC checks) it is a
+    surrogate of the standard normal log-density as a run normalizes it:
+    training points about the box's centre (raw standard deviation 2),
+    y_loc and y_scale their values' mean and standard deviation, a trust
+    box of [-3, 3]^d, the ball of radius 6 and the clip at the 90%
+    quantile of the mean at draws of standard deviation 0.4; else the
+    training points lie uniformly in the box.  ``family`` is a fast family
+    or the all_nodes(d) spec tree."""
     import numpy as np
     import torch
     from gpry_tpu_torch.models.classifier import MODE_ALL_FINITE, \
@@ -355,41 +409,55 @@ def synthetic_surrogate(family, dev, seed, svm="fitted"):
     rng = np.random.default_rng(seed)
     t = lambda a: torch.as_tensor(np.asarray(a, float), dtype=torch.float64,
                                   device=dev)
-    Xv = rng.uniform(0, 1, (N, D))
-    yv = -0.5 * np.sum(((Xv - 0.5) / 0.3) ** 2, axis=1)
+    Xv = np.clip(rng.normal(0.5, 0.2, (n, d)), 0, 1) if mode else \
+        rng.uniform(0, 1, (n, d))
+    yv = -0.5 * np.sum(((Xv - 0.5) / (0.1 if mode else 0.3)) ** 2, axis=1)
+    y_loc, y_scale = (yv.mean(), yv.std()) if mode else (-3.0, 2.5)
     yv = (yv - yv.mean()) / yv.std()
-    Xp, yp = np.zeros((NMAX, D)), np.zeros(NMAX)
-    Xp[:N], yp[:N] = Xv, yv
+    Xp, yp = np.zeros((nmax, d)), np.zeros(nmax)
+    Xp[:n], yp[:n] = Xv, yv
     if is_spec(family):
-        theta0 = np.asarray(spec_kernel()[1])
+        theta0 = np.asarray(spec_kernel(d)[1])
         theta = theta0 + rng.uniform(-0.2, 0.2, len(theta0))
     else:
         theta = np.concatenate([[np.log(2.0)],
-                                np.log(rng.uniform(0.4, 0.9, D))])
+                                np.log(rng.uniform(0.4, 0.9, d))])
     noise = t(1e-4)
-    L, alpha = factorize(family, t(theta), t(Xp), t(yp), N, noise)
+    L, alpha = factorize(family, t(theta), t(Xp), t(yp), n, noise)
     if bool(torch.isnan(L).any()):
         raise AssertionError("synthetic factorization is not PD")
-    sv = rng.uniform(0, 1, (NSV, D))
+    sv = rng.uniform(0, 1, (NSV, d))
     dual = rng.normal(size=NSV)
     gamma = 2.0
-    Xq = rng.uniform(0, 1, (4096, D))
+    Xq = rng.uniform(0, 1, (4096, d))
     dec = np.exp(-gamma * ((Xq[:, None] - sv[None]) ** 2).sum(-1)) @ dual
     fitted = SVMParams(mode=MODE_FITTED, sv=t(sv), dual=t(dual),
                        intercept=t(-np.median(dec)), gamma=t(gamma))
     p = SurrogateParams(
-        theta=t(theta), X=t(Xp), y=t(yp), n=N, noise_var=noise, L=L,
-        alpha=alpha, x_loc=t(np.full(D, -5.0)), x_scale=t(np.full(D, 10.0)),
-        y_loc=t(-3.0), y_scale=t(2.5), y_max=t(0.0), clip_max=t(np.inf),
-        svm=fitted, trust_lo=t(np.full(D, -4.5)), trust_hi=t(np.full(D, 4.5)))
+        theta=t(theta), X=t(Xp), y=t(yp), n=n, noise_var=noise, L=L,
+        alpha=alpha, x_loc=t(np.full(d, -5.0)), x_scale=t(np.full(d, 10.0)),
+        y_loc=t(y_loc), y_scale=t(y_scale), y_max=t(0.0), clip_max=t(np.inf),
+        svm=fitted, trust_lo=t(np.full(d, -3.0 if mode else -4.5)),
+        trust_hi=t(np.full(d, 3.0 if mode else 4.5)))
     # an upper clip below the largest mean, so that it binds somewhere
     from gpry_tpu_torch.ops.fused import gated_mean_plain
-    m = gated_mean_plain(family, p, t(rng.uniform(-5, 5, (4096, D))))
-    clip = torch.quantile(m[torch.isfinite(m)], 0.9)
-    p = p.replace(clip_max=clip.to(torch.float64))
+    m = gated_mean_plain(family, p, t(rng.uniform(-5, 5, (4096, d))))
+    if not mode:
+        clip = torch.quantile(m[torch.isfinite(m)], 0.9)
+        p = p.replace(clip_max=clip.to(torch.float64))
     if svm == "all_finite":
-        p = p.replace(svm=trivial_svm_params(D, NSV, torch.float64, dev,
+        p = p.replace(svm=trivial_svm_params(d, NSV, torch.float64, dev,
                                              MODE_ALL_FINITE))
+    if svm == "ball":
+        sv[0], dual = 0.5, np.eye(NSV)[0]
+        p = p.replace(svm=SVMParams(
+            mode=MODE_FITTED, sv=t(sv), dual=t(dual),
+            intercept=t(-np.exp(-gamma * (0.6 if mode else 0.35) ** 2)),
+            gamma=t(gamma)))
+    if svm == "ball" or mode:
+        m = gated_mean_plain(family, p, t(0.4 * rng.normal(size=(4096, d))))
+        clip = torch.quantile(m[torch.isfinite(m)], 0.9)
+        p = p.replace(clip_max=clip.to(torch.float64))
     return p
 
 
@@ -408,11 +476,11 @@ def needed_sums(p, X, lo=None, hi=None):
     return n_svm, int((inside & finite).sum())
 
 
-def sum_flops(n_svm, n_gp, family="rbf"):
+def sum_flops(n_svm, n_gp, family="rbf", d=D, n=N):
     """FP64 operations of those sums: per (point, support vector) r^2 over
     d, one exponential, one multiply-add; per (point, training row) the
     kernel value and its multiply-add (pair_flops)."""
-    return n_svm * NSV * (3 * D + 3) + n_gp * N * pair_flops(family)
+    return n_svm * NSV * (3 * d + 3) + n_gp * n * pair_flops(family, d)
 
 
 def k4_inputs(family, dev, noise_kind, rng, acqf, noise_std):
@@ -666,6 +734,283 @@ def check_k6(dev, families, timed, configs):
                          "bound_by", "flops", "bytes")})
     row["max_abs_err"] = worst
     row["shape"] = f"B=66 R={K6_R} n={N} nmax={NMAX} d={D} svm=fitted"
+    return row
+
+
+def k12_run(fam, p, state, chol, z, u, lo, hi, adapt, kernel, seen=None):
+    """One MCMC phase from ``state`` (x, lp, log_step) on the draws z, u:
+    K12, or its plain version (then the proposals it scores are appended
+    to ``seen``, if given)."""
+    from gpry_tpu_torch.ops import fused
+    if kernel:
+        return fused.mcmc_chains(fam, p, *state, chol, z, u, lo, hi, adapt)
+    logp = fused._in_box_logp(fam, p, lo, hi)
+
+    def logp_of(X):
+        if seen is not None:
+            seen.append(X)
+        return logp(X)
+
+    return fused.mcmc_chains_plain(logp_of, *state, chol, z, u, adapt)
+
+
+def k12_accepts(Xs, x0):
+    """The accept decision of every step and chain, read off the visited
+    states (a proposal never equals its chain's state)."""
+    import torch
+    prev = torch.cat([x0[None], Xs[:-1]])
+    return torch.any(Xs != prev, dim=-1)
+
+
+def k12_same_steps(label, out, ref, x0, adapt):
+    """The first K12_STEPS steps of one phase: the same accept decisions,
+    x within TOL_K12_X of the box width, the log-densities within rel
+    TOL_K12_LP and (warm-up) the step size identical; returns the largest
+    x error."""
+    import torch
+    if not torch.equal(k12_accepts(out[5], x0), k12_accepts(ref[5], x0)):
+        raise AssertionError(f"K12 {label}: accept decisions differ")
+    err = float(torch.max(torch.abs(out[5] - ref[5])))
+    _, rel = rel_err(out[6].reshape(-1), ref[6].reshape(-1))
+    if not (err <= TOL_K12_X * K12_BOX and rel <= TOL_K12_LP):
+        raise AssertionError(f"K12 {label}: x err {err}, lp rel {rel}")
+    if adapt and float(out[2]) != float(ref[2]):
+        raise AssertionError(f"K12 {label}: step size {float(out[2])!r} "
+                             f"against {float(ref[2])!r}")
+    return err
+
+
+def k12_stats(Xs, x0):
+    """(mean, covariance, their standard errors from the chains' batch
+    means and covariances, acceptance rate, split-R-hat) of a sampling
+    phase's visited states (steps, chains, d)."""
+    import numpy as np
+    from gpry_tpu_torch.mc.mcmc import split_rhat
+    acc = float(k12_accepts(Xs, x0).double().mean())
+    X = Xs.transpose(0, 1).cpu().numpy()
+    B, n, d = X.shape
+    flat = X.reshape(-1, d)
+    per_cov = np.stack([np.cov(c.T) for c in X])
+    return (flat.mean(axis=0), np.cov(flat.T),
+            X.mean(axis=1).std(axis=0, ddof=1) / np.sqrt(B),
+            per_cov.std(axis=0, ddof=1) / np.sqrt(B), acc, split_rhat(X))
+
+
+def k12_full(fam, p, x0, lp0, draws, lo, hi, kernel, seen=None):
+    """A whole run as run_mcmc_device makes it from (x0, lp0): the warm-up
+    on chol0, the proposal re-estimated from its moments, the sampling
+    phase; returns (warm-up result, its factor, sampling result)."""
+    import torch
+    from gpry_tpu_torch.mc.mcmc import sampling_factor
+    zw, uw, zs, us, chol0 = draws
+    B, d = x0.shape
+    step0 = torch.zeros((), dtype=torch.float64, device=x0.device)
+    w = k12_run(fam, p, (x0, lp0, step0), chol0, zw, uw, lo, hi, True,
+                kernel, seen)
+    chol_w = sampling_factor(w[3], w[4], zw.shape[0] * B, chol0)
+    s = k12_run(fam, p, w[:3], chol_w, zs, us, lo, hi, False, kernel, seen)
+    return w, chol_w, s
+
+
+def check_k12(dev, families, timed):
+    """K12 against its plain version at path d's ensemble (d = 8, B = 16)
+    and at d = 32 (B = 64), on a surrogate with one mode (its training
+    points about the box's centre), the SVM fitted (finite in a ball) and
+    all finite, and once with the surrogate beyond shared memory (d = 8, n
+    = 4,000): step for step over the first K12_STEPS steps of each phase
+    (the same state and draws), then, for ``timed`` (and the large
+    surrogate), a whole 1,000 + 2,000-step run of each by its statistics:
+    means and covariances within K12_SE standard errors, acceptance rates
+    within TOL_K12_ACC, split-R-hat below K12_RHAT on both.  Timed at every
+    configuration of ``timed``; the bound counts the sums of the proposals
+    the plain run scored (needed_sums)."""
+    import numpy as np
+    import torch
+    from gpry_tpu_torch.ops import fused
+    f64 = dict(dtype=torch.float64, device=dev)
+    worst, shapes = 0.0, {}
+    configs = [(svm, d, B, N, NMAX) for svm in ("ball", "all_finite")
+               for d, B in K12_CONFIGS] + [("ball", D, 16) + K12_BIG]
+    for fam0 in families:
+        for svm, d, B, n, nmax in configs:
+            big = n != N
+            if big and fam0 != timed:
+                continue
+            fam = spec_kernel(d)[0] if is_spec(fam0) else fam0
+            label = f"{'spec' if is_spec(fam) else fam} svm={svm} d={d} " \
+                f"B={B} n={n}"
+            p = synthetic_surrogate(fam, dev, seed=21, svm=svm, d=d, n=n,
+                                    nmax=nmax, mode=True)
+            gen = torch.Generator(device=dev).manual_seed(d + B)
+            x0 = 0.3 * torch.randn((B, d), generator=gen, **f64)
+            lp0 = fused.gated_mean_plain(fam, p, x0)
+            if not bool(torch.isfinite(lp0).all()):
+                raise AssertionError(f"K12 {label}: a start is not finite")
+            draws = (torch.randn((K12_WARMUP, B, d), generator=gen, **f64),
+                     torch.rand((K12_WARMUP, B), generator=gen, **f64),
+                     torch.randn((K12_SAMPLING, B, d), generator=gen, **f64),
+                     torch.rand((K12_SAMPLING, B), generator=gen, **f64),
+                     torch.eye(d, **f64) * (K12_BOX / 10 * 2.38 / d ** 0.5))
+            lo = torch.full((d,), -K12_BOX / 2, **f64)
+            hi = -lo
+            zw, uw, zs, us, chol0 = draws
+            step0 = torch.zeros((), **f64)
+            # step for step: the warm-up from the start, the sampling phase
+            # from the kernel's warm-up end
+            n0 = fused.LAUNCHES["mcmc_chains" + ("/spec" if is_spec(fam)
+                                                 else "")]
+            kw = k12_full(fam, p, x0, lp0, draws, lo, hi, True)
+            for adapt, state, chol, z, u in (
+                    (True, (x0, lp0, step0), chol0, zw, uw),
+                    (False, kw[0][:3], kw[1], zs, us)):
+                a, b = (k12_run(fam, p, state, chol, z[:K12_STEPS],
+                                u[:K12_STEPS], lo, hi, adapt, kern)
+                        for kern in (True, False))
+                sync()
+                worst = max(worst, k12_same_steps(
+                    f"{label} {'warm-up' if adapt else 'sampling'}", a, b,
+                    state[0], adapt))
+            key = "mcmc_chains" + ("/spec" if is_spec(fam) else "")
+            if fused.LAUNCHES[key] != n0 + 4:
+                raise AssertionError(f"K12 {label}: {fused.LAUNCHES[key]} "
+                                     f"launches, expected {n0 + 4}")
+            log(f"[K12] {label}: {K12_STEPS} steps of each phase: the same "
+                "accept decisions and step size")
+            if fam0 != timed:
+                continue
+            # whole runs, by their statistics
+            seen = []
+            sync()
+            t0 = time.perf_counter()
+            pw = k12_full(fam, p, x0, lp0, draws, lo, hi, False, seen)
+            sync()
+            plain = 1e3 * (time.perf_counter() - t0)
+            sk = k12_stats(kw[2][5], kw[0][0])
+            sp = k12_stats(pw[2][5], pw[0][0])
+            dm = np.max(np.abs(sk[0] - sp[0]) / np.hypot(sk[2], sp[2]))
+            dc = np.max(np.abs(sk[1] - sp[1]) / np.hypot(sk[3], sp[3]))
+            stats = {"mean_dev_se": float(dm), "cov_dev_se": float(dc),
+                     "accept": [sk[4], sp[4]], "rhat": [sk[5], sp[5]],
+                     "log_step": [float(kw[0][2]), float(pw[0][2])]}
+            log(f"[K12] {label}: whole run " + json.dumps(stats))
+            if not (dm <= K12_SE and dc <= K12_SE
+                    and abs(sk[4] - sp[4]) <= TOL_K12_ACC
+                    and sk[5] < K12_RHAT and sp[5] < K12_RHAT):
+                raise AssertionError(f"K12 {label}: whole runs differ: "
+                                     f"{stats}")
+            calls = [lambda: k12_run(fam, p, (x0, lp0, step0), chol0, zw, uw,
+                                     lo, hi, True, True),
+                     lambda: k12_run(fam, p, kw[0][:3], kw[1], zs, us, lo, hi,
+                                     False, True)]
+            # one launch lasts milliseconds: CUDA events time it
+            ms = [time_ms(c, 3) for c in calls]
+            props = torch.cat(seen)
+            n_svm, n_gp = needed_sums(p, props, lo, hi)
+            steps = K12_WARMUP + K12_SAMPLING
+            nbytes = 8 * (2 * steps * B * (d + 1) + n * (d + 1)
+                          + NSV * (d + 1) + d * d + 2 * B * (d + 1) + 7 * d)
+            shape = {"ms": sum(ms), "ms_phases": ms,
+                     "plain_ms": plain, "proposals": len(props),
+                     "svm_sums": n_svm, "gp_sums": n_gp, **stats,
+                     **bound(sum_flops(n_svm, n_gp, fam, d, n), nbytes)}
+            shapes[label] = shape
+            log(f"[K12] {label}: kernel {shape['ms']:.3f} ms a run "
+                f"(warm-up {ms[0]:.3f}, sampling {ms[1]:.3f}), plain "
+                f"{plain:.1f} ms; bound {shape['bound_ms']:.6f} ms "
+                f"({shape['bound_by']})")
+    top = next(v for k, v in shapes.items()
+               if f"svm=all_finite d={D} B=16" in k)
+    return {"max_abs_err": worst, "shapes": shapes,
+            "shape": f"d={D} B=16 {K12_WARMUP}+{K12_SAMPLING} steps n={N} "
+                     f"nmax={NMAX} svm=all_finite",
+            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "flops", "bytes")}}
+
+
+def check_k13(dev):
+    """K13 against its plain version on crafted states (the kinds of
+    tests/test_torch_cuda.py's ns_state, two seeds) at nlive 200 and 400
+    (d = 8) and 3,200 (d = 64): the same stop flag, kill order, dead
+    buffer, lstar and starts, the Cholesky factor within TOL_K13_CHOL of
+    its largest entry; after the previous chains are applied, the same
+    live set, k, calls and steps.  Timed at
+    the final NS's nlive = 400 halfway through its dead buffer ("mid"), each
+    call applying a kill and selecting the next."""
+    import torch
+    from gpry_tpu_torch.ops import fused
+    from test_torch_cuda import ns_state
+    worst = 0.0
+    for nlive, d in K13_SHAPES:
+        for kind in ("ties", "neg_inf", "full", "converged", "plateau",
+                     "mid"):
+            for seed in (0, 1):
+                st, starts, chains, consts = ns_state(dev, nlive, d, kind,
+                                                      seed)
+                ref = fused.NSState(*(t.clone() for t in st))
+                n0 = fused.LAUNCHES["ns_step"]
+                fused.ns_step(st, *chains, starts, *consts)
+                fused.ns_step_plain(ref, *chains, starts, *consts)
+                sync()
+                if fused.LAUNCHES["ns_step"] != n0 + 1:
+                    raise AssertionError("K13: not one launch")
+                label = f"nlive={nlive} d={d} {kind} seed {seed}"
+                for name in ("done", "count", "kill", "dead_X", "dead_logl",
+                             "x0", "lx0", "lstar", "live_X", "live_logl"):
+                    if not torch.equal(getattr(st, name), getattr(ref, name)):
+                        raise AssertionError(f"K13 {label}: {name} differs")
+                if not torch.equal(torch.isnan(st.chol),
+                                   torch.isnan(ref.chol)):
+                    raise AssertionError(f"K13 {label}: chol NaN masks")
+                fin = ~torch.isnan(ref.chol)
+                if bool(fin.any()):
+                    err = float(torch.max(torch.abs(st.chol[fin]
+                                                    - ref.chol[fin])))
+                    scale = float(torch.max(torch.abs(ref.chol[fin])))
+                    if not err <= TOL_K13_CHOL * scale:
+                        raise AssertionError(f"K13 {label}: chol err {err}")
+                    worst = max(worst, err)
+                fused.ns_step(st, *chains, starts, *consts, select=False)
+                fused.ns_step_plain(ref, *chains, starts, *consts,
+                                    select=False)
+                sync()
+                for name in ("done", "count", "live_X", "live_logl"):
+                    if not torch.equal(getattr(st, name), getattr(ref, name)):
+                        raise AssertionError(f"K13 {label}: {name} differs "
+                                             "after the apply")
+            log(f"[K13] nlive={nlive} d={d} {kind}: identical (done "
+                f"{int(st.done)})")
+    # timing: every call applies the pending kill and selects the next
+    nlive, d = K13_TIMED
+    st, starts, chains, consts = ns_state(dev, nlive, d, "mid")
+    B = nlive // 6
+    k = int(st.count[0])
+    c0 = torch.tensor([k, 0, 0, 1], dtype=torch.int64, device=dev)
+    ref = fused.NSState(*(t.clone() for t in st))
+
+    def call(step, state):
+        state.count.copy_(c0)
+        step(state, *chains, starts, *consts)
+
+    ms = time_ms(lambda: call(fused.ns_step, st), 200)
+    dev_ms = kernel_device_ms(lambda: call(fused.ns_step, st),
+                              "ns_step_kernel", 50)
+    plain = time_ms(lambda: call(fused.ns_step_plain, ref), 20)
+    if int(st.done) or int(st.count[3]) != 1:
+        raise AssertionError("K13: the timed state stopped")
+    P = 1 << (nlive - 1).bit_length()
+    lg = P.bit_length() - 1
+    ns = nlive - B
+    flops = 2 * (k + nlive) + ns * d * (d + 1) + ns * d + d ** 3 / 3 \
+        + P * lg * (lg + 1) / 4
+    nbytes = 8 * (nlive * (d + 1) + 3 * k + 4 * B * (d + 1) + d * d
+                  + 3 * B) + 8 * 5
+    row = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain, "k": k,
+           "max_abs_err": worst, **bound(flops, nbytes),
+           "shape": f"nlive={nlive} d={d} B={B} max_dead_tot="
+                    f"{st.dead_logl.shape[0]} k={k}"}
+    log(f"[K13] {row['shape']}: kernel {ms:.4f} ms back to back (with a "
+        f"4-entry copy), {dev_ms:.4f} ms on the card; plain {plain:.3f} ms; "
+        f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
     return row
 
 
@@ -1385,8 +1730,9 @@ def check_k11(dev, families, timed):
 
 
 def check_kernels(dev):
-    """Compare K1-K11 with their plain versions, the fast families and the
-    ALL_NODES spec; returns per-kernel rows (spec mode as "<name>/spec")."""
+    """Compare K1-K13 with their plain versions, the fast families and the
+    ALL_NODES spec (K13 has no spec instance); returns per-kernel rows
+    (spec mode as "<name>/spec")."""
     import numpy as np
     import torch
     rng = np.random.default_rng(7)
@@ -1411,6 +1757,9 @@ def check_kernels(dev):
         rows["lbfgs_logexp_ascent" + sfx] = check_k9(dev, fams, timed)
         rows["lml_value_grad" + sfx] = check_k10(dev, rng, fams, timed)
         rows["lbfgs_lml_fit" + sfx] = check_k11(dev, fams, timed)
+        rows["mcmc_chains" + sfx] = check_k12(dev, fams, timed)
+        if not sfx:
+            rows["ns_step"] = check_k13(dev)
         torch.cuda.empty_cache()
         log(f"[CHECKS] {'spec' if sfx else 'fast families'}: "
             f"{time.perf_counter() - t0:.1f} s")
@@ -1759,7 +2108,13 @@ def run_himmelblau_audit(seed=100):
     return summary
 
 
-NS_RUNS = {"runs": 0, "steps": 0, "s": 0.0}
+NS_RUNS = {"runs": 0, "steps": 0, "s": 0.0, "segments": 0, "reads": 0,
+           "max_reads_over_bound": -1}
+# the MCMC runs per path (mc_sample_from_gp(sampler="mcmc") and the
+# GaussianKL criteria's fallback)
+MCMC_RUNS = {"runs": 0}
+# the steps an NS run queues between two reads of its stop flag
+NS_SEG = 8
 # the believer steps of the BatchOptimizer (its LogExp ascents) per path
 BELIEVER = {"steps": 0}
 
@@ -1779,11 +2134,15 @@ def count_believer_steps():
 
 def time_ns_runs():
     """Wrap the nested sampler where the port calls it (the final MC and
-    NORA) to count its runs and steps and sum its wall seconds (each run
-    ends in host reads, so its wall time is its time) into NS_RUNS."""
+    NORA) to count its runs, steps, segments (of NS_SEG queued steps) and
+    host reads and sum its wall seconds (each run ends in host reads, so
+    its wall time is its time) into NS_RUNS, with the most any run's reads
+    exceeded ceil(steps / NS_SEG) + 2 by; and the MCMC where the port
+    calls it into MCMC_RUNS."""
     from gpry_tpu_torch.acquisition import nora
     from gpry_tpu_torch.mc import samples
     inner = samples.run_nested_device
+    inner_mcmc = samples.run_mcmc_device
 
     def timed(*args, **kwargs):
         t0 = time.perf_counter()
@@ -1792,10 +2151,20 @@ def time_ns_runs():
         NS_RUNS["s"] += time.perf_counter() - t0
         NS_RUNS["runs"] += 1
         NS_RUNS["steps"] += res.n_steps
+        NS_RUNS["segments"] += res.n_reads - 1
+        NS_RUNS["reads"] += res.n_reads
+        over = res.n_reads - (-(-res.n_steps // NS_SEG) + 2)
+        NS_RUNS["max_reads_over_bound"] = max(
+            NS_RUNS["max_reads_over_bound"], over)
         return res
+
+    def counted(*args, **kwargs):
+        MCMC_RUNS["runs"] += 1
+        return inner_mcmc(*args, **kwargs)
 
     samples.run_nested_device = timed
     nora.run_nested_device = timed
+    samples.run_mcmc_device = counted
 
 
 # the GP fits per path: fits and their wall seconds, polishes (calls of
@@ -2019,22 +2388,27 @@ def drive(name, fn, *args, **kwargs):
     often as when the nested sampler ran its chains through K1."""
     from gpry_tpu_torch.ops import fused
     fused.reset_launch_counts()
-    NS_RUNS.update(runs=0, steps=0, s=0.0)
+    NS_RUNS.update(runs=0, steps=0, s=0.0, segments=0, reads=0,
+                   max_reads_over_bound=-1)
+    MCMC_RUNS.update(runs=0)
     BELIEVER.update(steps=0)
     FITS.update({k: 0 for k in FITS})
     POLISHES.clear()
     out = fn(*args, **kwargs)
     sync()
     launches = dict(fused.LAUNCHES)
-    ns = dict(NS_RUNS, believer_steps=BELIEVER["steps"], fits=dict(FITS))
+    ns = dict(NS_RUNS, believer_steps=BELIEVER["steps"], fits=dict(FITS),
+              mcmc_runs=MCMC_RUNS["runs"])
     log(f"[{name}] kernel launches: {launches}")
-    log(f"[{name}] nested sampling: {ns['runs']} runs, {ns['steps']} steps, "
-        f"{ns['s']:.3f} s; BatchOptimizer believer steps "
-        f"{ns['believer_steps']}")
+    log(f"[{name}] nested sampling: {ns['runs']} runs, {ns['steps']} steps "
+        f"in {ns['segments']} segments, {ns['reads']} host reads, "
+        f"{ns['s']:.3f} s; MCMC runs {ns['mcmc_runs']}; BatchOptimizer "
+        f"believer steps {ns['believer_steps']}")
     for kernel in PATH_KERNELS[name]:
         if launches[kernel] <= 0:
             raise AssertionError(f"kernel {kernel} was not launched on the "
                                  f"{name} path")
+    check_mc_launches(name, launches, ns)
     k9 = BELIEVER_PATHS.get(name)
     if k9 is not None and launches[k9] != ns["believer_steps"]:
         raise AssertionError(
@@ -2050,6 +2424,30 @@ def drive(name, fn, *args, **kwargs):
             f"{name}: {launches['gated_mean']} K1 launches, not below 1% "
             f"of the {before} of the lock-step nested sampler")
     return out, launches, ns
+
+
+def check_mc_launches(name, launches, ns):
+    """The Monte-Carlo runs of a path went through K12 and K13: two K12
+    launches per MCMC run; per NS run K13 once per queued step (NS_SEG a
+    segment) and once per segment end, K6 once per queued step, and at
+    most ceil(steps / NS_SEG) + 2 host reads; and on the MCMC path K1 only
+    for the start tries and the IS refine (2 launches)."""
+    k12 = launches["mcmc_chains"] + launches["mcmc_chains/spec"]
+    k6 = launches["ns_slice_chains"] + launches["ns_slice_chains/spec"]
+    want = {"mcmc_chains": (k12, 2 * ns["mcmc_runs"]),
+            "ns_step": (launches["ns_step"], (NS_SEG + 1) * ns["segments"]),
+            "ns_slice_chains": (k6, NS_SEG * ns["segments"])}
+    for kernel, (got, expected) in want.items():
+        if got != expected:
+            raise AssertionError(f"{name}: {got} {kernel} launches, "
+                                 f"expected {expected}")
+    if ns["runs"] and ns["max_reads_over_bound"] > 0:
+        raise AssertionError(f"{name}: an NS run read the host "
+                             f"{ns['max_reads_over_bound']} times more than "
+                             "ceil(steps / seg) + 2")
+    if name == "mcmc" and launches["gated_mean"] != 2:
+        raise AssertionError(f"mcmc: {launches['gated_mean']} K1 launches, "
+                             "expected 2 (the start tries and the refine)")
 
 
 def drive_paths():
@@ -2082,6 +2480,7 @@ def drive_paths():
     for name, stats in ns.items():
         paths[name]["believer_steps"] = stats.pop("believer_steps")
         paths[name]["gp_fits"] = stats.pop("fits")
+        paths[name]["mcmc_runs"] = stats.pop("mcmc_runs")
         paths[name]["nested_sampling"] = stats
     log(f"[PATHS] all eight paths in {time.perf_counter() - t0:.1f} s")
     return paths, launches
@@ -2119,9 +2518,10 @@ def main():
     paths, launches = drive_paths()
     kernels = []
     for base, (src, replaces) in SOURCES.items():
-        for name in (base, base + "/spec"):
+        for name in (base,) if base in fused.NO_SPEC else \
+                (base, base + "/spec"):
             # library_ms: no single PyTorch call computes any of the
-            # eleven functions (PERF.md, section 6, says why for each)
+            # thirteen functions (PERF.md, section 6, says why for each)
             row = {"name": name, "route": "cuda", "source": src,
                    "replaces": replaces,
                    "launches": sum(c[name] for c in launches.values()),

@@ -10,6 +10,12 @@
 #   runner  chip_smoke.py's path a: the default Runner on the d = 8
 #           Gaussian (its run, acquisition and fit seconds)
 #   spec    chip_smoke.py's path f: path a with C() * RBF + WhiteKernel
+#   norarunner  chip_smoke.py's path c: the NORA Runner on the same
+#           Gaussian, options={"audit": False}
+#   mcmc    chip_smoke.py's path d: path c, then mc_sample_from_gp(
+#           sampler="mcmc") on its surrogate (the MCMC's seconds)
+# The Runner engines also print their nested-sampling runs, steps and
+# seconds (the final sample's and NORA's).
 #   himmelblau  chip_smoke.py's path e: the audited NORA Runner on
 #           Himmelblau, once per seed in $SEEDS (default 100), each with
 #           its truth evals, moment-KL and fit seconds
@@ -28,8 +34,9 @@ set -e
 engine=$1
 shift
 case "$engine" in
-  nora|bo|runner|spec|himmelblau) ;;
-  *) echo "usage: compare_trees.sh nora|bo|runner|spec|himmelblau TREE..." >&2
+  nora|bo|runner|spec|norarunner|mcmc|himmelblau) ;;
+  *) echo "usage: compare_trees.sh" \
+       "nora|bo|runner|spec|norarunner|mcmc|himmelblau TREE..." >&2
      exit 2;;
 esac
 here=$(cd "$(dirname "$0")" && pwd)
@@ -50,6 +57,23 @@ spec.loader.exec_module(cs)
 from gpry_tpu_torch import config
 
 config.set_device('cuda')
+from gpry_tpu_torch.acquisition import nora
+from gpry_tpu_torch.mc import samples
+ns = {'ns_runs': 0, 'ns_steps': 0, 'ns_s': 0.0}
+inner = samples.run_nested_device
+
+
+def timed_ns(*args, **kwargs):
+    t0 = cs.time.perf_counter()
+    res = inner(*args, **kwargs)
+    cs.sync()
+    ns['ns_s'] += cs.time.perf_counter() - t0
+    ns['ns_runs'] += 1
+    ns['ns_steps'] += res.n_steps
+    return res
+
+
+samples.run_nested_device = nora.run_nested_device = timed_ns
 if engine in ('nora', 'bo'):
     s = cs.run_bench('nora' if engine == 'nora' else 'batchoptimizer')
     print('RES', tree, engine, 'warm-up, timed:', json.dumps(
@@ -80,10 +104,14 @@ elif engine == 'himmelblau':
         print('RES', tree, engine, 'seed', seed, json.dumps(
             dict(res, fit_s=clock['fit_s'])), flush=True)
 else:
-    kw = {} if engine == 'runner' else {'gpr': {'kernel': cs.SPEC_F}}
-    _, _, summary = cs.run_runner(engine.upper(), **kw)
-    print('RES', tree, engine, json.dumps(
-        {k: summary[k] for k in ('run_s', 'acquisition_s', 'fit_s',
-                                 'n_total', 'kl')}), flush=True)
+    kw = {'runner': {}, 'spec': {'gpr': {'kernel': cs.SPEC_F}}}.get(
+        engine, {'resample': False, 'gp_acquisition': 'NORA',
+                 'options': {'audit': False}})
+    runner, sample, summary = cs.run_runner(engine.upper(), **kw)
+    res = dict({k: summary[k] for k in ('run_s', 'acquisition_s', 'fit_s',
+                                        'n_total', 'kl')}, **ns)
+    if engine == 'mcmc':
+        res = {'mcmc': cs.run_mcmc(runner, sample)}
+    print('RES', tree, engine, json.dumps(res), flush=True)
 PY
 done

@@ -525,6 +525,136 @@ __device__ __forceinline__ void gpry_block_gated_mean2(
   sc->parity ^= 1;
 }
 
+// The gated mean of one point by one warp (K12): the semantics of
+// gpry_block_gated_mean2 with the prior box [lo, hi], for the raw point xr
+// (d, visible to the warp); qpre and qls are the warp's scratch (d each).
+// The lanes split the rows and the support vectors; the xor-tree sums give
+// every lane the same value, which every lane returns.  No block barrier.
+template <bool SPEC>
+__device__ __forceinline__ double gpry_warp_gated_mean(
+    const GprySurrogate& s, const GprySpec& spec, const double* xr,
+    double* qpre, double* qls, const double* lo, const double* hi,
+    int lane) {
+  const int d = s.d;
+  bool ok = true;
+  for (int k = lane; k < d; k += 32) {
+    const double v = xr[k];
+    ok = ok && (v >= s.trust_lo[k]) && (v <= s.trust_hi[k]) &&
+         (v >= lo[k]) && (v <= hi[k]);
+    const double xp = (v - s.x_loc[k]) / s.x_scale[k];
+    qpre[k] = xp;
+    qls[k] = xp / s.ls[k];
+  }
+  ok = __all_sync(0xffffffffu, ok);
+  __syncwarp();
+  if (!ok || s.svm_mode == GPRY_MODE_NONE_FINITE) return -INFINITY;
+  double a = 0.0, c = 0.0;
+  for (int j = lane; j < s.n; j += 32) {
+    const double w = s.alpha[j];
+    if constexpr (SPEC) {
+      a += gpry_spec_cov(spec, qls, 1, s.Xt + j, s.n, d) * w;
+    } else {
+      double sq = 0.0;
+      for (int k = 0; k < d; ++k) {
+        const double f = qls[k] - s.Xt[(size_t)k * s.n + j];
+        sq += f * f;
+      }
+      a += (s.variance * gpry_k_of_sq(s.family, sq)) * w;
+    }
+  }
+  for (int j = lane; j < s.nsv; j += 32) {
+    double sq = 0.0;
+    for (int k = 0; k < d; ++k) {
+      const double f = qpre[k] - s.svt[(size_t)k * s.nsv + j];
+      sq += f * f;
+    }
+    c += exp(-s.gamma * sq) * s.dual[j];
+  }
+  a = gpry_warp_sum(a);
+  c = gpry_warp_sum(c);
+  const double m = gpry_clip(a * s.y_scale + s.y_loc, s.clip_max);
+  return gpry_svm_finite(s.svm_mode, c, s.intercept) ? m : -INFINITY;
+}
+
+// ---------------------------------------------------------------------------
+// A surrogate beyond a block's shared memory (K6, K12).  The plan says where
+// a kernel keeps it, given the `rest` doubles of shared memory the kernel
+// needs besides it: 0 all of it in shared memory, 1 the support vectors in
+// global memory, 2 X / l as well.  The parts in global memory are a copy in
+// the staged (column-major) layout that a staging kernel writes first, on
+// the same stream, with the arithmetic of gpry_stage_surrogate (X as it is
+// in spec mode), so that both copies hold the same numbers.  nsv_eff counts
+// the support vectors of the fitted SVM mode only; spec the staged
+// program's doubles.
+// ---------------------------------------------------------------------------
+
+static __global__ void gpry_stage_global_kernel(
+    int spec, int n, int nsv, int d, const double* __restrict__ X,
+    const double* __restrict__ theta, const double* __restrict__ sv,
+    double* xt, double* svt) {
+  const int stride = gridDim.x * blockDim.x;
+  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
+  if (xt) {
+    for (int idx = i0; idx < n * d; idx += stride) {
+      const int j = idx / d, k = idx - j * d;
+      xt[(size_t)k * n + j] = X[idx] / (spec ? 1.0 : exp(theta[1 + k]));
+    }
+  }
+  if (svt) {
+    for (int idx = i0; idx < nsv * d; idx += stride) {
+      const int j = idx / d, k = idx - j * d;
+      svt[(size_t)k * nsv + j] = sv[idx];
+    }
+  }
+}
+
+static inline int gpry_stage_plan(int n, int nsv_eff, int d, size_t spec,
+                                  size_t rest) {
+  if (sizeof(double) * (gpry_staged_doubles(n, nsv_eff, d, spec) + rest) <=
+      GPRY_MAX_SMEM)
+    return 0;
+  if (sizeof(double) * (gpry_staged_doubles(n, 0, d, spec) + rest) <=
+      GPRY_MAX_SMEM)
+    return 1;
+  return 2;
+}
+
+// Bytes of shared memory under the plan.
+static inline size_t gpry_stage_smem(int plan, int n, int nsv_eff, int d,
+                                     size_t spec, size_t rest) {
+  return sizeof(double) *
+         (gpry_staged_doubles(plan == 2 ? 0 : n, plan >= 1 ? 0 : nsv_eff, d,
+                              spec) +
+          rest);
+}
+
+// Doubles of global memory the plan's copy takes.
+static inline size_t gpry_stage_work(int plan, int n, int nsv_eff, int d) {
+  return (size_t)d * ((plan == 2 ? (size_t)n : 0) +
+                      (plan >= 1 ? (size_t)nsv_eff : 0));
+}
+
+// Carve the plan's copy out of work (*g_xt, *g_svt: null for a part in
+// shared memory) and launch the staging kernel if there is a copy.
+static cudaError_t gpry_stage_global(int plan, const GpryKern& kern, int n,
+                                     int nsv_eff, int d, const void* X,
+                                     const void* theta, const void* sv,
+                                     void* work, double** g_xt,
+                                     double** g_svt, cudaStream_t stream) {
+  *g_xt = plan == 2 ? (double*)work : nullptr;
+  *g_svt = plan >= 1 && nsv_eff > 0
+               ? (double*)work + (plan == 2 ? (size_t)d * n : 0)
+               : nullptr;
+  if (!*g_xt && !*g_svt) return cudaSuccess;
+  if (!work) return cudaErrorInvalidValue;
+  const int items = (n > nsv_eff ? n : nsv_eff) * d;
+  const int blocks = (items + 255) / 256 < 1024 ? (items + 255) / 256 : 1024;
+  gpry_stage_global_kernel<<<blocks, 256, 0, stream>>>(
+      kern.nodes > 0, n, nsv_eff, d, (const double*)X, (const double*)theta,
+      (const double*)sv, *g_xt, *g_svt);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // Derivatives in x (K8, K9).  The rules are those of torch's autograd
 // through ops/kernels.py (the plain versions K8 and K9 are held to): the

@@ -42,6 +42,11 @@
 // spec program, and each evaluation's rows run the interpreter of
 // common.cuh (gpry_block_gated_mean2<true>); the staging kernel then copies
 // X unscaled.
+//
+// The stop flag.  In a nested-sampling run K6 follows K13 (ns_step.cu) on
+// the stream, which writes the run's stop flag `done` on the device; a
+// step queued after the stop finds it set, and every block returns its
+// chain's start with no call.
 #include "common.cuh"
 
 #define K6_SHRINKS 30
@@ -64,12 +69,20 @@ ns_slice_chains_kernel(
     const double* __restrict__ x_scale, const double* __restrict__ trust_lo,
     const double* __restrict__ trust_hi, const double* __restrict__ sv,
     const double* __restrict__ dual, const double* __restrict__ scal,
-    int svm_mode, const double* g_xt, const double* g_svt,
-    double* __restrict__ x_out, double* __restrict__ lx_out,
-    long long* __restrict__ calls_out) {
+    int svm_mode, const int* __restrict__ done, const double* g_xt,
+    const double* g_svt, double* __restrict__ x_out,
+    double* __restrict__ lx_out, long long* __restrict__ calls_out) {
   extern __shared__ double smem[];
   const int tid = threadIdx.x;
   const int b = blockIdx.x;
+  if (done && *done) {
+    if (tid < d) x_out[(size_t)b * d + tid] = x0[(size_t)b * d + tid];
+    if (tid == 0) {
+      lx_out[b] = lx0[b];
+      calls_out[b] = 0;
+    }
+    return;
+  }
   GpryEvalScratch sc;
   GprySpec spec;
   const GprySurrogate s = gpry_stage_surrogate<SPEC>(
@@ -161,50 +174,10 @@ ns_slice_chains_kernel(
   }
 }
 
-// X / l and the support vectors in the staged (column-major) layout, for a
-// surrogate that does not fit in shared memory; the arithmetic of
-// gpry_stage_surrogate, so that both copies hold the same numbers (X as it
-// is in spec mode).
-__global__ void ns_stage_global_kernel(int spec, int n, int nsv, int d,
-                                       const double* __restrict__ X,
-                                       const double* __restrict__ theta,
-                                       const double* __restrict__ sv,
-                                       double* xt, double* svt) {
-  const int stride = gridDim.x * blockDim.x;
-  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
-  if (xt) {
-    for (int idx = i0; idx < n * d; idx += stride) {
-      const int j = idx / d, k = idx - j * d;
-      xt[(size_t)k * n + j] = X[idx] / (spec ? 1.0 : exp(theta[1 + k]));
-    }
-  }
-  if (svt) {
-    for (int idx = i0; idx < nsv * d; idx += stride) {
-      const int j = idx / d, k = idx - j * d;
-      svt[(size_t)k * nsv + j] = sv[idx];
-    }
-  }
-}
-
-// Where K6 keeps the surrogate: 0 all of it in shared memory, 1 the support
-// vectors in global memory, 2 X / l as well.  nsv_eff counts the support
-// vectors of the fitted SVM mode only; spec the staged program's doubles.
-static int ns_stage_plan(int n, int nsv_eff, int d, size_t spec) {
-  const size_t rest = gpry_eval_doubles(d) + 4 * (size_t)d + K6_U;
-  if (sizeof(double) * (gpry_staged_doubles(n, nsv_eff, d, spec) + rest) <=
-      GPRY_MAX_SMEM)
-    return 0;
-  if (sizeof(double) * (gpry_staged_doubles(n, 0, d, spec) + rest) <=
-      GPRY_MAX_SMEM)
-    return 1;
-  return 2;
-}
-
-static size_t ns_smem(int plan, int n, int nsv_eff, int d, size_t spec) {
-  return sizeof(double) *
-         (gpry_staged_doubles(plan == 2 ? 0 : n, plan >= 1 ? 0 : nsv_eff, d,
-                              spec) +
-          gpry_eval_doubles(d) + 4 * (size_t)d + K6_U);
+// Shared memory K6 needs besides the staged surrogate: the evaluation
+// scratch, the chain's x, e and box, and its uniforms.
+static size_t ns_rest(int d) {
+  return gpry_eval_doubles(d) + 4 * (size_t)d + K6_U;
 }
 
 // Doubles of global memory K6 needs for a surrogate of n valid rows and
@@ -212,15 +185,16 @@ static size_t ns_smem(int plan, int n, int nsv_eff, int d, size_t spec) {
 extern "C" size_t gpry_ns_slice_chains_work(GpryKern kern, int n, int nsv,
                                             int d, int svm_mode) {
   const int nsv_eff = svm_mode == GPRY_MODE_FITTED ? nsv : 0;
-  const int plan = ns_stage_plan(n, nsv_eff, d, gpry_spec_doubles(kern));
-  return (size_t)d * ((plan == 2 ? (size_t)n : 0) +
-                      (plan >= 1 ? (size_t)nsv_eff : 0));
+  return gpry_stage_work(
+      gpry_stage_plan(n, nsv_eff, d, gpry_spec_doubles(kern), ns_rest(d)), n,
+      nsv_eff, d);
 }
 
 // x0 (B, d), lx0 (B,), lstar a device scalar, chol (d, d) row-major, the
 // box (d,) twice, nrm (R, B, d), u (R, 31, B); outputs x (B, d), lx (B,),
-// calls (B,) int64.  scal as K1's.  work: gpry_ns_slice_chains_work doubles
-// of device memory (may be null when that is 0).
+// calls (B,) int64.  scal as K1's.  done: the run's stop flag (int32, may
+// be null).  work: gpry_ns_slice_chains_work doubles of device memory (may
+// be null when that is 0).
 extern "C" int gpry_ns_slice_chains(
     GpryKern kern, int B, int R, int n, int nsv, int d, const void* x0,
     const void* lx0, const void* lstar, const void* chol, const void* lo,
@@ -228,27 +202,19 @@ extern "C" int gpry_ns_slice_chains(
     const void* alpha, const void* theta, const void* x_loc,
     const void* x_scale, const void* trust_lo, const void* trust_hi,
     const void* sv, const void* dual, const void* scal, int svm_mode,
-    void* work, void* x_out, void* lx_out, void* calls_out, void* stream) {
+    const void* done, void* work, void* x_out, void* lx_out, void* calls_out,
+    void* stream) {
   if (B <= 0) return 0;
   if (2 * d > GPRY_BLOCK_THREADS) return (int)cudaErrorInvalidValue;
   const int nsv_eff = svm_mode == GPRY_MODE_FITTED ? nsv : 0;
   const size_t spec = gpry_spec_doubles(kern);
-  const int plan = ns_stage_plan(n, nsv_eff, d, spec);
-  double* g_xt = plan == 2 ? (double*)work : nullptr;
-  double* g_svt = plan >= 1 && nsv_eff > 0
-                      ? (double*)work + (plan == 2 ? (size_t)d * n : 0)
-                      : nullptr;
-  if ((g_xt || g_svt) && !work) return (int)cudaErrorInvalidValue;
-  if (g_xt || g_svt) {
-    const int items = (n > nsv_eff ? n : nsv_eff) * d;
-    const int blocks = (items + 255) / 256 < 1024 ? (items + 255) / 256 : 1024;
-    ns_stage_global_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
-        kern.nodes > 0, n, nsv_eff, d, (const double*)X, (const double*)theta,
-        (const double*)sv, g_xt, g_svt);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  const size_t smem = ns_smem(plan, n, nsv_eff, d, spec);
+  const int plan = gpry_stage_plan(n, nsv_eff, d, spec, ns_rest(d));
+  double *g_xt, *g_svt;
+  cudaError_t err = gpry_stage_global(plan, kern, n, nsv_eff, d, X, theta, sv,
+                                      work, &g_xt, &g_svt,
+                                      (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = gpry_stage_smem(plan, n, nsv_eff, d, spec, ns_rest(d));
   auto kernel =
       kern.nodes ? (g_xt    ? ns_slice_chains_kernel<true, true, true>
                     : g_svt ? ns_slice_chains_kernel<true, false, true>
@@ -256,7 +222,7 @@ extern "C" int gpry_ns_slice_chains(
                  : (g_xt    ? ns_slice_chains_kernel<false, true, true>
                     : g_svt ? ns_slice_chains_kernel<false, false, true>
                             : ns_slice_chains_kernel<false, false, false>);
-  cudaError_t err = gpry_set_smem(kernel, smem);
+  err = gpry_set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<B, GPRY_BLOCK_THREADS, smem, (cudaStream_t)stream>>>(
       kern, B, R, n, nsv, d, (const double*)x0, (const double*)lx0,
@@ -265,7 +231,7 @@ extern "C" int gpry_ns_slice_chains(
       (const double*)X, (const double*)alpha, (const double*)theta,
       (const double*)x_loc, (const double*)x_scale,
       (const double*)trust_lo, (const double*)trust_hi, (const double*)sv,
-      (const double*)dual, (const double*)scal, svm_mode, g_xt, g_svt,
-      (double*)x_out, (double*)lx_out, (long long*)calls_out);
+      (const double*)dual, (const double*)scal, svm_mode, (const int*)done,
+      g_xt, g_svt, (double*)x_out, (double*)lx_out, (long long*)calls_out);
   return (int)cudaGetLastError();
 }

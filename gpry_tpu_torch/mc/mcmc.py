@@ -2,20 +2,26 @@
 Ensemble MCMC over the surrogate on the device (port of
 gpry_tpu/mc/mcmc.py).
 
-An ensemble of adaptive random-walk Metropolis chains runs in lock step:
-every step is ONE batched call of the log-density (the K1 kernel on the
-main path) for all chains.  A warm-up phase adapts a global step size
-towards 23.4% acceptance (Robbins-Monro) and accumulates the moments of
-the visited points; the sampling phase then proposes with their Cholesky
-factor scaled by 2.38^2 / d.  Nothing is read back to the host between
-steps.  Random numbers come from an explicit ``torch.Generator``, so runs
-differ from the JAX package's at the same seed: compare by distribution.
+An ensemble of adaptive random-walk Metropolis chains runs in lock step.
+A warm-up phase adapts a global step size towards 23.4% acceptance
+(Robbins-Monro) and accumulates the moments of the visited points; the
+sampling phase then proposes with their Cholesky factor scaled by
+2.38^2 / d.  Each phase draws all its random numbers at once and goes
+through the log-density's own ``mcmc_chains`` route if it has one (the
+gated surrogate, ``mc.samples.surrogate_logp_fn``: the CUDA kernel K12,
+every step of the phase in one launch), else through the lock-step loop
+``ops.fused.mcmc_chains_plain``, one batched call of the log-density per
+step.  Nothing is read back to the host between steps.  Random numbers
+come from an explicit ``torch.Generator``, so runs differ from the JAX
+package's at the same seed: compare by distribution.
 Used by the GaussianKL fallback and by ``mc_sample_from_gp(sampler=
 "mcmc")``.
 """
 
 import numpy as np
 import torch
+
+from gpry_tpu_torch.ops.fused import mcmc_chains_plain
 
 _N_TRIES = 16
 
@@ -39,30 +45,19 @@ def split_rhat(chains):
     return float(np.sqrt(var_plus / np.maximum(within, 1e-300)).max())
 
 
-def _phase(logp_of, x, lp_x, log_step, chol, n, gen, adapt, out=None):
-    """``n`` lock-step Metropolis steps.  ``adapt``: Robbins-Monro step
-    adaptation and moment sums (returned); ``out``: (X, logp) buffers of
-    the visited states, one row per step."""
-    B, d = x.shape
-    dt, dev = x.dtype, x.device
-    s1 = torch.zeros(d, dtype=dt, device=dev)
-    s2 = torch.zeros((d, d), dtype=dt, device=dev)
-    for i in range(n):
-        z = torch.randn((B, d), generator=gen, dtype=dt, device=dev)
-        prop = x + torch.exp(log_step) * (z @ chol.T)
-        lp_prop = logp_of(prop)
-        lu = torch.log(torch.rand(B, generator=gen, dtype=dt, device=dev))
-        accept = lu < (lp_prop - lp_x)
-        x = torch.where(accept[:, None], prop, x)
-        lp_x = torch.where(accept, lp_prop, lp_x)
-        if adapt:
-            log_step = log_step + 0.05 * (accept.to(dt).mean() - 0.234)
-            s1 = s1 + x.sum(dim=0)
-            s2 = s2 + x.T @ x
-        if out is not None:
-            out[0][i] = x
-            out[1][i] = lp_x
-    return x, lp_x, log_step, s1, s2
+def sampling_factor(s1, s2, n_states, chol0):
+    """The sampling phase's proposal factor from the warm-up's moment sums
+    of ``n_states`` visited states: the Cholesky factor of their covariance
+    (+ 1e-10 I) times 2.38^2 / d, or ``chol0`` where that is not finite
+    (gpry_tpu/mc/mcmc.py:123-131)."""
+    d = s1.shape[0]
+    tt = float(max(n_states, 2))
+    mean_w = s1 / tt
+    cov_w = s2 / tt - torch.outer(mean_w, mean_w) \
+        + 1e-10 * torch.eye(d, dtype=s1.dtype, device=s1.device)
+    chol_w, info = torch.linalg.cholesky_ex(cov_w * (2.38**2 / d))
+    bad = (info != 0) | torch.isnan(chol_w).any()
+    return torch.where(bad, chol0, chol_w)
 
 
 def run_mcmc_device(logp_fn, params, gen, lo, hi, n_chains=8, n_steps=2000,
@@ -70,9 +65,13 @@ def run_mcmc_device(logp_fn, params, gen, lo, hi, n_chains=8, n_steps=2000,
     """
     Run ``n_chains`` adaptive MH chains for ``n_steps`` each after a warm-up
     of ``n_warmup`` (default ``n_steps // 2``) on the device of ``lo``.
-    ``logp_fn(params, X)`` is the log-density; ``gen`` the
-    ``torch.Generator`` of every draw.  Returns the post-warm-up samples
-    ``(X (chains, steps, d), logp (chains, steps))``.
+    ``logp_fn(params, X)`` is the log-density; one with a
+    ``mcmc_chains(params, x, lp_x, log_step, chol, z, u, lo, hi, adapt)``
+    method runs each phase through it (the gated surrogate: K12).  ``gen``
+    is the ``torch.Generator`` of every draw: per phase of ``n`` steps
+    ``z = randn((n, chains, d))``, then ``u = rand((n, chains))``.
+    Returns the post-warm-up samples ``(X (chains, steps, d), logp
+    (chains, steps))``.
     """
     d = lo.shape[0]
     dt, dev = lo.dtype, lo.device
@@ -83,6 +82,18 @@ def run_mcmc_device(logp_fn, params, gen, lo, hi, n_chains=8, n_steps=2000,
         in_box = torch.all((X >= lo) & (X <= hi), dim=-1)
         return torch.where(in_box, logp_fn(params, X),
                            torch.full_like(X[:, 0], -torch.inf))
+
+    route = getattr(logp_fn, "mcmc_chains", None)
+
+    def phase(x, lp_x, log_step, chol, n, adapt):
+        z = torch.randn((n, n_chains, d), generator=gen, dtype=dt,
+                        device=dev)
+        u = torch.rand((n, n_chains), generator=gen, dtype=dt, device=dev)
+        if route is not None:
+            return route(params, x, lp_x, log_step, chol, z, u, lo, hi,
+                         adapt)
+        return mcmc_chains_plain(logp_of, x, lp_x, log_step, chol, z, u,
+                                 adapt)
 
     # start every chain from the best of a few uniform draws
     X0 = torch.rand((n_chains * _N_TRIES, d), generator=gen, dtype=dt,
@@ -102,21 +113,10 @@ def run_mcmc_device(logp_fn, params, gen, lo, hi, n_chains=8, n_steps=2000,
     chol0 = torch.linalg.cholesky(cov0 * (2.38**2 / d))
 
     log_step = torch.zeros((), dtype=dt, device=dev)
-    x, lp_x, log_step, s1, s2 = _phase(logp_of, x, lp_x, log_step, chol0,
-                                       n_warmup, gen, adapt=True)
+    x, lp_x, log_step, s1, s2, _, _ = phase(x, lp_x, log_step, chol0,
+                                            n_warmup, adapt=True)
 
-    # re-estimate the proposal covariance from the warm-up states; a
-    # factor that is not finite falls back to the initial one
-    tt = float(max(n_warmup * n_chains, 2))
-    mean_w = s1 / tt
-    cov_w = s2 / tt - torch.outer(mean_w, mean_w) \
-        + 1e-10 * torch.eye(d, dtype=dt, device=dev)
-    chol_w, info = torch.linalg.cholesky_ex(cov_w * (2.38**2 / d))
-    bad = (info != 0) | torch.isnan(chol_w).any()
-    chol_w = torch.where(bad, chol0, chol_w)
-
-    Xs = torch.empty((n_steps, n_chains, d), dtype=dt, device=dev)
-    lps = torch.empty((n_steps, n_chains), dtype=dt, device=dev)
-    _phase(logp_of, x, lp_x, log_step, chol_w, n_steps, gen, adapt=False,
-           out=(Xs, lps))
+    # re-estimate the proposal covariance from the warm-up states
+    chol_w = sampling_factor(s1, s2, n_warmup * n_chains, chol0)
+    *_, Xs, lps = phase(x, lp_x, log_step, chol_w, n_steps, adapt=False)
     return Xs.transpose(0, 1), lps.transpose(0, 1)

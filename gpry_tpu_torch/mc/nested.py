@@ -10,18 +10,26 @@ shrinkage with an exact prior phase; the run stops when the live points'
 evidence share drops below ``precision_criterion``, on a plateau, or when
 the dead buffer is full.
 
-Each outer step's ``B`` chains go through the log-density's own slice
-route: the gated surrogate (``mc.samples.surrogate_logp_fn``) carries
-``slice_chains``, the CUDA kernel K6 that runs every chain's whole loop in
-one launch; any other log-density runs the lock-step loop of
-``ops.fused.slice_chains_lockstep``, one batched call per step-out and per
-shrink for all chains.  Both take the same draws, made here per repeat
-from the run's ``torch.Generator``.  The host reads one flag per outer
-step (the stop test), so there is no compiled segment: the JAX package's
-``_ns_init``, ``_ns_segment`` and ``_ns_finalize`` are the prior phase,
-the ``while`` loop and the final assembly of :func:`run_nested_device`.
-Random numbers come from an explicit ``torch.Generator``, so runs differ
-from the JAX package's at the same seed; compare them by distribution.
+Each outer step is two launches on the device and no host read: the
+bookkeeping of ``ops.fused.ns_step`` (CUDA kernel K13; its plain version
+on the CPU) applies the previous step's chains, evaluates the stop test
+into a device flag and, unless it is set, kills the ``B`` worst and
+writes the chains' starts, threshold and covariance factor; then the
+chains run through the log-density's own slice route: the gated surrogate
+(``mc.samples.surrogate_logp_fn``) carries ``slice_chains``, the CUDA
+kernel K6 that runs every chain's whole loop in one launch and returns at
+once when the flag is set; any other log-density runs the lock-step loop
+of ``ops.fused.slice_chains_lockstep`` (whose results K13 drops once the
+flag is set).  A step's draws are three calls on the run's
+``torch.Generator``: the starts (``randint``), the directions' normals
+(``randn`` (R, B, d)) and the step-out and shrink uniforms (``rand``
+(R, 31, B)).  The host queues ``seg`` steps at a time and reads the flag
+once per segment, as the JAX package's ``_ns_segment`` runs ``seg_steps``
+steps per program: steps queued after the stop change nothing.  The
+prior phase (the JAX package's ``_ns_init``) and the final assembly
+(``_ns_finalize``) run once per run in torch.  Random numbers come from
+an explicit ``torch.Generator``, so runs differ from the JAX package's at
+the same seed; compare them by distribution.
 """
 
 from typing import NamedTuple
@@ -29,7 +37,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gpry_tpu_torch.ops.fused import NS_SHRINKS, slice_chains_lockstep
+from gpry_tpu_torch.ops.fused import NS_SHRINKS, NSState, ns_step, \
+    slice_chains_lockstep
 
 
 class NSResult(NamedTuple):
@@ -42,6 +51,7 @@ class NSResult(NamedTuple):
     logZ: float
     n_calls: int           # log-density evaluations
     n_steps: int           # outer NS steps
+    n_reads: int           # host reads of device values during the run
 
 
 def _volume_consts(nlive, n_prior, max_dead):
@@ -58,128 +68,112 @@ def _volume_consts(nlive, n_prior, max_dead):
     return logx_prev, log_shell, float(inv_n[:k0_dead].sum())
 
 
-def _slice_chains(logl_fn, params, logl_of, x, lx, lstar, chol, num_repeats,
-                  gen, lo, hi):
+def _slice_chains(logl_fn, params, logl_of, st, nrm, u, lo, hi):
     """
-    ``B`` constrained slice chains from ``x`` (B, d) with log-densities
-    ``lx`` > ``lstar``: the draws of every repeat (a direction's normals,
-    then the step-out and shrink uniforms), then ``logl_fn``'s own
-    ``slice_chains`` route if it has one, else the lock-step loop on
-    ``logl_of``.  Returns (x, lx, calls (B,)).
+    The ``B`` constrained slice chains of one step from the state ``st``
+    (``ops.fused.NSState``) on the draws ``nrm`` (R, B, d) and ``u`` (R, 31,
+    B): ``logl_fn``'s own ``slice_chains`` route if it has one, else the
+    lock-step loop on ``logl_of``.  Returns (x, lx, calls (B,)).
     """
-    B, d = x.shape
-    dt, dev = x.dtype, x.device
-    nrm = torch.empty((num_repeats, B, d), dtype=dt, device=dev)
-    u = torch.empty((num_repeats, 1 + NS_SHRINKS, B), dtype=dt, device=dev)
-    for r in range(num_repeats):
-        nrm[r] = torch.randn((B, d), generator=gen, dtype=dt, device=dev)
-        u[r] = torch.rand((1 + NS_SHRINKS, B), generator=gen, dtype=dt,
-                          device=dev)
     route = getattr(logl_fn, "slice_chains", None)
     if route is not None:
-        return route(params, x, lx, lstar, chol, nrm, u, lo, hi)
-    return slice_chains_lockstep(logl_of, x, lx, lstar, chol, nrm, u)
+        return route(params, st.x0, st.lx0, st.lstar, st.chol, nrm, u, lo,
+                     hi, st.done)
+    return slice_chains_lockstep(logl_of, st.x0, st.lx0, st.lstar, st.chol,
+                                 nrm, u)
 
 
 def run_nested_device(logl_fn, params, gen, lo, hi, nlive=200,
                       num_repeats=10, precision_criterion=0.01,
-                      max_dead=5000, kill_batch=None, n_prior=None):
+                      max_dead=5000, kill_batch=None, n_prior=None, seg=8):
     """
     Nested sampling of ``logl_fn(params, X)`` ((nq, d) -> (nq,)) under a
     uniform prior on the box [lo, hi], on the device of ``lo``.  A
     ``logl_fn`` with a ``slice_chains(params, x0, lx0, lstar, chol, nrm,
-    u, lo, hi)`` method runs each step's chains through it (the gated
-    surrogate: K6).
+    u, lo, hi, done)`` method runs each step's chains through it (the
+    gated surrogate: K6).
 
     ``n_prior`` (default ``nlive``): size of the initial prior sample; the
     worst ``n_prior - nlive`` draws are recorded as dead points with exact
     shrinking-live-count volumes.  ``gen`` is the ``torch.Generator`` of
-    every draw.
+    every draw.  ``seg`` steps are queued between two reads of the stop
+    flag.
     """
     nlive = int(nlive)
     B = max(1, nlive // 6) if kill_batch is None else int(kill_batch)
     n_prior = nlive if n_prior is None or n_prior < nlive else int(n_prior)
-    max_dead = int(max_dead)
+    max_dead, seg, R = int(max_dead), max(1, int(seg)), int(num_repeats)
     dt, dev = lo.dtype, lo.device
     d = lo.shape[0]
     k0_dead = n_prior - nlive
     max_dead_tot = k0_dead + max_dead
     logx_prev_np, log_shell_np, H0 = _volume_consts(nlive, n_prior,
                                                     max_dead)
-    dead_wconst = torch.as_tensor(logx_prev_np + log_shell_np, dtype=dt,
-                                  device=dev)
-    idx_dead = torch.arange(max_dead_tot, device=dev)
-    log_nlive = float(np.log(nlive))
-    log_prec = float(np.log(precision_criterion))
+    f64, i64 = dict(dtype=dt, device=dev), dict(dtype=torch.int64,
+                                                device=dev)
 
     def logl_of(X):
         in_box = torch.all((X >= lo) & (X <= hi), dim=-1)
         return torch.where(in_box, logl_fn(params, X),
                            torch.full_like(X[:, 0], -torch.inf))
 
-    def logx_at(k):
-        return -(H0 + (k - k0_dead) / nlive)
-
-    def keep_going(live_logl, dead_logl, k):
-        logz_d = torch.logsumexp(torch.where(
-            idx_dead < k, dead_logl + dead_wconst,
-            torch.full_like(dead_logl, -torch.inf)), dim=0)
-        logz_live = torch.logsumexp(live_logl, dim=0) - log_nlive \
-            + logx_at(k)
-        logz_tot = torch.logaddexp(logz_d, logz_live)
-        not_converged = (logz_live - logz_tot) > log_prec
-        lmax = torch.max(live_logl)
-        spread = lmax - torch.min(live_logl)
-        plateau = torch.isfinite(spread) & (
-            spread < 1e-9 * torch.clamp_min(torch.abs(lmax), 1.0))
-        if k - k0_dead <= nlive:
-            plateau = torch.zeros_like(plateau)
-        return bool((not_converged | torch.isinf(logz_tot)) & ~plateau)
-
     # prior phase
-    pool_X = torch.rand((n_prior, d), generator=gen, dtype=dt, device=dev) \
-        * (hi - lo) + lo
+    pool_X = torch.rand((n_prior, d), generator=gen, **f64) * (hi - lo) + lo
     pool_logl = logl_fn(params, pool_X)
     order0 = torch.argsort(pool_logl, stable=True)
-    live_X = pool_X[order0[k0_dead:]]
-    live_logl = pool_logl[order0[k0_dead:]]
-    dead_X = torch.zeros((max_dead_tot, d), dtype=dt, device=dev)
-    dead_logl = torch.full((max_dead_tot,), -torch.inf, dtype=dt,
-                           device=dev)
+    dead_X = torch.zeros((max_dead_tot, d), **f64)
+    dead_logl = torch.full((max_dead_tot,), -torch.inf, **f64)
     dead_X[:k0_dead] = pool_X[order0[:k0_dead]]
     dead_logl[:k0_dead] = pool_logl[order0[:k0_dead]]
-    k = k0_dead
-    calls = torch.zeros((), dtype=torch.int64, device=dev) + n_prior
-    n_steps = 0
-    eye = torch.eye(d, dtype=dt, device=dev)
+    st = NSState(
+        live_X=pool_X[order0[k0_dead:]], live_logl=pool_logl[order0[k0_dead:]],
+        dead_X=dead_X, dead_logl=dead_logl,
+        logx_prev=torch.as_tensor(logx_prev_np, **f64),
+        log_shell=torch.as_tensor(log_shell_np, **f64),
+        count=torch.tensor([k0_dead, n_prior, 0, 0], **i64),
+        done=torch.zeros(1, dtype=torch.int32, device=dev),
+        kill=torch.arange(B, **i64), x0=torch.zeros((B, d), **f64),
+        lx0=torch.zeros(B, **f64), lstar=torch.zeros((), **f64),
+        chol=torch.zeros((d, d), **f64))
+    consts = (k0_dead, H0, float(np.log(precision_criterion)))
 
-    while k + B <= max_dead_tot and keep_going(live_logl, dead_logl, k):
-        order = torch.argsort(live_logl, stable=True)
-        kill_idx, survive_idx = order[:B], order[B:]
-        lstar = live_logl[order[B - 1]]
-        dead_X[k:k + B] = live_X[kill_idx]
-        dead_logl[k:k + B] = live_logl[kill_idx]
-        Xs = live_X[survive_idx]
-        diff = Xs - Xs.mean(dim=0)
-        cov = diff.T @ diff / (nlive - B) + 1e-12 * eye
-        chol = torch.linalg.cholesky_ex(cov).L  # no host sync
-        starts = torch.randint(0, nlive - B, (B,), generator=gen,
-                               device=dev)
-        xs, ls, cs = _slice_chains(logl_fn, params, logl_of, Xs[starts],
-                                   live_logl[survive_idx][starts], lstar,
-                                   chol, int(num_repeats), gen, lo, hi)
-        live_X[kill_idx] = xs
-        live_logl[kill_idx] = ls
-        k += B
-        calls += cs.sum()
-        n_steps += 1
+    # the steps, seg at a time between two reads of the stop flag; the
+    # chains of a step are applied by the next ns_step
+    xs, ls, cs = torch.zeros((B, d), **f64), torch.zeros(B, **f64), \
+        torch.zeros(B, **i64)
+    queued, reads = 0, 0
+    while True:
+        for _ in range(seg):
+            starts = torch.randint(0, nlive - B, (B,), generator=gen,
+                                   device=dev)
+            nrm = torch.randn((R, B, d), generator=gen, **f64)
+            u = torch.rand((R, 1 + NS_SHRINKS, B), generator=gen, **f64)
+            ns_step(st, xs, ls, cs, starts, *consts)
+            xs, ls, cs = _slice_chains(logl_fn, params, logl_of, st, nrm, u,
+                                       lo, hi)
+        ns_step(st, xs, ls, cs, starts, *consts, select=False)
+        queued += seg
+        reads += 1
+        if bool(st.done):
+            break
+        if queued > max_dead // B + seg:
+            raise RuntimeError("nested sampling did not stop within the "
+                               "room of its dead buffer.")
 
     # assemble weighted samples: dead points + final live points
-    dead_logw = torch.where(idx_dead < k, dead_logl + dead_wconst,
-                            torch.full_like(dead_logl, -torch.inf))
-    live_logw = live_logl + logx_at(k) - log_nlive
+    k = st.count[0]
+    idx_dead = torch.arange(max_dead_tot, device=dev)
+    dead_logw = torch.where(idx_dead < k,
+                            st.dead_logl + st.logx_prev + st.log_shell,
+                            torch.full_like(st.dead_logl, -torch.inf))
+    logx = -(H0 + (k.to(dt) - k0_dead) / nlive)
+    live_logw = st.live_logl + logx - float(np.log(nlive))
     logw = torch.cat([dead_logw, live_logw])
-    return NSResult(X=torch.cat([dead_X, live_X]),
-                    logl=torch.cat([dead_logl, live_logl]), logw=logw,
-                    n_dead=k, logZ=float(torch.logsumexp(logw, dim=0)),
-                    n_calls=int(calls), n_steps=n_steps)
+    logZ = torch.logsumexp(logw, dim=0)
+    # the run's last host read
+    logZ, k, calls, steps = torch.cat(
+        [logZ.reshape(1), st.count[:3].to(dt)]).tolist()
+    return NSResult(X=torch.cat([st.dead_X, st.live_X]),
+                    logl=torch.cat([st.dead_logl, st.live_logl]), logw=logw,
+                    n_dead=int(k), logZ=logZ, n_calls=int(calls),
+                    n_steps=int(steps), n_reads=reads + 1)

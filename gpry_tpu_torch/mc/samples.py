@@ -4,9 +4,10 @@ Monte-Carlo samples of the surrogate (port of gpry_tpu/mc/samples.py).
 The final sampler is the device nested sampler (``mc.nested``) or the
 device ensemble MCMC (``mc.mcmc``), followed by the mixture
 importance-sampling refinement (``mc.refine``); all of them score the
-surrogate through the K1 kernel.  ``"uniform"`` draws are for tests.  The
-host samplers of the JAX package (Cobaya, PolyChord, UltraNest, nessai)
-are not ported yet.
+surrogate through the K1 kernel, the NS chains through K6 (with K13's
+bookkeeping) and the MCMC's phases through K12.  ``"uniform"`` draws are
+for tests.  The host samplers of the JAX package (Cobaya, PolyChord,
+UltraNest, nessai) are not ported yet.
 """
 
 import os
@@ -18,7 +19,7 @@ import torch
 from gpry_tpu_torch.mc.mcmc import run_mcmc_device, split_rhat
 from gpry_tpu_torch.mc.nested import run_nested_device
 from gpry_tpu_torch.models.gp import surrogate_predict_mean
-from gpry_tpu_torch.ops.fused import ns_slice_chains
+from gpry_tpu_torch.ops.fused import mcmc_chains, ns_slice_chains
 from gpry_tpu_torch.parallel.rng import torch_generator_from_rng
 from gpry_tpu_torch.utils.tools import (check_and_return_bounds,
                                         generic_params_names, get_Xnumber)
@@ -26,7 +27,8 @@ from gpry_tpu_torch.utils.tools import (check_and_return_bounds,
 
 class _SurrogateLogp:
     """The gated surrogate log-density ``f(params, X) -> logp`` (K1), with
-    the nested sampler's slice route (K6)."""
+    the nested sampler's slice route (K6) and the MCMC's phase route
+    (K12)."""
 
     def __init__(self, family):
         self.family = family
@@ -34,14 +36,21 @@ class _SurrogateLogp:
     def __call__(self, params, X):
         return surrogate_predict_mean(self.family, params, X)
 
-    def slice_chains(self, params, x0, lx0, lstar, chol, nrm, u, lo, hi):
+    def slice_chains(self, params, x0, lx0, lstar, chol, nrm, u, lo, hi,
+                     done=None):
         return ns_slice_chains(self.family, params, x0, lx0, lstar, chol,
-                               nrm, u, lo, hi)
+                               nrm, u, lo, hi, done)
+
+    def mcmc_chains(self, params, x, lp_x, log_step, chol, z, u, lo, hi,
+                    adapt):
+        return mcmc_chains(self.family, params, x, lp_x, log_step, chol, z,
+                           u, lo, hi, adapt)
 
 
 def surrogate_logp_fn(family):
     """The gated surrogate log-density ``f(params, X) -> logp`` (K1); its
-    ``slice_chains`` runs a nested-sampling step's chains (K6)."""
+    ``slice_chains`` runs a nested-sampling step's chains (K6), its
+    ``mcmc_chains`` one phase of the MCMC ensemble (K12)."""
     return _SurrogateLogp(family)
 
 

@@ -48,8 +48,17 @@ versions, and the wrappers that choose between them.
   models/gp.py:236 _fit_theta_restarts: the whole multistart bounded
   L-BFGS fit of the hyperparameters in one launch; plain version
   :func:`lbfgs_lml_fit_plain`.
+* K12 ``mcmc_chains`` (``csrc/mcmc_chains.cu``) replaces mc/mcmc.py:44
+  run_mcmc_device's scanned ``phase`` (:77-121): every step of one phase of
+  the adaptive Metropolis ensemble on the gated surrogate, in one launch;
+  plain version :func:`mcmc_chains_plain` on plain K1.
+* K13 ``ns_step`` (``csrc/ns_step.cu``) replaces the bookkeeping of one
+  outer step of mc/nested.py:184 _ns_segment (``outer_cond`` and
+  ``outer_body`` outside the slice chains, :211-275); plain version
+  :func:`ns_step_plain`.  It never evaluates the covariance, so it has no
+  spec instance.
 
-Every kernel takes the covariance as a fast family (C() * RBF / Matern
+Every kernel but K13 takes the covariance as a fast family (C() * RBF / Matern
 with ARD length scales) or as a kernel spec tree (ops/kernels.py), which
 :func:`encode_spec` turns into a post-order program that the kernels'
 spec mode interprets (``csrc/common.cuh``).  A tree beyond
@@ -63,7 +72,7 @@ that requires grad is refused.  The gradients in x of the smooth
 surrogate are K8's own outputs (models/gp.py wraps it in an autograd
 Function); the fit's gradients in theta are K10's (inside K11).
 
-The eleven sources compile in parallel, one ``nvcc`` per source, and link
+The thirteen sources compile in parallel, one ``nvcc`` per source, and link
 into a shared library with a plain C interface
 (``_build/libgpry_kernels.so`` inside the package), at first use, and load
 over ``ctypes``.  Every launch goes on PyTorch's
@@ -73,7 +82,8 @@ current stream and is checked with ``cudaGetLastError``.
 both of its kernels: one select per round and one sweep per conditioned
 round; for K6 one per call, with the staging kernel that a surrogate too
 large for shared memory needs first; for K7 both of its kernels, two per
-call).  Launches in spec mode count under ``"<name>/spec"``.
+call; for K12 one per phase, with the same staging kernel when needed).
+Launches in spec mode count under ``"<name>/spec"``.
 """
 
 import ctypes
@@ -83,6 +93,7 @@ import shutil
 import subprocess
 import threading
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -98,7 +109,7 @@ _SOURCES = ("gated_mean.cu", "gated_meanvar_logexp.cu",
             "masked_kernel_matrix.cu", "kriging_believer_fill.cu",
             "meanvar_ungated.cu", "ns_slice_chains.cu", "predict_meancov.cu",
             "meanstd_grad.cu", "lbfgs_logexp_ascent.cu", "lml_value_grad.cu",
-            "lbfgs_lml_fit.cu")
+            "lbfgs_lml_fit.cu", "mcmc_chains.cu", "ns_step.cu")
 _HEADERS = ("common.cuh",)
 _LIB_PATH = os.path.join(_BUILD, "libgpry_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -116,10 +127,13 @@ KERNELS = ("gated_mean", "gated_meanvar_logexp",
            "masked_kernel_matrix_batched", "kriging_believer_fill",
            "meanvar_ungated", "ns_slice_chains", "predict_meancov",
            "meanstd_grad", "lbfgs_logexp_ascent", "lml_value_grad",
-           "lbfgs_lml_fit")
+           "lbfgs_lml_fit", "mcmc_chains", "ns_step")
+#: the kernels with no spec instance (they never evaluate the covariance)
+NO_SPEC = ("ns_step",)
 #: launches per kernel made by the wrappers (never by the plain versions),
 #: spec-mode launches under "<name>/spec"
-LAUNCHES = {f"{k}{m}": 0 for k in KERNELS for m in ("", "/spec")}
+LAUNCHES = {f"{k}{m}": 0 for k in KERNELS for m in ("", "/spec")
+            if not (m and k in NO_SPEC)}
 
 #: seconds the last build took (None: the library was already built)
 BUILD_SECONDS = None
@@ -135,6 +149,9 @@ _SMEM_MAX = 227 * 1024
 # threads of the block-cooperative designs (K1's block design, K6): one
 # thread per (point, coordinate) of two points prepares an evaluation
 _BLOCK_THREADS = 128
+#: the largest d of K6 and K13 (K6 gives a thread each coordinate of two
+#: points)
+CHAINS_MAX_D = _BLOCK_THREADS // 2
 
 #: the largest d whose gradients K8 and K9 take (csrc/common.cuh
 #: GPRY_GRAD_MAX_D)
@@ -240,7 +257,7 @@ def library():
         lib.gpry_spec_smem_doubles.argtypes = [K]
         lib.gpry_spec_smem_doubles.restype = ctypes.c_size_t
         lib.gpry_ns_slice_chains.argtypes = [K] + [I] * 5 + [P] * 18 \
-            + [I] + [P] * 5
+            + [I] + [P] * 6
         lib.gpry_ns_slice_chains.restype = I
         lib.gpry_ns_slice_chains_work.argtypes = [K] + [I] * 4
         lib.gpry_ns_slice_chains_work.restype = ctypes.c_size_t
@@ -274,6 +291,15 @@ def library():
         lib.gpry_lbfgs_lml_fit.argtypes = [K] + [I] * 4 + [P] * 6 \
             + [I, D] + [P] * 6
         lib.gpry_lbfgs_lml_fit.restype = I
+        lib.gpry_mcmc_chains_min_smem.argtypes = [K, I, I]
+        lib.gpry_mcmc_chains_min_smem.restype = ctypes.c_size_t
+        lib.gpry_mcmc_chains_work.argtypes = [K] + [I] * 5
+        lib.gpry_mcmc_chains_work.restype = ctypes.c_size_t
+        lib.gpry_mcmc_chains.argtypes = [K] + [I] * 6 + [P] * 18 + [I] \
+            + [P] * 9
+        lib.gpry_mcmc_chains.restype = I
+        lib.gpry_ns_step.argtypes = [I] * 5 + [D, D, I] + [P] * 18
+        lib.gpry_ns_step.restype = I
         _lib = lib
         return lib
 
@@ -395,6 +421,21 @@ def _stream():
 
 def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
+
+
+def _ptr_or_null(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _check_ints(name, device, dtype, **tensors):
+    """Raise unless every ``(tensor, shape)`` is a contiguous ``dtype``
+    tensor of that shape on ``device``."""
+    for key, (t, shape) in tensors.items():
+        if not isinstance(t, torch.Tensor) or t.dtype != dtype or \
+                t.device != device or tuple(t.shape) != shape or \
+                not t.is_contiguous():
+            raise ValueError(f"{name}: '{key}' must be a contiguous {dtype} "
+                             f"tensor of shape {shape} on {device}.")
 
 
 def _gate_tensors(p):
@@ -766,16 +807,164 @@ def slice_chains_lockstep(logl_of, x, lx, lstar, chol, nrm, u):
     return x, lx, calls
 
 
-def ns_slice_chains_plain(family, p, x0, lx0, lstar, chol, nrm, u, lo, hi):
+def ns_slice_chains_plain(family, p, x0, lx0, lstar, chol, nrm, u, lo, hi,
+                          done=None):
     """Plain K6: :func:`slice_chains_lockstep` on the gated surrogate
-    mean (plain K1) with -inf outside the prior box [lo, hi]."""
+    mean (plain K1) with -inf outside the prior box [lo, hi].  When the
+    stop flag ``done`` (int32 (1,), optional) is set, the chains keep their
+    starts and count no call."""
+    logl_of = _in_box_logp(family, p, lo, hi)
+    if done is not None and bool(done):
+        return x0.clone(), lx0.clone(), torch.zeros(
+            x0.shape[0], dtype=torch.int64, device=x0.device)
+    return slice_chains_lockstep(logl_of, x0, lx0, lstar, chol, nrm, u)
 
-    def logl_of(X):
+
+def _in_box_logp(family, p, lo, hi):
+    """The gated surrogate mean (plain K1) with -inf outside [lo, hi]."""
+
+    def logp_of(X):
         in_box = torch.all((X >= lo) & (X <= hi), dim=-1)
         return torch.where(in_box, gated_mean_plain(family, p, X),
                            torch.full_like(X[:, 0], -torch.inf))
 
-    return slice_chains_lockstep(logl_of, x0, lx0, lstar, chol, nrm, u)
+    return logp_of
+
+
+def mcmc_chains_plain(logp_of, x, lp_x, log_step, chol, z, u, adapt):
+    """
+    One phase of the adaptive Metropolis ensemble (gpry_tpu's
+    mc/mcmc.py:80-101, the step of ``phase`` scanned at :103-121): ``n``
+    lock-step steps of the ``B`` chains at ``x`` (B, d) with log-densities
+    ``lp_x``, one per leading index of the draws ``z`` (n, B, d) and ``u``
+    (n, B).  Step i proposes ``x + exp(log_step) (z[i] @ chol^T)``, scores
+    it with ``logp_of`` ((B, d) -> (B,), -inf outside the prior) and
+    accepts where ``log u[i] < lp_prop - lp_x``.  With ``adapt`` (the
+    warm-up) ``log_step`` moves by ``0.05 (mean accept - 0.234)`` after
+    every step (Robbins-Monro) and the moment sums ``s1`` (d,) and ``s2``
+    (d, d) of the visited states accumulate; else they stay 0.  Returns
+    ``(x, lp_x, log_step, s1, s2, X (n, B, d), lp (n, B))``, the last two
+    the visited states.
+    """
+    n, B, d = z.shape
+    dt, dev = x.dtype, x.device
+    s1 = torch.zeros(d, dtype=dt, device=dev)
+    s2 = torch.zeros((d, d), dtype=dt, device=dev)
+    Xs = torch.empty((n, B, d), dtype=dt, device=dev)
+    lps = torch.empty((n, B), dtype=dt, device=dev)
+    for i in range(n):
+        prop = x + torch.exp(log_step) * (z[i] @ chol.T)
+        lp_prop = logp_of(prop)
+        accept = torch.log(u[i]) < (lp_prop - lp_x)
+        x = torch.where(accept[:, None], prop, x)
+        lp_x = torch.where(accept, lp_prop, lp_x)
+        if adapt:
+            # the acceptance mean as a true division sum / B (JAX's mean;
+            # on the card torch's mean, and its division by a host number,
+            # multiply by 1 / B instead)
+            rate = accept.to(dt).sum() / torch.full((), B, dtype=dt,
+                                                    device=dev)
+            log_step = log_step + 0.05 * (rate - 0.234)
+            s1 = s1 + x.sum(dim=0)
+            s2 = s2 + x.T @ x
+        Xs[i] = x
+        lps[i] = lp_x
+    return x, lp_x, log_step, s1, s2, Xs, lps
+
+
+class NSState(NamedTuple):
+    """The device state of one nested-sampling run between its steps,
+    which :func:`ns_step` (K13) updates in place; the JAX package's
+    ``_ns_segment`` carries the same in its ``while_loop`` state, plus the
+    inputs of the next step's slice chains (K6)."""
+    live_X: torch.Tensor     # (nlive, d)
+    live_logl: torch.Tensor  # (nlive,)
+    dead_X: torch.Tensor     # (max_dead_tot, d)
+    dead_logl: torch.Tensor  # (max_dead_tot,), -inf beyond k
+    logx_prev: torch.Tensor  # (max_dead_tot,) log X before each dead point
+    log_shell: torch.Tensor  # (max_dead_tot,) log shell width of each
+    count: torch.Tensor      # int64 (4,): k, calls, steps, pending
+    done: torch.Tensor       # int32 (1,): the stop flag
+    kill: torch.Tensor       # int64 (B,): the live slots of the last kill
+    x0: torch.Tensor         # (B, d): the chains' starts
+    lx0: torch.Tensor        # (B,)
+    lstar: torch.Tensor      # (): the kill threshold
+    chol: torch.Tensor       # (d, d): the survivors' covariance factor
+
+
+def ns_step_plain(st, xs, ls, cs, starts, k0_dead, H0, log_prec,
+                  select=True):
+    """
+    One nested-sampling step's bookkeeping on the state ``st``
+    (:class:`NSState`), in place, with no host read (gpry_tpu's
+    mc/nested.py:211-275, ``outer_cond`` and ``outer_body`` of
+    ``_ns_segment`` outside the slice chains):
+
+    1. if a kill is pending (``count[3]``), the previous step's chains
+       ``xs`` (B, d), ``ls`` (B,), ``cs`` (B,) int64 replace the killed
+       live points, ``k += B``, ``calls += sum(cs)``, ``steps += 1``;
+    2. the stop test ``~outer_cond`` into ``done``: the live points' share
+       of the evidence (the dead buffer's log-weights summed over all its
+       entries, those at or beyond ``k`` as -inf), a plateau of the live
+       log-likelihoods once more than ``nlive`` points died after the prior
+       phase, and the room for ``B`` more dead points;
+    3. with ``select`` and not done: the stable ascending sort of the live
+       log-likelihoods, the ``B`` worst written to the dead buffer at
+       ``k`` (and their slots to ``kill``), ``lstar`` the largest of them,
+       the survivors' mean and covariance (+ 1e-12 I) and its Cholesky
+       factor (NaN when not positive definite, as JAX's), and the chains'
+       starts ``x0``, ``lx0``: survivor ``starts[b]`` (int64 in [0, nlive
+       - B), pre-drawn) in sorted order; the kill is then pending.
+    """
+    nlive, d = st.live_X.shape
+    B = st.kill.shape[0]
+    max_dead_tot = st.dead_logl.shape[0]
+    dt, dev = st.live_X.dtype, st.live_X.device
+    cnt = st.count
+    # 1. apply the pending kill
+    pend = cnt[3] != 0
+    st.live_X[st.kill] = torch.where(pend, xs, st.live_X[st.kill])
+    st.live_logl[st.kill] = torch.where(pend, ls, st.live_logl[st.kill])
+    cnt[0] += B * pend
+    cnt[1] += cs.sum() * pend
+    cnt[2] += pend.to(torch.int64)
+    cnt[3] = 0
+    # 2. the stop test
+    k = cnt[0]
+    idx = torch.arange(max_dead_tot, device=dev)
+    logz_d = torch.logsumexp(torch.where(
+        idx < k, st.dead_logl + st.logx_prev + st.log_shell,
+        torch.full_like(st.dead_logl, -torch.inf)), dim=0)
+    logx = -(H0 + (k.to(dt) - k0_dead) / nlive)
+    logz_live = torch.logsumexp(st.live_logl, dim=0) - math.log(nlive) + logx
+    logz_tot = torch.logaddexp(logz_d, logz_live)
+    not_converged = (logz_live - logz_tot) > log_prec
+    lmax = torch.max(st.live_logl)
+    spread = lmax - torch.min(st.live_logl)
+    plateau = (k - k0_dead > nlive) & torch.isfinite(spread) & (
+        spread < 1e-9 * torch.clamp_min(torch.abs(lmax), 1.0))
+    go = (not_converged | torch.isinf(logz_tot)) & (k + B <= max_dead_tot) \
+        & ~plateau
+    st.done.copy_((~go).to(torch.int32).reshape(1))
+    if not select:
+        return
+    # 3. the kill and the next chains' inputs
+    order = torch.argsort(st.live_logl, stable=True)
+    kill, surv = order[:B], order[B:]
+    slots = torch.clamp_max(k + torch.arange(B, device=dev), max_dead_tot - 1)
+    st.dead_X[slots] = torch.where(go, st.live_X[kill], st.dead_X[slots])
+    st.dead_logl[slots] = torch.where(go, st.live_logl[kill],
+                                      st.dead_logl[slots])
+    Xs = st.live_X[surv]
+    diff = Xs - Xs.mean(dim=0)
+    cov = diff.T @ diff / (nlive - B) + 1e-12 * torch.eye(d, dtype=dt,
+                                                          device=dev)
+    st.kill.copy_(torch.where(go, kill, st.kill))
+    st.lstar.copy_(torch.where(go, st.live_logl[order[B - 1]], st.lstar))
+    st.chol.copy_(torch.where(go, cholesky_nan(cov), st.chol))
+    st.x0.copy_(torch.where(go, Xs[starts], st.x0))
+    st.lx0.copy_(torch.where(go, st.live_logl[surv][starts], st.lx0))
+    cnt[3] = go.to(torch.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -1015,19 +1204,23 @@ def kriging_believer_fill(family, p, Xd_raw, y, sigma, acq0, alive0, size,
     return outX, outY, outS, outA, outC
 
 
-def ns_slice_chains(family, p, x0, lx0, lstar, chol, nrm, u, lo, hi):
+def ns_slice_chains(family, p, x0, lx0, lstar, chol, nrm, u, lo, hi,
+                    done=None):
     """
     K6: the constrained slice-sampling chains of one nested-sampling step
     on the gated surrogate ``p`` under the prior box [lo, hi], in one launch
     (see :func:`slice_chains_lockstep` for the arguments; ``lstar`` a 0-d
-    tensor that stays on the device).  A surrogate beyond a block's shared
-    memory is first copied into global memory in the staged layout, by a
-    staging kernel on the same stream.  Returns (x, lx, calls (B,) int64).
+    tensor that stays on the device).  ``done`` (int32 (1,), optional) is
+    the run's stop flag on the device (K13 writes it): when it is set, the
+    kernel returns the starts with no call.  A surrogate beyond a block's
+    shared memory is first copied into global memory in the staged layout,
+    by a staging kernel on the same stream.  Returns (x, lx, calls (B,)
+    int64).
     """
     check_family(family)
     if x0.device.type == "cpu":
         return ns_slice_chains_plain(family, p, x0, lx0, lstar, chol, nrm,
-                                     u, lo, hi)
+                                     u, lo, hi, done)
     dev = x0.device
     B, d = x0.shape
     R = nrm.shape[0]
@@ -1039,13 +1232,15 @@ def ns_slice_chains(family, p, x0, lx0, lstar, chol, nrm, u, lo, hi):
             f"nrm (R, B, d) and u (R, {1 + NS_SHRINKS}, B); got "
             f"{tuple(x0.shape)}, {tuple(lx0.shape)}, {tuple(chol.shape)}, "
             f"{tuple(nrm.shape)}, {tuple(u.shape)}.")
-    if 2 * d > _BLOCK_THREADS:
-        raise ValueError(f"ns_slice_chains: d={d} > {_BLOCK_THREADS // 2}.")
+    if d > CHAINS_MAX_D:
+        raise ValueError(f"ns_slice_chains: d={d} > {CHAINS_MAX_D}.")
     lstar = torch.as_tensor(lstar, dtype=torch.float64, device=dev)
     tensors = dict(x0=x0, lx0=lx0, lstar=lstar.reshape(()),
                    chol=chol.contiguous(), lo=lo.contiguous(),
                    hi=hi.contiguous(), nrm=nrm, u=u, **_gate_tensors(p))
     _check_cuda("ns_slice_chains", dev, **tensors)
+    if done is not None:
+        _check_ints("ns_slice_chains", dev, torch.int32, done=(done, (1,)))
     kern = _kern(family, d, dev)
     _check_theta("ns_slice_chains", kern, p.theta)
     x = torch.empty_like(x0)
@@ -1066,11 +1261,127 @@ def ns_slice_chains(family, p, x0, lx0, lstar, chol, nrm, u, lo, hi):
             "x0", "lx0", "lstar", "chol", "lo", "hi", "nrm", "u", "X",
             "alpha", "theta", "x_loc", "x_scale", "trust_lo", "trust_hi",
             "sv", "dual", "scal")),
-        mode, ctypes.c_void_p(None if work is None else work.data_ptr()),
-        _ptr(x), _ptr(lx), _ptr(calls), _stream())
+        mode, _ptr_or_null(done), _ptr_or_null(work), _ptr(x), _ptr(lx),
+        _ptr(calls), _stream())
     _raise_on("ns_slice_chains", rc)
     _count("ns_slice_chains", family)
     return x, lx, calls
+
+
+def mcmc_chains(family, p, x, lp_x, log_step, chol, z, u, lo, hi, adapt):
+    """
+    K12: one phase of the adaptive Metropolis ensemble on the gated
+    surrogate ``p`` under the prior box [lo, hi] (see
+    :func:`mcmc_chains_plain` for the arguments and results; ``log_step``
+    a 0-d tensor), every step in one launch: one block, a warp per chain.
+    A surrogate beyond a block's shared memory is read from a staged copy
+    in global memory, as K6 reads it.  Raises ValueError when the
+    proposal factor and the warps' scratch alone exceed a block's shared
+    memory (d above ~140 at 32 or more chains).
+    """
+    check_family(family)
+    if x.device.type == "cpu":
+        return mcmc_chains_plain(_in_box_logp(family, p, lo, hi), x, lp_x,
+                                 log_step, chol, z, u, adapt)
+    dev = x.device
+    B, d = x.shape
+    n = z.shape[0]
+    if tuple(z.shape) != (n, B, d) or tuple(u.shape) != (n, B) or \
+            tuple(lp_x.shape) != (B,) or tuple(chol.shape) != (d, d) or \
+            tuple(log_step.shape) != ():
+        raise ValueError(
+            f"mcmc_chains: expected x (B, d), lp_x (B,), log_step (), chol "
+            f"(d, d), z (n, B, d) and u (n, B); got {tuple(x.shape)}, "
+            f"{tuple(lp_x.shape)}, {tuple(log_step.shape)}, "
+            f"{tuple(chol.shape)}, {tuple(z.shape)}, {tuple(u.shape)}.")
+    tensors = dict(x=x, lp_x=lp_x, log_step=log_step, chol=chol.contiguous(),
+                   lo=lo.contiguous(), hi=hi.contiguous(), z=z, u=u,
+                   **_gate_tensors(p))
+    _check_cuda("mcmc_chains", dev, **tensors)
+    kern = _kern(family, d, dev)
+    _check_theta("mcmc_chains", kern, p.theta)
+    f64 = dict(dtype=torch.float64, device=dev)
+    x_out, lp_out = torch.empty_like(x), torch.empty_like(lp_x)
+    step_out = log_step.clone()
+    s1, s2 = torch.zeros(d, **f64), torch.zeros((d, d), **f64)
+    Xs, lps = torch.empty((n, B, d), **f64), torch.empty((n, B), **f64)
+    if n == 0 or B == 0:
+        x_out.copy_(x)
+        lp_out.copy_(lp_x)
+        return x_out, lp_out, step_out, s1, s2, Xs, lps
+    lib = library()
+    if lib.gpry_mcmc_chains_min_smem(kern, B, d) > _SMEM_MAX:
+        raise ValueError(f"mcmc_chains: {B} chains at d={d} need more than "
+                         "a block's shared memory for the proposal factor "
+                         "and the warps' scratch.")
+    nsv, mode = p.svm.sv.shape[0], int(p.svm.mode)
+    nwork = lib.gpry_mcmc_chains_work(kern, B, int(p.n), nsv, d, mode)
+    work = torch.empty(nwork, **f64) if nwork else None
+    rc = lib.gpry_mcmc_chains(
+        kern, B, n, int(p.n), nsv, d, int(bool(adapt)),
+        *(_ptr(tensors[k]) for k in (
+            "x", "lp_x", "log_step", "chol", "lo", "hi", "z", "u", "X",
+            "alpha", "theta", "x_loc", "x_scale", "trust_lo", "trust_hi",
+            "sv", "dual", "scal")),
+        mode, _ptr_or_null(work), _ptr(x_out), _ptr(lp_out), _ptr(step_out),
+        _ptr(s1), _ptr(s2), _ptr(Xs), _ptr(lps), _stream())
+    _raise_on("mcmc_chains", rc)
+    _count("mcmc_chains", family)
+    return x_out, lp_out, step_out, s1, s2, Xs, lps
+
+
+#: the largest live set K13 sorts in shared memory
+NS_STEP_MAX_NLIVE = 4096
+
+
+def ns_step(st, xs, ls, cs, starts, k0_dead, H0, log_prec, select=True):
+    """
+    K13: one nested-sampling step's bookkeeping on the state ``st``
+    (:class:`NSState`, updated in place; see :func:`ns_step_plain`), in
+    one launch of one block with no host read: the pending kill applied,
+    the stop flag, and with ``select`` the next kill and the chains'
+    inputs.  ``k0_dead``, ``H0`` and ``log_prec`` are host numbers.
+    Raises ValueError above ``NS_STEP_MAX_NLIVE`` live points or d >
+    ``CHAINS_MAX_D``.
+    """
+    dev = st.live_X.device
+    if dev.type == "cpu":
+        return ns_step_plain(st, xs, ls, cs, starts, k0_dead, H0, log_prec,
+                             select)
+    nlive, d = st.live_X.shape
+    B = st.kill.shape[0]
+    max_dead_tot = st.dead_logl.shape[0]
+    if nlive > NS_STEP_MAX_NLIVE:
+        raise ValueError(f"ns_step: nlive={nlive} > NS_STEP_MAX_NLIVE="
+                         f"{NS_STEP_MAX_NLIVE}, the most K13 sorts in "
+                         "shared memory.")
+    if d > CHAINS_MAX_D:
+        raise ValueError(f"ns_step: d={d} > {CHAINS_MAX_D}.")
+    if not 0 < B < nlive:
+        raise ValueError(f"ns_step: the kill batch {B} must be in (0, "
+                         f"{nlive}).")
+    shapes = dict(live_logl=(nlive,), dead_X=(max_dead_tot, d),
+                  logx_prev=(max_dead_tot,), log_shell=(max_dead_tot,),
+                  x0=(B, d), lx0=(B,), lstar=(), chol=(d, d))
+    tensors = dict(live_X=st.live_X, xs=xs, ls=ls,
+                   **{k: getattr(st, k) for k in shapes})
+    for key, shape in dict(shapes, xs=(B, d), ls=(B,)).items():
+        if tuple(tensors[key].shape) != shape:
+            raise ValueError(f"ns_step: '{key}' must be {shape}, got "
+                             f"{tuple(tensors[key].shape)}.")
+    _check_cuda("ns_step", dev, **tensors)
+    _check_ints("ns_step", dev, torch.int64, count=(st.count, (4,)),
+                kill=(st.kill, (B,)), cs=(cs, (B,)), starts=(starts, (B,)))
+    _check_ints("ns_step", dev, torch.int32, done=(st.done, (1,)))
+    rc = library().gpry_ns_step(
+        nlive, B, d, max_dead_tot, int(k0_dead), float(H0),
+        float(log_prec), int(bool(select)),
+        *(_ptr(t) for t in (
+            st.live_X, st.live_logl, st.dead_X, st.dead_logl, st.logx_prev,
+            st.log_shell, st.count, st.done, st.kill, st.x0, st.lx0,
+            st.lstar, st.chol, xs, ls, cs, starts)), _stream())
+    _raise_on("ns_step", rc)
+    LAUNCHES["ns_step"] += 1
 
 
 def predict_meancov(family, theta, X, n, noise_var, L, alpha, Xq):
@@ -1308,4 +1619,6 @@ __all__ = ["KERNELS", "LAUNCHES", "KernelBuildError", "SPEC_MAX_NODES",
            "meanstd_grad", "meanstd_grad_plain", "lbfgs_logexp_ascent",
            "lbfgs_logexp_ascent_plain", "GRAD_MAX_D", "cholesky_nan",
            "lml_of_K", "lml_value_grad", "lml_value_grad_plain",
-           "lbfgs_lml_fit", "lbfgs_lml_fit_plain"]
+           "lbfgs_lml_fit", "lbfgs_lml_fit_plain", "mcmc_chains",
+           "mcmc_chains_plain", "NSState", "ns_step", "ns_step_plain",
+           "NS_STEP_MAX_NLIVE", "CHAINS_MAX_D"]

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """
-Where the time of one NORA iteration goes on one CUDA card.
+Where the time of one NORA iteration, and of one of its nested-sampling
+runs step by step, goes on one CUDA card.
 
 bench.py's NORA operating point (d = 8, N = 224; ``chip_smoke.bench_data``):
 a 26-restart fit, ``force_resample()`` and ``multi_add(n_points=8)``.
@@ -9,20 +10,26 @@ a 26-restart fit, ``force_resample()`` and ``multi_add(n_points=8)``.
    (each phase ends in a synchronise): the fit, the NS run with its K2
    sweep (``NORA._run_ns``), the ranked-pool fill (``RankedPool.add_bulk``,
    K4) and the rest of ``multi_add``; with the kernel launches it made.
-2. Three windows run once unprofiled and once under ``torch.profiler``: a
-   full fit, one whole NS run at NORA's settings (nlive = 200, 40
-   repeats, a prior sample of 2,000; one K6 launch per step), and a
-   ``multi_add`` that reuses the stored NS sample (one K2 sweep and the K4
-   fill).  The union of a window's device intervals (kernels and copies)
-   over its wall time is the device's busy share: against the profiled
-   wall (the profiler slows the host: a lower bound) and the unprofiled
-   wall.  The NS run is split into K6's device time and the rest of its
-   unprofiled wall: the host's bookkeeping (draws, sort, covariance, the
-   stop test) and the small kernels it launches.
+2. Windows run once unprofiled and once under ``torch.profiler``: a full
+   fit, one whole NS run at NORA's settings (nlive = 200, 40 repeats, a
+   prior sample of 2,000) at bench.py's point and one on the final
+   surrogate of chip_smoke.py's path c (the NORA Runner on the d = 8
+   Gaussian, ``run()`` first), and a ``multi_add`` that reuses the stored
+   NS sample (one K2 sweep and the K4 fill).  The union of a window's
+   device intervals (kernels and copies) over its wall time is the
+   device's busy share: against the profiled wall (the profiler slows the
+   host: a lower bound) and the unprofiled wall.  An NS run is split per
+   step into the device time of K6 (the slice chains), of K13 (the
+   step's bookkeeping), of the draws (torch's random kernels) and of
+   every other device op, and the unprofiled wall per step; the device's
+   idle time per step is the host's.
 
-Prints the card's name and power limit and one JSON line.  Needs a card:
+    python3 profile_nora.py [TREE]
 
-    python3 profile_nora.py
+TREE (default: this checkout) is a checkout whose ``gpry_tpu_torch`` is
+profiled; the driving code is this script's own, so two trees are timed on
+the same work.  Prints the card's name and power limit and one JSON line.
+Needs a card.
 """
 
 import json
@@ -49,15 +56,27 @@ def busy_us(events):
     return total
 
 
+def ns_step_split(by_name, steps):
+    """Device ms per NS step of K6, K13, the draws and the rest."""
+    parts = {"k6": "ns_slice_chains", "k13": "ns_step_kernel",
+             "draws": "distribution"}
+    out = {k: 0.0 for k in (*parts, "other")}
+    for name, us in by_name.items():
+        key = next((k for k, v in parts.items() if v in name), "other")
+        out[key] += 1e-3 * us / steps
+    return out
+
+
 def main():
-    sys.path.insert(0, HERE)
+    tree = os.path.abspath(sys.argv[1]) if len(sys.argv) > 1 else HERE
+    sys.path[:0] = [tree, HERE, os.path.join(HERE, "tests")]
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("profile_nora.py needs a CUDA card.", file=sys.stderr)
         return 3
     from torch.autograd import DeviceType
-    from chip_smoke import D, bench_data, card_line
+    from chip_smoke import D, bench_data, card_line, run_runner
     from gpry_tpu_torch import config
     from gpry_tpu_torch.acquisition import NORA, RankedPool
     from gpry_tpu_torch.mc.nested import run_nested_device
@@ -117,27 +136,38 @@ def main():
     phases["launches"] = dict(fused.LAUNCHES)
     print("[iteration] " + json.dumps(phases), flush=True)
 
-    def ns_run():
-        p = gpr.surrogate_params()
-        lo = torch.as_tensor(bounds[:, 0], dtype=p.X.dtype, device=dev)
-        hi = torch.as_tensor(bounds[:, 1], dtype=p.X.dtype, device=dev)
-        nlive = acq._nlive(gpr)
-        res = run_nested_device(
-            surrogate_logp_fn(gpr.family), p,
-            torch.Generator(device=dev).manual_seed(3), lo, hi, nlive=nlive,
-            num_repeats=int(acq.num_repeats),
-            precision_criterion=acq.precision_criterion_target,
-            max_dead=int(nlive * max(8, 2 * D)),
-            n_prior=acq.nprior_per_nlive * nlive)
-        return {"ns_steps": res.n_steps, "ns_calls": res.n_calls}
+    def ns_run_of(gpr, acq):
+        """One NS run at NORA's settings on ``gpr``'s surrogate."""
+        def run():
+            p = gpr.surrogate_params()
+            b = acq.bounds
+            lo = torch.as_tensor(b[:, 0], dtype=p.X.dtype, device=dev)
+            hi = torch.as_tensor(b[:, 1], dtype=p.X.dtype, device=dev)
+            nlive = acq._nlive(gpr)
+            res = run_nested_device(
+                surrogate_logp_fn(gpr.family), p,
+                torch.Generator(device=dev).manual_seed(3), lo, hi,
+                nlive=nlive, num_repeats=int(acq.num_repeats),
+                precision_criterion=acq.precision_criterion_target,
+                max_dead=int(nlive * max(8, 2 * D)),
+                n_prior=acq.nprior_per_nlive * nlive)
+            return {"ns_steps": res.n_steps, "ns_calls": res.n_calls,
+                    "nlive": nlive, "n_training": int(gpr.n)}
+        return run
 
     def multi_add_reuse():
         acq.multi_add(gpr, n_points=D)
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
-    windows = {}
-    for name, fn in (("fit", fit), ("ns_run", ns_run),
+    runner_c, _, summary_c = run_runner("NORA", resample=False,
+                                        gp_acquisition="NORA",
+                                        options={"audit": False})
+    windows = {"path_c_run": {k: summary_c[k] for k in (
+        "run_s", "n_total", "kl", "iterations")}}
+    for name, fn in (("fit", fit), ("ns_run", ns_run_of(gpr, acq)),
+                     ("ns_run_path_c", ns_run_of(runner_c.gpr,
+                                                 runner_c.acquisition)),
                      ("multi_add_reuse", multi_add_reuse)):
         fused.reset_launch_counts()
         torch.cuda.synchronize()
@@ -169,10 +199,11 @@ def main():
             "launches": launches,
             "device_ms_by_kernel": {k[:60]: v * 1e-3 for k, v in top}}
         if info:
-            k6_s = 1e-6 * sum(v for k, v in by_name.items()
-                              if "ns_slice_chains" in k)
-            windows[name].update(info, k6_device_s=k6_s,
-                                 host_and_rest_s=wall - k6_s)
+            steps = info["ns_steps"]
+            windows[name].update(
+                info, wall_ms_per_step=1e3 * wall / steps,
+                device_ms_per_step=ns_step_split(by_name, steps),
+                idle_ms_per_step=1e3 * (wall - busy) / steps)
         print(f"[{name}] " + json.dumps(windows[name]), flush=True)
     print(card)
     print(json.dumps({"card": card, "phases_s": phases, "windows": windows}))

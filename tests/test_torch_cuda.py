@@ -722,3 +722,263 @@ def test_fit_kernels_raise_when_the_build_fails(dev, monkeypatch):
     with pytest.raises(fused.KernelBuildError):
         fused.lbfgs_lml_fit(*args)
     assert fused.LAUNCHES == n0
+
+
+def _mcmc_inputs(family, p, B, nsteps, seed=0, half=1.0):
+    """K12's arguments: B starts with a finite log-density (from a sample
+    of the box [-half, half]^d inside the prior box [-1, 1]^d), the
+    proposal factor of the JAX package's first phase (2.38^2 / d times a
+    tenth of the box, squared), a step size and the draws of nsteps
+    steps."""
+    dev, d = p.X.device, p.X.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device=dev)
+    pool = (torch.rand((4000, d), generator=gen, **f64) * 2.0 - 1.0) * half
+    lp = fused.gated_mean_plain(family, p, pool)
+    fin = torch.isfinite(lp)
+    assert int(fin.sum()) >= B
+    chol = torch.eye(d, **f64) * (0.2 * 2.38 / np.sqrt(d))
+    z = torch.randn((nsteps, B, d), generator=gen, **f64)
+    u = torch.rand((nsteps, B), generator=gen, **f64)
+    lo = -torch.ones(d, **f64)
+    return (pool[fin][:B].contiguous(), lp[fin][:B].contiguous(),
+            torch.tensor(-0.3, **f64), chol, z, u, lo, -lo)
+
+
+def _same_chains(out, ref, tol=1e-12):
+    """K12's results against the plain version's: the visited states within
+    tol of the box width (2), so the same accept decisions at every step;
+    their log-densities within rel tol; the step size identical; the moment
+    sums within rel tol."""
+    x, lp, step, s1, s2, Xs, lps = out
+    xr, lpr, stepr, s1r, s2r, Xsr, lpsr = ref
+    assert float(torch.max(torch.abs(Xs - Xsr))) <= tol * 2.0
+    assert float(torch.max(torch.abs(x - xr))) <= tol * 2.0
+    _close(lps.reshape(-1), lpsr.reshape(-1), tol)
+    _close(lp, lpr, tol)
+    assert float(step) == float(stepr)
+    for a, b in ((s1, s1r), (s2, s2r)):
+        scale = max(float(torch.max(torch.abs(b))), 1.0)
+        assert float(torch.max(torch.abs(a - b))) <= tol * scale
+
+
+@pytest.mark.parametrize("adapt", (True, False), ids=("warmup", "sampling"))
+@pytest.mark.parametrize("svm", ["fitted", "all_finite"])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_mcmc_chains_kernel(dev, family, svm, adapt):
+    """K12 against its plain version on the same state and draws, 50 steps
+    of 8 chains at d = 3, with the SVM fitted and all finite, in both
+    instances (warm-up: Robbins-Monro and the moment sums): the same accept
+    decisions, x within 1e-12 of the box width, the step size identical;
+    one launch for the phase."""
+    p = surrogate(family, dev, svm=svm)
+    key = count_key("mcmc_chains", family)
+    family = family_and_theta(family)[0]
+    x0, lp0, step, chol, z, u, lo, hi = _mcmc_inputs(family, p, 8, 50)
+    n0 = fused.LAUNCHES[key]
+    out = fused.mcmc_chains(family, p, x0, lp0, step, chol, z, u, lo, hi,
+                            adapt)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[key] == n0 + 1
+    ref = fused.mcmc_chains_plain(fused._in_box_logp(family, p, lo, hi), x0,
+                                  lp0, step, chol, z, u, adapt)
+    _same_chains(out, ref)
+    # the chains moved, and (warm-up) the step size adapted
+    assert bool((out[5][-1] != x0).any())
+    assert (float(out[2]) != -0.3) == adapt
+
+
+@pytest.mark.parametrize("B", (40, 64))
+def test_mcmc_chains_kernel_warps_loop(dev, B):
+    """More chains than the block's 32 warps: a warp runs two chains (the
+    ensemble of d = 32 has 64); the warm-up's step size and sums still
+    couple all of them."""
+    p = surrogate("rbf", dev, svm="all_finite")
+    args = _mcmc_inputs("rbf", p, B, 30)
+    out = fused.mcmc_chains("rbf", p, *args, True)
+    ref = fused.mcmc_chains_plain(
+        fused._in_box_logp("rbf", p, args[6], args[7]), *args[:6], True)
+    _same_chains(out, ref)
+
+
+@pytest.mark.parametrize("family", ("rbf", "c_rbf_white"))
+def test_mcmc_chains_kernel_d80(dev, family):
+    """K12 has no cap on d below what its shared memory holds: at d = 80
+    (beyond K6's 64) it agrees with its plain version step for step;
+    where the factor and scratch exceed a block's shared memory it raises
+    ValueError before launching."""
+    p = surrogate(family, dev, d=80, svm="all_finite")
+    family = family_and_theta(family, 80)[0]
+    # the starts inside the trust box [-0.9, 0.9]^d
+    args = _mcmc_inputs(family, p, 16, 20, half=0.85)
+    for adapt in (True, False):
+        out = fused.mcmc_chains(family, p, *args, adapt)
+        ref = fused.mcmc_chains_plain(
+            fused._in_box_logp(family, p, args[6], args[7]), *args[:6],
+            adapt)
+        _same_chains(out, ref, 1e-10)
+    big = surrogate("rbf", dev, d=160, svm="all_finite")
+    with pytest.raises(ValueError, match="shared memory"):
+        fused.mcmc_chains("rbf", big, *_mcmc_inputs("rbf", big, 32, 2,
+                                                     half=0.85), True)
+
+
+@pytest.mark.parametrize("n,nmax,nsv,work", [
+    (1100, 1152, 1152, 16 * 1152), (1800, 1856, 8, 16 * 1808)])
+@pytest.mark.parametrize("family", ("rbf",) + tuple(SPECS))
+def test_mcmc_chains_beyond_smem(dev, family, n, nmax, nsv, work):
+    """K12 at d = 16 with the support vectors, then also X / l, read from a
+    staged copy in global memory (K6's placement): each phase launches
+    once and agrees with its plain version."""
+    p = surrogate(family, dev, n=n, nmax=nmax, d=16, nsv=nsv)
+    key = count_key("mcmc_chains", family)
+    family = family_and_theta(family, 16)[0]
+    assert fused.library().gpry_mcmc_chains_work(
+        fused._kern(family, 16, dev), 32, n, nsv, 16, MODE_FITTED) == work
+    x0, lp0, step, chol, z, u, lo, hi = _mcmc_inputs(family, p, 32, 20)
+    for adapt in (True, False):
+        n0 = fused.LAUNCHES[key]
+        out = fused.mcmc_chains(family, p, x0, lp0, step, chol, z, u, lo, hi,
+                                adapt)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES[key] == n0 + 1
+        ref = fused.mcmc_chains_plain(fused._in_box_logp(family, p, lo, hi),
+                                      x0, lp0, step, chol, z, u, adapt)
+        _same_chains(out, ref, 1e-10)
+
+
+def ns_state(dev, nlive, d, kind, seed=0):
+    """A nested-sampling state (fused.NSState) after a prior phase of
+    10 nlive draws, with the kill batch nlive // 6 and its starts, in one
+    of these kinds: "ties" (the top third of the live log-likelihoods at
+    one clipped value, a few -inf at the bottom), "neg_inf" (more -inf
+    than the kill batch), "full" (room for one more kill, then none),
+    "converged" (the live points' share of the evidence below 1%),
+    "plateau" (every live value equal, past nlive kills) and "mid"
+    ("ties" halfway through a dead buffer of the final NS's size).  The
+    state is made with numpy from ``seed``.  Returns (state, starts, the
+    previous chains' (xs, ls, cs), (k0_dead, H0, log precision))."""
+    from gpry_tpu_torch.mc.nested import _volume_consts
+    rng = np.random.default_rng(seed)
+    B, n_prior, max_dead = nlive // 6, 10 * nlive, 60 * nlive
+    k0 = n_prior - nlive
+    lxp, lsh, H0 = _volume_consts(nlive, n_prior, max_dead)
+    tot = k0 + max_dead
+    live_X = rng.normal(size=(nlive, d))
+    live_l = -0.5 * np.sum(live_X ** 2, axis=1)
+    k = k0 + B * {"converged": 120, "plateau": 12,
+                  "mid": max_dead // (2 * B)}.get(kind, 3)
+    if kind == "full":
+        k = tot - B + seed % 2
+    if kind in ("ties", "mid"):
+        top = np.argsort(live_l)[-nlive // 3:]
+        live_l[top] = np.quantile(live_l, 2 / 3)
+        live_l[rng.choice(nlive, 3, replace=False)] = -np.inf
+    if kind == "neg_inf":
+        live_l[rng.choice(nlive, B + 5, replace=False)] = -np.inf
+    if kind == "plateau":
+        live_l[:] = -1.25
+    # the dead points below the live ones (up to the live top when the run
+    # has converged); far below where only the room or the plateau may
+    # stop the run
+    fin = live_l[np.isfinite(live_l)]
+    top = -1000.0 if kind in ("full", "plateau", "mid") else \
+        np.max(fin) if kind == "converged" else np.min(fin) - 1
+    dead_l = np.full(tot, -np.inf)
+    dead_l[:k] = np.sort(top - rng.exponential(3.0, k))
+    dead_X = np.zeros((tot, d))
+    dead_X[:k] = rng.normal(size=(k, d))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    i64 = dict(dtype=torch.int64, device=dev)
+    st = fused.NSState(
+        live_X=t(live_X), live_logl=t(live_l), dead_X=t(dead_X),
+        dead_logl=t(dead_l), logx_prev=t(lxp), log_shell=t(lsh),
+        count=torch.tensor([k, 12345, 7, 0], **i64),
+        done=torch.zeros(1, dtype=torch.int32, device=dev),
+        kill=torch.arange(B, **i64), x0=t(np.zeros((B, d))),
+        lx0=t(np.zeros(B)), lstar=t(0.0), chol=t(np.zeros((d, d))))
+    starts = torch.as_tensor(rng.integers(0, nlive - B, B), **i64)
+    chains = (t(rng.normal(size=(B, d))), t(-rng.exponential(1.0, B)),
+              torch.as_tensor(rng.integers(10, 300, B), **i64))
+    return st, starts, chains, (k0, H0, float(np.log(0.01)))
+
+
+def _clone_state(st):
+    return fused.NSState(*(t.clone() for t in st))
+
+
+@pytest.mark.parametrize("kind", ("ties", "neg_inf", "full", "converged",
+                                  "plateau", "mid"))
+@pytest.mark.parametrize("nlive,d", ((200, 8), (400, 8), (3200, 64)))
+def test_ns_step_kernel(dev, nlive, d, kind):
+    """K13 against its plain version on crafted states: the same stop flag,
+    kill order, dead buffer, lstar and starts, the Cholesky factor within
+    1e-12 of its largest entry; then, the chains' results applied, the same
+    live set, k, calls and steps.  One launch each."""
+    for seed in (0, 1):
+        st, starts, chains, consts = ns_state(dev, nlive, d, kind, seed)
+        ref = _clone_state(st)
+        n0 = fused.LAUNCHES["ns_step"]
+        fused.ns_step(st, *chains, starts, *consts)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES["ns_step"] == n0 + 1
+        fused.ns_step_plain(ref, *chains, starts, *consts)
+        for name in ("done", "count", "kill", "dead_X", "dead_logl", "x0",
+                     "lx0", "lstar", "live_X", "live_logl"):
+            assert torch.equal(getattr(st, name), getattr(ref, name)), name
+        assert torch.equal(torch.isnan(st.chol), torch.isnan(ref.chol))
+        fin = ~torch.isnan(ref.chol)
+        if bool(fin.any()):
+            err = torch.max(torch.abs(st.chol[fin] - ref.chol[fin]))
+            assert float(err) <= 1e-12 * float(torch.max(torch.abs(
+                ref.chol[fin])))
+        expect_done = kind in ("converged", "plateau") or \
+            (kind == "full" and seed == 1)
+        assert bool(st.done) == expect_done
+        fused.ns_step(st, *chains, starts, *consts, select=False)
+        fused.ns_step_plain(ref, *chains, starts, *consts, select=False)
+        for name in ("done", "count", "live_X", "live_logl"):
+            assert torch.equal(getattr(st, name), getattr(ref, name)), name
+        assert int(st.count[3]) == 0
+
+
+def test_ns_step_refuses_large_nlive(dev):
+    st, starts, chains, consts = ns_state(dev, 4104, 2, "ties")
+    with pytest.raises(ValueError, match="NS_STEP_MAX_NLIVE"):
+        fused.ns_step(st, *chains, starts, *consts)
+
+
+def test_ns_slice_chains_done_flag(dev):
+    """With the run's stop flag set, K6 returns the starts and no call; with
+    it clear it runs as without it."""
+    p = surrogate("rbf", dev)
+    args = _chain_inputs("rbf", p, 33, R=4)
+    flag = torch.ones(1, dtype=torch.int32, device=dev)
+    x, lx, calls = fused.ns_slice_chains("rbf", p, *args, flag)
+    assert torch.equal(x, args[0]) and torch.equal(lx, args[1])
+    assert int(calls.abs().sum()) == 0
+    flag.zero_()
+    x, lx, calls = fused.ns_slice_chains("rbf", p, *args, flag)
+    xr, lxr, callsr = fused.ns_slice_chains("rbf", p, *args)
+    assert torch.equal(x, xr) and torch.equal(calls, callsr)
+
+
+def test_nested_run_on_k13(dev):
+    """A nested-sampling run on the gated surrogate: K13 once per queued
+    step plus once per segment, K6 once per queued step, one host read per
+    segment and one at the end."""
+    from gpry_tpu_torch.mc.nested import run_nested_device
+    from gpry_tpu_torch.mc.samples import surrogate_logp_fn
+    p = surrogate("rbf", dev, svm="all_finite")
+    lo = -torch.ones(3, dtype=torch.float64, device=dev)
+    n0 = dict(fused.LAUNCHES)
+    res = run_nested_device(surrogate_logp_fn("rbf"), p,
+                            torch.Generator(device=dev).manual_seed(1), lo,
+                            -lo, nlive=60, num_repeats=6, max_dead=2000)
+    segs = res.n_reads - 1
+    assert fused.LAUNCHES["ns_step"] - n0["ns_step"] == 9 * segs
+    assert fused.LAUNCHES["ns_slice_chains"] - n0["ns_slice_chains"] \
+        == 8 * segs
+    assert 8 * (segs - 1) < res.n_steps <= 8 * segs
+    assert res.n_reads <= -(-res.n_steps // 8) + 2
+    assert np.isfinite(res.logZ) and res.n_dead == 10 * res.n_steps

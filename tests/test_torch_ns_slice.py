@@ -171,8 +171,10 @@ def test_plain_chains_spend_every_shrink_like_jax():
 @pytest.mark.parametrize("family", ["rbf", "matern32"])
 def test_nested_surrogate_route_is_k6(family, monkeypatch):
     """run_nested_device on the gated surrogate takes K6's route (on the
-    CPU its plain version), once per outer step, and gives bit-identical
-    results to the lock-step loop that any other log-density runs."""
+    CPU its plain version), once per queued outer step (the steps of every
+    segment of 8 between two reads of the stop flag; those queued after
+    the stop return at once), and gives bit-identical results to the
+    lock-step loop that any other log-density runs."""
     _, p_j = jax_surrogate(family, True)
     p = ported(p_j)
     routed = []
@@ -192,7 +194,8 @@ def test_nested_surrogate_route_is_k6(family, monkeypatch):
     res_k6 = run(samples.surrogate_logp_fn(family))
     res_plain = run(lambda params, X: surrogate_predict_mean(family, params,
                                                              X))
-    assert len(routed) == res_k6.n_steps > 0 and set(routed) == {8}
+    assert len(routed) == 8 * (res_k6.n_reads - 1) and set(routed) == {8}
+    assert len(routed) - 8 < res_k6.n_steps <= len(routed)
     assert torch.equal(res_k6.X, res_plain.X)
     assert torch.equal(res_k6.logl, res_plain.logl)
     assert res_k6.n_calls == res_plain.n_calls
