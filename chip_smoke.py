@@ -125,6 +125,10 @@ TOL_K8, TOL_K8_GRAD = 1e-10, 1e-8
 # TOL_K9_F (1 + |f|); step for step (the same nev) over K9_STEPS
 # iterations
 TOL_K9_X, TOL_K9_F, K9_STEPS = 1e-7, 1e-9, 3
+# K9 and K11 also step for step at these n: past the shared-memory edge
+# of K9's staged L (231: L staged, X not) and of both kernels' route 0
+# (320: K9 streams L, K11 keeps the factor in global memory)
+EDGE_NS = (231, 320)
 # the JAX package's truth evals to convergence on path e's run
 # (benchmarks/results_nongaussian.json, Himmelblau seed 100)
 JAX_HIMMELBLAU_EVALS = 61
@@ -1311,7 +1315,7 @@ def check_k8(dev, rng, families, timed):
     return row
 
 
-def k9_inputs(family, dev, seed, clip=False):
+def k9_inputs(family, dev, seed, clip=False, n=N):
     """K9's arguments at the main paths' believer step: the synthetic
     surrogate with a classifier that has seen no -inf, no trust box and no
     upper clip (the ascent runs on the smooth surrogate; the synthetic clip
@@ -1320,10 +1324,12 @@ def k9_inputs(family, dev, seed, clip=False):
     [-5, 5]^D, lane 0 on the last training point (as multi_add places
     it), LogExp's zeta at D and a noise std of 0.01.  With ``clip``, an
     upper clip at the median of the mean at the 8 starts: 4 lanes start
-    above it, where min(mean, clip_max) passes no gradient."""
+    above it, where min(mean, clip_max) passes no gradient.  ``n`` valid
+    rows of max(n, NMAX)."""
     import torch
     from gpry_tpu_torch.ops import fused
-    p = synthetic_surrogate(family, dev, seed=18, svm="all_finite")
+    p = synthetic_surrogate(family, dev, seed=18, svm="all_finite", n=n,
+                            nmax=max(n, NMAX))
     inf = torch.full((D,), torch.inf, dtype=torch.float64, device=dev)
     p = p.replace(clip_max=torch.tensor(torch.inf, dtype=torch.float64,
                                         device=dev),
@@ -1332,7 +1338,7 @@ def k9_inputs(family, dev, seed, clip=False):
     lo = torch.full((D,), -5.0, dtype=torch.float64, device=dev)
     x0s = torch.rand((8, D), generator=gen, dtype=torch.float64,
                      device=dev) * 10.0 - 5.0
-    x0s[0] = p.X[N - 1] * p.x_scale + p.x_loc
+    x0s[0] = p.X[n - 1] * p.x_scale + p.x_loc
     if clip:
         mu0 = fused.meanvar_ungated_plain(family, p, x0s)[0]
         p = p.replace(clip_max=torch.quantile(mu0, 0.5))
@@ -1352,11 +1358,36 @@ def check_k9(dev, families, timed):
     that the kernel and the plain version do not share.  ``timed`` is
     timed, and its bound counts the sums of the evaluations its plain
     version makes: 1 + iterations value-and-gradient calls per lane, the
-    rest of its nev probes."""
+    rest of its nev probes.  Then at each n of EDGE_NS (no clip) step for
+    step over K9_STEPS iterations with the same tolerances."""
     import torch
     from gpry_tpu_torch.ops import fused
     worst = 0.0
     row = {}
+    for fam in families:
+        for n in EDGE_NS:
+            label = f"{'spec' if is_spec(fam) else fam} n={n}"
+            p, args = k9_inputs(fam, dev, seed=19, n=n)
+            width = float(torch.max(args[4] - args[3]))
+            route = fused.lbfgs_logexp_ascent_plan(
+                n, D, fused._spec_doubles(fused._kern(fam, D, dev)))
+            xs, f, nev = fused.lbfgs_logexp_ascent(fam, p, *args,
+                                                   maxiter=K9_STEPS)
+            xr, fr, nevr = fused.lbfgs_logexp_ascent_plain(
+                fam, p, *args, maxiter=K9_STEPS)
+            sync()
+            err_x = float(torch.max(torch.abs(xs - xr)))
+            err_f = float(torch.max(torch.abs(f - fr) / (1 + torch.abs(fr))))
+            log(f"[K9] {label:12s} (route {route[0]}, X staged "
+                f"{route[1]}): over {K9_STEPS} iterations nev "
+                f"{nev.tolist()} (plain {nevr.tolist()}), x max abs err "
+                f"{err_x:.3e}, f rel {err_f:.3e}")
+            if not (nev.tolist() == nevr.tolist()
+                    and err_x <= TOL_K9_X * width and err_f <= TOL_K9_F):
+                raise AssertionError(f"K9 {label}: nev {nev.tolist()} "
+                                     f"against {nevr.tolist()}, x {err_x}, "
+                                     f"f {err_f}")
+            worst = max(worst, err_x, float(torch.max(torch.abs(f - fr))))
     for fam, clip in ((fam, clip) for fam in families
                       for clip in (False, True)):
         label = ("spec" if is_spec(fam) else fam) + (" clip" if clip else "")
@@ -1437,23 +1468,22 @@ def lml_flops(family, n, p=0, grad=False):
     return ops
 
 
-def fit_data(dev):
-    """Path h's data (bench_data) in a GPR: the padded transformed X and
-    y (n = N of nmax = NMAX), the noise, the fit's box and the incumbent
-    theta after one 26-restart fit (the plain versions serve the fit: the
-    launch counts stay untouched)."""
+def fit_data(dev, n=N):
+    """Path h's data (bench_data, its first ``n`` points) in a GPR: the
+    padded transformed X and y (n = N of nmax = NMAX at the table's
+    shape), the noise and the fit's box."""
     import numpy as np
     import torch
     from gpry_tpu_torch.models.gp import GaussianProcessRegressor
     from gpry_tpu_torch.models.preprocessing import Normalize_bounds, \
         Normalize_y
-    bounds, X, y = bench_data()
+    bounds, X, y = bench_data(n=n)
     gpr = GaussianProcessRegressor(
         bounds=bounds, preprocessing_X=Normalize_bounds(bounds),
         preprocessing_y=Normalize_y(), random_state=0, verbose=0)
     gpr.append_to_data(X, y, fit_gpr=False)
     gpr._refresh_buffers()
-    if gpr._dX.shape != (NMAX, D) or gpr.n != N:
+    if gpr.n != n or (n == N and gpr._dX.shape != (NMAX, D)):
         raise AssertionError(f"path h's data: {tuple(gpr._dX.shape)}, "
                              f"n {gpr.n}")
     t = lambda a: torch.as_tensor(np.asarray(a, float), dtype=torch.float64,
@@ -1619,6 +1649,22 @@ def lml_spread(fam, theta, X, y, n, noise, perms=K11_PERMS):
     return max(vals) - min(vals)
 
 
+def k11_starts(fam, gpr, lanes):
+    """K11's box and starts on path h's data: the fit's box (a spec's
+    theta0 +- 2) and ``lanes`` starts uniform in it (seeded by ``lanes``),
+    lane 0 at the incumbent theta (a spec's theta0)."""
+    import numpy as np
+    if is_spec(fam):
+        theta0 = np.asarray(spec_kernel()[1])
+        lo, hi, first = theta0 - 2.0, theta0 + 2.0, theta0
+    else:
+        lo, hi = gpr.theta_bounds[:, 0], gpr.theta_bounds[:, 1]
+        first = np.log([2.0] + [0.3] * D)
+    th0 = np.random.default_rng(lanes).uniform(lo, hi, (lanes, len(lo)))
+    th0[0] = first
+    return lo, hi, th0
+
+
 def check_k11(dev, families, timed):
     """K11 against its plain version lane by lane on path h's data: 8 lanes
     (lane 0 at the incumbent theta, the rest uniform in the fit's box; a
@@ -1630,27 +1676,49 @@ def check_k11(dev, families, timed):
     (``lml_spread``), whichever is larger.  ``timed`` on 8
     lanes is timed, and its bound counts the evaluations its plain
     version makes: 1 + iterations value-and-gradient calls per lane, the
-    rest of its nev probes."""
+    rest of its nev probes.  Then on the first n of path h's draw, for each
+    n of EDGE_NS, 8 lanes step for step over K11_STEPS iterations with the
+    same tolerances."""
     import numpy as np
     import torch
     from gpry_tpu_torch.ops import fused
-    gpr, t = fit_data(dev)
-    lo_f, hi_f = gpr.theta_bounds[:, 0], gpr.theta_bounds[:, 1]
-    incumbent = np.log([2.0] + [0.3] * D)
     worst = 0.0
+    for n in EDGE_NS:
+        gpr, t = fit_data(dev, n=n)
+        for fam in families:
+            lo, hi, th0 = k11_starts(fam, gpr, 8)
+            label = f"{'spec' if is_spec(fam) else fam} n={n}"
+            args = (fam, gpr._dX, gpr._dy, n, gpr._noise_t(), t(th0), t(lo),
+                    t(hi))
+            route = fused.lbfgs_lml_fit_plan(
+                n, D, len(lo), fused._spec_doubles(fused._kern(fam, D, dev)))
+            th, f, nev = fused.lbfgs_lml_fit(*args, maxiter=K11_STEPS)
+            thr, fr, nevr = fused.lbfgs_lml_fit_plain(*args,
+                                                      maxiter=K11_STEPS)
+            sync()
+            fin = torch.isfinite(fr)
+            err_x = float(torch.max(torch.abs(th - thr)))
+            err_f = float(torch.max(torch.abs(f - fr)[fin]
+                                    / (1 + torch.abs(fr[fin]))))
+            log(f"[K11] {label:16s} (route {route[0]}, X staged {route[1]}):"
+                f" over {K11_STEPS} "
+                f"iterations nev {nev.tolist()} (plain {nevr.tolist()}), "
+                f"theta max abs err {err_x:.3e}, f rel {err_f:.3e}")
+            if not (nev.tolist() == nevr.tolist()
+                    and torch.equal(torch.isnan(f), torch.isnan(fr))
+                    and err_x <= TOL_K11_X * float(np.max(hi - lo))
+                    and err_f <= TOL_K11_F):
+                raise AssertionError(f"K11 {label}: nev {nev.tolist()} "
+                                     f"against {nevr.tolist()}, theta "
+                                     f"{err_x}, f {err_f}")
+            worst = max(worst, err_x,
+                        float(torch.max(torch.abs(f - fr)[fin])))
+    gpr, t = fit_data(dev)
     row = {}
     for fam in families:
-        if is_spec(fam):
-            theta0 = np.asarray(spec_kernel()[1])
-            lo, hi = theta0 - 2.0, theta0 + 2.0
-            first = theta0
-        else:
-            lo, hi, first = lo_f, hi_f, incumbent
         for lanes in (8, 2):
             label = f"{'spec' if is_spec(fam) else fam} {lanes} lanes"
-            th0 = np.random.default_rng(lanes).uniform(lo, hi,
-                                                       (lanes, len(lo)))
-            th0[0] = first
+            lo, hi, th0 = k11_starts(fam, gpr, lanes)
             args = (fam, gpr._dX, gpr._dy, N, gpr._noise_t(), t(th0), t(lo),
                     t(hi))
             width = float(np.max(hi - lo))
@@ -1727,6 +1795,27 @@ def check_k11(dev, families, timed):
                 "shape": f"R=8 n={N} nmax={NMAX} d={D} "
                          f"maxiter={K11_MAXITER}"})
     return row
+
+
+def time_fit_kernels(dev):
+    """K9 and K11 at the kernel table's shapes (check_k9's and check_k11's
+    timed inputs: 8 lanes, d = D, n = N, maxiter 100 and K11_MAXITER), ms
+    per call (CUDA events; 10 and 3 calls), the fast family (RBF) and
+    ALL_NODES.  It calls only the two wrappers, so that compare_trees.sh
+    can run it on an older checkout's gpry_tpu_torch."""
+    from gpry_tpu_torch.ops import fused
+    out = {}
+    gpr, t = fit_data(dev)
+    for fam, sfx in (("rbf", ""), (spec_kernel()[0], "/spec")):
+        p, args = k9_inputs(fam, dev, seed=19)
+        out["lbfgs_logexp_ascent" + sfx] = time_ms(
+            lambda: fused.lbfgs_logexp_ascent(fam, p, *args), 10)
+        lo, hi, th0 = k11_starts(fam, gpr, 8)
+        fargs = (fam, gpr._dX, gpr._dy, N, gpr._noise_t(), t(th0), t(lo),
+                 t(hi))
+        out["lbfgs_lml_fit" + sfx] = time_ms(
+            lambda: fused.lbfgs_lml_fit(*fargs, maxiter=K11_MAXITER), 3)
+    return out
 
 
 def check_kernels(dev):
@@ -1943,13 +2032,14 @@ def run_spec_cov_nora(runner):
     return summary
 
 
-def bench_data(seed=0):
+def bench_data(seed=0, n=N):
     """bench.py's make_data (bench.py:44-49): N = 224 uniform points in
-    the unit 8-cube under a centred isotropic Gaussian."""
+    the unit 8-cube under a centred isotropic Gaussian (``n`` points: the
+    same first N, then more of the same draw)."""
     import numpy as np
     rng = np.random.default_rng(seed)
     bounds = np.array([[0.0, 1.0]] * D)
-    X = rng.uniform(size=(N, D))
+    X = rng.uniform(size=(n, D))
     y = -0.5 * 25 * np.sum((X - 0.5) ** 2, axis=1)
     return bounds, X, y
 

@@ -19,6 +19,8 @@
 #   himmelblau  chip_smoke.py's path e: the audited NORA Runner on
 #           Himmelblau, once per seed in $SEEDS (default 100), each with
 #           its truth evals, moment-KL and fit seconds
+#   fitkernels  K9 and K11 alone at the kernel table's shapes
+#           (chip_smoke.time_fit_kernels: ms per call, RBF and ALL_NODES)
 # The driving code is this script's own chip_smoke.py (run_bench,
 # run_runner), loaded by path; only gpry_tpu_torch comes from each
 # checkout, so every checkout times the same work, an older one whose
@@ -34,9 +36,9 @@ set -e
 engine=$1
 shift
 case "$engine" in
-  nora|bo|runner|spec|norarunner|mcmc|himmelblau) ;;
+  nora|bo|runner|spec|norarunner|mcmc|himmelblau|fitkernels) ;;
   *) echo "usage: compare_trees.sh" \
-       "nora|bo|runner|spec|norarunner|mcmc|himmelblau TREE..." >&2
+       "nora|bo|runner|spec|norarunner|mcmc|himmelblau|fitkernels TREE..." >&2
      exit 2;;
 esac
 here=$(cd "$(dirname "$0")" && pwd)
@@ -79,6 +81,10 @@ if engine in ('nora', 'bo'):
     print('RES', tree, engine, 'warm-up, timed:', json.dumps(
         [{k: it[k] for k in ('fit_s', 'acq_s')} for it in s['iters']]),
         flush=True)
+elif engine == 'fitkernels':
+    import torch
+    print('RES', tree, engine, json.dumps(
+        cs.time_fit_kernels(torch.device('cuda'))), flush=True)
 elif engine == 'himmelblau':
     from gpry_tpu_torch.models import gp as gpm
     fit = gpm.GaussianProcessRegressor.fit_gpr_hyperparameters

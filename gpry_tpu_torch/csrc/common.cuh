@@ -100,6 +100,19 @@ __device__ __forceinline__ double gpry_warp_sum(double v) {
   return v;
 }
 
+// D += A B on the FP64 tensor cores, one m8n8k4 step of a whole warp
+// (mma.sync; wgmma has no f64): lane (g, t) = (lane / 4, lane % 4) holds
+// A[g][t] of the 8 x 4 A, B[t][g] of the 4 x 8 B and D[g][2t], D[g][2t + 1]
+// of the 8 x 8 D.
+__device__ __forceinline__ void gpry_dmma(double& d0, double& d1, double a,
+                                          double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, "
+      "{%3}, {%0, %1};\n"
+      : "+d"(d0), "+d"(d1)
+      : "d"(a), "d"(b));
+}
+
 // Forward substitution L v = k for one query, by one warp: v holds k on
 // entry and L^-1 k on exit (rows 0..n-1; the padded rows of L are the
 // identity and k is zero there).  L is row-major with leading dimension
@@ -691,6 +704,44 @@ __device__ __forceinline__ double gpry_dk_dsq(int family, double sq) {
     }
   }
   return NAN;
+}
+
+// gpry_k_of_sq and gpry_dk_dsq of one r^2 from one exponential (the same
+// operations as the two, so the same values).
+__device__ __forceinline__ void gpry_k_dk_of_sq(int family, double sq,
+                                                double* k, double* dk) {
+  switch (family) {
+    case GPRY_FAMILY_RBF: {
+      const double e = exp(-0.5 * sq);
+      *k = e;
+      *dk = -0.5 * e;
+      return;
+    }
+    case GPRY_FAMILY_MATERN12: {
+      const double r = sq > 0.0 ? sqrt(sq) : 0.0;
+      const double e = exp(-r);
+      *k = e;
+      *dk = sq > 0.0 ? -e * (0.5 / r) : 0.0;
+      return;
+    }
+    case GPRY_FAMILY_MATERN32: {
+      const double s = 3.0 * sq;
+      const double r = s > 0.0 ? sqrt(s) : 0.0;
+      const double e = exp(-r);
+      *k = (1.0 + r) * e;
+      *dk = s > 0.0 ? -1.5 * e : 0.0;
+      return;
+    }
+    case GPRY_FAMILY_MATERN52: {
+      const double s = 5.0 * sq;
+      const double r = s > 0.0 ? sqrt(s) : 0.0;
+      const double e = exp(-r);
+      *k = (1.0 + r + r * r / 3.0) * e;
+      *dk = s > 0.0 ? -(5.0 / 6.0) * (1.0 + r) * e : 0.0;
+      return;
+    }
+  }
+  *k = *dk = NAN;
 }
 
 // d(v ** e) / dv as torch's pow_backward: e v^(e - 1), and 0 for e = 0.

@@ -70,7 +70,8 @@ CPU.  For a CUDA tensor it launches the kernel or raises: there is no
 fallback.  The kernels are float64-only and forward-only; a CUDA tensor
 that requires grad is refused.  The gradients in x of the smooth
 surrogate are K8's own outputs (models/gp.py wraps it in an autograd
-Function); the fit's gradients in theta are K10's (inside K11).
+Function); the fit's gradients in theta are K10's (its gradient mode) and
+K11's (its own evaluation).
 
 The thirteen sources compile in parallel, one ``nvcc`` per source, and link
 into a shared library with a plain C interface
@@ -281,13 +282,15 @@ def library():
         lib.gpry_lbfgs_logexp_ascent.argtypes = [K] + [I] * 5 + [P] * 10 \
             + [D, D] + [P] * 4
         lib.gpry_lbfgs_logexp_ascent.restype = I
+        lib.gpry_lbfgs_logexp_ascent_plan.argtypes = [K, I, I, P, P]
+        lib.gpry_lbfgs_logexp_ascent_plan.restype = I
         lib.gpry_lml_work_per_block.argtypes = [K, I, I]
         lib.gpry_lml_work_per_block.restype = ctypes.c_size_t
         lib.gpry_lml_value_grad.argtypes = [K] + [I] * 5 + [P] * 4 \
             + [I, D] + [P] * 4
         lib.gpry_lml_value_grad.restype = I
-        lib.gpry_lbfgs_lml_fit_work.argtypes = [K, I, I]
-        lib.gpry_lbfgs_lml_fit_work.restype = ctypes.c_size_t
+        lib.gpry_lbfgs_lml_fit_plan.argtypes = [K, I, I, P, P, P]
+        lib.gpry_lbfgs_lml_fit_plan.restype = I
         lib.gpry_lbfgs_lml_fit.argtypes = [K] + [I] * 4 + [P] * 6 \
             + [I, D] + [P] * 6
         lib.gpry_lbfgs_lml_fit.restype = I
@@ -1419,6 +1422,100 @@ def predict_meancov(family, theta, X, n, noise_var, L, alpha, Xq):
     return mean, cov
 
 
+# K9's and K11's shared-memory routes, as csrc/lbfgs_logexp_ascent.cu
+# k9_route and csrc/lbfgs_lml_fit.cu k11_route size them (the card tests
+# hold the two to the same numbers)
+_LANE_M = 8              # L-BFGS history pairs (K9_M, K11_M)
+_STATE_DOUBLES = 8       # K9State, K11State
+_BLOCK_WARPS = _BLOCK_THREADS // 32
+_K9_P, _K9_TLD = 32, 33
+_K9_STAGES = {1: 4, 2: 2}  # k9_stages: the tile ring of routes 1 and 2
+_K11_NB, _K11_WARPS, _LML_PCHUNK, _K11_STAGE = 16, 8, 16, 4096
+
+
+def _tri(n):
+    return n * (n + 1) // 2
+
+
+def _spec_doubles(kern):
+    """Shared doubles of a staged spec program (csrc/common.cuh
+    gpry_spec_doubles)."""
+    return 2 * kern.nodes + 2 * kern.ntheta if kern.nodes > 0 else 0
+
+
+def _lane_doubles(v):
+    """A lane's L-BFGS state over v coordinates (k9_lane_doubles with ten
+    v-vectors, k11_lane_doubles with twelve)."""
+    return 2 * _LANE_M * v + _LANE_M + _STATE_DOUBLES
+
+
+def lbfgs_logexp_ascent_plan(n, d, spec_doubles=0):
+    """
+    K9's route for ``n`` training rows at dimension ``d`` (a spec program
+    of ``spec_doubles``): ``(route, stage_x, smem_bytes)``.  Route 0 stages
+    L packed (n (n + 1) / 2 doubles) in shared memory, with X when that fits
+    too; routes 1 and 2 stream L through a ring of 4 or 2 tiles of 32 x 32
+    and keep only the staged GP's n-vectors in shared memory.  At d = 8
+    (fast family) route 0 takes n <= 235 (X staged up to n = 227), route 1
+    n <= 12,180, route 2 n <= 13,236 (12,756 at d = 32).  Raises
+    ``ValueError`` beyond route 2.
+    """
+    red = _BLOCK_WARPS * (2 * d + 1) + d + 1
+    for route in (0, 1, 2):
+        sub = 2 * n + _tri(n) if route == 0 else \
+            _BLOCK_WARPS * _K9_P + _K9_STAGES[route] * _K9_P * _K9_TLD
+        for stage_x in (1, 0):
+            gp = 5 * d + 2 + red + 2 * n + stage_x * d * n + spec_doubles
+            smem = 8 * (gp + 10 * d + _lane_doubles(d) + sub)
+            if smem <= _SMEM_MAX:
+                return route, stage_x, smem
+    raise ValueError(f"lbfgs_logexp_ascent: n={n} at d={d} exceeds the "
+                     "kernel's streamed routes (shared memory).")
+
+
+def lbfgs_lml_fit_plan(n, d, p, spec_doubles=0):
+    """
+    K11's route for ``n`` training rows at dimension ``d``, ``p`` theta
+    entries (a spec program of ``spec_doubles``): ``(route, stage_x,
+    smem_bytes, work_doubles)``, the workspace per lane in global memory.
+    Route 0 keeps the packed bordered triangle ((n + 1) (n + 2) / 2
+    doubles) in shared memory; route 1 keeps it in the lane's global
+    workspace and stages the tensor cores' operands through a shared buffer
+    of 4,096 doubles; either stages X (d n doubles) in shared memory too
+    where that fits.  At d = 8 (fast family, p = 9) route 0 takes n <= 236
+    (X staged up to n = 229), route 1 n <= 24,539 (23,843 at d = 32).
+    Raises ``ValueError`` beyond route 1.
+    """
+    base = 12 * p + _lane_doubles(p) + _K11_NB + _K11_WARPS * _LML_PCHUNK \
+        + 1 + d + spec_doubles + n
+    for route, mat in ((0, _tri(n + 1)), (1, _K11_STAGE)):
+        for stage_x in (1, 0):
+            smem = 8 * (base + mat + stage_x * d * n)
+            if smem <= _SMEM_MAX:
+                return route, stage_x, smem, \
+                    d * n + (_tri(n + 1) if route == 1 else 0)
+    raise ValueError(f"lbfgs_lml_fit: n={n} at d={d} (p={p}) exceeds the "
+                     "kernel's global route (shared memory).")
+
+
+def check_lbfgs_range(family, d, n, ascent=True):
+    """
+    Raise ``ValueError`` unless K11 (the fit) and, with ``ascent``, K9 take
+    ``n`` training rows at dimension ``d`` for ``family`` (their planners),
+    so that a run whose budget is ``n`` points is refused before it starts
+    rather than when its training set grows past them.
+    """
+    if isinstance(family, tuple):
+        p = spec_n_params(family)
+        spec = 2 * len(encode_spec(family, d)[0]) + 2 * p
+    else:
+        check_family(family)
+        p, spec = 1 + d, 0
+    lbfgs_lml_fit_plan(int(n), d, p, spec)
+    if ascent and d <= GRAD_MAX_D:
+        lbfgs_logexp_ascent_plan(int(n), d, spec)
+
+
 def _check_grad_d(name, d):
     if d > GRAD_MAX_D:
         raise ValueError(f"{name}: d={d} > {GRAD_MAX_D}, the most the "
@@ -1487,6 +1584,7 @@ def lbfgs_logexp_ascent(family, p, zeta, noise_std_raw, x0s, lo, hi,
     nmax = p.X.shape[0]
     kern = _kern(family, d, dev)
     _check_theta("lbfgs_logexp_ascent", kern, p.theta)
+    lbfgs_logexp_ascent_plan(int(p.n), d, _spec_doubles(kern))
     xs = torch.empty_like(x0s)
     f = torch.empty(R, dtype=torch.float64, device=dev)
     nev = torch.empty(R, dtype=torch.int64, device=dev)
@@ -1593,10 +1691,19 @@ def lbfgs_lml_fit(family, X, y, n, noise_var, theta0s, lo, hi, maxiter=200,
     f = torch.empty(R, dtype=torch.float64, device=dev)
     nev = torch.empty(R, dtype=torch.int64, device=dev)
     iters = torch.empty(R, dtype=torch.int64, device=dev)
+    lbfgs_lml_fit_plan(int(n), d, p, _spec_doubles(kern))
     if R > 0:
         lib = library()
-        work = torch.empty(R * lib.gpry_lbfgs_lml_fit_work(kern, int(n), d),
-                           dtype=torch.float64, device=dev)
+        # the workspace as the kernel strides it: the library's own plan
+        sx, smem, per_lane = ctypes.c_int(), ctypes.c_size_t(), \
+            ctypes.c_size_t()
+        if lib.gpry_lbfgs_lml_fit_plan(kern, int(n), d, ctypes.byref(sx),
+                                       ctypes.byref(smem),
+                                       ctypes.byref(per_lane)) < 0:
+            raise ValueError(f"lbfgs_lml_fit: n={n} at d={d} exceeds the "
+                             "kernel's global route (shared memory).")
+        work = torch.empty(R * per_lane.value, dtype=torch.float64,
+                           device=dev)
         rc = lib.gpry_lbfgs_lml_fit(
             kern, R, int(n), d, int(maxiter), _ptr(theta0s), _ptr(lo),
             _ptr(hi), _ptr(X), _ptr(y), _ptr(noise), int(noise.numel() > 1),
@@ -1621,4 +1728,5 @@ __all__ = ["KERNELS", "LAUNCHES", "KernelBuildError", "SPEC_MAX_NODES",
            "lml_of_K", "lml_value_grad", "lml_value_grad_plain",
            "lbfgs_lml_fit", "lbfgs_lml_fit_plain", "mcmc_chains",
            "mcmc_chains_plain", "NSState", "ns_step", "ns_step_plain",
-           "NS_STEP_MAX_NLIVE", "CHAINS_MAX_D"]
+           "NS_STEP_MAX_NLIVE", "CHAINS_MAX_D", "lbfgs_logexp_ascent_plan",
+           "lbfgs_lml_fit_plan", "check_lbfgs_range"]

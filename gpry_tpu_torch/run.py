@@ -28,6 +28,7 @@ multi-restart fit), fit_simple_every=1.
 
 import numpy as np
 
+from gpry_tpu_torch import config
 from gpry_tpu_torch.acquisition import proposal as proposal_module
 from gpry_tpu_torch.acquisition.base import GenericGPAcquisition
 from gpry_tpu_torch.acquisition.batch_optimizer import BatchOptimizer
@@ -40,6 +41,7 @@ from gpry_tpu_torch.models.gp import GaussianProcessRegressor, \
     surrogate_mean_std_sweep
 from gpry_tpu_torch.models.preprocessing import Normalize_bounds, \
     Normalize_y
+from gpry_tpu_torch.ops.fused import check_lbfgs_range
 from gpry_tpu_torch.parallel import TruthExecutor, get_random_generator
 from gpry_tpu_torch.progress import Progress, Timer, TimerCounter
 from gpry_tpu_torch.truth import get_truth
@@ -121,6 +123,13 @@ class Runner:
         self._load_options(self.options)
         self.gpr = self._construct_gpr(gpr)
         self.acquisition = self._construct_gp_acquisition(gp_acquisition)
+        if config.get_device().type == "cuda" and self.max_total:
+            # on the card the fit (K11) and the ascent (K9) take a bounded
+            # number of training rows: refuse a budget past it now, before
+            # any truth evaluation is spent
+            check_lbfgs_range(self.gpr.family, self.d, self.max_total,
+                              ascent=isinstance(self.acquisition,
+                                                BatchOptimizer))
         self.convergence_criterion = \
             self._construct_convergence_criterion(convergence_criterion)
         self.progress = Progress()

@@ -8,6 +8,8 @@ decision is taken inside the fixture, never at import).  On the card
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -722,6 +724,273 @@ def test_fit_kernels_raise_when_the_build_fails(dev, monkeypatch):
     with pytest.raises(fused.KernelBuildError):
         fused.lbfgs_lml_fit(*args)
     assert fused.LAUNCHES == n0
+
+
+# K9 and K11 across their panel edges (32 rows; K11's 16-column panels),
+# the shared-memory edge of their route 0 (n 224, 231) and their route 1
+# (n 320), at 1, 2 and 8 lanes, step for step over 3 iterations with
+# chip_smoke.py's tolerances (TOL_K9_X, TOL_K9_F, TOL_K11_X, TOL_K11_F)
+EDGE_NS = (1, 31, 32, 33, 224, 231, 320)
+EDGE_FAMILIES = FAST + ("all_nodes",)
+
+
+@pytest.mark.parametrize("lanes", (1, 2, 8))
+@pytest.mark.parametrize("n", EDGE_NS)
+@pytest.mark.parametrize("family", EDGE_FAMILIES)
+def test_lbfgs_lml_fit_kernel_edges(dev, family, n, lanes):
+    """K11 against its plain version at n valid rows of n + 8: the same nev
+    and iterations per lane over 3 iterations, theta within 1e-7 of the box
+    width, f within 1e-9 (1 + |f|); one launch."""
+    key = count_key("lbfgs_lml_fit", family)
+    _, args = _fit_args(family, dev, lanes, n=n, nmax=n + 8)
+    n0 = fused.LAUNCHES[key]
+    th, f, nev, it = fused.lbfgs_lml_fit(*args, maxiter=3,
+                                         return_iters=True)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[key] == n0 + 1
+    thr, fr, nevr, itr = fused.lbfgs_lml_fit_plain(*args, maxiter=3,
+                                                   return_iters=True)
+    assert nev.tolist() == nevr.tolist() and it.tolist() == itr.tolist()
+    assert float(torch.max(torch.abs(th - thr))) <= 1e-7 * 4.0
+    _lanes_close(f, fr, 1e-9)
+
+
+@pytest.mark.parametrize("lanes", (1, 2, 8))
+@pytest.mark.parametrize("n", EDGE_NS)
+@pytest.mark.parametrize("family", EDGE_FAMILIES)
+def test_lbfgs_logexp_ascent_kernel_edges(dev, family, n, lanes):
+    """K9 against its plain version at n valid rows of n + 8, the starts
+    uniform in the box: the same nev per lane over 3 iterations, x within
+    1e-7 of the box width, f within 1e-9 (1 + |f|); one launch.  (A start
+    on a training point is test_lbfgs_logexp_ascent_kernel's and
+    chip_smoke.py's check_k9's: next to one, the variance prior - |L^-1
+    k|^2 cancels, and at n = 231 with Matern-1/2 the reference's f moves
+    by ~3e-8 with the summation order: an unblocked substitution and the
+    blocked one both differ from it by that much.)"""
+    p = _grad_surrogate(family, dev, 3, n, n + 8)
+    key = count_key("lbfgs_logexp_ascent", family)
+    family = family_and_theta(family, 3)[0]
+    lo = torch.full((3,), -1.0, dtype=torch.float64, device=dev)
+    hi = -lo
+    gen = torch.Generator(device=dev).manual_seed(n)
+    x0s = torch.rand((lanes, 3), generator=gen, dtype=torch.float64,
+                     device=dev) * 2.0 - 1.0
+    n0 = fused.LAUNCHES[key]
+    xs, f, nev = fused.lbfgs_logexp_ascent(family, p, 3 ** -0.85, 0.01, x0s,
+                                           lo, hi, maxiter=3)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[key] == n0 + 1
+    xr, fr, nevr = fused.lbfgs_logexp_ascent_plain(
+        family, p, 3 ** -0.85, 0.01, x0s, lo, hi, maxiter=3)
+    assert nev.tolist() == nevr.tolist()
+    assert float(torch.max(torch.abs(xs - xr))) <= 1e-7 * 2.0
+    assert bool(torch.all(torch.abs(f - fr) <= 1e-9 * (1 + torch.abs(fr))))
+
+
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+def test_lbfgs_kernels_failed_search_and_non_pd_start(dev, family):
+    """Lanes whose first line search runs out (a gradient so large that the
+    18th halving still overshoots: y times 1e6 for K11, y_scale 1e12 for K9)
+    stop with nev 1 + 19, at their start, as in the plain version; with
+    the fast family, a K11 lane that starts where K is not positive
+    definite (a variance that underflows to 0 over a zero noise entry)
+    stops at once with a NaN f and its start, while the others run, as
+    there (ALL_NODES's other terms keep K positive definite)."""
+    fam, args = _fit_args(family, dev, 4, n=60, nmax=64)
+    _, X, y, n, nv, th0, lo, hi = args
+    big = (fam, X, y * 1e6, n, nv, th0, lo, hi)
+    th, f, nev, it = fused.lbfgs_lml_fit(*big, maxiter=3, return_iters=True)
+    thr, fr, nevr, itr = fused.lbfgs_lml_fit_plain(*big, maxiter=3,
+                                                   return_iters=True)
+    assert nev.tolist() == nevr.tolist() == [20] * 4
+    assert it.tolist() == itr.tolist() == [1] * 4
+    assert float(torch.max(torch.abs(th - thr))) <= 1e-7 * 4.0
+    _lanes_close(f, fr, 1e-9)
+    if family in FAST:
+        nvv = torch.full((64,), 1e-4, dtype=torch.float64, device=dev)
+        nvv[0] = 0.0
+        lo2, th2 = lo.clone(), th0.clone()
+        lo2[0] = th2[0, 0] = -800.0
+        npd = (fam, X, y, n, nvv, th2, lo2, hi)
+        th, f, nev, it = fused.lbfgs_lml_fit(*npd, maxiter=3,
+                                             return_iters=True)
+        thr, fr, nevr, itr = fused.lbfgs_lml_fit_plain(*npd, maxiter=3,
+                                                       return_iters=True)
+        assert bool(torch.isnan(f[0])) and bool(torch.isnan(fr[0]))
+        assert int(nev[0]) == int(nevr[0]) == 1
+        assert nev.tolist() == nevr.tolist() and it.tolist() == itr.tolist()
+        assert float(torch.max(torch.abs(th - thr))) <= 1e-7 * 802.0
+        _lanes_close(f, fr, 1e-9)
+    p = _grad_surrogate(family, dev, 3, 40, 64)
+    p = p.replace(y_scale=p.y_scale * 1e12)
+    kfam = family_and_theta(family, 3)[0]
+    lo = torch.full((3,), -1.0, dtype=torch.float64, device=dev)
+    x0s = torch.rand((4, 3), generator=torch.Generator(
+        device=dev).manual_seed(3), dtype=torch.float64, device=dev) * 2 - 1
+    xs, f, nev = fused.lbfgs_logexp_ascent(kfam, p, 3 ** -0.85, 0.01, x0s,
+                                           lo, -lo, maxiter=3)
+    xr, fr, nevr = fused.lbfgs_logexp_ascent_plain(
+        kfam, p, 3 ** -0.85, 0.01, x0s, lo, -lo, maxiter=3)
+    assert nev.tolist() == nevr.tolist() == [20] * 4
+    assert float(torch.max(torch.abs(xs - xr))) <= 1e-7 * 2.0
+    assert bool(torch.all(torch.abs(f - fr) <= 1e-9 * (1 + torch.abs(fr))))
+
+
+def _plan_edges(plan):
+    """The largest n of each route of a host planner (n -> (route, ...)),
+    by bisection over n."""
+    def fits(n, route):
+        try:
+            return plan(n)[0] <= route
+        except ValueError:
+            return False
+    edges, route = [], 0
+    while fits(1, route) and (not edges or fits(edges[-1] + 1, route)):
+        lo, hi = 1, 1 << 16
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if fits(mid, route) else (lo, mid - 1)
+        edges.append(lo)
+        route += 1
+    return edges
+
+
+@pytest.mark.parametrize("family", ("rbf", "c_rbf_white", "all_nodes"))
+@pytest.mark.parametrize("d", (2, 8, 32))
+def test_lbfgs_plans_match_the_kernels(dev, family, d):
+    """The host planners (fused.lbfgs_logexp_ascent_plan,
+    fused.lbfgs_lml_fit_plan) give the kernels' own routes, shared memory
+    and workspace for every n up to 400 and around the last n of each
+    route, and the wrappers raise ValueError just past the last route,
+    before any launch."""
+    lib = fused.library()
+    fam = family_and_theta(family, d)[0]
+    kern = fused._kern(fam, d, dev)
+    sd = fused._spec_doubles(kern)
+    sx, sm, wk = ctypes.c_int(), ctypes.c_size_t(), ctypes.c_size_t()
+    k9 = _plan_edges(lambda n: fused.lbfgs_logexp_ascent_plan(n, d, sd))
+    k11 = _plan_edges(lambda n: fused.lbfgs_lml_fit_plan(n, d, kern.ntheta,
+                                                         sd))
+    assert len(k9) == 3 and len(k11) == 2
+    ns = set(range(1, 400))
+    for e in k9 + k11:
+        ns |= set(range(e - 24, e + 25))
+    for n in sorted(ns):
+        route = lib.gpry_lbfgs_logexp_ascent_plan(kern, n, d,
+                                                  ctypes.byref(sx),
+                                                  ctypes.byref(sm))
+        try:
+            py = fused.lbfgs_logexp_ascent_plan(n, d, sd)
+        except ValueError:
+            py = (-1, 0, 0)
+        assert py == (route, sx.value, sm.value)
+        route = lib.gpry_lbfgs_lml_fit_plan(kern, n, d, ctypes.byref(sx),
+                                            ctypes.byref(sm),
+                                            ctypes.byref(wk))
+        try:
+            py = fused.lbfgs_lml_fit_plan(n, d, kern.ntheta, sd)
+        except ValueError:
+            py = (-1, 0, 0, 0)
+        assert py == (route, sx.value, sm.value, wk.value)
+    n = k11[-1] + 1
+    X = torch.zeros((n, d), dtype=torch.float64, device=dev)
+    y = torch.zeros(n, dtype=torch.float64, device=dev)
+    th0 = torch.as_tensor(family_and_theta(family, d)[1], device=dev)[None]
+    small = _grad_surrogate(family, dev, d, 8, 16)
+    n0 = dict(fused.LAUNCHES)
+    with pytest.raises(ValueError, match="exceeds"):
+        fused.lbfgs_lml_fit(fam, X, y, n, torch.tensor(
+            1e-4, dtype=torch.float64, device=dev), th0, th0[0] - 1.0,
+            th0[0] + 1.0)
+    del X, y
+    n = k9[-1] + 1
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float64, device=dev)
+    p = small.replace(X=z(n, d), n=n, alpha=z(n),
+                      L=torch.eye(n, dtype=torch.float64, device=dev))
+    with pytest.raises(ValueError, match="exceeds"):
+        fused.lbfgs_logexp_ascent(fam, p, 0.5, 0.01, z(2, d), z(d) - 1.0,
+                                  z(d) + 1.0)
+    assert fused.LAUNCHES == n0
+
+
+# Large n on the routes whose shared memory grows with n only by O(n)
+# vectors, at d = 8: K11's route 1 (its operands staged in fixed chunks),
+# K9's 4-stage ring (route 1) and its 2-stage ring (route 2)
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+def test_lbfgs_lml_fit_kernel_large_n(dev, family):
+    """K11 at n = 1,700 of 1,704 (route 1), 2 lanes, against its plain
+    version step for step over 3 iterations: the same nev and iterations,
+    theta within 1e-7 of the box width, f within 1e-9 (1 + |f|)."""
+    d, n = 8, 1700
+    key = count_key("lbfgs_lml_fit", family)
+    fam, args = _fit_args(family, dev, 2, d=d, n=n, nmax=n + 4)
+    kern = fused._kern(fam, d, dev)
+    assert fused.lbfgs_lml_fit_plan(n, d, kern.ntheta,
+                                    fused._spec_doubles(kern))[0] == 1
+    n0 = fused.LAUNCHES[key]
+    th, f, nev, it = fused.lbfgs_lml_fit(*args, maxiter=3,
+                                         return_iters=True)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[key] == n0 + 1
+    thr, fr, nevr, itr = fused.lbfgs_lml_fit_plain(*args, maxiter=3,
+                                                   return_iters=True)
+    assert nev.tolist() == nevr.tolist() and it.tolist() == itr.tolist()
+    assert float(torch.max(torch.abs(th - thr))) <= 1e-7 * 4.0
+    _lanes_close(f, fr, 1e-9)
+
+
+@pytest.mark.parametrize("route", (1, 2))
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+def test_lbfgs_logexp_ascent_kernel_large_n(dev, family, route):
+    """K9 at n = 3,100 (route 1) and at the first n of route 2, 2 lanes
+    from uniform starts, against its plain version over 3 iterations: the
+    same nev, x within 1e-7 of the box width, f within 1e-9 (1 + |f|)."""
+    d = 8
+    key = count_key("lbfgs_logexp_ascent", family)
+    fam = family_and_theta(family, d)[0]
+    sd = fused._spec_doubles(fused._kern(fam, d, dev))
+    n = 3100
+    if route == 2:
+        n = _plan_edges(lambda m: fused.lbfgs_logexp_ascent_plan(m, d,
+                                                                 sd))[1] + 1
+    assert fused.lbfgs_logexp_ascent_plan(n, d, sd)[0] == route
+    p = _grad_surrogate(family, dev, d, n, n + 8)
+    lo = torch.full((d,), -1.0, dtype=torch.float64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    x0s = torch.rand((2, d), generator=gen, dtype=torch.float64,
+                     device=dev) * 2.0 - 1.0
+    n0 = fused.LAUNCHES[key]
+    xs, f, nev = fused.lbfgs_logexp_ascent(fam, p, d ** -0.85, 0.01, x0s,
+                                           lo, -lo, maxiter=3)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[key] == n0 + 1
+    xr, fr, nevr = fused.lbfgs_logexp_ascent_plain(
+        fam, p, d ** -0.85, 0.01, x0s, lo, -lo, maxiter=3)
+    assert nev.tolist() == nevr.tolist()
+    assert float(torch.max(torch.abs(xs - xr))) <= 1e-7 * 2.0
+    assert bool(torch.all(torch.abs(f - fr) <= 1e-9 * (1 + torch.abs(fr))))
+
+
+def test_runner_refuses_a_budget_past_the_lbfgs_kernels(dev):
+    """On the card the fit (K11) and the ascent (K9) take a bounded n: a
+    Runner whose max_total is past the last route of either raises
+    ValueError when it is built, before any truth evaluation."""
+    from gpry_tpu_torch.run import Runner
+    d = 2
+    n = _plan_edges(lambda m: fused.lbfgs_logexp_ascent_plan(m, d))[-1] + 1
+    calls = []
+
+    def loglike(X):
+        calls.append(X)
+        return -0.5 * float(np.sum(np.asarray(X) ** 2))
+
+    with pytest.raises(ValueError, match="exceeds"):
+        Runner(loglike, [[-1.0, 1.0]] * d, verbose=0,
+               options={"max_total": n})
+    assert not calls
+    Runner(loglike, [[-1.0, 1.0]] * d, verbose=0,
+           options={"max_total": n - 1})
+    assert not calls
 
 
 def _mcmc_inputs(family, p, B, nsteps, seed=0, half=1.0):
