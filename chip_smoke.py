@@ -219,8 +219,10 @@ K11_MAXITER, K11_PERMS = 120, 8
 FIT_PATHS = {"batchoptimizer": "", "nora_bench": "", "nora_runner": "",
              "himmelblau_audit": "", "spec_runner": "/spec", "bo_bench": ""}
 # K6 at the NS steps of the main paths: nlive 400 (final NS) and 200
-# (NORA), num_repeats 40
+# (NORA), num_repeats 40; its shrink candidates a pass
+# (csrc/ns_slice_chains.cu K6_WIDTH)
 K6_B, K6_R = (66, 33), 40
+K6_WIDTH = 4
 # K12 at path d's ensemble (d = 8, 16 chains) and at d = 32 (64 chains),
 # and beyond shared memory at d = 8 (n valid rows of nmax); the prior box
 # [-K12_BOX / 2, K12_BOX / 2]^d.  Step for step over the first K12_STEPS
@@ -649,45 +651,69 @@ def k6_inputs(family, dev, B, seed, svm="fitted"):
                lstar, chol, nrm, u, lo, -lo)
 
 
-def k6_evaluated_points(family, p, args):
-    """The points K6's chains must evaluate on these inputs, by a replay
-    of the plain lock-step loop (which evaluates every chain at every
-    step): both first step-out ends, an end again only when its doubling
-    moved it, a shrink only until its chain accepted."""
+def k6_replay(family, p, args):
+    """A replay of the plain lock-step loop on K6's inputs (which evaluates
+    every chain at every step): the points K6's chains must evaluate (both
+    first step-out ends, an end again only when its doubling moved it, a
+    shrink only until its chain accepted), and the passes each chain of
+    the kernel makes: per repeat one for both step-out ladders and
+    ceil(shrinks / K6_WIDTH) shrink passes; and, for comparison, the
+    passes of a design that evaluates one step at a time (the pair, each
+    doubling step, each shrink)."""
     import torch
     from gpry_tpu_torch.ops import fused
     x0, lx0, lstar, chol, nrm, u, lo, hi = args
     B = x0.shape[0]
-    seen, state = [], {"ends": None, "acc": None}
+    seen = []
+    passes = torch.zeros(B, dtype=torch.int64, device=x0.device)
+    stepwise = torch.zeros_like(passes)
+    state = {"ends": None, "acc": None, "shrinks": None}
+
+    def close_repeat():
+        if state["shrinks"] is not None:
+            passes.add_(-(-state["shrinks"] // K6_WIDTH))
+        state["shrinks"] = None
 
     def logl_of(X):
         in_box = torch.all((X >= lo) & (X <= hi), dim=-1)
         out = torch.where(in_box, fused.gated_mean_plain(family, p, X),
                           torch.full_like(X[:, 0], -torch.inf))
         if len(X) == 2 * B:
-            need = torch.ones(2 * B, dtype=torch.bool, device=X.device) \
-                if state["ends"] is None else \
-                torch.any(X != state["ends"], dim=1)
+            if state["ends"] is None:
+                close_repeat()
+                need = torch.ones(2 * B, dtype=torch.bool, device=X.device)
+                passes.add_(1)
+                stepwise.add_(1)
+            else:
+                # a doubling step moves an end: the chain is active
+                need = torch.any(X != state["ends"], dim=1)
+                stepwise.add_((need[:B] | need[B:]).long())
             state.update(ends=X, acc=None)
         else:
             if state["acc"] is None:
                 state.update(ends=None, acc=torch.zeros(
-                    B, dtype=torch.bool, device=X.device))
+                    B, dtype=torch.bool, device=X.device),
+                    shrinks=torch.zeros(B, dtype=torch.int64,
+                                        device=X.device))
             need = ~state["acc"]
+            state["shrinks"] += need.long()
+            stepwise.add_(need.long())
             state["acc"] = state["acc"] | (out > lstar)
         seen.append(X[need])
         return out
 
     fused.slice_chains_lockstep(logl_of, x0, lx0, lstar, chol, nrm, u)
-    return torch.cat(seen)
+    close_repeat()
+    return torch.cat(seen), passes, stepwise
 
 
 def check_k6(dev, families, timed, configs):
     """K6 against its plain version (the lock-step loop on plain K1) on the
     same draws for each (svm, B) of ``configs``: identical calls and -inf
-    masks, x and lx within rel TOL_K6.  ``timed`` is timed at B = 66 with
-    the SVM fitted (and all finite); the bound counts the sums of the
-    points its chains must evaluate (k6_evaluated_points, needed_sums)."""
+    masks, x and lx within rel TOL_K6, and the passes each chain made those
+    of the kernel's schedule (k6_replay).  ``timed`` is timed at B = 66
+    with the SVM fitted (and all finite); the bound counts the sums of the
+    points its chains must evaluate (k6_replay, needed_sums)."""
     import torch
     from gpry_tpu_torch.ops import fused
     worst = 0.0
@@ -696,8 +722,13 @@ def check_k6(dev, families, timed, configs):
         label = "spec" if is_spec(fam) else fam
         for svm, B in configs:
             p, args = k6_inputs(fam, dev, B, seed=B, svm=svm)
-            x, lx, calls = fused.ns_slice_chains(fam, p, *args)
+            x, lx, calls, passes = fused.ns_slice_chains(
+                fam, p, *args, return_passes=True)
             sync()
+            pts, passes_r, stepwise = k6_replay(fam, p, args)
+            if not torch.equal(passes, passes_r):
+                raise AssertionError(f"K6 {label} {svm} B={B}: passes "
+                                     "differ from the kernel's schedule")
             t0 = time.perf_counter()
             xr, lxr, callsr = fused.ns_slice_chains_plain(fam, p, *args)
             sync()
@@ -707,9 +738,13 @@ def check_k6(dev, families, timed, configs):
                                      "differ")
             err_l, rel_l = rel_err(lx, lxr)
             err_x, rel_x = rel_err(x.reshape(-1), xr.reshape(-1))
+            reps = B * K6_R
             log(f"[K6] {label:8s} svm {svm:10s} B={B} R={K6_R}: same calls "
-                f"({int(calls.sum())} in all); lx max abs err "
-                f"{err_l:.3e} rel {rel_l:.3e}; x rel {rel_x:.3e}")
+                f"({int(calls.sum())} in all, {int(calls.sum()) / reps:.3f} "
+                f"a repeat); passes a repeat {int(passes.sum()) / reps:.3f} "
+                f"(one step a pass: {int(stepwise.sum()) / reps:.3f}); lx "
+                f"max abs err {err_l:.3e} rel {rel_l:.3e}; x rel "
+                f"{rel_x:.3e}")
             if not (rel_l <= TOL_K6 and rel_x <= TOL_K6):
                 raise AssertionError(f"K6 {label} {svm} B={B}: rel "
                                      f"{rel_l}, {rel_x} > {TOL_K6}")
@@ -719,12 +754,14 @@ def check_k6(dev, families, timed, configs):
             call = lambda: fused.ns_slice_chains(fam, p, *args)
             ms = time_ms(call, 20)
             dev_ms = kernel_device_ms(call, "ns_slice_chains", 10)
-            pts = k6_evaluated_points(fam, p, args)
             n_svm, n_gp = needed_sums(p, pts, args[6], args[7])
             nbytes = 8 * (2 * B * D + 2 * B + K6_R * B * (D + 31) + N * D
                           + N + NSV * (D + 1) + D * D + 2 * D) + 8 * B
             shape = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
                      "calls": int(calls.sum()), "evaluations": len(pts),
+                     "passes_per_repeat": int(passes.sum()) / reps,
+                     "stepwise_passes_per_repeat": int(stepwise.sum()) / reps,
+                     "calls_per_repeat": int(calls.sum()) / reps,
                      "svm_sums": n_svm, "gp_sums": n_gp,
                      **bound(sum_flops(n_svm, n_gp, fam), nbytes)}
             row["shapes"][f"B={B} svm={svm}"] = shape
@@ -735,7 +772,8 @@ def check_k6(dev, families, timed, configs):
                 f"bound {shape['bound_ms']:.6f} ms")
     row.update({k: v for k, v in row["shapes"]["B=66 svm=fitted"].items()
                 if k in ("ms", "device_ms", "plain_ms", "bound_ms",
-                         "bound_by", "flops", "bytes")})
+                         "bound_by", "flops", "bytes", "passes_per_repeat",
+                         "stepwise_passes_per_repeat", "calls_per_repeat")})
     row["max_abs_err"] = worst
     row["shape"] = f"B=66 R={K6_R} n={N} nmax={NMAX} d={D} svm=fitted"
     return row
@@ -1494,7 +1532,8 @@ def fit_data(dev, n=N):
 def check_k10(dev, rng, families, timed):
     """K10 at the fit's LML screen: R = 2,048 theta rows drawn in the fit's
     box (variance 1e-4 to 1e6, length scales 1e-3 to 10; a spec's theta0
-    +- 1) at n = N of nmax = NMAX, scalar and vector noise, value mode:
+    +- 1; k10_screen_inputs) at n = N of nmax = NMAX, scalar and vector
+    noise, value mode:
     the NaN masks identical except on rows with an eigenvalue of K below
     K10_SINGULAR max diag(K) (counted), the LML within rel TOL_K10 on the
     well-conditioned rows.  Gradient mode on 8 moderate rows and one that
@@ -1507,25 +1546,14 @@ def check_k10(dev, rng, families, timed):
     from gpry_tpu_torch.ops import fused
     worst = 0.0
     R = 2048
-    X = torch.zeros((NMAX, D), dtype=torch.float64, device=dev)
-    X[:N] = torch.as_tensor(rng.uniform(0, 1, (N, D)), device=dev)
-    y = torch.zeros(NMAX, dtype=torch.float64, device=dev)
-    y[:N] = torch.sin(3 * X[:N]).sum(1)
     noise_vec = torch.as_tensor(rng.uniform(1e-5, 1e-3, NMAX),
                                 dtype=torch.float64, device=dev)
     row, counts = {}, {}
     for fam in families:
         label = "spec" if is_spec(fam) else fam
-        if is_spec(fam):
-            theta0 = np.asarray(spec_kernel()[1])
-            th = theta0 + rng.uniform(-1.0, 1.0, (R, len(theta0)))
-            mid = theta0
-        else:
-            th = np.column_stack([
-                rng.uniform(np.log(1e-4), np.log(1e6), R),
-                rng.uniform(np.log(1e-3), np.log(10.0), (R, D))])
-            mid = np.log([2.0] + [0.5] * D)
-        thetas = torch.as_tensor(th, dtype=torch.float64, device=dev)
+        thetas, X, y, _, _ = k10_screen_inputs(fam, dev, R=R)
+        mid = np.asarray(spec_kernel()[1]) if is_spec(fam) else \
+            np.log([2.0] + [0.5] * D)
         for noise in (torch.tensor(1e-4, dtype=torch.float64, device=dev),
                       noise_vec):
             kind = "vector" if noise.ndim else "scalar"
@@ -1797,12 +1825,38 @@ def check_k11(dev, families, timed):
     return row
 
 
+def k10_screen_inputs(fam, dev, seed=7, R=2048, n=N):
+    """K10's inputs at the fit's screen (check_k10's shape): R theta rows
+    in the fit's box (a spec's theta0 +- 1), n (N) valid rows of nmax =
+    NMAX, scalar noise."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    X = torch.zeros((NMAX, D), dtype=torch.float64, device=dev)
+    X[:n] = torch.as_tensor(rng.uniform(0, 1, (n, D)), device=dev)
+    y = torch.zeros(NMAX, dtype=torch.float64, device=dev)
+    y[:n] = torch.sin(3 * X[:n]).sum(1)
+    if is_spec(fam):
+        theta0 = np.asarray(spec_kernel()[1])
+        th = theta0 + rng.uniform(-1.0, 1.0, (R, len(theta0)))
+    else:
+        th = np.column_stack([
+            rng.uniform(np.log(1e-4), np.log(1e6), R),
+            rng.uniform(np.log(1e-3), np.log(10.0), (R, D))])
+    return (torch.as_tensor(th, dtype=torch.float64, device=dev), X, y, n,
+            torch.tensor(1e-4, dtype=torch.float64, device=dev))
+
+
 def time_fit_kernels(dev):
-    """K9 and K11 at the kernel table's shapes (check_k9's and check_k11's
-    timed inputs: 8 lanes, d = D, n = N, maxiter 100 and K11_MAXITER), ms
-    per call (CUDA events; 10 and 3 calls), the fast family (RBF) and
-    ALL_NODES.  It calls only the two wrappers, so that compare_trees.sh
-    can run it on an older checkout's gpry_tpu_torch."""
+    """K9, K10, K11 and K6 at the kernel table's shapes, the fast family
+    (RBF) and ALL_NODES: K9 and K11 at check_k9's and check_k11's timed
+    inputs (8 lanes, d = D, n = N, maxiter 100 and K11_MAXITER), K10 at the
+    screen (k10_screen_inputs, value mode) beside the route it replaced
+    (K3, cholesky_ex, solve_triangular), ms per call (CUDA events; 10, 10,
+    3 and 3 calls); K6 at B = 66, R = K6_R with the SVM fitted, device ms
+    (torch.profiler, 10 calls).  It calls only the wrappers, with their
+    arguments of every version since K6, so that compare_trees.sh can run
+    it on an older checkout's gpry_tpu_torch."""
     from gpry_tpu_torch.ops import fused
     out = {}
     gpr, t = fit_data(dev)
@@ -1810,11 +1864,21 @@ def time_fit_kernels(dev):
         p, args = k9_inputs(fam, dev, seed=19)
         out["lbfgs_logexp_ascent" + sfx] = time_ms(
             lambda: fused.lbfgs_logexp_ascent(fam, p, *args), 10)
+        thetas, X, y, n, noise = k10_screen_inputs(fam, dev)
+        out["lml_value_grad" + sfx] = time_ms(
+            lambda: fused.lml_value_grad(fam, thetas, X, y, n, noise), 10)
+        out["lml_route" + sfx] = time_ms(lambda: fused.lml_of_K(
+            fused.masked_kernel_matrix_batched(fam, thetas, X, n, noise), y,
+            n), 3)
         lo, hi, th0 = k11_starts(fam, gpr, 8)
         fargs = (fam, gpr._dX, gpr._dy, N, gpr._noise_t(), t(th0), t(lo),
                  t(hi))
         out["lbfgs_lml_fit" + sfx] = time_ms(
             lambda: fused.lbfgs_lml_fit(*fargs, maxiter=K11_MAXITER), 3)
+        p6, args6 = k6_inputs(fam, dev, 66, seed=66)
+        out["ns_slice_chains" + sfx] = kernel_device_ms(
+            lambda: fused.ns_slice_chains(fam, p6, *args6),
+            "ns_slice_chains", 10)
     return out
 
 

@@ -19,8 +19,10 @@
 #   himmelblau  chip_smoke.py's path e: the audited NORA Runner on
 #           Himmelblau, once per seed in $SEEDS (default 100), each with
 #           its truth evals, moment-KL and fit seconds
-#   fitkernels  K9 and K11 alone at the kernel table's shapes
-#           (chip_smoke.time_fit_kernels: ms per call, RBF and ALL_NODES)
+#   kernels K9, K10, K11 and K6 alone at the kernel table's shapes
+#           (chip_smoke.time_fit_kernels, RBF and ALL_NODES: ms per call
+#           of K9, K11, K10 at the fit's screen and the route K10
+#           replaced; K6's device ms at B = 66, R = 40)
 # The driving code is this script's own chip_smoke.py (run_bench,
 # run_runner), loaded by path; only gpry_tpu_torch comes from each
 # checkout, so every checkout times the same work, an older one whose
@@ -36,9 +38,9 @@ set -e
 engine=$1
 shift
 case "$engine" in
-  nora|bo|runner|spec|norarunner|mcmc|himmelblau|fitkernels) ;;
+  nora|bo|runner|spec|norarunner|mcmc|himmelblau|kernels) ;;
   *) echo "usage: compare_trees.sh" \
-       "nora|bo|runner|spec|norarunner|mcmc|himmelblau|fitkernels TREE..." >&2
+       "nora|bo|runner|spec|norarunner|mcmc|himmelblau|kernels TREE..." >&2
      exit 2;;
 esac
 here=$(cd "$(dirname "$0")" && pwd)
@@ -81,7 +83,7 @@ if engine in ('nora', 'bo'):
     print('RES', tree, engine, 'warm-up, timed:', json.dumps(
         [{k: it[k] for k in ('fit_s', 'acq_s')} for it in s['iters']]),
         flush=True)
-elif engine == 'fitkernels':
+elif engine == 'kernels':
     import torch
     print('RES', tree, engine, json.dumps(
         cs.time_fit_kernels(torch.device('cuda'))), flush=True)

@@ -9,6 +9,7 @@
 // families' instances keep their inner loops.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -532,6 +533,198 @@ __device__ __forceinline__ void gpry_block_gated_mean2(
                                                                 : -INFINITY;
   out[1] = (l1 && gpry_svm_finite(s.svm_mode, c1, s.intercept)) ? m1
                                                                 : -INFINITY;
+  // every thread read this slot before the second barrier; the next
+  // evaluation uses the other one
+  if (tid == 0) *bad = 0;
+  sc->parity ^= 1;
+}
+
+// ---------------------------------------------------------------------------
+// The same gated mean of up to PMAX points of one line a pass (K6): point q
+// is x + t_of(q) dir, all evaluated with two barriers.  A warp sums a
+// point (warp q mod warps): lane s the rows s, s + 32, ... (the fast
+// families GPRY_LINE_ROWS of them at a time) and the support vectors
+// likewise, then the warp's xor tree, and its lane 0 applies the gates, so
+// that each point gets the arithmetic and summation order of every other
+// and its value does not depend on which other points share its pass, nor
+// on how many there are.  With CL = 2 a cluster of two blocks evaluates
+// the same points, block r the rows of the 32-row chunks c with c mod 2 =
+// r; the two sums meet through distributed shared memory after a cluster
+// barrier, both blocks adding rank 0's, then rank 1's (a third barrier).
+// ---------------------------------------------------------------------------
+
+// rows a lane of the line evaluation sums at a time (the fast families)
+#define GPRY_LINE_ROWS 8
+
+// Doubles of the scratch of up to pmax points: the points preprocessed
+// (qpre) and divided by the length scales (qls), pmax d each; the points'
+// gated values (pmax); two parity copies of their sums for a cluster (2
+// pmax each: the peer may still read one while the other is written); two
+// parity slots of the out-of-gate bit masks.
+__host__ __device__ inline size_t gpry_line_eval_doubles(int d, int pmax) {
+  return 2 * (size_t)pmax * d + 5 * (size_t)pmax + 2;
+}
+
+struct GpryLineScratch {
+  double *qpre, *qls, *fin, *red;
+  int* bad;     // two parity slots
+  int parity;   // the slot of the next evaluation (the same in every thread)
+};
+
+// Carve the scratch at `at` (gpry_line_eval_doubles(d, pmax) doubles); the
+// caller's next barrier makes the cleared masks visible.
+__device__ __forceinline__ GpryLineScratch gpry_line_scratch(double* at,
+                                                             int d, int pmax) {
+  GpryLineScratch sc;
+  sc.qpre = at;
+  sc.qls = at + (size_t)pmax * d;
+  sc.fin = sc.qls + (size_t)pmax * d;
+  sc.red = sc.fin + pmax;
+  sc.bad = (int*)(sc.red + 4 * (size_t)pmax);
+  sc.parity = 0;
+  if (threadIdx.x < 2) sc.bad[threadIdx.x] = 0;
+  return sc;
+}
+
+// The gates and clip of a point's sums: the mean of the GP sum a, -inf
+// where the SVM sum c says infinite.
+__device__ __forceinline__ double gpry_line_gate(const GprySurrogate& s,
+                                                 double a, double c) {
+  const double m = gpry_clip(a * s.y_scale + s.y_loc, s.clip_max);
+  return gpry_svm_finite(s.svm_mode, c, s.intercept) ? m : -INFINITY;
+}
+
+// The gated mean (gpry_block_gated_mean2's gates: the trust box, the
+// optional prior box [lo, hi], the SVM, the clip) of the np <= PMAX points
+// x + t_of(q) dir (two roundings, as torch's x + t * e), by the whole
+// block; every thread gets the same out[q] for q < np (out[q] for q >= np
+// is not defined).  t_of(q) must give every thread the same value.  Entry:
+// x and dir visible to the block.  Two barriers (with CL = 2 the second a
+// cluster barrier, then a third).
+template <bool SPEC, int PMAX, int CL, typename TOf>
+__device__ __forceinline__ void gpry_block_gated_mean_line(
+    const GprySurrogate& s, const GprySpec& spec, GpryLineScratch* sc,
+    int np, const double* x, const double* dir, TOf t_of, const double* lo,
+    const double* hi, double out[PMAX]) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  const int d = s.d;
+  int* bad = sc->bad + sc->parity;
+  double* red = sc->red + 2 * PMAX * sc->parity;
+  int rank = 0;
+  if constexpr (CL > 1)
+    rank = (int)cooperative_groups::this_cluster().block_rank();
+  const int j0 = 32 * rank + lane;
+  // A: one thread per (point, coordinate) transforms and gates; a warp's
+  // out-of-gate bits meet in one atomic.
+  for (int base = 32 * warp; base < np * d; base += blockDim.x) {
+    const int idx = base + lane;
+    int bits = 0;
+    if (idx < np * d) {
+      const int q = idx / d, k = idx - q * d;
+      const double xr = __dadd_rn(x[k], __dmul_rn(t_of(q), dir[k]));
+      bool ok = (xr >= s.trust_lo[k]) && (xr <= s.trust_hi[k]);
+      if (lo) ok = ok && (xr >= lo[k]) && (xr <= hi[k]);
+      if (!ok) bits = 1 << q;
+      const double xp = (xr - s.x_loc[k]) / s.x_scale[k];
+      sc->qpre[q * d + k] = xp;
+      sc->qls[q * d + k] = xp / s.ls[k];
+    }
+    bits = __reduce_or_sync(0xffffffffu, bits);
+    if (lane == 0 && bits) atomicOr(bad, bits);
+  }
+  __syncthreads();
+  // B: a warp a point inside the gates, its lanes over the rows.
+  int live = ((1 << np) - 1) & ~(*bad);
+  if (s.svm_mode == GPRY_MODE_NONE_FINITE) live = 0;
+  for (int q = warp; q < np; q += nw) {
+    if (!((live >> q) & 1)) {
+      if (lane == 0) sc->fin[q] = -INFINITY;
+      continue;
+    }
+    const double* qp = sc->qls + q * d;
+    double a = 0.0, c = 0.0;
+    if constexpr (SPEC) {
+      // qls is the preprocessed point (ls = 1), Xt the preprocessed X
+      for (int j = j0; j < s.n; j += 32 * CL)
+        a += gpry_spec_cov(spec, qp, 1, s.Xt + j, s.n, d) * s.alpha[j];
+    } else {
+      // GPRY_LINE_ROWS of the lane's rows at a time, independent chains,
+      // their sums added in a fixed order at the end
+      constexpr int U = GPRY_LINE_ROWS, J = 32 * CL;
+      double acc[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) acc[u] = 0.0;
+      for (int j = j0; j < s.n; j += U * J) {
+        double sq[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) sq[u] = 0.0;
+        const double* xk = s.Xt + j;
+        for (int k = 0; k < d; ++k, xk += s.n) {
+          const double qk = qp[k];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (j + u * J < s.n) {
+              const double f = qk - xk[u * J];
+              sq[u] += f * f;
+            }
+          }
+        }
+        // one dispatch on the family for the U rows
+        double kv[U];
+        if (s.family == GPRY_FAMILY_RBF) {
+#pragma unroll
+          for (int u = 0; u < U; ++u) kv[u] = exp(-0.5 * sq[u]);
+        } else {
+#pragma unroll
+          for (int u = 0; u < U; ++u) kv[u] = gpry_k_of_sq(s.family, sq[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (j + u * J < s.n)
+            acc[u] += (s.variance * kv[u]) * s.alpha[j + u * J];
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) a += acc[u];
+    }
+    const double* qr = sc->qpre + q * d;
+    for (int j = j0; j < s.nsv; j += 32 * CL) {
+      double sq = 0.0;
+      for (int k = 0; k < d; ++k) {
+        const double f = qr[k] - s.svt[(size_t)k * s.nsv + j];
+        sq += f * f;
+      }
+      c += exp(-s.gamma * sq) * s.dual[j];
+    }
+    a = gpry_warp_sum(a);
+    c = gpry_warp_sum(c);
+    if (lane == 0) {
+      if constexpr (CL > 1) {
+        red[2 * q] = a;
+        red[2 * q + 1] = c;
+      } else {
+        sc->fin[q] = gpry_line_gate(s, a, c);
+      }
+    }
+  }
+  if constexpr (CL > 1) {
+    cooperative_groups::this_cluster().sync();
+    // rank 0's sums, then rank 1's, in every block
+    if (tid < np && ((live >> tid) & 1)) {
+      double av = 0.0, cv = 0.0;
+      for (int r = 0; r < CL; ++r) {
+        const double* rr =
+            cooperative_groups::this_cluster().map_shared_rank(red, r);
+        av += rr[2 * tid];
+        cv += rr[2 * tid + 1];
+      }
+      sc->fin[tid] = gpry_line_gate(s, av, cv);
+    }
+  }
+  __syncthreads();
+  // C: every thread reads the values.
+#pragma unroll
+  for (int q = 0; q < PMAX; ++q) out[q] = sc->fin[q];
   // every thread read this slot before the second barrier; the next
   // evaluation uses the other one
   if (tid == 0) *bad = 0;
@@ -1094,43 +1287,11 @@ __device__ void gpry_block_meanvar_grad(const GpryGP& g, const GprySpec& spec,
 }
 
 // ---------------------------------------------------------------------------
-// The log marginal likelihood of the valid block and its theta-gradient
-// (K10 one block per theta row, K11 one block per restart lane), by a block
-// of GPRY_LML_THREADS: gpry_tpu/ops/linalg.py:139 masked_lml,
-//
-//   lml = -1/2 z^T z - sum_i log L_ii - n/2 log 2 pi,   L L^T = K,  L z = y,
-//   d lml / d theta_j = 1/2 sum_ab (alpha alpha^T - K^-1)_ab dK_ab/dtheta_j,
-//
-// with K = k(X, X) on the n x n valid block, its diagonal the same-point
-// covariance plus noise_i + rel_jitter exp(theta_0) (the padding is the
-// identity with y = 0: it adds nothing).
-//
-// Storage.  Only the lower triangle, packed by rows (row i at i (i + 1) / 2),
-// with y appended as row n: (n + 1) (n + 2) / 2 doubles, and three n-vectors.
-// Where that fits beside the rest of the block's shared memory (n <= ~230)
-// it lives there; otherwise in the block's workspace in global memory
-// (gpry_lml_in_smem decides on the host).  X divided by the length scales
-// is staged, transposed, in the global workspace.
-//
-// Factorization.  The bordered matrix [[K, .], [y^T, .]] is eliminated
-// right-looking with unscaled columns (A_ij -= A_ik A_jk / p_k for j > k,
-// p_k the pivot), one block barrier per column, a warp per row and its
-// lanes along the row; row n then holds z_k sqrt(p_k), so L and
-// z = L^-1 y come out together.  Column k + 1 is copied into a shared
-// buffer by the threads that update it, for step k + 1 to read.  A pivot
-// that is not > 0 (or NaN) makes the row's lml NaN, as cholesky_nan does.
-//
-// Gradient (GRAD).  L = A / sqrt(p) column by column, then L^-1 in place,
-// column by column from the right (M_ij = -sum_{j<k<=i} M_ik L_kj / L_jj,
-// one thread per row, one barrier per column), alpha = M^T z, and one pass
-// over the pairs (a, b <= a) per GPRY_LML_PCHUNK parameters: each pair's
-// W_ab = alpha_a alpha_b - (M^T M)_ab and its tangents of K_ab in those
-// parameters, weighted 1/2 on the diagonal and 1 off it, summed into
-// per-thread accumulators and reduced over the block.
+// What the LML evaluation of K10 and K11 (lml_blocked.cuh) takes from here:
+// the data of one LML, the packed-triangle offsets, and the spec
+// interpreter's forward mode in theta for the gradient.
 // ---------------------------------------------------------------------------
 
-#define GPRY_LML_THREADS 256
-#define GPRY_LML_WARPS (GPRY_LML_THREADS / 32)
 // parameters whose derivatives one contraction pass carries
 #define GPRY_LML_PCHUNK 16
 // log(2 pi) as math.log(2.0 * math.pi)
@@ -1139,43 +1300,6 @@ __device__ void gpry_block_meanvar_grad(const GpryGP& g, const GprySpec& spec,
 // Offset of row i of a packed lower triangle.
 __host__ __device__ inline size_t gpry_tri(int i) {
   return (size_t)i * ((size_t)i + 1) / 2;
-}
-
-// Doubles of the matrix part: the packed bordered triangle and sqrt(p),
-// z and alpha.
-__host__ __device__ inline size_t gpry_lml_mat_doubles(int n) {
-  return gpry_tri(n + 1) + 3 * (size_t)n;
-}
-
-// Shared doubles besides the matrix part: two column buffers (n + 1 each),
-// the block reduction (GPRY_LML_WARPS x GPRY_LML_PCHUNK), ls (d) and the
-// spec program.
-__host__ __device__ inline size_t gpry_lml_smem_base(int n, int d,
-                                                     size_t spec) {
-  return 2 * ((size_t)n + 1) + GPRY_LML_WARPS * GPRY_LML_PCHUNK + d + spec;
-}
-
-// Whether the matrix part fits in shared memory beside the base and
-// `extra` more doubles (K11's lane state).
-__host__ __device__ inline bool gpry_lml_in_smem(int n, int d, size_t spec,
-                                                 size_t extra) {
-  return sizeof(double) * (gpry_lml_smem_base(n, d, spec) + extra +
-                           gpry_lml_mat_doubles(n)) <= GPRY_MAX_SMEM;
-}
-
-// Shared doubles of the routine (without `extra`).
-__host__ __device__ inline size_t gpry_lml_smem_doubles(int n, int d,
-                                                        size_t spec,
-                                                        bool in_smem) {
-  return gpry_lml_smem_base(n, d, spec) +
-         (in_smem ? gpry_lml_mat_doubles(n) : 0);
-}
-
-// Global workspace doubles of one block: X / ls transposed (d n) and,
-// unless it is in shared memory, the matrix part.
-__host__ __device__ inline size_t gpry_lml_work_doubles(int n, int d,
-                                                        bool in_smem) {
-  return (size_t)d * n + (in_smem ? 0 : gpry_lml_mat_doubles(n));
 }
 
 // The data of one LML: the first n rows of X (row-major, d columns) and
@@ -1310,225 +1434,4 @@ static __device__ __noinline__ double gpry_spec_dtheta(
   }
   for (int c = 0; c < GPRY_LML_PCHUNK; ++c) tan[c] = tg[0][c];
   return st[0];
-}
-
-// The LML of theta (p = kern.ntheta entries, visible to the block) on the
-// data D, returned in every thread; with GRAD, its p derivatives into
-// grad[j] (any memory; NaN for a matrix that is not positive definite).
-// work: gpry_lml_work_doubles(n, d, in_smem) doubles of global memory, sm:
-// gpry_lml_smem_doubles(n, d, gpry_spec_doubles(kern), in_smem) of shared
-// memory, both the block's own.  Every thread calls it; it starts and ends
-// with a block barrier.
-template <bool SPEC, bool GRAD>
-__device__ double gpry_block_lml(const GpryKern& kern, const GpryLmlData& D,
-                                 const double* theta, double* work,
-                                 double* sm, bool in_smem, double* grad) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nt = blockDim.x, nw = nt >> 5;
-  const int n = D.n, d = D.d, p = kern.ntheta;
-  double* col0 = sm;
-  double* col1 = col0 + n + 1;
-  double* red = col1 + n + 1;
-  double* ls = red + GPRY_LML_WARPS * GPRY_LML_PCHUNK;
-  double* spx = ls + d;
-  double* Xt = work;
-  double* A = in_smem ? spx + gpry_spec_doubles(kern) : Xt + (size_t)d * n;
-  double* sp = A + gpry_tri(n + 1);
-  double* z = sp + n;
-  double* al = z + n;
-  __syncthreads();
-  GprySpec spec;
-  if constexpr (SPEC)
-    spec = gpry_stage_spec(spx, kern, theta, tid, nt);
-  else
-    for (int k = tid; k < d; k += nt) ls[k] = exp(theta[1 + k]);
-  const double variance = exp(theta[0]);
-  const double jitter = D.rel_jitter * variance;
-  __syncthreads();
-  if constexpr (!SPEC) {
-    for (int idx = tid; idx < n * d; idx += nt) {
-      const int j = idx / d, k = idx - j * d;
-      Xt[(size_t)k * n + j] = D.X[idx] / ls[k];
-    }
-    __syncthreads();
-  }
-  // the bordered lower triangle: K (rows < n), y (row n); column 0 also
-  // into the first column buffer
-  for (int a = warp; a <= n; a += nw) {
-    const int bmax = a < n ? a : n - 1;
-    double* Aa = A + gpry_tri(a);
-    for (int b = lane; b <= bmax; b += 32) {
-      double v;
-      if (a == n) {
-        v = D.y[b];
-      } else if (a == b) {
-        const double kd =
-            SPEC ? gpry_spec_diag(spec, D.X + (size_t)a * d, 1, d) : variance;
-        const double nz = D.noise_is_vec ? D.noise[a] : D.noise[0];
-        v = kd + (nz + jitter);
-      } else if constexpr (SPEC) {
-        v = gpry_spec_cov(spec, D.X + (size_t)a * d, 1, D.X + (size_t)b * d,
-                          1, d);
-      } else {
-        double sq = 0.0;
-        for (int k = 0; k < d; ++k) {
-          const double df = Xt[(size_t)k * n + a] - Xt[(size_t)k * n + b];
-          sq += df * df;
-        }
-        v = variance * gpry_k_of_sq(kern.family, sq);
-      }
-      Aa[b] = v;
-      if (b == 0) col0[a] = v;
-    }
-  }
-  __syncthreads();
-  // right-looking elimination, one barrier per column
-  bool bad = false;
-  for (int k = 0; k < n; ++k) {
-    const double* ck = (k & 1) ? col1 : col0;
-    double* cn = (k & 1) ? col0 : col1;
-    const double piv = ck[k];
-    if (!(piv > 0.0)) {
-      bad = true;
-      break;
-    }
-    const double inv = 1.0 / piv;
-    for (int i = k + 1 + warp; i <= n; i += nw) {
-      const double f = ck[i] * inv;
-      const int jmax = i < n ? i : n - 1;
-      double* Ai = A + gpry_tri(i);
-      for (int j = k + 1 + lane; j <= jmax; j += 32) {
-        const double v = Ai[j] - f * ck[j];
-        Ai[j] = v;
-        if (j == k + 1) cn[i] = v;
-      }
-    }
-    __syncthreads();
-  }
-  if (bad) {
-    if (GRAD)
-      for (int j = tid; j < p; j += nt) grad[j] = NAN;
-    __syncthreads();
-    return NAN;
-  }
-  // log det and z^T z
-  double ld = 0.0, qq = 0.0;
-  for (int k = tid; k < n; k += nt) {
-    const double s = sqrt(A[gpry_tri(k) + k]);
-    const double zk = A[gpry_tri(n) + k] / s;
-    sp[k] = s;
-    z[k] = zk;
-    ld += log(s);
-    qq += zk * zk;
-  }
-  ld = gpry_warp_sum(ld);
-  qq = gpry_warp_sum(qq);
-  if (lane == 0) {
-    red[2 * warp] = ld;
-    red[2 * warp + 1] = qq;
-  }
-  __syncthreads();
-  ld = qq = 0.0;
-  for (int w = 0; w < nw; ++w) {
-    ld += red[2 * w];
-    qq += red[2 * w + 1];
-  }
-  const double lml = (-0.5 * qq - ld) - (0.5 * n) * GPRY_LOG_2PI;
-  if constexpr (GRAD) {
-    // L in place
-    for (int a = warp; a < n; a += nw) {
-      double* Aa = A + gpry_tri(a);
-      for (int b = lane; b <= a; b += 32)
-        Aa[b] = a == b ? sp[a] : Aa[b] / sp[b];
-    }
-    __syncthreads();
-    // M = L^-1 in place, columns from the right; column j - 1 of L is
-    // copied into the other buffer while column j is inverted
-    for (int j = n - 1; j >= 0; --j) {
-      const double* cj = (j & 1) ? col1 : col0;
-      double* cn = (j & 1) ? col0 : col1;
-      const double ij = 1.0 / sp[j];
-      for (int i = j + 1 + tid; i < n; i += nt) {
-        const double* Mi = A + gpry_tri(i);
-        double s0 = 0.0, s1 = 0.0;
-        int k = j + 1;
-        for (; k + 1 <= i; k += 2) {
-          s0 += Mi[k] * cj[k];
-          s1 += Mi[k + 1] * cj[k + 1];
-        }
-        if (k <= i) s0 += Mi[k] * cj[k];
-        A[gpry_tri(i) + j] = -(s0 + s1) * ij;
-      }
-      if (tid == 0) A[gpry_tri(j) + j] = ij;
-      if (j > 0)
-        for (int i = j + tid; i < n; i += nt) cn[i] = A[gpry_tri(i) + j - 1];
-      __syncthreads();
-    }
-    // alpha = M^T z
-    for (int a = tid; a < n; a += nt) {
-      double s = 0.0;
-      for (int c = a; c < n; ++c) s += A[gpry_tri(c) + a] * z[c];
-      al[a] = s;
-    }
-    __syncthreads();
-    // the contraction, GPRY_LML_PCHUNK parameters a pass
-    for (int j0 = 0; j0 < p; j0 += GPRY_LML_PCHUNK) {
-      double acc[GPRY_LML_PCHUNK];
-      for (int c = 0; c < GPRY_LML_PCHUNK; ++c) acc[c] = 0.0;
-      for (int a = warp; a < n; a += nw) {
-        for (int b = lane; b <= a; b += 32) {
-          double kinv = 0.0;
-          for (int c = a; c < n; ++c) {
-            const double* Mc = A + gpry_tri(c);
-            kinv += Mc[a] * Mc[b];
-          }
-          const double w = (a == b ? 0.5 : 1.0) * (al[a] * al[b] - kinv);
-          double t[GPRY_LML_PCHUNK];
-          if constexpr (SPEC) {
-            gpry_spec_dtheta(spec, D.X + (size_t)a * d, 1, D.X + (size_t)b * d,
-                             1, d, a == b, j0, t);
-            if (a == b && j0 == 0) t[0] += jitter;
-          } else {
-            double sq = 0.0;
-            if (a != b)
-              for (int k = 0; k < d; ++k) {
-                const double df =
-                    Xt[(size_t)k * n + a] - Xt[(size_t)k * n + b];
-                sq += df * df;
-              }
-            const double dk =
-                variance * (a == b ? 0.0 : gpry_dk_dsq(kern.family, sq));
-            for (int c = 0; c < GPRY_LML_PCHUNK; ++c) {
-              const int j = j0 + c;
-              if (j == 0) {
-                t[c] = a == b ? variance + jitter
-                              : variance * gpry_k_of_sq(kern.family, sq);
-              } else if (j <= d) {
-                const double df = Xt[(size_t)(j - 1) * n + a] -
-                                  Xt[(size_t)(j - 1) * n + b];
-                t[c] = dk * (-2.0 * df * df);
-              } else {
-                t[c] = 0.0;
-              }
-            }
-          }
-          for (int c = 0; c < GPRY_LML_PCHUNK; ++c) acc[c] += w * t[c];
-        }
-      }
-      for (int c = 0; c < GPRY_LML_PCHUNK; ++c) {
-        const double s = gpry_warp_sum(acc[c]);
-        if (lane == 0) red[warp * GPRY_LML_PCHUNK + c] = s;
-      }
-      __syncthreads();
-      if (tid < GPRY_LML_PCHUNK && j0 + tid < p) {
-        double s = 0.0;
-        for (int w = 0; w < nw; ++w) s += red[w * GPRY_LML_PCHUNK + tid];
-        grad[j0 + tid] = s;
-      }
-      __syncthreads();
-    }
-  } else {
-    __syncthreads();
-  }
-  return lml;
 }

@@ -111,7 +111,7 @@ _SOURCES = ("gated_mean.cu", "gated_meanvar_logexp.cu",
             "meanvar_ungated.cu", "ns_slice_chains.cu", "predict_meancov.cu",
             "meanstd_grad.cu", "lbfgs_logexp_ascent.cu", "lml_value_grad.cu",
             "lbfgs_lml_fit.cu", "mcmc_chains.cu", "ns_step.cu")
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "lml_blocked.cuh")
 _LIB_PATH = os.path.join(_BUILD, "libgpry_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -147,11 +147,10 @@ _lib_lock = threading.Lock()
 _K2_MAX_Q = 8
 _SMEM_DEFAULT = 48 * 1024
 _SMEM_MAX = 227 * 1024
-# threads of the block-cooperative designs (K1's block design, K6): one
-# thread per (point, coordinate) of two points prepares an evaluation
+# threads of K1's block design: one thread per (point, coordinate) of two
+# points prepares an evaluation
 _BLOCK_THREADS = 128
-#: the largest d of K6 and K13 (K6 gives a thread each coordinate of two
-#: points)
+#: the largest d of K6 and K13 (the range of the port's nested sampler)
 CHAINS_MAX_D = _BLOCK_THREADS // 2
 
 #: the largest d whose gradients K8 and K9 take (csrc/common.cuh
@@ -258,7 +257,7 @@ def library():
         lib.gpry_spec_smem_doubles.argtypes = [K]
         lib.gpry_spec_smem_doubles.restype = ctypes.c_size_t
         lib.gpry_ns_slice_chains.argtypes = [K] + [I] * 5 + [P] * 18 \
-            + [I] + [P] * 6
+            + [I] + [P] * 7
         lib.gpry_ns_slice_chains.restype = I
         lib.gpry_ns_slice_chains_work.argtypes = [K] + [I] * 4
         lib.gpry_ns_slice_chains_work.restype = ctypes.c_size_t
@@ -284,8 +283,8 @@ def library():
         lib.gpry_lbfgs_logexp_ascent.restype = I
         lib.gpry_lbfgs_logexp_ascent_plan.argtypes = [K, I, I, P, P]
         lib.gpry_lbfgs_logexp_ascent_plan.restype = I
-        lib.gpry_lml_work_per_block.argtypes = [K, I, I]
-        lib.gpry_lml_work_per_block.restype = ctypes.c_size_t
+        lib.gpry_lml_value_grad_plan.argtypes = [K] + [I] * 3 + [P] * 4
+        lib.gpry_lml_value_grad_plan.restype = I
         lib.gpry_lml_value_grad.argtypes = [K] + [I] * 5 + [P] * 4 \
             + [I, D] + [P] * 4
         lib.gpry_lml_value_grad.restype = I
@@ -1208,7 +1207,7 @@ def kriging_believer_fill(family, p, Xd_raw, y, sigma, acq0, alive0, size,
 
 
 def ns_slice_chains(family, p, x0, lx0, lstar, chol, nrm, u, lo, hi,
-                    done=None):
+                    done=None, return_passes=False):
     """
     K6: the constrained slice-sampling chains of one nested-sampling step
     on the gated surrogate ``p`` under the prior box [lo, hi], in one launch
@@ -1218,10 +1217,14 @@ def ns_slice_chains(family, p, x0, lx0, lstar, chol, nrm, u, lo, hi,
     kernel returns the starts with no call.  A surrogate beyond a block's
     shared memory is first copied into global memory in the staged layout,
     by a staging kernel on the same stream.  Returns (x, lx, calls (B,)
-    int64).
+    int64) and, with ``return_passes`` (CUDA only), the evaluation passes
+    each chain made (B,) int64.
     """
     check_family(family)
     if x0.device.type == "cpu":
+        if return_passes:
+            raise ValueError("ns_slice_chains: passes are the kernel's; "
+                             "the plain version makes none.")
         return ns_slice_chains_plain(family, p, x0, lx0, lstar, chol, nrm,
                                      u, lo, hi, done)
     dev = x0.device
@@ -1249,8 +1252,11 @@ def ns_slice_chains(family, p, x0, lx0, lstar, chol, nrm, u, lo, hi,
     x = torch.empty_like(x0)
     lx = torch.empty_like(lx0)
     calls = torch.empty(B, dtype=torch.int64, device=dev)
+    passes = torch.empty(B, dtype=torch.int64, device=dev) \
+        if return_passes else None
+    out = (x, lx, calls, passes) if return_passes else (x, lx, calls)
     if B == 0:
-        return x, lx, calls
+        return out
     lib = library()
     nsv, mode = p.svm.sv.shape[0], int(p.svm.mode)
     # a surrogate too large for shared memory is read from a staged copy
@@ -1265,10 +1271,10 @@ def ns_slice_chains(family, p, x0, lx0, lstar, chol, nrm, u, lo, hi,
             "alpha", "theta", "x_loc", "x_scale", "trust_lo", "trust_hi",
             "sv", "dual", "scal")),
         mode, _ptr_or_null(done), _ptr_or_null(work), _ptr(x), _ptr(lx),
-        _ptr(calls), _stream())
+        _ptr(calls), _ptr_or_null(passes), _stream())
     _raise_on("ns_slice_chains", rc)
     _count("ns_slice_chains", family)
-    return x, lx, calls
+    return out
 
 
 def mcmc_chains(family, p, x, lp_x, log_step, chol, z, u, lo, hi, adapt):
@@ -1430,7 +1436,11 @@ _STATE_DOUBLES = 8       # K9State, K11State
 _BLOCK_WARPS = _BLOCK_THREADS // 32
 _K9_P, _K9_TLD = 32, 33
 _K9_STAGES = {1: 4, 2: 2}  # k9_stages: the tile ring of routes 1 and 2
-_K11_NB, _K11_WARPS, _LML_PCHUNK, _K11_STAGE = 16, 8, 16, 4096
+# the shared LML evaluation (csrc/lml_blocked.cuh LML_NB, LML_WARPS,
+# GPRY_LML_PCHUNK, LML_STAGE) and K10's route-1 edge for a spec program
+# (K10_ROUTE1_N)
+_LML_NB, _LML_WARPS, _LML_PCHUNK, _LML_STAGE = 16, 8, 16, 4096
+_K10_ROUTE1_N = 160
 
 
 def _tri(n):
@@ -1473,6 +1483,26 @@ def lbfgs_logexp_ascent_plan(n, d, spec_doubles=0):
                      "kernel's streamed routes (shared memory).")
 
 
+def _lml_fits(n, d, spec_doubles, extra, route):
+    """``(stage_x, smem_bytes)`` of the shared LML evaluation on ``route``
+    (csrc/lml_blocked.cuh lml_route_fits: X staged where it fits), with
+    ``extra`` shared doubles of the kernel's own, or None."""
+    base = extra + _LML_NB + _LML_WARPS * _LML_PCHUNK + 1 + d \
+        + spec_doubles + n
+    mat = _tri(n + 1) if route == 0 else _LML_STAGE
+    for stage_x in (1, 0):
+        smem = 8 * (base + mat + stage_x * d * n)
+        if smem <= _SMEM_MAX:
+            return stage_x, smem
+    return None
+
+
+def _lml_work(n, d, route):
+    """Global doubles of one block's workspace: X / ls transposed and, on
+    route 1, the packed bordered triangle (lml_work_doubles)."""
+    return d * n + (_tri(n + 1) if route == 1 else 0)
+
+
 def lbfgs_lml_fit_plan(n, d, p, spec_doubles=0):
     """
     K11's route for ``n`` training rows at dimension ``d``, ``p`` theta
@@ -1486,16 +1516,38 @@ def lbfgs_lml_fit_plan(n, d, p, spec_doubles=0):
     (X staged up to n = 229), route 1 n <= 24,539 (23,843 at d = 32).
     Raises ``ValueError`` beyond route 1.
     """
-    base = 12 * p + _lane_doubles(p) + _K11_NB + _K11_WARPS * _LML_PCHUNK \
-        + 1 + d + spec_doubles + n
-    for route, mat in ((0, _tri(n + 1)), (1, _K11_STAGE)):
-        for stage_x in (1, 0):
-            smem = 8 * (base + mat + stage_x * d * n)
-            if smem <= _SMEM_MAX:
-                return route, stage_x, smem, \
-                    d * n + (_tri(n + 1) if route == 1 else 0)
+    extra = 12 * p + _lane_doubles(p)
+    for route in (0, 1):
+        fits = _lml_fits(n, d, spec_doubles, extra, route)
+        if fits:
+            return (route, *fits, _lml_work(n, d, route))
     raise ValueError(f"lbfgs_lml_fit: n={n} at d={d} (p={p}) exceeds the "
                      "kernel's global route (shared memory).")
+
+
+def lml_value_grad_plan(n, d, spec_doubles=0):
+    """
+    K10's route for ``n`` training rows at dimension ``d`` (a spec program
+    of ``spec_doubles``): ``(route, stage_x, smem_bytes, work_doubles)``,
+    the workspace per block in global memory.  The evaluation is K11's without a lane's state: route 0 keeps the
+    packed bordered triangle in shared memory, route 1 in the block's
+    global workspace with the operands staged through 4,096 doubles, so
+    that two blocks share an SM.  The fast families take route 0 wherever
+    it fits (n <= 237 at d = 8), a spec program route 1 from n = 160 on;
+    route 1 reaches n = 24,807 at d = 8 (fast family), past K11's range at
+    every d.  Raises ``ValueError`` beyond route 1.
+    """
+    route = next((r for r in (0, 1)
+                  if _lml_fits(n, d, spec_doubles, 0, r)), None)
+    if route is None:
+        raise ValueError(f"lml_value_grad: n={n} at d={d} exceeds the "
+                         "kernel's global route (shared memory).")
+    # a spec program's route 1 from _K10_ROUTE1_N rows on (where route 1's
+    # fixed buffer is smaller than route 0's triangle)
+    if route == 0 and spec_doubles > 0 and n >= _K10_ROUTE1_N:
+        route = 1
+    return (route, *_lml_fits(n, d, spec_doubles, 0, route),
+            _lml_work(n, d, route))
 
 
 def check_lbfgs_range(family, d, n, ascent=True):
@@ -1634,8 +1686,9 @@ def lml_value_grad(family, thetas, X, y, n, noise_var, rel_jitter=0.0,
     ``thetas`` (R, p) on the padded data ``X`` (nmax, d), ``y`` (nmax,)
     with ``n`` valid rows and ``noise_var`` a scalar or an (nmax,) vector
     (see :func:`lml_value_grad_plain`); with ``grad``, ``(lml, dlml /
-    dtheta)``.  One launch; a bounded number of blocks loop over the rows,
-    each on its own workspace.
+    dtheta)``.  One launch; as many blocks as the SMs hold at once loop
+    over the rows, each on its own workspace (:func:`lml_value_grad_plan`).
+    Raises ``ValueError`` past the last route, before any launch.
     """
     check_family(family)
     if thetas.device.type == "cpu":
@@ -1645,16 +1698,28 @@ def lml_value_grad(family, thetas, X, y, n, noise_var, rel_jitter=0.0,
     kern, noise, d = _lml_args("lml_value_grad", family, thetas, X, y, n,
                                noise_var)
     R, p = thetas.shape
+    route = lml_value_grad_plan(int(n), d, _spec_doubles(kern))[0]
     lml = torch.empty(R, dtype=torch.float64, device=dev)
     g = torch.empty((R, p), dtype=torch.float64, device=dev) if grad \
         else None
     if R == 0:
         return (lml, g) if grad else lml
     lib = library()
-    per_block = lib.gpry_lml_work_per_block(kern, int(n), d)
+    # the workspace and the blocks an SM holds: the library's own plan
+    sx, smem, per_block, per_sm = ctypes.c_int(), ctypes.c_size_t(), \
+        ctypes.c_size_t(), ctypes.c_int()
+    got = lib.gpry_lml_value_grad_plan(
+        kern, int(n), d, int(grad), ctypes.byref(sx),
+        ctypes.byref(smem), ctypes.byref(per_block), ctypes.byref(per_sm))
+    if got != route or per_sm.value < 1:
+        raise RuntimeError(f"lml_value_grad: the library plans route {got} "
+                           f"({per_sm.value} blocks an SM) where the host "
+                           f"plans {route}.")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(R, 2 * sms, LML_WORK_BUDGET // (8 * per_block)))
-    work = torch.empty(blocks * per_block, dtype=torch.float64, device=dev)
+    blocks = max(1, min(R, per_sm.value * sms,
+                        LML_WORK_BUDGET // (8 * max(1, per_block.value))))
+    work = torch.empty(blocks * per_block.value, dtype=torch.float64,
+                       device=dev)
     rc = lib.gpry_lml_value_grad(
         kern, R, int(n), d, int(grad), blocks, _ptr(thetas), _ptr(X),
         _ptr(y), _ptr(noise), int(noise.numel() > 1), float(rel_jitter),
@@ -1729,4 +1794,5 @@ __all__ = ["KERNELS", "LAUNCHES", "KernelBuildError", "SPEC_MAX_NODES",
            "lbfgs_lml_fit", "lbfgs_lml_fit_plain", "mcmc_chains",
            "mcmc_chains_plain", "NSState", "ns_step", "ns_step_plain",
            "NS_STEP_MAX_NLIVE", "CHAINS_MAX_D", "lbfgs_logexp_ascent_plan",
-           "lbfgs_lml_fit_plan", "check_lbfgs_range"]
+           "lbfgs_lml_fit_plan", "lml_value_grad_plan",
+           "check_lbfgs_range"]

@@ -172,28 +172,73 @@ def _chain_inputs(family, p, B, R, seed=0):
             chol, nrm, u, lo, -lo)
 
 
+def _same_slice_chains(family, p, args):
+    """K6 against its plain version on the same draws: identical calls and
+    -inf masks, x and lx within rel 1e-10, and the passes each chain made
+    those of the kernel's schedule (chip_smoke's replay of the lock-step
+    loop); one launch.  Returns lx, calls and passes."""
+    import chip_smoke
+    key = count_key("ns_slice_chains", family)
+    fam = family_and_theta(family)[0] if family in FAMILIES else family
+    n0 = fused.LAUNCHES[key]
+    x, lx, calls, passes = fused.ns_slice_chains(fam, p, *args,
+                                                 return_passes=True)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[key] == n0 + 1
+    xr, lxr, callsr = fused.ns_slice_chains_plain(fam, p, *args)
+    assert calls.dtype == torch.int64 and torch.equal(calls, callsr)
+    _close(lx, lxr, 1e-10)
+    _close(x, xr, 1e-10)
+    _, replay, _ = chip_smoke.k6_replay(fam, p, args)
+    assert torch.equal(passes, replay)
+    return lx, calls, passes
+
+
 @pytest.mark.parametrize("svm", ["fitted", "all_finite"])
-@pytest.mark.parametrize("B", [33, 66])
+@pytest.mark.parametrize("B", [1, 33, 66, 132])
 @pytest.mark.parametrize("family", FAMILIES)
 def test_ns_slice_chains_kernel(dev, family, B, svm):
     """K6 against its plain version (the lock-step loop on plain K1) on the
-    same draws, with the SVM fitted and all finite: identical calls,
-    identical -inf masks, x and lx within rel 1e-10; one launch for all
-    chains and repeats."""
+    same draws, with the SVM fitted and all finite, from one chain to one
+    a SM: identical calls, identical -inf masks, x and lx within rel 1e-10,
+    the schedule's passes; one launch for all chains and repeats."""
     p = surrogate(family, dev, svm=svm)
-    key = count_key("ns_slice_chains", family)
-    family = family_and_theta(family)[0]
-    args = _chain_inputs(family, p, B, R=12)
-    n0 = fused.LAUNCHES[key]
-    x, lx, calls = fused.ns_slice_chains(family, p, *args)
-    torch.cuda.synchronize()
-    assert fused.LAUNCHES[key] == n0 + 1
-    xr, lxr, callsr = fused.ns_slice_chains_plain(family, p, *args)
-    assert calls.dtype == torch.int64 and torch.equal(calls, callsr)
+    args = _chain_inputs(family_and_theta(family)[0], p, B, R=12)
+    lx, calls, _ = _same_slice_chains(family, p, args)
     assert int(calls.min()) >= 12 * 3
-    _close(lx, lxr, 1e-10)
-    _close(x, xr, 1e-10)
     assert bool((lx > args[2]).all())
+
+
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+def test_ns_slice_chains_step_out_cap(dev, family):
+    """Steps far shorter than the slice and lstar below every value: each
+    end doubles the 6 times of the cap (2 + 12 calls), and the first shrink
+    is accepted: 15 calls a repeat, as the plain version, in 2 passes (both
+    whole ladders, the shrink)."""
+    p = surrogate(family, dev, svm="all_finite")
+    x0, lx0, _, chol, nrm, u, lo, hi = _chain_inputs(
+        family_and_theta(family)[0], p, 33, R=6)
+    lstar = torch.tensor(-1e300, dtype=torch.float64, device=dev)
+    args = (x0, lx0, lstar, 1e-9 * chol, nrm, u, lo, hi)
+    _, calls, passes = _same_slice_chains(family, p, args)
+    assert torch.equal(calls, torch.full_like(calls, 6 * 15))
+    assert torch.equal(passes, torch.full_like(passes, 6 * 2))
+
+
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+def test_ns_slice_chains_every_shrink_misses(dev, family):
+    """lstar above every value: no end steps out, all 30 shrinks miss (32
+    calls a repeat, ceil(30 / 4) shrink passes) and no chain moves."""
+    p = surrogate(family, dev)
+    x0, lx0, _, chol, nrm, u, lo, hi = _chain_inputs(
+        family_and_theta(family)[0], p, 33, R=5)
+    lstar = torch.tensor(1e300, dtype=torch.float64, device=dev)
+    args = (x0, lx0, lstar, chol, nrm, u, lo, hi)
+    _, calls, passes = _same_slice_chains(family, p, args)
+    assert torch.equal(calls, torch.full_like(calls, 5 * 32))
+    assert torch.equal(passes, torch.full_like(passes, 5 * (1 + 8)))
+    x, lx, _ = fused.ns_slice_chains(family_and_theta(family)[0], p, *args)
+    assert torch.equal(x, x0) and torch.equal(lx, lx0)
 
 
 @pytest.mark.parametrize("n,nmax,nsv,work", [
@@ -596,18 +641,60 @@ def test_lml_value_grad_kernel(dev, family, noise, n, nmax):
     assert _rel_max(g, gr) <= 1e-8
 
 
-def test_lml_value_grad_non_pd_row(dev):
+# K10 on both sides of its route edges at d = 8: a spec program's route 1
+# from n = 160 on, a fast family's route 0 up to n = 237
+K10_EDGE_NS = (159, 160, 237, 238)
+
+
+@pytest.mark.parametrize("R", (1, 7, 2049))
+@pytest.mark.parametrize("n", K10_EDGE_NS)
+@pytest.mark.parametrize("noise", ["scalar", "vector"])
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+def test_lml_value_grad_kernel_edges(dev, family, noise, n, R):
+    """K10 at d = 8 on both sides of its route edges, from one row to more
+    rows than the grid's blocks, each n on the route the plan gives it,
+    against the plain version (value within rel 1e-10; the gradient of the
+    first rows within 1e-8 of max |g|); one launch a call."""
+    d, nmax = 8, 240
+    X, y = _lml_data(dev, n, nmax, d=d)
+    key = count_key("lml_value_grad", family)
+    fam, th = _lml_thetas(family, dev, R, d=d)
+    nv = torch.tensor(1e-4, dtype=torch.float64, device=dev) \
+        if noise == "scalar" else torch.linspace(
+            1e-5, 1e-3, nmax, dtype=torch.float64, device=dev)
+    ref = fused.lml_value_grad_plain(fam, th, X, y, n, nv)
+    ref_g, gr = fused.lml_value_grad_plain(fam, th[:4], X, y, n, nv,
+                                           grad=True)
+    assert bool(torch.isfinite(ref).all())
+    sd = fused._spec_doubles(fused._kern(fam, d, dev))
+    edge = 160 if family == "all_nodes" else 238
+    assert fused.lml_value_grad_plan(n, d, sd)[0] == int(n >= edge)
+    n0 = fused.LAUNCHES[key]
+    lml = fused.lml_value_grad(fam, th, X, y, n, nv)
+    lml_g, g = fused.lml_value_grad(fam, th[:4], X, y, n, nv, grad=True)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[key] == n0 + 2
+    assert float(torch.max(torch.abs(lml - ref) / torch.abs(ref))) <= 1e-10
+    assert float(torch.max(torch.abs(lml_g - ref_g)
+                           / torch.abs(ref_g))) <= 1e-10
+    assert _rel_max(g, gr) <= 1e-8
+
+
+@pytest.mark.parametrize("n,route", ((30, 0), (238, 1)))
+def test_lml_value_grad_non_pd_row(dev, n, route):
     """A variance that underflows to 0 over a zero noise entry makes the
-    first pivot 0: the row is NaN in K10 and its plain version, value and
-    gradient, and the other rows stay finite."""
-    X, y = _lml_data(dev, 30, 32)
+    first pivot 0: the row is NaN in K10 (on either route: n = 30 keeps the
+    triangle in shared memory, n = 238 in global memory) and its plain
+    version, value and gradient, and the other rows stay finite."""
+    X, y = _lml_data(dev, n, n + 2)
     fam, th = _lml_thetas("rbf", dev, 3)
     th[0, 0] = -800.0
-    nv = torch.full((32,), 1e-4, dtype=torch.float64, device=dev)
+    nv = torch.full((n + 2,), 1e-4, dtype=torch.float64, device=dev)
     nv[0] = 0.0
-    lml = fused.lml_value_grad(fam, th, X, y, 30, nv)
-    _, g = fused.lml_value_grad(fam, th, X, y, 30, nv, grad=True)
-    ref, gr = fused.lml_value_grad_plain(fam, th, X, y, 30, nv, grad=True)
+    assert fused.lml_value_grad_plan(n, 3)[0] == route
+    lml = fused.lml_value_grad(fam, th, X, y, n, nv)
+    _, g = fused.lml_value_grad(fam, th, X, y, n, nv, grad=True)
+    ref, gr = fused.lml_value_grad_plain(fam, th, X, y, n, nv, grad=True)
     assert bool(torch.isnan(ref[0])) and bool(torch.isnan(lml[0]))
     assert bool(torch.isnan(g[0]).all())
     assert bool(torch.isfinite(lml[1:]).all())
@@ -859,10 +946,10 @@ def _plan_edges(plan):
 @pytest.mark.parametrize("d", (2, 8, 32))
 def test_lbfgs_plans_match_the_kernels(dev, family, d):
     """The host planners (fused.lbfgs_logexp_ascent_plan,
-    fused.lbfgs_lml_fit_plan) give the kernels' own routes, shared memory
-    and workspace for every n up to 400 and around the last n of each
-    route, and the wrappers raise ValueError just past the last route,
-    before any launch."""
+    fused.lbfgs_lml_fit_plan, fused.lml_value_grad_plan) give the kernels' own routes, shared memory and
+    workspace for every n up to 400 and around the last n of each route,
+    and the wrappers raise ValueError just past the last route, before any
+    launch."""
     lib = fused.library()
     fam = family_and_theta(family, d)[0]
     kern = fused._kern(fam, d, dev)
@@ -871,9 +958,10 @@ def test_lbfgs_plans_match_the_kernels(dev, family, d):
     k9 = _plan_edges(lambda n: fused.lbfgs_logexp_ascent_plan(n, d, sd))
     k11 = _plan_edges(lambda n: fused.lbfgs_lml_fit_plan(n, d, kern.ntheta,
                                                          sd))
-    assert len(k9) == 3 and len(k11) == 2
+    k10 = _plan_edges(lambda n: fused.lml_value_grad_plan(n, d, sd))
+    assert len(k9) == 3 and len(k11) == 2 and len(k10) == 2
     ns = set(range(1, 400))
-    for e in k9 + k11:
+    for e in k9 + k11 + k10:
         ns |= set(range(e - 24, e + 25))
     for n in sorted(ns):
         route = lib.gpry_lbfgs_logexp_ascent_plan(kern, n, d,
@@ -892,6 +980,24 @@ def test_lbfgs_plans_match_the_kernels(dev, family, d):
         except ValueError:
             py = (-1, 0, 0, 0)
         assert py == (route, sx.value, sm.value, wk.value)
+        route = lib.gpry_lml_value_grad_plan(
+            kern, n, d, 0, ctypes.byref(sx), ctypes.byref(sm),
+            ctypes.byref(wk), None)
+        try:
+            py = fused.lml_value_grad_plan(n, d, sd)
+        except ValueError:
+            py = (-1, 0, 0, 0)
+        assert py == (route, sx.value, sm.value, wk.value)
+    n0 = dict(fused.LAUNCHES)
+    n = k10[-1] + 1
+    X = torch.zeros((n, d), dtype=torch.float64, device=dev)
+    y = torch.zeros(n, dtype=torch.float64, device=dev)
+    th0 = torch.as_tensor(family_and_theta(family, d)[1], device=dev)[None]
+    with pytest.raises(ValueError, match="exceeds"):
+        fused.lml_value_grad(fam, th0, X, y, n, torch.tensor(
+            1e-4, dtype=torch.float64, device=dev))
+    assert fused.LAUNCHES == n0
+    del X, y
     n = k11[-1] + 1
     X = torch.zeros((n, d), dtype=torch.float64, device=dev)
     y = torch.zeros(n, dtype=torch.float64, device=dev)
@@ -1217,18 +1323,21 @@ def test_ns_step_refuses_large_nlive(dev):
         fused.ns_step(st, *chains, starts, *consts)
 
 
-def test_ns_slice_chains_done_flag(dev):
-    """With the run's stop flag set, K6 returns the starts and no call; with
-    it clear it runs as without it."""
-    p = surrogate("rbf", dev)
-    args = _chain_inputs("rbf", p, 33, R=4)
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+def test_ns_slice_chains_done_flag(dev, family):
+    """With the run's stop flag set, K6 returns the starts and no call (a
+    spec program's cluster of two blocks too); with it clear it runs as
+    without it."""
+    p = surrogate(family, dev)
+    fam = family_and_theta(family)[0]
+    args = _chain_inputs(fam, p, 33, R=4)
     flag = torch.ones(1, dtype=torch.int32, device=dev)
-    x, lx, calls = fused.ns_slice_chains("rbf", p, *args, flag)
+    x, lx, calls = fused.ns_slice_chains(fam, p, *args, flag)
     assert torch.equal(x, args[0]) and torch.equal(lx, args[1])
     assert int(calls.abs().sum()) == 0
     flag.zero_()
-    x, lx, calls = fused.ns_slice_chains("rbf", p, *args, flag)
-    xr, lxr, callsr = fused.ns_slice_chains("rbf", p, *args)
+    x, lx, calls = fused.ns_slice_chains(fam, p, *args, flag)
+    xr, lxr, callsr = fused.ns_slice_chains(fam, p, *args)
     assert torch.equal(x, xr) and torch.equal(calls, callsr)
 
 

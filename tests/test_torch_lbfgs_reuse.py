@@ -15,9 +15,9 @@ given.  A failed line search (t = 0) evaluates at u + 0 d = u: its f is the
 one the lane holds.
 
 The route planners (``fused.lbfgs_logexp_ascent_plan``,
-``fused.lbfgs_lml_fit_plan``) mirror the kernels' own sizing
-(``k9_route``, ``k11_route``); the card tests hold the two to the same
-numbers.
+``fused.lbfgs_lml_fit_plan``, ``fused.lml_value_grad_plan``) mirror the
+kernels' own sizing (``k9_route``, ``lml_route``, ``k10_route``); the card
+tests hold the two to the same numbers.
 """
 
 import copy
@@ -248,6 +248,10 @@ def test_failed_search_keeps_the_held_value(solver, recorder):
 K9_EDGES_D8 = {"route0": 235, "stage_x": 227, "route1": 12180,
                "route2": 13236}
 K11_EDGES_D8 = {"route0": 236, "stage_x": 229, "route1": 24539}
+# K10 (csrc/lml_value_grad.cu) runs K11's evaluation without a lane's
+# state: a fast family's route 0 up to n = 237, route 1 up to n = 24,807
+# at d = 8; a spec program's route 1 from n = 160 on (K10_ROUTE1_N)
+K10_EDGES_D8 = {"route0": 237, "route1": 24807, "spec_route1": 160}
 SMEM_MAX = 232448
 
 
@@ -323,6 +327,55 @@ def test_fit_plan(d, nodes, p):
         assert last[0] == K11_EDGES_D8["route0"]
         assert max(staged_x) == K11_EDGES_D8["stage_x"]
         assert last[1] == K11_EDGES_D8["route1"]
+
+
+@pytest.mark.parametrize("d,nodes,p", PLAN_CASES)
+def test_lml_value_grad_plan(d, nodes, p):
+    """K10's planner for every n up to the largest it takes: route 0 where
+    its triangle fits (a spec program's below n = 160), route 1 from there
+    on, the shared memory within the 232,448 bytes a block may have, each n
+    once, at least K11's range; ValueError just past the last n."""
+    sd = spec_doubles(nodes, p)
+    last, plans, stop = walk_routes(
+        lambda n: fused.lml_value_grad_plan(n, d, sd))
+    routes = [plans[n][0] for n in sorted(plans)]
+    edge = 160 if nodes else last[0] + 1
+    assert routes == [0] * (edge - 1) + [1] * (stop - edge)
+    assert all(0 < plans[n][2] <= SMEM_MAX for n in plans)
+    for n, (route, _, _, work) in plans.items():
+        tri = (n + 1) * (n + 2) // 2
+        assert work == d * n + (tri if route == 1 else 0)
+    k11_last = max(walk_routes(
+        lambda n: fused.lbfgs_lml_fit_plan(n, d, p, sd))[0].values())
+    assert last[1] >= k11_last
+    with pytest.raises(ValueError, match="exceeds"):
+        fused.lml_value_grad_plan(stop, d, sd)
+    # a fast family leaves route 0 only where its triangle stops fitting
+    assert nodes or fused._lml_fits(last[0] + 1, d, sd, 0, 0) is None
+    if (d, nodes) == (8, 0):
+        assert last[0] == K10_EDGES_D8["route0"]
+        assert last[1] == K10_EDGES_D8["route1"]
+    if (d, nodes) == (8, 14):
+        assert last[0] == K10_EDGES_D8["spec_route1"] - 1
+
+
+@pytest.mark.parametrize("n,route", [(224, 0), (236, 0), (237, 0),
+                                     (238, 1), (K10_EDGES_D8["route1"], 1)])
+def test_lml_value_grad_plan_at_the_main_path(n, route):
+    """K10's route at the screen's n = 224, around K11's route-0 edge (236,
+    237), at its own (237, 238) and at the last n at d = 8, fast family:
+    route 0 keeps the triangle in shared memory (with X at n = 224), one
+    block an SM, and ALL_NODES takes route 1 there; one past the last n
+    raises."""
+    assert fused.lml_value_grad_plan(n, 8)[0] == route
+    if n == 224:
+        route0 = fused.lml_value_grad_plan(n, 8)
+        assert route0[1] == 1 and route0[2] > SMEM_MAX // 2
+        assert route0[3] == 8 * n
+        assert fused.lml_value_grad_plan(n, 8, spec_doubles(14, 16))[0] == 1
+    if n == K10_EDGES_D8["route1"]:
+        with pytest.raises(ValueError, match="exceeds"):
+            fused.lml_value_grad_plan(n + 1, 8)
 
 
 @pytest.mark.parametrize("d", range(1, fused.GRAD_MAX_D + 1))

@@ -199,3 +199,32 @@ def test_nested_surrogate_route_is_k6(family, monkeypatch):
     assert torch.equal(res_k6.X, res_plain.X)
     assert torch.equal(res_k6.logl, res_plain.logl)
     assert res_k6.n_calls == res_plain.n_calls
+
+
+@pytest.mark.parametrize("lstar", [-1e300, 1e300])
+@pytest.mark.parametrize("family", ["rbf", "matern32"])
+def test_k6_replay_counts_the_kernels_passes(family, lstar):
+    """chip_smoke.py's replay of the lock-step loop, which holds K6's passes
+    on the card, counts per repeat one pass for both step-out ladders and
+    ceil(shrinks / 4) shrink passes: with lstar below every value each end
+    doubles its 6 times and the first shrink is accepted (15 calls, 2
+    passes); above every value no end steps out and all 30 shrinks miss
+    (32 calls, 1 + 8 passes).  The plain version makes the same calls; the
+    passes, which only the kernel makes, are refused on the CPU."""
+    import chip_smoke
+    family, p_j = jax_surrogate(family, True)
+    p = ported(p_j)
+    x0, l0, _, chol = (T(a) for a in chain_inputs(family, p_j))
+    rng = np.random.default_rng(11)
+    nrm = T(rng.normal(size=(R, B, D)))
+    u = T(rng.uniform(size=(R, 1 + fused.NS_SHRINKS, B)))
+    lo, hi = T(BOUNDS[:, 0]), T(BOUNDS[:, 1])
+    low = lstar < 0
+    args = (x0, l0, T(lstar), 1e-9 * chol if low else chol, nrm, u, lo, hi)
+    _, passes, stepwise = chip_smoke.k6_replay(family, p, args)
+    _, _, calls = fused.ns_slice_chains_plain(family, p, *args)
+    per_repeat = (15, 2, 1 + 6 + 1) if low else (32, 1 + 8, 1 + 30)
+    for got, want in zip((calls, passes, stepwise), per_repeat):
+        assert torch.equal(got, torch.full((B,), R * want))
+    with pytest.raises(ValueError, match="passes"):
+        fused.ns_slice_chains(family, p, *args, return_passes=True)
