@@ -38,7 +38,15 @@ Drive gpry_tpu_torch once on one CUDA card.
    the sums of the evaluations their plain versions make (iterations and
    nev).  K10 is also timed against the route it replaces (K3,
    ``cholesky_ex`` and ``solve_triangular``).
-3. Drive eight paths, each with the launch counts set to 0 just before it
+3. Drive eight paths (before the checks of 2, after one throwaway trace
+   that takes the profiler's start-up, each path under a
+   ``torch.profiler`` trace of its own, CUDA activity: each kernel's device
+   ms by path, the launches the traces hold, ``rank_s`` = device s -
+   launches x the bound of one launch, and each path's device busy share
+   over its run inside the trace; a trace that holds no device activity
+   makes its path's device ms and every rank_s null, and the ranking is
+   not printed),
+   each with the launch counts set to 0 just before it
    and read just after, and check that each launched its kernels (K9 once
    per believer step on paths a, f and h; on the paths that fit, a, b, c,
    e, f and h, K11 once per fit that polishes and K10 once per LML screen
@@ -237,9 +245,15 @@ K12_CONFIGS, K12_BIG, K12_BOX = ((8, 16), (32, 64)), (4000, 4096), 10.0
 K12_WARMUP, K12_SAMPLING, K12_STEPS = 1000, 2000, 50
 TOL_K12_X, TOL_K12_LP, K12_SE, TOL_K12_ACC, K12_RHAT = \
     1e-12, 1e-10, 4.0, 0.02, 1.2
-# K13 on crafted states at these (nlive, d), timed at the final NS's
+# K13 on crafted states at these (nlive, d), and through runs of 24 steps
+# with K6-like new points of these kinds; timed at the final NS's (the
+# row's) and at the largest
 K13_SHAPES, K13_TIMED, TOL_K13_CHOL = ((200, 8), (400, 8), (3200, 64)), \
-    (400, 8), 1e-12
+    ((400, 8), (3200, 64)), 1e-12
+K13_KINDS = ("ties", "neg_inf", "nan", "plateau")
+# K2 at the believer's one-point predict, a small batch and the
+# acquisition screen
+K2_NQ = (1, 8, 3200)
 # K1's launches on paths a, b, c and e when every slice step was a K1
 # call (the chip run of the commit before K6; PERF.md, section 6)
 LOCKSTEP_K1_LAUNCHES = {"batchoptimizer": 284164, "nora_bench": 199803,
@@ -275,6 +289,25 @@ PATH_KERNELS = {
     "bo_bench": ("gated_meanvar_logexp", "masked_kernel_matrix_batched",
                  "lbfgs_logexp_ascent", "lml_value_grad", "lbfgs_lml_fit"),
 }
+# the thirteen kernels' symbols, by row of the kernels line
+SYMBOLS = {"gated_mean_kernel": "gated_mean",
+           "gated_mean_small_kernel": "gated_mean",
+           "gated_meanvar_blocked": "gated_meanvar_logexp",
+           "gated_meanvar_chain": "gated_meanvar_logexp",
+           "masked_kernel_matrix_kernel": "masked_kernel_matrix_batched",
+           "kb_sweep_kernel": "kriging_believer_fill",
+           "kb_select_kernel": "kriging_believer_fill",
+           "meanvar_ungated_kernel": "meanvar_ungated",
+           "ns_slice_chains_kernel": "ns_slice_chains",
+           "meancov_solve_kernel": "predict_meancov",
+           "meancov_solve_blocked": "predict_meancov",
+           "meancov_cov_kernel": "predict_meancov",
+           "meanstd_grad_kernel": "meanstd_grad",
+           "lbfgs_logexp_ascent_kernel": "lbfgs_logexp_ascent",
+           "lml_value_grad_kernel": "lml_value_grad",
+           "lbfgs_lml_fit_kernel": "lbfgs_lml_fit",
+           "mcmc_chains_kernel": "mcmc_chains",
+           "ns_step_kernel": "ns_step"}
 # the paths whose BatchOptimizer must launch K9 once per believer step
 BELIEVER_PATHS = {"batchoptimizer": "lbfgs_logexp_ascent",
                   "spec_runner": "lbfgs_logexp_ascent/spec",
@@ -311,25 +344,98 @@ def time_ms(fn, reps):
 
 def kernel_device_ms(fn, name, reps):
     """Mean duration in ms of the device kernels whose name contains
-    ``name`` in a ``torch.profiler`` trace of ``reps`` calls of ``fn``
-    (after one warm-up call; over the launches the trace holds, which may
-    miss one): the kernel's own time on the card, without the host's
-    launch."""
+    ``name`` in a ``torch.profiler`` trace (CUDA activity) of ``reps``
+    calls of ``fn`` (after one warm-up call; over the launches the trace
+    holds, which may miss one): the kernel's own time on the card, without
+    the host's launch.  None where two traces in a row held no launch of
+    it (after many traces in one process a trace may hold no device
+    activity at all): a device time is never stood in for by another
+    clock's."""
     import torch
     from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    durs = [e.time_range.elapsed_us() for e in prof.events()
-            if e.device_type == DeviceType.CUDA and name in e.name]
-    if not durs:
-        raise AssertionError(f"the profiler saw no launch of {name}")
-    return 1e-3 * sum(durs) / len(durs)
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(2):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        durs = [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA and name in e.name]
+        if durs:
+            return 1e-3 * sum(durs) / len(durs)
+    log(f"[TRACE] the profiler saw no launch of {name}: its device ms is "
+        "not measured (null)")
+    return None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def busy_us(events):
+    """Union of the device intervals of ``events`` in microseconds."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, cur_s, cur_e = 0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def kernel_row(name):
+    """(row of the kernels line, symbol) of a device kernel's name in a
+    torch.profiler trace ("void <symbol><SPEC, ...>(...)": the spec
+    instance by its first template argument), or None for a kernel that is
+    not one of the thirteen (torch's own, and the staging kernel that K6
+    and K12 launch first where the surrogate is too large for shared
+    memory)."""
+    name = name[5:] if name.startswith("void ") else name
+    symbol = name.split("<", 1)[0].split("(", 1)[0]
+    row = SYMBOLS.get(symbol)
+    if row is None:
+        return None
+    return row + ("/spec" if name[len(symbol):].startswith("<true")
+                  else ""), symbol
+
+
+def device_split(prof, wall_s):
+    """A path's device time from its torch.profiler trace: ms and
+    launches by row of the kernels line (launches by symbol, so K4's sweep
+    and select apart, K7's two kernels apart), the other device work, and
+    the device's busy share (the union of every device interval over
+    ``wall_s``, the path's own run inside the trace)."""
+    from torch.autograd import DeviceType
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        # a trace now and then holds no device activity (not a fault of
+        # the path): its device figures are then null (rank_of), not 0
+        log("[TRACE] the profiler saw no device activity on this path")
+        return {"kernel_ms": None, "kernel_launches": {},
+                "other_device_ms": None, "busy_ms": None, "wall_s": wall_s,
+                "busy_share": None, "trace_empty": True}
+    ms, launches, other = {}, {}, 0.0
+    for e in events:
+        us = e.time_range.elapsed_us()
+        hit = kernel_row(e.name)
+        if hit is None:
+            other += 1e-3 * us
+            continue
+        row, symbol = hit
+        ms[row] = ms.get(row, 0.0) + 1e-3 * us
+        launches.setdefault(row, {})
+        launches[row][symbol] = launches[row].get(symbol, 0) + 1
+    busy = 1e-3 * busy_us(events)
+    return {"kernel_ms": ms, "kernel_launches": launches,
+            "other_device_ms": other, "busy_ms": busy, "wall_s": wall_s,
+            "busy_share": 1e-3 * busy / wall_s, "trace_empty": False}
 
 
 def rel_err(a, b):
@@ -766,7 +872,7 @@ def check_k6(dev, families, timed, configs):
                      **bound(sum_flops(n_svm, n_gp, fam), nbytes)}
             row["shapes"][f"B={B} svm={svm}"] = shape
             log(f"[K6] {label} svm {svm} B={B} R={K6_R}: kernel {ms:.4f} ms "
-                f"back to back, {dev_ms:.4f} ms on the card; plain "
+                f"back to back, {fmt_ms(dev_ms)} ms on the card; plain "
                 f"{plain:.1f} ms; {shape['calls']} calls, {len(pts)} "
                 f"evaluations, {n_svm} SVM and {n_gp} GP sums needed; "
                 f"bound {shape['bound_ms']:.6f} ms")
@@ -969,18 +1075,36 @@ def check_k12(dev, families, timed):
                                    "flops", "bytes")}}
 
 
+def k13_bound(nlive, d, B, k):
+    """K13's bound for one step on ``st`` (the live set, the k dead
+    entries' three arrays and the B points it moves, against its merge,
+    logsumexps, covariance and factor)."""
+    lg = max(1, (B - 1).bit_length())
+    ns = nlive - B
+    flops = 2 * (k + nlive) + B * (B + lg) + ns * lg + ns * d * (d + 1) \
+        + ns * d + d ** 3 / 3
+    nbytes = 8 * (nlive * (d + 1) + 3 * k + 4 * B * (d + 1) + d * d
+                  + 3 * B) + 4 * nlive + 8 * 5
+    return bound(flops, nbytes)
+
+
 def check_k13(dev):
     """K13 against its plain version on crafted states (the kinds of
     tests/test_torch_cuda.py's ns_state, two seeds) at nlive 200 and 400
     (d = 8) and 3,200 (d = 64): the same stop flag, kill order, dead
-    buffer, lstar and starts, the Cholesky factor within TOL_K13_CHOL of
-    its largest entry; after the previous chains are applied, the same
-    live set, k, calls and steps.  Timed at
-    the final NS's nlive = 400 halfway through its dead buffer ("mid"), each
-    call applying a kill and selecting the next."""
+    buffer, lstar, starts and live order, the Cholesky factor within
+    TOL_K13_CHOL of its largest entry; after the previous chains are
+    applied, the same live set, k, calls and steps.  Then through runs of
+    24 steps with K6-like new points (ns_step_sequence: ties, -inf, NaN, a
+    plateau; the live order kept, lost and refused), every output compared
+    after every step.  Timed (device ms, torch.profiler) halfway through
+    the dead buffer ("mid") at K13_TIMED, each call applying a kill and
+    selecting the next: the steady state of a run (the live order known:
+    the merge) and a run's first step (the order unknown: the full
+    sort)."""
     import torch
     from gpry_tpu_torch.ops import fused
-    from test_torch_cuda import ns_state
+    from test_torch_cuda import ns_state, ns_step_sequence
     worst = 0.0
     for nlive, d in K13_SHAPES:
         for kind in ("ties", "neg_inf", "full", "converged", "plateau",
@@ -997,7 +1121,8 @@ def check_k13(dev):
                     raise AssertionError("K13: not one launch")
                 label = f"nlive={nlive} d={d} {kind} seed {seed}"
                 for name in ("done", "count", "kill", "dead_X", "dead_logl",
-                             "x0", "lx0", "lstar", "live_X", "live_logl"):
+                             "x0", "lx0", "lstar", "live_X", "live_logl",
+                             "order"):
                     if not torch.equal(getattr(st, name), getattr(ref, name)):
                         raise AssertionError(f"K13 {label}: {name} differs")
                 if not torch.equal(torch.isnan(st.chol),
@@ -1015,45 +1140,63 @@ def check_k13(dev):
                 fused.ns_step_plain(ref, *chains, starts, *consts,
                                     select=False)
                 sync()
-                for name in ("done", "count", "live_X", "live_logl"):
+                for name in ("done", "count", "live_X", "live_logl",
+                             "order"):
                     if not torch.equal(getattr(st, name), getattr(ref, name)):
                         raise AssertionError(f"K13 {label}: {name} differs "
                                              "after the apply")
             log(f"[K13] nlive={nlive} d={d} {kind}: identical (done "
                 f"{int(st.done)})")
-    # timing: every call applies the pending kill and selects the next
-    nlive, d = K13_TIMED
-    st, starts, chains, consts = ns_state(dev, nlive, d, "mid")
-    B = nlive // 6
-    k = int(st.count[0])
-    c0 = torch.tensor([k, 0, 0, 1], dtype=torch.int64, device=dev)
-    ref = fused.NSState(*(t.clone() for t in st))
+        for kind in K13_KINDS:
+            st, ref = ns_step_sequence(dev, nlive, d, kind)
+            fin = ~torch.isnan(ref.chol)
+            if bool(fin.any()):
+                worst = max(worst, float(torch.max(torch.abs(
+                    st.chol[fin] - ref.chol[fin]))))
+            log(f"[K13] nlive={nlive} d={d} 24 steps of {kind}: identical "
+                f"(done {int(st.done)}, k {int(st.count[0])})")
+    shapes = {}
+    for nlive, d in K13_TIMED:
+        st, starts, chains, consts = ns_state(dev, nlive, d, "mid")
+        fused.ns_step(st, *chains, starts, *consts)
+        ref = fused.NSState(*(t.clone() for t in st))
+        c0 = st.count.clone()
+        B, k = nlive // 6, int(c0[0])
 
-    def call(step, state):
-        state.count.copy_(c0)
-        step(state, *chains, starts, *consts)
+        def call(step, state, first=False):
+            state.count.copy_(c0)
+            if first:
+                state.order.fill_(-1)
+            step(state, *chains, starts, *consts)
 
-    ms = time_ms(lambda: call(fused.ns_step, st), 200)
-    dev_ms = kernel_device_ms(lambda: call(fused.ns_step, st),
-                              "ns_step_kernel", 50)
-    plain = time_ms(lambda: call(fused.ns_step_plain, ref), 20)
-    if int(st.done) or int(st.count[3]) != 1:
-        raise AssertionError("K13: the timed state stopped")
-    P = 1 << (nlive - 1).bit_length()
-    lg = P.bit_length() - 1
-    ns = nlive - B
-    flops = 2 * (k + nlive) + ns * d * (d + 1) + ns * d + d ** 3 / 3 \
-        + P * lg * (lg + 1) / 4
-    nbytes = 8 * (nlive * (d + 1) + 3 * k + 4 * B * (d + 1) + d * d
-                  + 3 * B) + 8 * 5
-    row = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain, "k": k,
-           "max_abs_err": worst, **bound(flops, nbytes),
-           "shape": f"nlive={nlive} d={d} B={B} max_dead_tot="
-                    f"{st.dead_logl.shape[0]} k={k}"}
-    log(f"[K13] {row['shape']}: kernel {ms:.4f} ms back to back (with a "
-        f"4-entry copy), {dev_ms:.4f} ms on the card; plain {plain:.3f} ms; "
-        f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
-    return row
+        ms = time_ms(lambda: call(fused.ns_step, st), 200)
+        dev_ms = kernel_device_ms(lambda: call(fused.ns_step, st),
+                                  "ns_step_kernel", 50)
+        first_ms = kernel_device_ms(lambda: call(fused.ns_step, st, True),
+                                    "ns_step_kernel", 50)
+        plain = time_ms(lambda: call(fused.ns_step_plain, ref), 20)
+        if int(st.done) or int(st.count[3]) != 1 or int(st.order[0]) < 0:
+            raise AssertionError("K13: the timed state stopped")
+        # ms: the device time; CUDA events' (the launch included) only
+        # where the profiler saw no launch, and ms_of then says so
+        row = {"ms": ms if dev_ms is None else dev_ms,
+               "ms_of": "CUDA events" if dev_ms is None else
+               "device (torch.profiler)", "device_ms": dev_ms,
+               "events_ms": ms, "first_step_ms": first_ms,
+               "plain_ms": plain, "k": k, **k13_bound(nlive, d, B, k),
+               "shape": f"nlive={nlive} d={d} B={B} max_dead_tot="
+                        f"{st.dead_logl.shape[0]} k={k}"}
+        shapes[f"nlive={nlive} d={d}"] = row
+        log(f"[K13] {row['shape']}: steady step {fmt_ms(dev_ms)} ms on "
+            f"the card ({ms:.4f} ms back to back with a 4-entry copy), "
+            f"first step (the full sort) {fmt_ms(first_ms)} ms; plain "
+            f"{plain:.3f} "
+            f"ms; bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+    top = shapes[f"nlive={K13_TIMED[0][0]} d={K13_TIMED[0][1]}"]
+    return {"max_abs_err": worst, "shapes": shapes,
+            **{k: top[k] for k in ("ms", "ms_of", "device_ms", "events_ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "flops", "bytes", "shape")}}
 
 
 def check_k1(dev, rng, families, timed, sizes):
@@ -1114,50 +1257,93 @@ def check_k1(dev, rng, families, timed, sizes):
                                    "flops", "bytes")}}
 
 
+def k2_bound(family, nq):
+    """K2's bound at nq queries (n = N of NMAX, d = D): per query the k
+    vector and the SVM sum, the length-n forward substitution (n^2 / 2
+    multiply-adds), the mean and the sum of squares; the queries, the
+    training set, the triangle of L, the support vectors in, the outputs
+    out."""
+    return bound(
+        nq * (N * pair_flops(family) + NSV * (3 * D + 3) + N * N + 4 * N),
+        8 * (nq * D + nq + N * D + N + N * (N + 1) // 2 + NSV * (D + 1)
+             + 4 * D))
+
+
+def k2_queries(p, rng, nq, dev):
+    """K2's queries: at the screen's nq uniform over [-5, 5]^D (across and
+    outside the trust box); in a small batch (nq < 16) the first two
+    thirds (at least one) inside the trust box where the SVM says finite,
+    so that their values pass the gates, the rest over [-5, 5]^D."""
+    import numpy as np
+    import torch
+    from gpry_tpu_torch.models.classifier import svm_decision
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    if nq >= 16:
+        return t(rng.uniform(-5, 5, (nq, D)))
+    inside = (2 * nq + 2) // 3
+    cand = t(rng.uniform(-4.5, 4.5, (64 * inside, D)))
+    ok = cand[svm_decision(p.svm, (cand - p.x_loc) / p.x_scale)]
+    if ok.shape[0] < inside:
+        raise AssertionError("K2: too few draws pass the gates")
+    return torch.cat([ok[:inside], t(rng.uniform(-5, 5, (nq - inside, D)))])
+
+
 def check_k2(dev, rng, families, timed):
-    """K2 at the acquisition screen, in both output modes."""
+    """K2 at the acquisition screen's nq = K2_NQ[-1] and the believer's
+    small batches (K2_NQ; k2_queries), in both output modes, each compared
+    at TOL_K2 on at least one value that passed the gates; timed at each
+    (CUDA events back to back, and at the small batches the kernel's
+    device time in a torch.profiler trace)."""
     import torch
     from gpry_tpu_torch.ops import fused
     worst = 0.0
-    nq = 3200
-    row = {}
+    shapes = {}
+    lexp = (D ** -0.85, 0.01)
     for fam in families:
         label = "spec" if is_spec(fam) else fam
         p = synthetic_surrogate(fam, dev, seed=12)
-        Xq = torch.as_tensor(rng.uniform(-5, 5, (nq, D)),
-                             dtype=torch.float64, device=dev)
-        ma, sa = fused.gated_meanvar_logexp(fam, p, Xq)
-        mb, sb = fused.gated_meanvar_logexp_plain(fam, p, Xq)
-        lexp = (D ** -0.85, 0.01)
-        la = fused.gated_meanvar_logexp(fam, p, Xq, logexp=lexp)
-        lb = fused.gated_meanvar_logexp_plain(fam, p, Xq, logexp=lexp)
-        torch.cuda.synchronize()
-        for what, a, b in (("mean", ma, mb), ("std", sa, sb),
-                           ("logexp", la, lb)):
-            err, rel = rel_err(a, b)
-            log(f"[K2] {label:8s} {what:6s}: max abs err {err:.3e}, "
-                f"rel {rel:.3e}")
-            if not rel <= TOL_K2:
-                raise AssertionError(f"K2 {label} {what}: rel {rel} > "
-                                     f"{TOL_K2}")
-            worst = max(worst, err)
-        if fam == timed:
-            ms = time_ms(lambda: fused.gated_meanvar_logexp(
-                fam, p, Xq, logexp=lexp), 50)
-            plain = time_ms(lambda: fused.gated_meanvar_logexp_plain(
-                fam, p, Xq, logexp=lexp), 50)
-            log(f"[K2] {label} nq={nq}: kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms")
-            row = {"ms": ms, "plain_ms": plain}
-    row["max_abs_err"] = worst
-    row["shape"] = f"nq={nq} n={N} nmax={NMAX} d={D}"
-    # per query: the k vector and the SVM sum, the length-n forward
-    # substitution (n^2 / 2 multiply-adds), the mean and sum of squares
-    row.update(bound(
-        nq * (N * pair_flops(timed) + NSV * (3 * D + 3) + N * N + 4 * N),
-        8 * (nq * D + nq + N * D + N + N * (N + 1) // 2 + NSV * (D + 1)
-             + 4 * D)))
-    return row
+        for nq in K2_NQ:
+            Xq = k2_queries(p, rng, nq, dev)
+            ma, sa = fused.gated_meanvar_logexp(fam, p, Xq)
+            mb, sb = fused.gated_meanvar_logexp_plain(fam, p, Xq)
+            la = fused.gated_meanvar_logexp(fam, p, Xq, logexp=lexp)
+            lb = fused.gated_meanvar_logexp_plain(fam, p, Xq, logexp=lexp)
+            torch.cuda.synchronize()
+            for what, a, b in (("mean", ma, mb), ("std", sa, sb),
+                               ("logexp", la, lb)):
+                # a gated value is -inf, or a sigma of 0
+                if not bool((b[torch.isfinite(b)] != 0).any()):
+                    raise AssertionError(f"K2 {label} nq={nq} {what}: no "
+                                         "value passed the gates")
+                err, rel = rel_err(a, b)
+                log(f"[K2] {label:8s} nq={nq:5d} {what:6s}: max abs err "
+                    f"{err:.3e}, rel {rel:.3e}")
+                if not rel <= TOL_K2:
+                    raise AssertionError(f"K2 {label} nq={nq} {what}: rel "
+                                         f"{rel} > {TOL_K2}")
+                worst = max(worst, err)
+            if fam != timed:
+                continue
+            call = lambda: fused.gated_meanvar_logexp(fam, p, Xq,
+                                                      logexp=lexp)
+            shape = {"ms": time_ms(call, 50 if nq > 16 else 200),
+                     "plain_ms": time_ms(lambda: fused.
+                                         gated_meanvar_logexp_plain(
+                                             fam, p, Xq, logexp=lexp), 50),
+                     "route": fused.gated_meanvar_logexp_plan(
+                         N, NMAX, D, nq,
+                         fused._spec_doubles(fused._kern(fam, D, dev)))[:2],
+                     **k2_bound(fam, nq)}
+            if nq < 16:
+                shape["device_ms"] = kernel_device_ms(call, "gated_meanvar",
+                                                      50)
+            shapes[f"nq={nq}"] = shape
+            log(f"[K2] {label} nq={nq}: " + json.dumps(shape))
+    top = shapes[f"nq={K2_NQ[-1]}"]
+    return {"max_abs_err": worst, "shapes": shapes,
+            "shape": f"nq={K2_NQ[-1]} n={N} nmax={NMAX} d={D}",
+            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "flops", "bytes")}}
 
 
 def check_k3(dev, rng, families, timed):
@@ -1215,16 +1401,27 @@ def check_k3(dev, rng, families, timed):
                     fam, thetas, X, N, noise), 10)
                 plain = plain_once if is_spec(fam) else time_ms(
                     lambda: k3_plain(fam, thetas, noise), 3)
+                # the paths' launches: one theta row (factorize, chol_append)
+                r1 = {"ms": time_ms(lambda: fused.masked_kernel_matrix_batched(
+                    fam, thetas[:1], X, N, noise), 200),
+                      **k3_bound(timed, 1)}
                 log(f"[K3] {label} R={R}: kernel {ms:.4f} ms, plain "
-                    f"{plain:.4f} ms")
-                row = {"ms": ms, "plain_ms": plain}
+                    f"{plain:.4f} ms; R=1: kernel {r1['ms']:.4f} ms, bound "
+                    f"{r1['bound_ms']:.6f} ms")
+                row = {"ms": ms, "plain_ms": plain, "r1": r1,
+                       "path_bound_ms": r1["bound_ms"]}
     row.update({"max_abs_err": worst,
                 "shape": f"R={R} n={N} nmax={NMAX} d={D}"})
-    # every valid entry of every theta's K; the whole padded matrix written
-    row.update(bound(R * N * N * pair_flops(timed),
-                     8 * (R * (D + 1) + N * D + R * NMAX * NMAX)))
+    row.update(k3_bound(timed, R))
     torch.cuda.empty_cache()
     return row
+
+
+def k3_bound(family, R):
+    """K3's bound for R theta rows: every valid entry of every theta's K;
+    the whole padded matrix written."""
+    return bound(R * N * N * pair_flops(family),
+                 8 * (R * (D + 1) + N * D + R * NMAX * NMAX))
 
 
 def check_k7(dev, rng, families, timed):
@@ -1882,6 +2079,55 @@ def time_fit_kernels(dev):
     return out
 
 
+def time_k2_k13(dev):
+    """K2 and K13 at the kernel table's shapes: K2 at nq = K2_NQ (n = N of
+    NMAX, d = D, the SVM fitted; RBF and ALL_NODES; LogExp mode), ms per
+    call (CUDA events, 200 calls at the small batches, 50 at the screen)
+    and at the small batches its device ms (torch.profiler, 50 calls);
+    K13's device ms (50 calls) at K13_TIMED halfway through the dead
+    buffer, each call applying a kill and selecting the next: the steady
+    state (the live order known, where the state keeps one) and a run's
+    first step (the order unknown).  It calls only the wrappers, with their
+    arguments of every version since K13, so that compare_trees.sh can run
+    it on an older checkout's gpry_tpu_torch (whose K13 sorts in full at
+    every step)."""
+    import numpy as np
+    import torch
+    from gpry_tpu_torch.ops import fused
+    from test_torch_cuda import ns_state
+    out = {}
+    rng = np.random.default_rng(12)
+    lexp = (D ** -0.85, 0.01)
+    for fam, sfx in (("rbf", ""), (spec_kernel()[0], "/spec")):
+        p = synthetic_surrogate(fam, dev, seed=12)
+        for nq in K2_NQ:
+            Xq = torch.as_tensor(rng.uniform(-5, 5, (nq, D)),
+                                 dtype=torch.float64, device=dev)
+            call = lambda: fused.gated_meanvar_logexp(fam, p, Xq,
+                                                      logexp=lexp)
+            key = f"gated_meanvar_logexp{sfx} nq={nq}"
+            out[key] = time_ms(call, 50 if nq > 16 else 200)
+            if nq < 16:
+                out[key + " device"] = kernel_device_ms(call,
+                                                        "gated_meanvar", 50)
+    for nlive, d in K13_TIMED:
+        st, starts, chains, consts = ns_state(dev, nlive, d, "mid")
+        fused.ns_step(st, *chains, starts, *consts)
+        c0 = st.count.clone()
+        modes = ("steady", "first") if "order" in fused.NSState._fields \
+            else ("steady",)
+        for mode in modes:
+            def call():
+                st.count.copy_(c0)
+                if mode == "first":
+                    st.order.fill_(-1)
+                fused.ns_step(st, *chains, starts, *consts)
+
+            out[f"ns_step nlive={nlive} d={d} {mode}"] = kernel_device_ms(
+                call, "ns_step_kernel", 50)
+    return out
+
+
 def check_kernels(dev):
     """Compare K1-K13 with their plain versions, the fast families and the
     ALL_NODES spec (K13 has no spec instance); returns per-kernel rows
@@ -1938,9 +2184,9 @@ def timed_audit(runner):
     return stats
 
 
-def run_runner(label, resample=True, **kwargs):
-    """A Runner on the d = 8 correlated Gaussian (``kwargs`` pick the
-    engine and options): ``run()`` then, with ``resample``,
+def run_runner(label, resample=True, seed=1, **kwargs):
+    """A Runner on the d = 8 correlated Gaussian at ``seed`` (``kwargs``
+    pick the engine and options): ``run()`` then, with ``resample``,
     ``generate_mc_sample()`` (else the sample drawn at the declaration),
     gated on convergence and KL(sample || truth) <= KL_GATE.  Returns
     (runner, sample, summary)."""
@@ -1951,8 +2197,8 @@ def run_runner(label, resample=True, **kwargs):
     from gpry_tpu_torch.utils.tools import kl_norm, mean_covmat_from_samples
     model = random_gaussian(d=D, rng=10 + D)
     t0 = time.perf_counter()
-    runner = Runner(model.loglike, bounds=model.bounds, seed=1, verbose=2,
-                    **kwargs)
+    runner = Runner(model.loglike, bounds=model.bounds, seed=seed,
+                    verbose=2, **kwargs)
     audit = timed_audit(runner)
     runner.run()
     t_run = time.perf_counter() - t0
@@ -2541,6 +2787,7 @@ def drive(name, fn, *args, **kwargs):
     K10 and K11 alone (check_fits), or if K1 was launched more than 1% as
     often as when the nested sampler ran its chains through K1."""
     from gpry_tpu_torch.ops import fused
+    import torch
     fused.reset_launch_counts()
     NS_RUNS.update(runs=0, steps=0, s=0.0, segments=0, reads=0,
                    max_reads_over_bound=-1)
@@ -2548,9 +2795,28 @@ def drive(name, fn, *args, **kwargs):
     BELIEVER.update(steps=0)
     FITS.update({k: 0 for k in FITS})
     POLISHES.clear()
-    out = fn(*args, **kwargs)
-    sync()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        sync()
+        t2 = time.perf_counter()
+    trace = device_split(prof, t2 - t1)
+    # the profiler's start and stop around the run (its cost inside the
+    # run, CUPTI's record of each launch, is in wall_s)
+    trace["profiler_start_stop_s"] = time.perf_counter() - t0 - (t2 - t1)
     launches = dict(fused.LAUNCHES)
+    # the trace may miss a launch at its ends: printed, not gated
+    missed = {row: (sum(by_symbol.values()), launches[row])
+              for row, by_symbol in trace["kernel_launches"].items()
+              if sum(by_symbol.values()) != launches[row]}
+    if missed:
+        log(f"[{name}] launches in the trace and counted differ: {missed}")
+    log(f"[{name}] device: " + json.dumps(
+        {k: trace[k] for k in ("busy_ms", "wall_s", "busy_share",
+                               "other_device_ms",
+                               "profiler_start_stop_s")}))
     ns = dict(NS_RUNS, believer_steps=BELIEVER["steps"], fits=dict(FITS),
               mcmc_runs=MCMC_RUNS["runs"])
     log(f"[{name}] kernel launches: {launches}")
@@ -2577,6 +2843,7 @@ def drive(name, fn, *args, **kwargs):
         raise AssertionError(
             f"{name}: {launches['gated_mean']} K1 launches, not below 1% "
             f"of the {before} of the lock-step nested sampler")
+    ns["device"] = trace
     return out, launches, ns
 
 
@@ -2604,8 +2871,25 @@ def check_mc_launches(name, launches, ns):
                              "expected 2 (the start tries and the refine)")
 
 
+def warm_profiler():
+    """One throwaway torch.profiler trace of one small kernel call, so
+    that no path's trace pays the profiler's start-up; logs whether it
+    held the launch."""
+    import torch
+    from gpry_tpu_torch.ops import fused
+    t0 = time.perf_counter()
+    f64 = dict(dtype=torch.float64, device="cuda")
+    x, th = torch.zeros((8, D), **f64), torch.zeros((1, D + 1), **f64)
+    ms = kernel_device_ms(lambda: fused.masked_kernel_matrix_batched(
+        "rbf", th, x, 8, torch.ones((), **f64)), "masked_kernel_matrix", 1)
+    fused.reset_launch_counts()
+    log(f"[TRACE] the profiler's start-up: one trace in "
+        f"{time.perf_counter() - t0:.2f} s; K3 device ms {fmt_ms(ms)}")
+
+
 def drive_paths():
     """The eight paths in order; returns their summaries and launches."""
+    warm_profiler()
     t0 = time.perf_counter()
     time_ns_runs()
     count_believer_steps()
@@ -2632,12 +2916,47 @@ def drive_paths():
     paths["bo_bench"], launches["bo_bench"], ns["bo_bench"] = drive(
         "bo_bench", run_bench, "batchoptimizer")
     for name, stats in ns.items():
+        paths[name]["device"] = stats.pop("device")
         paths[name]["believer_steps"] = stats.pop("believer_steps")
         paths[name]["gp_fits"] = stats.pop("fits")
         paths[name]["mcmc_runs"] = stats.pop("mcmc_runs")
         paths[name]["nested_sampling"] = stats
     log(f"[PATHS] all eight paths in {time.perf_counter() - t0:.1f} s")
     return paths, launches
+
+
+def rank_of(name, row, paths):
+    """A kernel's device time on the paths (their torch.profiler traces):
+    ms by path and in all (paths_device_ms; a row's device_ms is one
+    call's, at its timed shape), the launches the traces hold (by symbol:
+    K4's sweep and select, K7's two kernels apart), and rank_s, the seconds
+    above the bound: the device time less the launches times the bound of
+    one launch at the paths' shapes (K3: one theta row, row["r1"]; K4: a
+    fill's bound over its 2 SIZE - 1 launches; K7: a call's over its two;
+    the others: the kernel row's bound, at its timed shape).  A path
+    whose trace held no device activity gives null for its device ms, and
+    then for the sum and rank_s."""
+    by_path = {p: None if v["device"]["kernel_ms"] is None
+               else v["device"]["kernel_ms"].get(name, 0.0)
+               for p, v in paths.items()}
+    by_symbol = {}
+    for v in paths.values():
+        for sym, c in v["device"]["kernel_launches"].get(name, {}).items():
+            by_symbol[sym] = by_symbol.get(sym, 0) + c
+    per_launch = row.get("path_bound_ms", row["bound_ms"])
+    if name.startswith("kriging_believer_fill"):
+        per_launch = row["bound_ms"] / (2 * SIZE - 1)
+    if name.startswith("predict_meancov"):
+        per_launch = row["bound_ms"] / 2
+    n = sum(by_symbol.values())
+    if None in by_path.values():
+        return {"device_ms_by_path": by_path, "paths_device_ms": None,
+                "device_launches": by_symbol, "launch_bound_ms": per_launch,
+                "rank_s": None}
+    total = sum(by_path.values())
+    return {"device_ms_by_path": by_path, "paths_device_ms": total,
+            "device_launches": by_symbol, "launch_bound_ms": per_launch,
+            "rank_s": 1e-3 * (total - n * per_launch)}
 
 
 def main():
@@ -2666,10 +2985,12 @@ def main():
         f"{fused.BUILD_SECONDS if fused.BUILD_SECONDS is not None else 0:.2f}"
         " s)")
 
+    # the paths first, each under a torch.profiler trace of its own, while
+    # the profiler has traced nothing else in this process
+    paths, launches = drive_paths()
     t0 = time.perf_counter()
     rows = check_kernels(dev)
     log(f"[CHECKS] all kernel checks in {time.perf_counter() - t0:.1f} s")
-    paths, launches = drive_paths()
     kernels = []
     for base, (src, replaces) in SOURCES.items():
         for name in (base,) if base in fused.NO_SPEC else \
@@ -2683,7 +3004,17 @@ def main():
                                         for k, c in launches.items()},
                    "library_ms": None}
             row.update(rows[name])
+            row.update(rank_of(name, row, paths))
             kernels.append(row)
+    empty = [p for p, v in paths.items() if v["device"]["trace_empty"]]
+    if empty:
+        log("[RANK] not ranked: the traces of " + ", ".join(empty) +
+            " held no device activity")
+    else:
+        ranking = sorted(((r["rank_s"], r["name"]) for r in kernels),
+                         reverse=True)
+        log("[RANK] launches x (time - bound) on the paths, s: " +
+            ", ".join(f"{n} {v:.4f}" for v, n in ranking))
     assert "jax" not in sys.modules
     assert not any(m == "gpry_tpu" or m.startswith("gpry_tpu.")
                    for m in sys.modules)

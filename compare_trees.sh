@@ -8,7 +8,8 @@
 #           26-restart fit and BatchOptimizer(random_state=1).multi_add(
 #           n_points=8, rng=default_rng(1)), warm-up + 2 timed
 #   runner  chip_smoke.py's path a: the default Runner on the d = 8
-#           Gaussian (its run, acquisition and fit seconds)
+#           Gaussian (its run, acquisition and fit seconds), once per
+#           Runner seed in $SEEDS (default 1; so spec, norarunner, mcmc)
 #   spec    chip_smoke.py's path f: path a with C() * RBF + WhiteKernel
 #   norarunner  chip_smoke.py's path c: the NORA Runner on the same
 #           Gaussian, options={"audit": False}
@@ -19,10 +20,13 @@
 #   himmelblau  chip_smoke.py's path e: the audited NORA Runner on
 #           Himmelblau, once per seed in $SEEDS (default 100), each with
 #           its truth evals, moment-KL and fit seconds
-#   kernels K9, K10, K11 and K6 alone at the kernel table's shapes
-#           (chip_smoke.time_fit_kernels, RBF and ALL_NODES: ms per call
-#           of K9, K11, K10 at the fit's screen and the route K10
-#           replaced; K6's device ms at B = 66, R = 40)
+#   kernels K9, K10, K11, K6, K2 and K13 alone at the kernel table's
+#           shapes (chip_smoke.time_fit_kernels, RBF and ALL_NODES: ms per
+#           call of K9, K11, K10 at the fit's screen and the route K10
+#           replaced; K6's device ms at B = 66, R = 40; then
+#           chip_smoke.time_k2_k13: K2 at nq = 1, 8 and 3,200, K13's
+#           steady-state and first steps at nlive 400 and 3,200)
+#   sweeps  K2 and K13 alone (chip_smoke.time_k2_k13)
 # The driving code is this script's own chip_smoke.py (run_bench,
 # run_runner), loaded by path; only gpry_tpu_torch comes from each
 # checkout, so every checkout times the same work, an older one whose
@@ -38,9 +42,10 @@ set -e
 engine=$1
 shift
 case "$engine" in
-  nora|bo|runner|spec|norarunner|mcmc|himmelblau|kernels) ;;
+  nora|bo|runner|spec|norarunner|mcmc|himmelblau|kernels|sweeps) ;;
   *) echo "usage: compare_trees.sh" \
-       "nora|bo|runner|spec|norarunner|mcmc|himmelblau|kernels TREE..." >&2
+       "nora|bo|runner|spec|norarunner|mcmc|himmelblau|kernels|sweeps" \
+       "TREE..." >&2
      exit 2;;
 esac
 here=$(cd "$(dirname "$0")" && pwd)
@@ -83,10 +88,12 @@ if engine in ('nora', 'bo'):
     print('RES', tree, engine, 'warm-up, timed:', json.dumps(
         [{k: it[k] for k in ('fit_s', 'acq_s')} for it in s['iters']]),
         flush=True)
-elif engine == 'kernels':
+elif engine in ('kernels', 'sweeps'):
     import torch
-    print('RES', tree, engine, json.dumps(
-        cs.time_fit_kernels(torch.device('cuda'))), flush=True)
+    dev = torch.device('cuda')
+    out = cs.time_fit_kernels(dev) if engine == 'kernels' else {}
+    out.update(cs.time_k2_k13(dev))
+    print('RES', tree, engine, json.dumps(out), flush=True)
 elif engine == 'himmelblau':
     from gpry_tpu_torch.models import gp as gpm
     fit = gpm.GaussianProcessRegressor.fit_gpr_hyperparameters
@@ -115,11 +122,18 @@ else:
     kw = {'runner': {}, 'spec': {'gpr': {'kernel': cs.SPEC_F}}}.get(
         engine, {'resample': False, 'gp_acquisition': 'NORA',
                  'options': {'audit': False}})
-    runner, sample, summary = cs.run_runner(engine.upper(), **kw)
-    res = dict({k: summary[k] for k in ('run_s', 'acquisition_s', 'fit_s',
-                                        'n_total', 'kl')}, **ns)
-    if engine == 'mcmc':
-        res = {'mcmc': cs.run_mcmc(runner, sample)}
-    print('RES', tree, engine, json.dumps(res), flush=True)
+    for seed in os.environ.get('SEEDS', '1').split():
+        ns.update(ns_runs=0, ns_steps=0, ns_s=0.0)
+        try:
+            runner, sample, summary = cs.run_runner(
+                engine.upper(), seed=int(seed), **kw)
+            res = dict({k: summary[k] for k in (
+                'run_s', 'acquisition_s', 'fit_s', 'n_total', 'kl')}, **ns)
+            if engine == 'mcmc':
+                res = {'mcmc': cs.run_mcmc(runner, sample)}
+        except AssertionError as e:
+            res = {'error': str(e)}
+        print('RES', tree, engine, 'seed', seed, json.dumps(res),
+              flush=True)
 PY
 done

@@ -184,12 +184,6 @@ static size_t gated_mean_smem(const GpryKern& kern, int d) {
           K1_TILE + gpry_spec_doubles(kern));
 }
 
-// Doubles of shared memory a block stages for kern's spec program (0 for a
-// fast family), for the wrappers' shared-memory budgets.
-extern "C" size_t gpry_spec_smem_doubles(GpryKern kern) {
-  return gpry_spec_doubles(kern);
-}
-
 // Shared memory of the block-per-query design (if svm_mode does not read
 // the support vectors, they are not staged).
 extern "C" size_t gpry_gated_mean_small_smem(GpryKern kern, int n, int nsv,

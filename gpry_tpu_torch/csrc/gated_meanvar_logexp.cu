@@ -17,177 +17,290 @@
 // Design.  The variance keeps the numerics of the triangular-solve form
 // (linalg.py:204-206): each query's k vector is built in shared memory and
 // solved by forward substitution against the padded Cholesky factor L
-// inside the kernel.  A block of 8 warps owns Q queries (Q chosen by the
-// host from nmax, so that Q k-vectors fit in shared memory); phase 1 fills
-// the Q x n k-vectors with all threads, phase 2 gives each warp one query
-// at a time: the warp reduces k . alpha and the SVM sum, then runs the n
-// sequential substitution steps, each a warp-wide dot product of a
-// contiguous row of L with the solved prefix (coalesced reads of L, which
-// stays resident in L2).
+// inside the kernel.  Two routes, chosen by the host side of this file
+// (k2_plan, mirrored by ops/fused.py gated_meanvar_logexp_plan):
 //
-// What bounds it on the H100.  The n sequential steps per query, each a
-// warp reduction (latency, not throughput): at the acquisition screen
-// (nq = 3,200, n ~ 224, nmax = 320) there are 400 blocks, about one wave
-// of warps on 132 SMs, so the kernel is latency-bound by the substitution
-// chain; L2 traffic is the whole lower triangle of L once per query.
-// Solving several queries per warp against one read of each L row is the
-// next step for a later change.
+// * Route 0, blocked (gated_meanvar_blocked): a block of 8 warps owns Q =
+//   8, 16 or 32 queries (sub_queries of subst_blocked.cuh fixes the edges
+//   in nq: small batches take 8, so that their blocks split the work of
+//   the tensor-core tiles, the acquisition screen 16, larger sweeps 32;
+//   fewer where shared memory forces it), builds
+//   their k vectors with all threads as rows of V (row j: entry j of every
+//   query), reduces k . alpha and the SVM sum a warp a query, then solves
+//   V = L^-1 K for all Q at once with the routine of subst_blocked.cuh:
+//   16-row panels of L staged by cp.async once per block (L2 traffic: the
+//   triangle once per Q queries, not once per query), the panel update on
+//   the FP64 tensor cores, the 16 x 16 diagonal block by a half-warp a
+//   query in registers.  sigma^2 = prior - ||V_q||^2.  Route 0 takes n as
+//   long as the panels, V and the queries fit in shared memory (Q = 8: n <=
+//   640 at d = 8) and L's rows are 16-byte aligned (even nmax; sub_plan).
+// * Route 1, the large-n route (gated_meanvar_chain), K2's design before
+//   route 0: a warp a query at a time: the warp reduces k . alpha
+//   and the SVM sum, then runs the n sequential substitution steps, each a
+//   warp-wide dot product of a contiguous row of L with the solved prefix
+//   (L read once per query from L2).  It takes Q k vectors of nmax in
+//   shared memory (Q from the host's _sweep_queries_per_block: 8, or fewer
+//   down to 1), so any nmax up to ~29,000 at d = 8.
 //
-// Spec mode (template SPEC): the k vectors come from the interpreter of
-// common.cuh on the preprocessed coordinates, and the prior variance is the
-// query's own gpry_spec_diag (k(x, x), WhiteKernel included) in place of
-// the constant variance, as gpry_tpu/ops/linalg.py:205 kernel_diag.
-#include "common.cuh"
+// The mean, the SVM sum, the gates and the LogExp epilogue are the same
+// code on both routes (k2_epilogue), so the routes differ only in the
+// summation order of ||V_q||^2.
+//
+// What bounds it on the H100.  At the acquisition screen (nq = 3,200, n ~
+// 224, nmax = 320) the operations (n^2 / 2 multiply-adds of the
+// substitution and the k vector a query) take ~3 us at 67 TFLOP/s; route
+// 0 is bound by the dependent chain of a block's 14 panels (update,
+// barrier, 16 shuffle steps, barrier), route 1 by each query's n
+// dependent warp reductions.
+#include "subst_blocked.cuh"
 
 #define K2_THREADS 256
 #define K2_WARPS (K2_THREADS / 32)
 
-template <bool SPEC>
-__global__ void gated_meanvar_kernel(
-    GpryKern kern, int out_logexp, int nq, int n, int nmax, int nsv, int d,
-    int Q, const double* __restrict__ Xq_raw, const double* __restrict__ X,
-    const double* __restrict__ alpha, const double* __restrict__ L,
-    const double* __restrict__ theta, const double* __restrict__ x_loc,
-    const double* __restrict__ x_scale, const double* __restrict__ trust_lo,
-    const double* __restrict__ trust_hi, const double* __restrict__ sv,
-    const double* __restrict__ dual, const double* __restrict__ scal,
-    int svm_mode, double zeta, double noise_std, double* __restrict__ out0,
-    double* __restrict__ out1) {
-  // shared layout: ls[d] | qpre[Q][d] | qls[Q][d] | trust[Q] | kv[Q][n]
-  //                | spec program (SPEC)
-  extern __shared__ double smem[];
-  double* ls = smem;
-  double* qpre = ls + d;
-  double* qls = qpre + (size_t)Q * d;
-  double* trust = qls + (size_t)Q * d;
-  double* kv = trust + Q;
+struct K2Args {
+  GpryKern kern;
+  int out_logexp, nq, n, nmax, nsv, d, Q;
+  const double *Xq_raw, *X, *alpha, *L, *theta, *x_loc, *x_scale, *trust_lo,
+      *trust_hi, *sv, *dual, *scal;
+  int svm_mode;
+  double zeta, noise_std;
+  double *out0, *out1;
+};
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * Q;
-  const int nqb = min(Q, nq - q0);
-  const int family = kern.family;
-
+// The block's queries (Q from query q0, nqb of them real): ls, the
+// preprocessed and length-scaled coordinates and the trust-box flag, in
+// shared memory; and the staged spec program (SPEC).  One barrier.
+struct K2Queries {
+  double *ls, *qpre, *qls, *trust;
+  double variance;
   GprySpec spec;
-  if constexpr (SPEC)
-    spec = gpry_stage_spec(kv + (size_t)Q * n, kern, theta, tid, blockDim.x);
-  for (int k = tid; k < d; k += blockDim.x)
-    ls[k] = SPEC ? 1.0 : exp(theta[1 + k]);
-  __syncthreads();
-  const double variance = SPEC ? 1.0 : exp(theta[0]);
+};
 
-  // query coordinates: preprocessed, and scaled by the length scales
+template <bool SPEC>
+__device__ K2Queries k2_queries(const K2Args& a, double* smem, double* prog,
+                                int q0, int nqb) {
+  const int tid = threadIdx.x, d = a.d, Q = a.Q;
+  K2Queries k;
+  k.ls = smem;
+  k.qpre = k.ls + d;
+  k.qls = k.qpre + (size_t)Q * d;
+  k.trust = k.qls + (size_t)Q * d;
+  if constexpr (SPEC)
+    k.spec = gpry_stage_spec(prog, a.kern, a.theta, tid, blockDim.x);
+  for (int i = tid; i < d; i += blockDim.x)
+    k.ls[i] = SPEC ? 1.0 : exp(a.theta[1 + i]);
+  __syncthreads();
+  k.variance = SPEC ? 1.0 : exp(a.theta[0]);
   for (int idx = tid; idx < nqb * d; idx += blockDim.x) {
-    const int k = idx % d;
-    const double xp = (Xq_raw[(size_t)q0 * d + idx] - x_loc[k]) / x_scale[k];
-    qpre[idx] = xp;
-    qls[idx] = xp / ls[k];
+    const int i = idx % d;
+    const double xp = (a.Xq_raw[(size_t)q0 * d + idx] - a.x_loc[i]) /
+                      a.x_scale[i];
+    k.qpre[idx] = xp;
+    k.qls[idx] = xp / k.ls[i];
   }
   for (int qi = tid; qi < nqb; qi += blockDim.x) {
     bool ok = true;
-    for (int k = 0; k < d; ++k) {
-      const double xr = Xq_raw[(size_t)(q0 + qi) * d + k];
-      ok = ok && (xr >= trust_lo[k]) && (xr <= trust_hi[k]);
+    for (int i = 0; i < d; ++i) {
+      const double xr = a.Xq_raw[(size_t)(q0 + qi) * d + i];
+      ok = ok && (xr >= a.trust_lo[i]) && (xr <= a.trust_hi[i]);
     }
-    trust[qi] = ok ? 1.0 : 0.0;
+    k.trust[qi] = ok ? 1.0 : 0.0;
   }
   __syncthreads();
+  return k;
+}
+
+// k(query qi, training row x): x the row as it is, or (fast families,
+// `scaled`) already divided by the length scales
+template <bool SPEC>
+__device__ __forceinline__ double k2_cov(const K2Args& a, const K2Queries& k,
+                                         int qi, const double* x,
+                                         bool scaled) {
+  const int d = a.d;
+  if constexpr (SPEC) {
+    return gpry_spec_cov(k.spec, k.qpre + qi * d, 1, x, 1, d);
+  } else {
+    double sq = 0.0;
+    for (int i = 0; i < d; ++i) {
+      const double df = k.qls[qi * d + i] - (scaled ? x[i] : x[i] / k.ls[i]);
+      sq += df * df;
+    }
+    return k.variance * gpry_k_of_sq(a.kern.family, sq);
+  }
+}
+
+// k . alpha over the n rows of v (stride `stride`) and the SVM sum of query
+// qi, by one warp; the same value on every lane.
+__device__ __forceinline__ void k2_mean_svm(const K2Args& a,
+                                            const K2Queries& k, int qi,
+                                            const double* v, int stride,
+                                            double& m, double& dec) {
+  const int lane = threadIdx.x & 31, d = a.d;
+  m = sub_dot_alpha(v, stride, a.n, a.alpha);
+  dec = 0.0;
+  if (a.svm_mode == GPRY_MODE_FITTED) {
+    const double gamma = a.scal[4];
+    for (int s = lane; s < a.nsv; s += 32) {
+      double sq = 0.0;
+      for (int i = 0; i < d; ++i) {
+        const double df = k.qpre[qi * d + i] - a.sv[(size_t)s * d + i];
+        sq += df * df;
+      }
+      dec += exp(-gamma * sq) * a.dual[s];
+    }
+    dec = gpry_warp_sum(dec);
+  }
+}
+
+// The outputs of query q0 + qi from its mean sum, SVM sum and ||L^-1 k||^2.
+template <bool SPEC>
+__device__ __forceinline__ void k2_epilogue(const K2Args& a,
+                                            const K2Queries& k, int q0,
+                                            int qi, double m, double dec,
+                                            double sumsq) {
+  const double y_loc = a.scal[0], y_scale = a.scal[1], clip_max = a.scal[2];
+  const double intercept = a.scal[3], y_max = a.scal[5];
+  const int q = q0 + qi;
+  const double prior =
+      SPEC ? gpry_spec_diag(k.spec, k.qpre + qi * a.d, 1, a.d) : k.variance;
+  const double var0 = prior - sumsq;
+  const double var = (var0 < 0.0) ? 0.0 : var0;  // NaN stays NaN
+  double mean = gpry_clip(m * y_scale + y_loc, clip_max);
+  double std = sqrt(var) * y_scale;
+  const bool ok =
+      gpry_svm_finite(a.svm_mode, dec, intercept) && k.trust[qi] > 0.0;
+  if (!ok) {
+    mean = -INFINITY;
+    std = 0.0;
+  }
+  if (a.out_logexp) {
+    const double var2 = std * std - a.noise_std * a.noise_std;
+    const bool ok2 = (var2 > 0.0) && isfinite(mean);
+    a.out0[q] = ok2 ? 2.0 * a.zeta * (mean - y_max) + 0.5 * log(var2)
+                    : -INFINITY;
+  } else {
+    a.out0[q] = mean;
+    a.out1[q] = std;
+  }
+}
+
+// Shared doubles of the queries' part: ls, qpre, qls, trust (and, route 0,
+// the mean and SVM sums).
+__host__ __device__ inline size_t k2_query_doubles(int d, int Q) {
+  return (size_t)d + 2 * (size_t)Q * d + 3 * (size_t)Q;
+}
+
+// Route 0.  Shared layout: the queries' part | m[Q] | dec[Q] (inside it) |
+// spec program | subst_blocked's V, stages, shares, sumsq.
+template <bool SPEC>
+__global__ void __launch_bounds__(SUB_THREADS)
+gated_meanvar_blocked(K2Args a) {
+  extern __shared__ double smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int Q = a.Q, q0 = blockIdx.x * Q, nqb = min(Q, a.nq - q0);
+  double* ms = smem + (size_t)a.d + 2 * (size_t)Q * a.d + Q;
+  double* ds = ms + Q;
+  double* prog = smem + k2_query_doubles(a.d, Q);
+  const GprySub sub = sub_carve(a.L, a.n, a.nmax, Q,
+                                prog + gpry_spec_doubles(a.kern));
+  const K2Queries k = k2_queries<SPEC>(a, smem, prog, q0, nqb);
+  // (a spec program's qls are its qpre: its length scales are 1)
+  sub_build_k<SPEC>(sub, a.kern.family, k.spec, k.variance, k.ls, k.qls,
+                    a.X, a.d, nqb);
+  for (int qi = warp; qi < nqb; qi += K2_WARPS) {
+    double m, dec;
+    k2_mean_svm(a, k, qi, sub.V + qi, Q + 4, m, dec);
+    if (lane == 0) {
+      ms[qi] = m;
+      ds[qi] = dec;
+    }
+  }
+  __syncthreads();
+  sub_forward(sub);
+  for (int qi = tid; qi < nqb; qi += blockDim.x)
+    k2_epilogue<SPEC>(a, k, q0, qi, ms[qi], ds[qi], sub.sumsq[qi]);
+}
+
+// Route 1.  Shared layout: the queries' part | kv[Q][n] | spec program.
+template <bool SPEC>
+__global__ void __launch_bounds__(K2_THREADS)
+gated_meanvar_chain(K2Args a) {
+  extern __shared__ double smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Q = a.Q, n = a.n, q0 = blockIdx.x * Q, nqb = min(Q, a.nq - q0);
+  double* kv = smem + k2_query_doubles(a.d, Q);
+  const K2Queries k =
+      k2_queries<SPEC>(a, smem, kv + (size_t)Q * n, q0, nqb);
 
   // phase 1: k vectors of the block's queries against the n valid rows
   for (int idx = tid; idx < nqb * n; idx += blockDim.x) {
     const int qi = idx / n, j = idx - qi * n;
-    if constexpr (SPEC) {
-      kv[(size_t)qi * n + j] =
-          gpry_spec_cov(spec, qpre + qi * d, 1, X + (size_t)j * d, 1, d);
-    } else {
-      double sq = 0.0;
-      for (int k = 0; k < d; ++k) {
-        const double df = qls[qi * d + k] - X[(size_t)j * d + k] / ls[k];
-        sq += df * df;
-      }
-      kv[(size_t)qi * n + j] = variance * gpry_k_of_sq(family, sq);
-    }
+    kv[(size_t)qi * n + j] =
+        k2_cov<SPEC>(a, k, qi, a.X + (size_t)j * a.d, false);
   }
   __syncthreads();
-
-  const double y_loc = scal[0], y_scale = scal[1], clip_max = scal[2];
-  const double intercept = scal[3], gamma = scal[4], y_max = scal[5];
 
   // phase 2: one warp per query
   for (int qi = warp; qi < nqb; qi += K2_WARPS) {
     double* v = kv + (size_t)qi * n;
-    double m = 0.0;
-    for (int j = lane; j < n; j += 32) m += v[j] * alpha[j];
-    m = gpry_warp_sum(m);
-
-    double dec = 0.0;
-    if (svm_mode == GPRY_MODE_FITTED) {
-      for (int s = lane; s < nsv; s += 32) {
-        double sq = 0.0;
-        for (int k = 0; k < d; ++k) {
-          const double df = qpre[qi * d + k] - sv[(size_t)s * d + k];
-          sq += df * df;
-        }
-        dec += exp(-gamma * sq) * dual[s];
-      }
-      dec = gpry_warp_sum(dec);
-    }
-
-    const double sumsq = gpry_warp_forward_subst(L, nmax, n, v, lane);
-
-    if (lane == 0) {
-      const int q = q0 + qi;
-      const double prior =
-          SPEC ? gpry_spec_diag(spec, qpre + qi * d, 1, d) : variance;
-      const double var0 = prior - sumsq;
-      const double var = (var0 < 0.0) ? 0.0 : var0;  // NaN stays NaN
-      double mean = gpry_clip(m * y_scale + y_loc, clip_max);
-      double std = sqrt(var) * y_scale;
-      const bool ok =
-          gpry_svm_finite(svm_mode, dec, intercept) && trust[qi] > 0.0;
-      if (!ok) {
-        mean = -INFINITY;
-        std = 0.0;
-      }
-      if (out_logexp) {
-        const double var2 = std * std - noise_std * noise_std;
-        const bool ok2 = (var2 > 0.0) && isfinite(mean);
-        out0[q] = ok2 ? 2.0 * zeta * (mean - y_max) + 0.5 * log(var2)
-                      : -INFINITY;
-      } else {
-        out0[q] = mean;
-        out1[q] = std;
-      }
-    }
+    double m, dec;
+    k2_mean_svm(a, k, qi, v, 1, m, dec);
+    const double sumsq = gpry_warp_forward_subst(a.L, a.nmax, n, v, lane);
+    if (lane == 0) k2_epilogue<SPEC>(a, k, q0, qi, m, dec, sumsq);
   }
 }
 
-static size_t gated_meanvar_smem(const GpryKern& kern, int n, int d, int Q) {
-  return sizeof(double) * ((size_t)d + 2 * (size_t)Q * d + (size_t)Q +
-                           (size_t)Q * (size_t)n + gpry_spec_doubles(kern));
+// The route (0 blocked, 1 the chain; sub_plan) for nq queries against n
+// training rows of the (nmax, nmax) factor L, the queries a block *Q and
+// the shared memory *smem; qchain is the chain's queries a block.
+static int k2_plan(const GpryKern& kern, int nq, int n, int nmax, int d,
+                   int qchain, const void* L, int* Q, size_t* smem) {
+  const size_t spec = gpry_spec_doubles(kern);
+  if (sub_plan(nq, n, nmax, L, (size_t)d + spec, 2 * (size_t)d + 3, Q,
+               smem) == 0)
+    return 0;
+  *Q = qchain;
+  *smem = sizeof(double) * (k2_query_doubles(d, qchain) +
+                            (size_t)qchain * (size_t)n + spec);
+  return 1;
 }
 
-// scal = [y_loc, y_scale, clip_max, svm intercept, svm gamma, y_max]
+extern "C" int gpry_gated_meanvar_logexp_plan(GpryKern kern, int nq, int n,
+                                              int nmax, int d, int qchain,
+                                              const void* L, int* Q,
+                                              size_t* smem) {
+  return k2_plan(kern, nq, n, nmax, d, qchain, L, Q, smem);
+}
+
+// scal = [y_loc, y_scale, clip_max, svm intercept, svm gamma, y_max];
+// qchain: route 1's queries a block.
 extern "C" int gpry_gated_meanvar_logexp(
     GpryKern kern, int out_logexp, int nq, int n, int nmax, int nsv, int d,
-    int Q, const void* Xq_raw, const void* X, const void* alpha,
+    int qchain, const void* Xq_raw, const void* X, const void* alpha,
     const void* L, const void* theta, const void* x_loc,
     const void* x_scale, const void* trust_lo, const void* trust_hi,
     const void* sv, const void* dual, const void* scal, int svm_mode,
     double zeta, double noise_std, void* out0, void* out1, void* stream) {
-  const size_t smem = gated_meanvar_smem(kern, n, d, Q);
-  auto kernel = kern.nodes ? gated_meanvar_kernel<true>
-                           : gated_meanvar_kernel<false>;
+  K2Args a{kern, out_logexp, nq, n, nmax, nsv, d, 0,
+           (const double*)Xq_raw, (const double*)X, (const double*)alpha,
+           (const double*)L, (const double*)theta, (const double*)x_loc,
+           (const double*)x_scale, (const double*)trust_lo,
+           (const double*)trust_hi, (const double*)sv, (const double*)dual,
+           (const double*)scal, svm_mode, zeta, noise_std, (double*)out0,
+           (double*)out1};
+  size_t smem = 0;
+  const int route =
+      k2_plan(kern, nq, n, nmax, d, qchain, L, &a.Q, &smem);
+  const bool spec = kern.nodes > 0;
+  auto kernel = route == 0 ? (spec ? gated_meanvar_blocked<true>
+                                   : gated_meanvar_blocked<false>)
+                           : (spec ? gated_meanvar_chain<true>
+                                   : gated_meanvar_chain<false>);
   cudaError_t e = gpry_set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   if (nq <= 0) return 0;
-  const dim3 grid((nq + Q - 1) / Q);
-  kernel<<<grid, K2_THREADS, smem, (cudaStream_t)stream>>>(
-      kern, out_logexp, nq, n, nmax, nsv, d, Q, (const double*)Xq_raw,
-      (const double*)X, (const double*)alpha, (const double*)L,
-      (const double*)theta, (const double*)x_loc, (const double*)x_scale,
-      (const double*)trust_lo, (const double*)trust_hi, (const double*)sv,
-      (const double*)dual, (const double*)scal, svm_mode, zeta, noise_std,
-      (double*)out0, (double*)out1);
+  const dim3 grid((nq + a.Q - 1) / a.Q);
+  kernel<<<grid, route == 0 ? SUB_THREADS : K2_THREADS, smem,
+           (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

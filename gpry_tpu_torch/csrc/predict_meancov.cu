@@ -15,11 +15,17 @@
 // term counts there and nowhere else, sklearn's semantics).
 //
 // Design: two kernels on one stream.
-//  (a) meancov_solve_kernel: K5's body (meanvar_ungated.cu).  A block of 8
-//      warps owns Q queries; all threads fill their k vectors in shared
-//      memory, then one warp per query reduces k . alpha and runs the n
-//      forward-substitution steps (gpry_warp_forward_subst), and writes the
-//      solved column V_i to a scratch buffer (nq x n, row i = V_i).
+//  (a) the solve, as K2 solves (gated_meanvar_logexp.cu), so that the
+//      diagonal of cov is K2's sigma^2 to rounding (the two substitution
+//      orders would differ by cond(L) eps): where it fits,
+//      meancov_solve_blocked, K2's route 0 on the same routines of
+//      subst_blocked.cuh (sub_plan, then the block's Q k vectors as rows
+//      of V by sub_build_k, k . alpha a warp a query by sub_dot_alpha, V =
+//      L^-1 K for all Q at once by sub_forward); else (large n or an
+//      unaligned L) meancov_solve_kernel, K2's route 1 and K5's body: one warp per
+//      query reduces k . alpha and runs the n forward-substitution steps
+//      (gpry_warp_forward_subst).  Each writes the solved column V_i to a
+//      scratch buffer (nq x n, row i = V_i).
 //  (b) meancov_cov_kernel: a 32 x 8 block owns a 32 x 32 tile of cov; each
 //      thread four entries of one column.  The tile's 32 + 32 rows of V are
 //      streamed through shared memory in chunks of 32 training rows (padded
@@ -36,9 +42,10 @@
 // 0.52 GFLOP, ~8 us at 67 TFLOP/s; the output is nq^2 doubles (8.4 MB,
 // 2.5 us at 3.35 TB/s).  Design (b) loads one V element from shared memory
 // per multiply-add of a column (the row values are broadcasts), so shared
-// memory bandwidth, not the FP64 rate, bounds it; (a) is a chain of n
-// dependent warp reductions per query, as in K5.
-#include "common.cuh"
+// memory bandwidth, not the FP64 rate, bounds it; (a) is K2's chain of
+// 16-row panels a block (on the large-n route, n dependent warp
+// reductions a query, as in K5).
+#include "subst_blocked.cuh"
 
 #define K7_THREADS 256
 #define K7_WARPS (K7_THREADS / 32)
@@ -98,14 +105,53 @@ __global__ void meancov_solve_kernel(
   // one warp per query: the mean, the substitution, the column of V
   for (int qi = warp; qi < nqb; qi += K7_WARPS) {
     double* v = kv + (size_t)qi * n;
-    double m = 0.0;
-    for (int j = lane; j < n; j += 32) m += v[j] * alpha[j];
-    m = gpry_warp_sum(m);
+    const double m = sub_dot_alpha(v, 1, n, alpha);
     gpry_warp_forward_subst(L, nmax, n, v, lane);
     double* Vq = V + (size_t)(q0 + qi) * n;
     for (int j = lane; j < n; j += 32) Vq[j] = v[j];
     if (lane == 0) mean_out[q0 + qi] = m;
   }
+}
+
+// (a) on K2's route 0.  Shared layout: ls[d] | qls[Q][d] | m[Q] | spec
+// program (SPEC) | sub_forward's V, stages, shares, sumsq.
+template <bool SPEC>
+__global__ void __launch_bounds__(SUB_THREADS) meancov_solve_blocked(
+    GpryKern kern, int nq, int n, int nmax, int d, int Q,
+    const double* __restrict__ Xq, const double* __restrict__ X,
+    const double* __restrict__ alpha, const double* __restrict__ L,
+    const double* __restrict__ theta, double* __restrict__ V,
+    double* __restrict__ mean_out) {
+  extern __shared__ double smem[];
+  double* ls = smem;
+  double* qls = ls + d;
+  double* ms = qls + (size_t)Q * d;
+  double* prog = ms + Q;
+  const GprySub sub = sub_carve(L, n, nmax, Q, prog + gpry_spec_doubles(kern));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * Q, nqb = min(Q, nq - q0);
+
+  GprySpec spec;
+  if constexpr (SPEC)
+    spec = gpry_stage_spec(prog, kern, theta, tid, blockDim.x);
+  for (int k = tid; k < d; k += blockDim.x)
+    ls[k] = SPEC ? 1.0 : exp(theta[1 + k]);
+  __syncthreads();
+  for (int idx = tid; idx < nqb * d; idx += blockDim.x)
+    qls[idx] = Xq[(size_t)q0 * d + idx] / ls[idx % d];
+  sub_build_k<SPEC>(sub, kern.family, spec, SPEC ? 1.0 : exp(theta[0]), ls,
+                    qls, X, d, nqb);
+  for (int qi = warp; qi < nqb; qi += K7_WARPS) {
+    const double m = sub_dot_alpha(sub.V + qi, Q + 4, n, alpha);
+    if (lane == 0) ms[qi] = m;
+  }
+  __syncthreads();
+  sub_forward(sub);
+  for (int idx = tid; idx < nqb * n; idx += blockDim.x) {
+    const int qi = idx / n, j = idx - qi * n;
+    V[(size_t)(q0 + qi) * n + j] = sub.V[(size_t)j * (Q + 4) + qi];
+  }
+  for (int qi = tid; qi < nqb; qi += blockDim.x) mean_out[q0 + qi] = ms[qi];
 }
 
 template <bool SPEC>
@@ -193,6 +239,20 @@ static size_t meancov_solve_smem(const GpryKern& kern, int n, int d, int Q) {
                            gpry_spec_doubles(kern));
 }
 
+// The solve's route as K2's (k2_plan, both by sub_plan): blocked where
+// that fits and L is aligned, *Q and *smem set; else the chain with Q =
+// qchain.
+static int meancov_solve_plan(const GpryKern& kern, int nq, int n, int nmax,
+                              int d, int qchain, const void* L, int* Q,
+                              size_t* smem) {
+  if (sub_plan(nq, n, nmax, L, (size_t)d + gpry_spec_doubles(kern),
+               (size_t)d + 1, Q, smem) == 0)
+    return 0;
+  *Q = qchain;
+  *smem = meancov_solve_smem(kern, n, d, qchain);
+  return 1;
+}
+
 static size_t meancov_cov_smem(const GpryKern& kern, int d) {
   return sizeof(double) * ((size_t)d + 2 * (size_t)K7_TILE * d +
                            2 * (size_t)K7_TILE * K7_LD +
@@ -201,17 +261,24 @@ static size_t meancov_cov_smem(const GpryKern& kern, int d) {
 
 // Xq (nq, d) preprocessed; X (nmax, d), alpha (nmax,), L (nmax, nmax)
 // row-major; V scratch of nq * n doubles; outputs mean (nq,) and cov
-// (nq, nq), both in the GP's coordinates.  Q: queries per block of (a).
+// (nq, nq), both in the GP's coordinates.  qchain: queries per block of
+// (a) on the large-n route.
 extern "C" int gpry_predict_meancov(GpryKern kern, int nq, int n, int nmax,
-                                    int d, int Q, const void* Xq,
+                                    int d, int qchain, const void* Xq,
                                     const void* X, const void* alpha,
                                     const void* L, const void* theta,
                                     void* V, void* mean, void* cov,
                                     void* stream) {
   if (nq <= 0) return 0;
-  const size_t smem_a = meancov_solve_smem(kern, n, d, Q);
-  auto solve = kern.nodes ? meancov_solve_kernel<true>
-                          : meancov_solve_kernel<false>;
+  int Q = qchain;
+  size_t smem_a = 0;
+  const int route =
+      meancov_solve_plan(kern, nq, n, nmax, d, qchain, L, &Q, &smem_a);
+  const bool spec = kern.nodes > 0;
+  auto solve = route == 0 ? (spec ? meancov_solve_blocked<true>
+                                  : meancov_solve_blocked<false>)
+                          : (spec ? meancov_solve_kernel<true>
+                                  : meancov_solve_kernel<false>);
   cudaError_t e = gpry_set_smem(solve, smem_a);
   if (e != cudaSuccess) return (int)e;
   solve<<<(nq + Q - 1) / Q, K7_THREADS, smem_a, (cudaStream_t)stream>>>(

@@ -1,0 +1,290 @@
+// Many queries' forward substitutions against one read of L: the blocked
+// multi-query routine of the sweeps (K2 gated_meanvar_logexp.cu and K7's
+// solve, predict_meancov.cu; written so that K4's sweep and K5 can take it
+// as it is).
+//
+// For Q queries at once (Q a multiple of 8, up to SUB_MAXQ), a block of
+// SUB_THREADS solves V = L^-1 K in place, K the n x Q matrix of the
+// queries' k vectors (column q query q), in the solve form (no L^-1 or
+// K^-1 is formed), and returns sumsq[q] = ||V_q||^2:
+//
+// * Panels of SUB_PB = 16 rows, left-looking.  The panel's rows of L (the
+//   16 x (P0 + 16) row block) are staged in shared memory by cp.async,
+//   double-buffered: the next panel's copy runs while this one is solved.
+//   So L is read once per block of Q queries, not once per query.
+// * The update V_I -= L_I,<I V_<I runs on the FP64 tensor cores
+//   (gpry_dmma, m8n8k4): 2 x Q / 8 output tiles of 8 x 8, shared by the 8
+//   warps, each tile's k range split SUB_WARPS / tiles ways; the shares
+//   are summed in order by the solve below.
+// * The 16 x 16 diagonal block is solved by a half-warp per query, lane r
+//   holding row r of the block in registers (a step of the chain: one
+//   product with the staged 1 / L_jj, one shuffle, one update), as K9's
+//   single-query panels.  (A thread a query, the rows in its registers
+//   and L's block read as broadcasts, took 3.1x as long on the H100: its
+//   loads and updates serialize in one warp.)
+//
+// The callers (K2's route 0 and K7's solve) share the whole route: the
+// plan (sub_plan: Q by nq and shared memory, and whether L can be copied
+// by cp.async at all), the prologue that builds the k vectors as the rows
+// of V (sub_build_k) and the warp-per-query k . alpha (sub_dot_alpha).
+// So two callers at one nq take the same Q and give bit-identical
+// solutions.
+//
+// Two block barriers a panel.  Layout in shared memory (the caller
+// carves it, sub_doubles): V as n_pad rows of ldq = Q + 4 doubles (row j
+// holds entry j of every query; rows n..n_pad - 1 zero), the two stages of
+// 16 rows of lda = n_pad + 4 doubles (16-byte aligned: the panel's rows
+// are copied two doubles at a time), the tiles' shares, the panel's 1 /
+// L_jj and sumsq.  The pads of 4 keep the tensor-core operand loads free
+// of bank conflicts.
+#pragma once
+
+#include <cuda_pipeline.h>
+#include <stdint.h>
+
+#include "common.cuh"
+
+#define SUB_THREADS 256
+#define SUB_WARPS (SUB_THREADS / 32)
+#define SUB_PB 16
+#define SUB_MAXQ 32
+// the queries a block by the batch size nq: 8 for small batches (their
+// blocks then split the tensor-core tiles' work), 16 above SUB_Q16_NQ
+// (the acquisition screen), 32 above SUB_Q32_NQ.  The k-split of the
+// update depends on Q, so two kernels that take the same Q (K2 and K7 at
+// one nq) give bit-identical solutions.
+#define SUB_Q16_NQ 1056
+#define SUB_Q32_NQ 4224
+
+__host__ __device__ inline int sub_queries(int nq) {
+  return nq > SUB_Q32_NQ ? 32 : nq > SUB_Q16_NQ ? 16 : 8;
+}
+
+__host__ __device__ inline int sub_npad(int n) {
+  return (n + SUB_PB - 1) / SUB_PB * SUB_PB;
+}
+
+// Doubles of the routine's shared memory: V, the two stages, the tiles'
+// shares (one 8 x 8 tile a warp), 1 / L_jj, sumsq, and one to align.
+__host__ __device__ inline size_t sub_doubles(int n, int Q) {
+  const size_t np = (size_t)sub_npad(n);
+  return np * (Q + 4) + 2 * SUB_PB * (np + 4) + SUB_WARPS * 64 + SUB_PB +
+         Q + 1;
+}
+
+// The route for nq queries against n rows of the (nmax, nmax) factor L:
+// 0 (this routine) with *Q = sub_queries(nq), fewer down to 8 where
+// shared memory forces it, and *smem the bytes of the caller's `fixed`
+// doubles, `per_q` doubles a query and the routine's; 1 (the caller's
+// warp-per-query chain) where even Q = 8 does not fit, or where L's rows
+// are not 16-byte aligned (an odd nmax, or L a view at an odd offset):
+// sub_load_panel copies two doubles at a time.
+static inline int sub_plan(int nq, int n, int nmax, const void* L,
+                           size_t fixed, size_t per_q, int* Q,
+                           size_t* smem) {
+  if (nmax % 2 != 0 || ((uintptr_t)L & 15) != 0) return 1;
+  for (int q = sub_queries(nq); q >= 8; q /= 2) {
+    const size_t bytes =
+        sizeof(double) * (fixed + per_q * q + sub_doubles(n, q));
+    if (bytes <= GPRY_MAX_SMEM) {
+      *Q = q;
+      *smem = bytes;
+      return 0;
+    }
+  }
+  return 1;
+}
+
+struct GprySub {
+  const double* L;  // (nmax, nmax) row-major, global memory
+  int n, nmax, Q;
+  double* V;       // sub_npad(n) x (Q + 4)
+  double* stage;   // 2 x SUB_PB x (sub_npad(n) + 4)
+  double* part;    // SUB_WARPS x 64
+  double* dinv;    // SUB_PB: the panel's 1 / L_jj
+  double* sumsq;   // Q
+};
+
+__device__ __forceinline__ GprySub sub_carve(const double* L, int n,
+                                             int nmax, int Q, double* at) {
+  GprySub s;
+  const int np = sub_npad(n);
+  s.L = L;
+  s.n = n;
+  s.nmax = nmax;
+  s.Q = Q;
+  s.V = at + (((size_t)at & 15) ? 1 : 0);
+  s.stage = s.V + (size_t)np * (Q + 4);
+  s.part = s.stage + 2 * SUB_PB * ((size_t)np + 4);
+  s.dinv = s.part + SUB_WARPS * 64;
+  s.sumsq = s.dinv + SUB_PB;
+  return s;
+}
+
+// Rows P0.. P0 + 15 of L, columns 0 .. P0 + 15, into stage `slot` (zeros
+// outside the n x n block), by cp.async: a warp a row, a lane two columns
+// (16 bytes: sub_plan takes this route only for an even nmax and a
+// 16-byte aligned L).
+__device__ __forceinline__ void sub_load_panel(const GprySub& s, int slot,
+                                               int P0) {
+  const int lda = sub_npad(s.n) + 4, w = P0 + SUB_PB;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  double* dst = s.stage + (size_t)slot * SUB_PB * lda;
+  for (int r = warp; r < SUB_PB; r += SUB_WARPS) {
+    const bool row = P0 + r < s.n;
+    const double* src = s.L + (size_t)(P0 + r) * s.nmax;
+    for (int c = 2 * lane; c < w; c += 64) {
+      double* dp = dst + r * lda + c;
+      if (row && c + 1 < s.n) {
+        __pipeline_memcpy_async(dp, src + c, 2 * sizeof(double));
+      } else {
+        if (row && c < s.n)
+          __pipeline_memcpy_async(dp, src + c, sizeof(double));
+        else
+          dp[0] = 0.0;
+        dp[1] = 0.0;
+      }
+    }
+  }
+}
+
+// The k vectors of the block's nqb queries (of s.Q) as the rows of V:
+// row j holds k(query q, training row j) of every q, zeros beyond n and
+// for the missing queries.  qls: the queries' preprocessed coordinates
+// over the length scales, Q x d (a spec program's length scales are 1);
+// ls the length scales and variance the amplitude of a fast family; X
+// the training rows, nmax x d.  The rows (a fast family's over the length
+// scales) are first staged in the panel stages, free until sub_forward
+// starts (n d <= 32 n_pad doubles for d <= 32).  Every thread calls it;
+// qls and ls need be visible only after its first barrier.  Two barriers.
+template <bool SPEC>
+__device__ void sub_build_k(const GprySub& s, int family,
+                            const GprySpec& spec, double variance,
+                            const double* ls, const double* qls,
+                            const double* X, int d, int nqb) {
+  const int tid = threadIdx.x, Q = s.Q, ldq = Q + 4, np = sub_npad(s.n);
+  const bool stx = d <= 32;
+  if (stx)
+    for (int e = tid; e < s.n * d; e += blockDim.x)
+      s.stage[e] = SPEC ? X[e] : X[e] / ls[e % d];
+  __syncthreads();
+  const double* xr = stx ? s.stage : X;
+  for (int idx = tid; idx < np * Q; idx += blockDim.x) {
+    const int j = idx / Q, qi = idx - j * Q;
+    double kv = 0.0;
+    if (j < s.n && qi < nqb) {
+      const double* xj = xr + (size_t)j * d;
+      if constexpr (SPEC) {
+        kv = gpry_spec_cov(spec, qls + qi * d, 1, xj, 1, d);
+      } else {
+        double sq = 0.0;
+        for (int i = 0; i < d; ++i) {
+          const double df = qls[qi * d + i] - (stx ? xj[i] : xj[i] / ls[i]);
+          sq += df * df;
+        }
+        kv = variance * gpry_k_of_sq(family, sq);
+      }
+    }
+    s.V[(size_t)j * ldq + qi] = kv;
+  }
+  __syncthreads();
+}
+
+// k . alpha over the n entries of a k vector v (stride `stride`: 1 for a
+// vector of its own, Q + 4 for a column of V), by one warp; the same value
+// on every lane.
+__device__ __forceinline__ double sub_dot_alpha(const double* v, int stride,
+                                                int n, const double* alpha) {
+  double m = 0.0;
+  for (int j = threadIdx.x & 31; j < n; j += 32)
+    m += v[(size_t)j * stride] * alpha[j];
+  return gpry_warp_sum(m);
+}
+
+// V = L^-1 V in place for the s.Q queries, sumsq[q] = ||V_q||^2.  Every
+// thread of the block calls it; V holds the k vectors on entry, visible
+// to all threads (the caller's barrier), and the solution and sumsq on
+// exit (after a barrier).
+static __device__ void sub_forward(const GprySub& s) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = s.n, Q = s.Q, ldq = Q + 4;
+  const int lda = sub_npad(n) + 4, np = sub_npad(n) / SUB_PB;
+  const int nqt = Q / 8, tiles = 2 * nqt;
+  const int splits = SUB_WARPS / tiles;  // 4, 2 or 1 (Q = 8, 16, 32)
+  const int tile = warp % tiles, split = warp / tiles;
+  const int ta = tile / nqt, tb = tile - ta * nqt;
+  const int g = lane >> 2, t4 = lane & 3;
+  // the solve: half-warp h takes queries h, h + 16 (both halves of a warp
+  // take a query or neither: Q is a multiple of 8)
+  const int hr = lane & 15, h = tid >> 4;
+
+  if (np > 0) sub_load_panel(s, 0, 0);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  for (int p = 0; p < np; ++p) {
+    const int P0 = p * SUB_PB;
+    if (p + 1 < np) sub_load_panel(s, (p + 1) & 1, P0 + SUB_PB);
+    __pipeline_commit();
+    const double* Lp = s.stage + (size_t)(p & 1) * SUB_PB * lda;
+    // the update's shares on the tensor cores
+    if (P0 > 0) {
+      double d0 = 0.0, d1 = 0.0;
+      const double* Arow = Lp + (8 * ta + g) * lda + t4;
+      const double* Bcol = s.V + (size_t)t4 * ldq + 8 * tb + g;
+      for (int k0 = 4 * split; k0 < P0; k0 += 4 * splits)
+        gpry_dmma(d0, d1, Arow[k0], Bcol[(size_t)k0 * ldq]);
+      double* o = s.part + warp * 64 + g * 8 + 2 * t4;
+      o[0] = d0;
+      o[1] = d1;
+    }
+    if (tid >= SUB_THREADS - SUB_PB) {
+      const int j = tid - (SUB_THREADS - SUB_PB);
+      s.dinv[j] = P0 + j < n ? 1.0 / Lp[j * lda + P0 + j] : 0.0;
+    }
+    __syncthreads();
+    // the diagonal block: a half-warp a query
+    const int pn = n - P0 < SUB_PB ? n - P0 : SUB_PB;
+    const bool mine = hr < pn;
+    double Lr[SUB_PB];
+#pragma unroll
+    for (int j = 0; j < SUB_PB; ++j)
+      Lr[j] = (mine && j < hr) ? Lp[hr * lda + P0 + j] : 0.0;
+    const double di = s.dinv[hr];
+#pragma unroll
+    for (int qq = 0; qq < SUB_MAXQ / 16; ++qq) {
+      const int q = h + 16 * qq;
+      if (q >= Q) break;  // uniform over the warp
+      double* vq = s.V + (size_t)(P0 + hr) * ldq + q;
+      double r = *vq;
+      if (P0 > 0) {
+        const int at = ((hr >> 3) * nqt + (q >> 3)) * 64 + (hr & 7) * 8 +
+                       (q & 7);
+        for (int sp = 0; sp < splits; ++sp)
+          r -= s.part[sp * tiles * 64 + at];
+      }
+      double x = 0.0;
+#pragma unroll
+      for (int j = 0; j < SUB_PB; ++j) {
+        const double xj = __shfl_sync(0xffffffffu, r * di, j, 16);
+        if (hr == j) x = xj;
+        r -= Lr[j] * xj;
+      }
+      if (mine) *vq = x;
+    }
+    // the next panel's rows landed, this one's solution visible
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  }
+  // sumsq: a thread a query, the rows in order (as K7's covariance sums
+  // them, so that its diagonal is this sigma^2 to rounding)
+  if (tid < Q) {
+    double v = 0.0;
+    for (int j = 0; j < n; ++j) {
+      const double x = s.V[(size_t)j * ldq + tid];
+      v += x * x;
+    }
+    s.sumsq[tid] = v;
+  }
+  __syncthreads();
+}

@@ -134,7 +134,8 @@ def run_nested_device(logl_fn, params, gen, lo, hi, nlive=200,
         done=torch.zeros(1, dtype=torch.int32, device=dev),
         kill=torch.arange(B, **i64), x0=torch.zeros((B, d), **f64),
         lx0=torch.zeros(B, **f64), lstar=torch.zeros((), **f64),
-        chol=torch.zeros((d, d), **f64))
+        chol=torch.zeros((d, d), **f64),
+        order=torch.full((nlive,), -1, dtype=torch.int32, device=dev))
     consts = (k0_dead, H0, float(np.log(precision_criterion)))
 
     # the steps, seg at a time between two reads of the stop flag; the

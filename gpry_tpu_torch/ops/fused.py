@@ -111,7 +111,7 @@ _SOURCES = ("gated_mean.cu", "gated_meanvar_logexp.cu",
             "meanvar_ungated.cu", "ns_slice_chains.cu", "predict_meancov.cu",
             "meanstd_grad.cu", "lbfgs_logexp_ascent.cu", "lml_value_grad.cu",
             "lbfgs_lml_fit.cu", "mcmc_chains.cu", "ns_step.cu")
-_HEADERS = ("common.cuh", "lml_blocked.cuh")
+_HEADERS = ("common.cuh", "lml_blocked.cuh", "subst_blocked.cuh")
 _LIB_PATH = os.path.join(_BUILD, "libgpry_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -142,7 +142,8 @@ BUILD_SECONDS = None
 _lib = None
 _lib_lock = threading.Lock()
 
-# K2 keeps one k vector per query in shared memory; the block's query
+# The one-warp-per-query sweeps (K2's large-n route, K4's sweep, K5, K7's
+# solve) keep one k vector per query in shared memory; the block's query
 # count is the warp count (8) unless nmax forces fewer.
 _K2_MAX_Q = 8
 _SMEM_DEFAULT = 48 * 1024
@@ -254,8 +255,6 @@ def library():
         lib.gpry_gated_mean.restype = I
         lib.gpry_gated_mean_small_smem.argtypes = [K] + [I] * 4
         lib.gpry_gated_mean_small_smem.restype = ctypes.c_size_t
-        lib.gpry_spec_smem_doubles.argtypes = [K]
-        lib.gpry_spec_smem_doubles.restype = ctypes.c_size_t
         lib.gpry_ns_slice_chains.argtypes = [K] + [I] * 5 + [P] * 18 \
             + [I] + [P] * 7
         lib.gpry_ns_slice_chains.restype = I
@@ -264,6 +263,9 @@ def library():
         lib.gpry_gated_meanvar_logexp.argtypes = [K] + [I] * 7 + [P] * 12 \
             + [I, D, D, P, P, P]
         lib.gpry_gated_meanvar_logexp.restype = I
+        lib.gpry_gated_meanvar_logexp_plan.argtypes = [K] + [I] * 5 \
+            + [P, P, P]
+        lib.gpry_gated_meanvar_logexp_plan.restype = I
         lib.gpry_masked_kernel_matrix.argtypes = [K] + [I] * 4 + [P] * 3 \
             + [I, D, P, P]
         lib.gpry_masked_kernel_matrix.restype = I
@@ -300,7 +302,7 @@ def library():
         lib.gpry_mcmc_chains.argtypes = [K] + [I] * 6 + [P] * 18 + [I] \
             + [P] * 9
         lib.gpry_mcmc_chains.restype = I
-        lib.gpry_ns_step.argtypes = [I] * 5 + [D, D, I] + [P] * 18
+        lib.gpry_ns_step.argtypes = [I] * 5 + [D, D, I] + [P] * 19
         lib.gpry_ns_step.restype = I
         _lib = lib
         return lib
@@ -892,6 +894,8 @@ class NSState(NamedTuple):
     lx0: torch.Tensor        # (B,)
     lstar: torch.Tensor      # (): the kill threshold
     chol: torch.Tensor       # (d, d): the survivors' covariance factor
+    order: torch.Tensor      # int32 (nlive,): the live slots sorted, -1
+    #                          first where not known
 
 
 def ns_step_plain(st, xs, ls, cs, starts, k0_dead, H0, log_prec,
@@ -917,6 +921,11 @@ def ns_step_plain(st, xs, ls, cs, starts, k0_dead, H0, log_prec,
        factor (NaN when not positive definite, as JAX's), and the chains'
        starts ``x0``, ``lx0``: survivor ``starts[b]`` (int64 in [0, nlive
        - B), pre-drawn) in sorted order; the kill is then pending.
+
+    ``order`` is the live set's sorted order as K13 keeps it between
+    steps: a select writes it; an apply whose kill is the head of a known
+    order writes the new one (K13 merges the new points in); another apply
+    marks it unknown (-1 first).  Here it is always sorted afresh.
     """
     nlive, d = st.live_X.shape
     B = st.kill.shape[0]
@@ -931,6 +940,8 @@ def ns_step_plain(st, xs, ls, cs, starts, k0_dead, H0, log_prec,
     cnt[1] += cs.sum() * pend
     cnt[2] += pend.to(torch.int64)
     cnt[3] = 0
+    merged = pend & (st.order[0] >= 0) & torch.all(st.order[:B] == st.kill)
+    stale = pend & ~merged
     # 2. the stop test
     k = cnt[0]
     idx = torch.arange(max_dead_tot, device=dev)
@@ -948,10 +959,13 @@ def ns_step_plain(st, xs, ls, cs, starts, k0_dead, H0, log_prec,
     go = (not_converged | torch.isinf(logz_tot)) & (k + B <= max_dead_tot) \
         & ~plateau
     st.done.copy_((~go).to(torch.int32).reshape(1))
+    order = torch.argsort(st.live_logl, stable=True)
+    keep = merged | (go & select)
+    st.order.copy_(torch.where(keep, order.to(torch.int32), st.order))
+    st.order[0] = torch.where(stale & ~keep, -1, st.order[0])
     if not select:
         return
     # 3. the kill and the next chains' inputs
-    order = torch.argsort(st.live_logl, stable=True)
     kill, surv = order[:B], order[B:]
     slots = torch.clamp_max(k + torch.arange(B, device=dev), max_dead_tot - 1)
     st.dead_X[slots] = torch.where(go, st.live_X[kill], st.dead_X[slots])
@@ -1013,13 +1027,13 @@ def gated_mean(family, p, Xq_raw, _design=None):
     return out
 
 
-def _sweep_queries_per_block(nmax, d, kern):
-    """Queries per block of the one-warp-per-query sweeps (K2, K4's sweep,
-    K5, K7's solve): one per warp, fewer when nmax-long k vectors of 8
-    queries (and the spec program) do not fit in the default 48 KB of
-    shared memory."""
+def _sweep_queries_per_block(nmax, d, spec_doubles):
+    """Queries per block of the one-warp-per-query sweeps (K2's large-n
+    route, K4's sweep, K5, K7's solve): one per warp, fewer when nmax-long
+    k vectors of 8 queries (and the spec program of ``spec_doubles``) do
+    not fit in the default 48 KB of shared memory."""
     per_q = 8 * (nmax + 2 * d + 1)
-    fixed = 8 * (d + library().gpry_spec_smem_doubles(kern))
+    fixed = 8 * (d + spec_doubles)
     q = min(_K2_MAX_Q, (_SMEM_DEFAULT - fixed) // per_q)
     if q >= 1:
         return q
@@ -1030,9 +1044,47 @@ def _sweep_queries_per_block(nmax, d, kern):
     return 1
 
 
+#: K2's route 0 (csrc/gated_meanvar_logexp.cu, csrc/subst_blocked.cuh):
+#: panel rows, the warps of a block, and the batch sizes above which a
+#: block takes 16 and 32 queries (SUB_Q16_NQ, SUB_Q32_NQ)
+_SUB_PB, _SUB_WARPS = 16, 8
+_SUB_Q16_NQ, _SUB_Q32_NQ = 1056, 4224
+
+
+def gated_meanvar_logexp_plan(n, nmax, d, nq, spec_doubles=0,
+                              aligned=True):
+    """
+    K2's route for ``nq`` queries against ``n`` valid training rows of
+    ``nmax`` at dimension ``d`` (a spec program of ``spec_doubles``), as
+    csrc/gated_meanvar_logexp.cu k2_plan sizes it: ``(route, Q,
+    smem_bytes)``.  Route 0 solves Q = 8, 16 or 32 queries a block against
+    16-row panels of L on the tensor cores (Q by nq, fewer where shared
+    memory forces it; at d = 8, Q = 8, n <= 640); it copies L's rows 16
+    bytes at a time, so it needs an even ``nmax`` and L's data 16-byte
+    aligned (``aligned``: torch's own allocations are).  Route 1, the
+    large-n route, a warp a query with Q k vectors of nmax in shared memory
+    (_sweep_queries_per_block), up to nmax ~29,000 at d = 8.  Raises
+    ``ValueError`` beyond route 1.
+    """
+    npad = -(-n // _SUB_PB) * _SUB_PB
+    q = 32 if nq > _SUB_Q32_NQ else 16 if nq > _SUB_Q16_NQ else 8
+    if nmax % 2 or not aligned:
+        q = 0
+    while q >= 8:
+        sub = npad * (q + 4) + 2 * _SUB_PB * (npad + 4) + _SUB_WARPS * 64 \
+            + _SUB_PB + q + 1
+        smem = 8 * (d + 2 * q * d + 3 * q + spec_doubles + sub)
+        if smem <= _SMEM_MAX:
+            return 0, q, smem
+        q //= 2
+    q = _sweep_queries_per_block(nmax, d, spec_doubles)
+    return 1, q, 8 * (d + 2 * q * d + 3 * q + q * n + spec_doubles)
+
+
 def gated_meanvar_logexp(family, p, Xq_raw, logexp=None):
     """K2: gated ``(mean, std)`` at ``Xq_raw``, or with
-    ``logexp=(zeta, noise_std)`` the gated LogExp acquisition values."""
+    ``logexp=(zeta, noise_std)`` the gated LogExp acquisition values
+    (routes: :func:`gated_meanvar_logexp_plan`)."""
     check_family(family)
     if Xq_raw.device.type == "cpu":
         return gated_meanvar_logexp_plain(family, p, Xq_raw, logexp)
@@ -1047,11 +1099,11 @@ def gated_meanvar_logexp(family, p, Xq_raw, logexp=None):
     if nq == 0:
         return out0 if logexp is not None else (out0, out1)
     zeta, noise_std = (0.0, 0.0) if logexp is None else logexp
-    Q = _sweep_queries_per_block(nmax, d, kern)
+    qchain = _sweep_queries_per_block(nmax, d, _spec_doubles(kern))
     lib = library()
     rc = lib.gpry_gated_meanvar_logexp(
         kern, int(logexp is not None), nq, int(p.n), nmax,
-        p.svm.sv.shape[0], d, Q,
+        p.svm.sv.shape[0], d, qchain,
         *(_ptr(tensors[k]) for k in (
             "Xq_raw", "X", "alpha", "L", "theta", "x_loc", "x_scale",
             "trust_lo", "trust_hi", "sv", "dual", "scal")),
@@ -1081,7 +1133,8 @@ def meanvar_ungated(family, p, Xq_raw):
         return mean, std
     lib = library()
     rc = lib.gpry_meanvar_ungated(
-        kern, nq, int(p.n), nmax, d, _sweep_queries_per_block(nmax, d, kern),
+        kern, nq, int(p.n), nmax, d,
+        _sweep_queries_per_block(nmax, d, _spec_doubles(kern)),
         *(_ptr(tensors[k]) for k in (
             "Xq_raw", "X", "alpha", "L", "theta", "x_loc", "x_scale",
             "scal")),
@@ -1177,7 +1230,7 @@ def kriging_believer_fill(family, p, Xd_raw, y, sigma, acq0, alive0, size,
     n_dev = torch.tensor([p.n], dtype=torch.int32, device=dev)
     swept = torch.empty(N, dtype=dt, device=dev)
     zeta, noise_std = (0.0, 0.0) if logexp is None else logexp
-    Q = _sweep_queries_per_block(nmax, d, kern)
+    Q = _sweep_queries_per_block(nmax, d, _spec_doubles(kern))
     lib = library()
     for i in range(size):
         if i == 0:
@@ -1347,9 +1400,12 @@ def ns_step(st, xs, ls, cs, starts, k0_dead, H0, log_prec, select=True):
     """
     K13: one nested-sampling step's bookkeeping on the state ``st``
     (:class:`NSState`, updated in place; see :func:`ns_step_plain`), in
-    one launch of one block with no host read: the pending kill applied,
-    the stop flag, and with ``select`` the next kill and the chains'
-    inputs.  ``k0_dead``, ``H0`` and ``log_prec`` are host numbers.
+    one launch (a cluster of 8 blocks, which share the stop test's passes
+    over the dead buffer) with no host read: the pending kill applied, the
+    stop flag, and with ``select`` the next kill and the chains' inputs;
+    the live order the state keeps spares the full sort (the new points
+    are merged in).  ``k0_dead``, ``H0`` and ``log_prec`` are host
+    numbers.
     Raises ValueError above ``NS_STEP_MAX_NLIVE`` live points or d >
     ``CHAINS_MAX_D``.
     """
@@ -1381,14 +1437,15 @@ def ns_step(st, xs, ls, cs, starts, k0_dead, H0, log_prec, select=True):
     _check_cuda("ns_step", dev, **tensors)
     _check_ints("ns_step", dev, torch.int64, count=(st.count, (4,)),
                 kill=(st.kill, (B,)), cs=(cs, (B,)), starts=(starts, (B,)))
-    _check_ints("ns_step", dev, torch.int32, done=(st.done, (1,)))
+    _check_ints("ns_step", dev, torch.int32, done=(st.done, (1,)),
+                order=(st.order, (nlive,)))
     rc = library().gpry_ns_step(
         nlive, B, d, max_dead_tot, int(k0_dead), float(H0),
         float(log_prec), int(bool(select)),
         *(_ptr(t) for t in (
             st.live_X, st.live_logl, st.dead_X, st.dead_logl, st.logx_prev,
             st.log_shell, st.count, st.done, st.kill, st.x0, st.lx0,
-            st.lstar, st.chol, xs, ls, cs, starts)), _stream())
+            st.lstar, st.chol, st.order, xs, ls, cs, starts)), _stream())
     _raise_on("ns_step", rc)
     LAUNCHES["ns_step"] += 1
 
@@ -1420,7 +1477,8 @@ def predict_meancov(family, theta, X, n, noise_var, L, alpha, Xq):
     V = torch.empty(nq * int(n), dtype=torch.float64, device=dev)
     lib = library()
     rc = lib.gpry_predict_meancov(
-        kern, nq, int(n), nmax, d, _sweep_queries_per_block(nmax, d, kern),
+        kern, nq, int(n), nmax, d,
+        _sweep_queries_per_block(nmax, d, _spec_doubles(kern)),
         _ptr(Xq), _ptr(X), _ptr(alpha), _ptr(L), _ptr(theta), _ptr(V),
         _ptr(mean), _ptr(cov), _stream())
     _raise_on("predict_meancov", rc)

@@ -283,6 +283,168 @@ def test_gated_meanvar_logexp_kernel(dev, family):
                                             logexp=(0.5, 0.01)), 1e-10)
 
 
+def _k2_surrogate(family, dev, n, nmax, d, svm, noise):
+    """surrogate() at n valid rows of nmax, with scalar noise or a noise
+    vector (the factor then differs row by row)."""
+    p = surrogate(family, dev, n=n, nmax=nmax, d=d, svm=svm, seed=n)
+    if noise == "vector":
+        fam = family_and_theta(family, d)[0]
+        nv = torch.linspace(1e-5, 1e-3, nmax, dtype=torch.float64,
+                            device=dev)
+        L, alpha = factorize(fam, p.theta, p.X, p.y, n, nv)
+        p = p.replace(noise_var=nv, L=L, alpha=alpha)
+    return p
+
+
+def _k2_queries(rng, nq, d):
+    """nq queries, two thirds inside the surrogate's trust box and the
+    rest across and outside it."""
+    inside = (2 * nq + 2) // 3
+    return np.concatenate([rng.uniform(-0.85, 0.85, (inside, d)),
+                           rng.uniform(-1.1, 1.1, (nq - inside, d))])
+
+
+def _k2_same(family, p, Xq):
+    """K2 in both output modes within 1e-10 (relative to the largest
+    value) of its plain version, -inf masks identical (a batch whose
+    every value is gated compares its masks alone); one launch each."""
+    key = count_key("gated_meanvar_logexp",
+                    "all_nodes" if isinstance(family, tuple) else "rbf")
+    n0 = fused.LAUNCHES[key]
+    lexp = (0.5, 0.01)
+    pairs = list(zip(fused.gated_meanvar_logexp(family, p, Xq),
+                     fused.gated_meanvar_logexp_plain(family, p, Xq)))
+    pairs.append((fused.gated_meanvar_logexp(family, p, Xq, logexp=lexp),
+                  fused.gated_meanvar_logexp_plain(family, p, Xq,
+                                                   logexp=lexp)))
+    for a, b in pairs:
+        if bool(torch.isfinite(b).any()) and bool((b != 0).any()):
+            _close(a, b, 1e-10)
+        else:
+            assert torch.equal(a, b)
+    assert fused.LAUNCHES[key] == n0 + 2
+
+
+@pytest.mark.parametrize("n", (1, 15, 16, 17, 224, 320))
+@pytest.mark.parametrize("nq", (1, 7, 8, 9, 3200, 4000))
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+def test_gated_meanvar_logexp_kernel_shapes(dev, family, nq, n):
+    """K2 (both instances, both output modes) at the batch sizes around
+    its blocks of queries and the acquisition screen's, n around its
+    16-row panels and the main path's (nmax = n's bucket, d = 8), with the
+    SVM fitted and absent, scalar and vector noise; a third of the queries
+    across and outside the trust box."""
+    from gpry_tpu_torch.config import bucket_size
+    d = 8
+    rng = np.random.default_rng(nq + n)
+    for svm in ("fitted", "all_finite"):
+        for noise in ("scalar", "vector"):
+            p = _k2_surrogate(family, dev, n, bucket_size(n), d, svm, noise)
+            fam = family_and_theta(family, d)[0]
+            Xq = torch.as_tensor(_k2_queries(rng, nq, d),
+                                 dtype=torch.float64, device=dev)
+            _k2_same(fam, p, Xq)
+
+
+def _k2_edge(d, nq, spec):
+    """The largest n that K2's route 0 takes at nq queries (the plan)."""
+    n = 16
+    while fused.gated_meanvar_logexp_plan(n + 1, 4096, d, nq, spec)[0] == 0:
+        n += 1
+    return n
+
+
+@pytest.mark.parametrize("nq", (9, 3200))
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+def test_gated_meanvar_logexp_kernel_route_edge(dev, family, nq):
+    """K2 on each side of the large-n route's edge (route 0 at n, route 1
+    at n + 1; nmax the bucket of n + 1), both output modes."""
+    from gpry_tpu_torch.config import bucket_size
+    d = 8
+    fam = family_and_theta(family, d)[0]
+    spec = fused._spec_doubles(fused._kern(fam, d, dev))
+    edge = _k2_edge(d, nq, spec)
+    rng = np.random.default_rng(edge)
+    Xq = torch.as_tensor(_k2_queries(rng, nq, d), dtype=torch.float64,
+                         device=dev)
+    for n, route in ((edge, 0), (edge + 1, 1)):
+        nmax = bucket_size(edge + 1)
+        assert fused.gated_meanvar_logexp_plan(n, nmax, d, nq,
+                                               spec)[0] == route
+        _k2_same(fam, _k2_surrogate(family, dev, n, nmax, d, "fitted",
+                                    "scalar"), Xq)
+
+
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+@pytest.mark.parametrize("d", (2, 8, 32))
+def test_gated_meanvar_logexp_plan_matches_the_kernel(dev, family, d):
+    """fused.gated_meanvar_logexp_plan gives k2_plan's route, queries a
+    block and shared memory, at an even and an odd nmax and for L's data
+    16-byte aligned or 8 bytes off."""
+    fam = family_and_theta(family, d)[0]
+    kern = fused._kern(fam, d, dev)
+    spec = fused._spec_doubles(kern)
+    lib = fused.library()
+    for nq in (1, 1056, 1057, 4224, 4225, 65536):
+        for n in (0, 1, 224, _k2_edge(d, nq, spec), 5000):
+            for nmax in (max(64, n + n % 2), max(65, n | 1)):
+                qc = fused._sweep_queries_per_block(nmax, d, spec)
+                for at in (4096, 4104):
+                    route, q, smem = fused.gated_meanvar_logexp_plan(
+                        n, nmax, d, nq, spec, aligned=at % 16 == 0)
+                    Q, sm = ctypes.c_int(), ctypes.c_size_t()
+                    assert lib.gpry_gated_meanvar_logexp_plan(
+                        kern, nq, n, nmax, d, qc, ctypes.c_void_p(at),
+                        ctypes.byref(Q), ctypes.byref(sm)) == route
+                    assert (Q.value, sm.value) == (q, smem)
+
+
+def _at_offset(t):
+    """A contiguous copy of ``t`` whose data starts 8 bytes into its
+    buffer (so not 16-byte aligned)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("layout", ("odd_nmax", "offset"))
+@pytest.mark.parametrize("n", (17, 224))
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+def test_unaligned_factor_takes_the_large_n_route(dev, family, n, layout):
+    """Route 0 copies L's rows 16 bytes at a time.  An odd nmax, or L a
+    view 8 bytes into its buffer, takes the large-n route instead, in K2
+    (both output modes) and in K7's solve, and both match their plain
+    versions (no misaligned copy, no sticky CUDA error)."""
+    from gpry_tpu_torch.config import bucket_size
+    d, nq = 8, 9
+    nmax = bucket_size(n) + (layout == "odd_nmax")
+    fam = family_and_theta(family, d)[0]
+    spec = fused._spec_doubles(fused._kern(fam, d, dev))
+    p = _k2_surrogate(family, dev, n, nmax, d, "fitted", "scalar")
+    if layout == "offset":
+        p = p.replace(L=_at_offset(p.L))
+    assert fused.gated_meanvar_logexp_plan(
+        n, nmax, d, nq, spec, aligned=p.L.data_ptr() % 16 == 0)[0] == 1
+    assert fused.gated_meanvar_logexp_plan(n, nmax - nmax % 2, d, nq,
+                                           spec)[0] == 0
+    rng = np.random.default_rng(n)
+    Xq = torch.as_tensor(_k2_queries(rng, nq, d), dtype=torch.float64,
+                         device=dev)
+    _k2_same(fam, p, Xq)
+    Xp = (Xq - p.x_loc) / p.x_scale
+    ma, ca = fused.predict_meancov(fam, p.theta, p.X, p.n, p.noise_var,
+                                   p.L, p.alpha, Xp)
+    mb, cb = fused.predict_meancov_plain(fam, p.theta, p.X, p.n,
+                                         p.noise_var, p.L, p.alpha, Xp)
+    torch.cuda.synchronize()
+    _close(ma, mb, 1e-10)
+    kqq = fused.predict_meancov_plain(fam, p.theta, p.X, 0, p.noise_var,
+                                      p.L, p.alpha, Xp)[1]
+    atol = 1e-10 * float(torch.max(torch.abs(kqq)))
+    assert float(torch.max(torch.abs(ca - cb))) <= atol
+
+
 @pytest.mark.parametrize("family", FAMILIES)
 def test_masked_kernel_matrix_kernel(dev, family):
     """K3 against its plain version for 33 theta rows, each matrix its own
@@ -1271,7 +1433,11 @@ def ns_state(dev, nlive, d, kind, seed=0):
         count=torch.tensor([k, 12345, 7, 0], **i64),
         done=torch.zeros(1, dtype=torch.int32, device=dev),
         kill=torch.arange(B, **i64), x0=t(np.zeros((B, d))),
-        lx0=t(np.zeros(B)), lstar=t(0.0), chol=t(np.zeros((d, d))))
+        lx0=t(np.zeros(B)), lstar=t(0.0), chol=t(np.zeros((d, d))),
+        # the live order unknown (an older checkout's state has none)
+        **({"order": torch.full((nlive,), -1, dtype=torch.int32,
+                                device=dev)}
+           if "order" in fused.NSState._fields else {}))
     starts = torch.as_tensor(rng.integers(0, nlive - B, B), **i64)
     chains = (t(rng.normal(size=(B, d))), t(-rng.exponential(1.0, B)),
               torch.as_tensor(rng.integers(10, 300, B), **i64))
@@ -1299,7 +1465,7 @@ def test_ns_step_kernel(dev, nlive, d, kind):
         assert fused.LAUNCHES["ns_step"] == n0 + 1
         fused.ns_step_plain(ref, *chains, starts, *consts)
         for name in ("done", "count", "kill", "dead_X", "dead_logl", "x0",
-                     "lx0", "lstar", "live_X", "live_logl"):
+                     "lx0", "lstar", "live_X", "live_logl", "order"):
             assert torch.equal(getattr(st, name), getattr(ref, name)), name
         assert torch.equal(torch.isnan(st.chol), torch.isnan(ref.chol))
         fin = ~torch.isnan(ref.chol)
@@ -1315,6 +1481,104 @@ def test_ns_step_kernel(dev, nlive, d, kind):
         for name in ("done", "count", "live_X", "live_logl"):
             assert torch.equal(getattr(st, name), getattr(ref, name)), name
         assert int(st.count[3]) == 0
+
+
+def k6_like_points(rng, ref, B, d, kind, step):
+    """B points as K6 returns them, made from the plain state ``ref``:
+    above lstar, with exact ties (with survivors, among themselves and at
+    lstar); with kind "neg_inf" a few -inf, "nan" one NaN made at step 13
+    (applied by the next: the stop test then stops the run), "plateau"
+    every point at the live maximum from step 5 on (the kills then leave
+    only that value)."""
+    live = ref.live_logl.cpu().numpy()
+    lstar = float(ref.lstar)
+    ls = lstar + rng.exponential(1.0, B)
+    fin = live[np.isfinite(live) & (live >= lstar)]
+    if fin.size:
+        ls[: B // 4] = rng.choice(fin, B // 4)
+    ls[B // 4: B // 4 + 3] = ls[B // 2]
+    ls[-1] = lstar
+    if kind == "neg_inf":
+        ls[rng.choice(B, 3, replace=False)] = -np.inf
+    if kind == "nan" and step == 13:
+        ls[B // 3] = np.nan
+    if kind == "plateau" and step >= 5:
+        ls[:] = np.max(live[np.isfinite(live)])
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64,
+                                  device=ref.live_X.device)
+    return (t(rng.normal(size=(B, d))), t(ls),
+            torch.as_tensor(rng.integers(1, 50, B), dtype=torch.int64,
+                            device=ref.live_X.device))
+
+
+def same_values(a, b):
+    """torch.equal, with NaN equal to NaN."""
+    if a.is_floating_point():
+        nan = torch.isnan(a)
+        return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan],
+                                                                b[~nan])
+    return torch.equal(a, b)
+
+
+def same_ns_states(st, ref, label):
+    for name in ("done", "count", "kill", "dead_X", "dead_logl", "x0",
+                 "lx0", "lstar", "live_X", "live_logl", "order"):
+        assert same_values(getattr(st, name), getattr(ref, name)), \
+            f"{label}: {name}"
+    assert torch.equal(torch.isnan(st.chol), torch.isnan(ref.chol)), label
+    fin = ~torch.isnan(ref.chol)
+    if bool(fin.any()):
+        err = torch.max(torch.abs(st.chol[fin] - ref.chol[fin]))
+        assert float(err) <= 1e-12 * float(torch.max(torch.abs(
+            ref.chol[fin]))), label
+
+
+def ns_step_sequence(dev, nlive, d, kind, steps=24):
+    """K13 and its plain version through ``steps`` steps of a run on the
+    same inputs (ns_state's "ties" state, then K6-like new points of
+    ``kind``), every output compared after every step (same_ns_states).
+    The live order is kept by K13 (merged after the first step's full
+    sort), marked unknown at steps 4 (a kill pending) and 8 (none), and at
+    step 12 the kill is not the head of the order (the slots of its first
+    two swapped), each of which K13 must detect and sort in full; a
+    segment end (select=False) every 8 steps.  Returns the two states."""
+    st, _, _, consts = ns_state(dev, nlive, d, "ties", 0)
+    ref = _clone_state(st)
+    B = nlive // 6
+    rng = np.random.default_rng(nlive + d)
+    chains = (torch.zeros((B, d), dtype=torch.float64, device=dev),
+              torch.zeros(B, dtype=torch.float64, device=dev),
+              torch.zeros(B, dtype=torch.int64, device=dev))
+    for step in range(steps):
+        if step in (4, 8):
+            st.order[0] = ref.order[0] = -1
+        if step == 12:
+            for s_ in (st, ref):
+                s_.kill[[0, 1]] = s_.kill[[1, 0]]
+        starts = torch.as_tensor(rng.integers(0, nlive - B, B),
+                                 dtype=torch.int64, device=dev)
+        select = step % 8 != 7
+        fused.ns_step(st, *chains, starts, *consts, select=select)
+        fused.ns_step_plain(ref, *chains, starts, *consts, select=select)
+        torch.cuda.synchronize()
+        same_ns_states(st, ref, f"nlive={nlive} d={d} {kind} step {step}")
+        if step == 1:
+            assert int(st.order[0]) >= 0
+        chains = k6_like_points(rng, ref, B, d, kind, step)
+    return st, ref
+
+
+@pytest.mark.parametrize("kind", ("ties", "neg_inf", "nan", "plateau"))
+@pytest.mark.parametrize("nlive,d", ((200, 8), (400, 8), (3200, 64)))
+def test_ns_step_kernel_sequences(dev, nlive, d, kind):
+    """24 steps of a run with K6-like new points (ties, -inf, NaN, a
+    plateau): K13 torch.equal to its plain version in every output but the
+    Cholesky factor (within 1e-12 of its largest entry, NaN masks
+    identical) after every step, the live order kept, lost and refused
+    (ns_step_sequence); the NaN and the plateau stop the run."""
+    st, _ = ns_step_sequence(dev, nlive, d, kind)
+    if kind in ("nan", "plateau"):
+        assert bool(st.done)
 
 
 def test_ns_step_refuses_large_nlive(dev):

@@ -77,7 +77,8 @@ def port_state(live_X, live_l, dead_X, dead_l, k):
         count=torch.tensor([k, 500, 0, 0]),
         done=torch.zeros(1, dtype=torch.int32),
         kill=torch.arange(B), x0=t(np.zeros((B, D))), lx0=t(np.zeros(B)),
-        lstar=t(0.0), chol=t(np.zeros((D, D))))
+        lstar=t(0.0), chol=t(np.zeros((D, D))),
+        order=torch.full((NLIVE,), -1, dtype=torch.int32))
     return st, (K0, H0, float(np.log(PREC)))
 
 
@@ -173,3 +174,75 @@ def test_segments_equal_a_read_per_step(route):
     assert res8[3:6] == res1[3:6] and res8.n_steps == res1.n_steps > 0
     assert res1.n_reads == res1.n_steps + 1
     assert res8.n_reads <= -(-res8.n_steps // 8) + 2
+
+
+@pytest.mark.parametrize("seed", (0, 1))
+def test_steps_match_jax_with_the_order_kept(seed):
+    """Four steps in a row from a state whose live order is not known:
+    each JAX step's new points (its live set at the slots the plain step
+    killed) are applied as the chains' results of the next plain step;
+    after every step JAX's dead buffer, k and live set equal the plain
+    step's, and the order the state keeps (the plain version sorts afresh
+    where K13 merges) is the stable sort of the live log-likelihoods."""
+    state_np = numpy_state("unconverged", seed)
+    st, consts = port_state(*state_np)
+    rng = np.random.default_rng(3 + seed)
+    chains = (torch.zeros((B, D), dtype=torch.float64),
+              torch.zeros(B, dtype=torch.float64),
+              torch.zeros(B, dtype=torch.int64))
+    jstate = state_np
+    for step in range(4):
+        starts = torch.as_tensor(rng.integers(0, NLIVE - B, B))
+        fused.ns_step_plain(st, *chains, starts, *consts)
+        assert not bool(st.done) and int(st.count[3]) == 1
+        assert torch.equal(st.order.long(),
+                           torch.argsort(st.live_logl, stable=True))
+        np.testing.assert_array_equal(st.live_logl.numpy(), jstate[1])
+        (_, live_X_j, live_l_j, dead_X_j, dead_l_j, k_j, _), _ = \
+            jax_segment(jstate, seg_steps=1, seed=step)
+        np.testing.assert_array_equal(st.dead_X.numpy(),
+                                      np.asarray(dead_X_j))
+        np.testing.assert_array_equal(st.dead_logl.numpy(),
+                                      np.asarray(dead_l_j))
+        kill = st.kill.numpy()
+        live_X_j, live_l_j = np.asarray(live_X_j), np.asarray(live_l_j)
+        chains = (torch.as_tensor(live_X_j[kill]),
+                  torch.as_tensor(live_l_j[kill]),
+                  torch.ones(B, dtype=torch.int64))
+        jstate = (live_X_j, live_l_j, np.asarray(dead_X_j),
+                  np.asarray(dead_l_j), int(k_j))
+    fused.ns_step_plain(st, *chains, starts, *consts, select=False)
+    np.testing.assert_array_equal(st.live_X.numpy(), jstate[0])
+    np.testing.assert_array_equal(st.live_logl.numpy(), jstate[1])
+    assert int(st.count[0]) == jstate[4]
+    assert torch.equal(st.order.long(),
+                       torch.argsort(st.live_logl, stable=True))
+
+
+def test_the_order_kept_lost_and_refused():
+    """The live order of the state: a select writes it; an apply whose
+    kill is the head of a known order keeps it sorted (K13's merge); an
+    apply with the order unknown leaves it unknown (-1 first), and one
+    whose kill is not the head of the order (the slots of its first two
+    swapped) marks it unknown; a stopped step changes nothing."""
+    st, consts = port_state(*numpy_state("unconverged", 1))
+    starts = torch.zeros(B, dtype=torch.int64)
+    new = lambda s: (torch.zeros((B, D), dtype=torch.float64),
+                     torch.linspace(-1.0, 0.0, B, dtype=torch.float64) + s,
+                     torch.ones(B, dtype=torch.int64))
+    sorted_ = lambda: torch.argsort(st.live_logl, stable=True).to(
+        torch.int32)
+    assert int(st.order[0]) == -1
+    fused.ns_step_plain(st, *new(0), starts, *consts)
+    assert torch.equal(st.order, sorted_())
+    fused.ns_step_plain(st, *new(0.5), starts, *consts, select=False)
+    assert torch.equal(st.order, sorted_())
+    fused.ns_step_plain(st, *new(0), starts, *consts)
+    st.order[0] = -1
+    fused.ns_step_plain(st, *new(1.0), starts, *consts, select=False)
+    assert int(st.order[0]) == -1
+    fused.ns_step_plain(st, *new(0), starts, *consts)
+    st.kill[[0, 1]] = st.kill[[1, 0]]
+    before = st.order.clone()
+    fused.ns_step_plain(st, *new(1.5), starts, *consts, select=False)
+    assert int(st.order[0]) == -1 and torch.equal(st.order[1:], before[1:])
