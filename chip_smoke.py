@@ -237,7 +237,9 @@ K6_WIDTH = 4
 # steps of each phase: the same accept decisions, x within TOL_K12_X of
 # the box width, the log-densities within rel TOL_K12_LP (K6's: at n =
 # 4,000 the mean sums rows whose alpha cancel, 3e-12 apart), the step
-# size identical; whole runs of K12_WARMUP +
+# size identical, the warm-up's moment sums within TOL_K12_MOM of their
+# largest entry (the kernel sums them in another order); whole runs of
+# K12_WARMUP +
 # K12_SAMPLING steps: means and covariances within K12_SE standard errors
 # of their difference, acceptance within TOL_K12_ACC, split-R-hat below
 # K12_RHAT on both
@@ -245,6 +247,7 @@ K12_CONFIGS, K12_BIG, K12_BOX = ((8, 16), (32, 64)), (4000, 4096), 10.0
 K12_WARMUP, K12_SAMPLING, K12_STEPS = 1000, 2000, 50
 TOL_K12_X, TOL_K12_LP, K12_SE, TOL_K12_ACC, K12_RHAT = \
     1e-12, 1e-10, 4.0, 0.02, 1.2
+TOL_K12_MOM = 1e-12
 # K13 on crafted states at these (nlive, d), and through runs of 24 steps
 # with K6-like new points of these kinds; timed at the final NS's (the
 # row's) and at the largest
@@ -295,7 +298,8 @@ SYMBOLS = {"gated_mean_kernel": "gated_mean",
            "gated_meanvar_blocked": "gated_meanvar_logexp",
            "gated_meanvar_chain": "gated_meanvar_logexp",
            "masked_kernel_matrix_kernel": "masked_kernel_matrix_batched",
-           "kb_sweep_kernel": "kriging_believer_fill",
+           "kb_sweep_blocked": "kriging_believer_fill",
+           "kb_sweep_chain": "kriging_believer_fill",
            "kb_select_kernel": "kriging_believer_fill",
            "meanvar_ungated_kernel": "meanvar_ungated",
            "ns_slice_chains_kernel": "ns_slice_chains",
@@ -913,8 +917,10 @@ def k12_accepts(Xs, x0):
 def k12_same_steps(label, out, ref, x0, adapt):
     """The first K12_STEPS steps of one phase: the same accept decisions,
     x within TOL_K12_X of the box width, the log-densities within rel
-    TOL_K12_LP and (warm-up) the step size identical; returns the largest
-    x error."""
+    TOL_K12_LP and (warm-up) the step size identical and the moment sums
+    s1, s2 within TOL_K12_MOM of their largest entry; returns the largest
+    x error and the moment sums' largest gap over their largest entry (0
+    for the sampling phase)."""
     import torch
     if not torch.equal(k12_accepts(out[5], x0), k12_accepts(ref[5], x0)):
         raise AssertionError(f"K12 {label}: accept decisions differ")
@@ -925,7 +931,15 @@ def k12_same_steps(label, out, ref, x0, adapt):
     if adapt and float(out[2]) != float(ref[2]):
         raise AssertionError(f"K12 {label}: step size {float(out[2])!r} "
                              f"against {float(ref[2])!r}")
-    return err
+    mom = 0.0
+    for k, name in ((3, "s1"), (4, "s2")) if adapt else ():
+        scale = float(torch.max(torch.abs(ref[k])))
+        gap = float(torch.max(torch.abs(out[k] - ref[k])))
+        if not gap <= TOL_K12_MOM * scale:
+            raise AssertionError(f"K12 {label}: {name} off by {gap} of "
+                                 f"{scale}")
+        mom = max(mom, gap / scale)
+    return err, mom
 
 
 def k12_stats(Xs, x0):
@@ -960,6 +974,31 @@ def k12_full(fam, p, x0, lp0, draws, lo, hi, kernel, seen=None):
     return w, chol_w, s
 
 
+def k12_inputs(fam, dev, svm, d, B, n, nmax, label):
+    """K12's inputs at one configuration of check_k12: the surrogate of
+    one mode (synthetic_surrogate, mode=True), B starts about its centre
+    with finite log-densities, the draws of a whole run (z and u of the
+    warm-up and the sampling phase, and the first phase's factor) and the
+    prior box."""
+    import torch
+    from gpry_tpu_torch.ops import fused
+    f64 = dict(dtype=torch.float64, device=dev)
+    p = synthetic_surrogate(fam, dev, seed=21, svm=svm, d=d, n=n, nmax=nmax,
+                            mode=True)
+    gen = torch.Generator(device=dev).manual_seed(d + B)
+    x0 = 0.3 * torch.randn((B, d), generator=gen, **f64)
+    lp0 = fused.gated_mean_plain(fam, p, x0)
+    if not bool(torch.isfinite(lp0).all()):
+        raise AssertionError(f"K12 {label}: a start is not finite")
+    draws = (torch.randn((K12_WARMUP, B, d), generator=gen, **f64),
+             torch.rand((K12_WARMUP, B), generator=gen, **f64),
+             torch.randn((K12_SAMPLING, B, d), generator=gen, **f64),
+             torch.rand((K12_SAMPLING, B), generator=gen, **f64),
+             torch.eye(d, **f64) * (K12_BOX / 10 * 2.38 / d ** 0.5))
+    lo = torch.full((d,), -K12_BOX / 2, **f64)
+    return p, x0, lp0, draws, lo, -lo
+
+
 def check_k12(dev, families, timed):
     """K12 against its plain version at path d's ensemble (d = 8, B = 16)
     and at d = 32 (B = 64), on a surrogate with one mode (its training
@@ -987,20 +1026,8 @@ def check_k12(dev, families, timed):
             fam = spec_kernel(d)[0] if is_spec(fam0) else fam0
             label = f"{'spec' if is_spec(fam) else fam} svm={svm} d={d} " \
                 f"B={B} n={n}"
-            p = synthetic_surrogate(fam, dev, seed=21, svm=svm, d=d, n=n,
-                                    nmax=nmax, mode=True)
-            gen = torch.Generator(device=dev).manual_seed(d + B)
-            x0 = 0.3 * torch.randn((B, d), generator=gen, **f64)
-            lp0 = fused.gated_mean_plain(fam, p, x0)
-            if not bool(torch.isfinite(lp0).all()):
-                raise AssertionError(f"K12 {label}: a start is not finite")
-            draws = (torch.randn((K12_WARMUP, B, d), generator=gen, **f64),
-                     torch.rand((K12_WARMUP, B), generator=gen, **f64),
-                     torch.randn((K12_SAMPLING, B, d), generator=gen, **f64),
-                     torch.rand((K12_SAMPLING, B), generator=gen, **f64),
-                     torch.eye(d, **f64) * (K12_BOX / 10 * 2.38 / d ** 0.5))
-            lo = torch.full((d,), -K12_BOX / 2, **f64)
-            hi = -lo
+            p, x0, lp0, draws, lo, hi = k12_inputs(fam, dev, svm, d, B, n,
+                                                   nmax, label)
             zw, uw, zs, us, chol0 = draws
             step0 = torch.zeros((), **f64)
             # step for step: the warm-up from the start, the sampling phase
@@ -1008,6 +1035,7 @@ def check_k12(dev, families, timed):
             n0 = fused.LAUNCHES["mcmc_chains" + ("/spec" if is_spec(fam)
                                                  else "")]
             kw = k12_full(fam, p, x0, lp0, draws, lo, hi, True)
+            mom = 0.0
             for adapt, state, chol, z, u in (
                     (True, (x0, lp0, step0), chol0, zw, uw),
                     (False, kw[0][:3], kw[1], zs, us)):
@@ -1015,15 +1043,17 @@ def check_k12(dev, families, timed):
                                 u[:K12_STEPS], lo, hi, adapt, kern)
                         for kern in (True, False))
                 sync()
-                worst = max(worst, k12_same_steps(
+                err, gap = k12_same_steps(
                     f"{label} {'warm-up' if adapt else 'sampling'}", a, b,
-                    state[0], adapt))
+                    state[0], adapt)
+                worst, mom = max(worst, err), max(mom, gap)
             key = "mcmc_chains" + ("/spec" if is_spec(fam) else "")
             if fused.LAUNCHES[key] != n0 + 4:
                 raise AssertionError(f"K12 {label}: {fused.LAUNCHES[key]} "
                                      f"launches, expected {n0 + 4}")
             log(f"[K12] {label}: {K12_STEPS} steps of each phase: the same "
-                "accept decisions and step size")
+                f"accept decisions and step size; s1, s2 within {mom:.2e} "
+                "of their largest entry")
             if fam0 != timed:
                 continue
             # whole runs, by their statistics
@@ -2125,6 +2155,55 @@ def time_k2_k13(dev):
 
             out[f"ns_step nlive={nlive} d={d} {mode}"] = kernel_device_ms(
                 call, "ns_step_kernel", 50)
+    return out
+
+
+def time_k4_k12(dev):
+    """K4 and K12 at the kernel table's shapes, RBF and ALL_NODES: K4's
+    whole fill at check_k4's LogExp inputs (N_CAND candidates, a pool of
+    SIZE, scalar noise), ms per fill (CUDA events, 20 fills) and the device
+    ms of one sweep and one select apart (torch.profiler, 10 fills: 2 SIZE
+    - 1 launches each); K12 at path d's ensemble (check_k12's inputs: d =
+    D, 16 chains, the SVM all finite, n = N), a whole K12_WARMUP +
+    K12_SAMPLING-step run's ms (CUDA events, 3 runs) and each phase's
+    device ms (torch.profiler, 3 launches).  It calls only the wrappers,
+    with their arguments of every version since K12, so that
+    compare_trees.sh can run it on an older checkout's gpry_tpu_torch."""
+    import numpy as np
+    import torch
+    from gpry_tpu_torch.acquisition.functions import LogExp
+    from gpry_tpu_torch.mc.mcmc import sampling_factor
+    from gpry_tpu_torch.ops import fused
+    out = {}
+    acqf, noise_std = LogExp(dimension=D), 0.01
+    for fam, sfx in (("rbf", ""), (spec_kernel()[0], "/spec")):
+        rng = np.random.default_rng(4)
+        args = k4_inputs(fam, dev, "scalar", rng, acqf, noise_std)
+        fill = lambda: fused.kriging_believer_fill(
+            fam, *args, logexp=(acqf.zeta, noise_std))
+        key = "kriging_believer_fill" + sfx
+        out[key] = time_ms(fill, 20)
+        out[key + " sweep device"] = kernel_device_ms(fill, "kb_sweep", 10)
+        out[key + " select device"] = kernel_device_ms(fill, "kb_select",
+                                                       10)
+        fam12 = fam if not sfx else spec_kernel(D)[0]
+        p, x0, lp0, draws, lo, hi = k12_inputs(fam12, dev, "all_finite", D,
+                                               16, N, NMAX, "timing")
+        zw, uw, zs, us, chol0 = draws
+        step0 = torch.zeros((), dtype=torch.float64, device=dev)
+        w = fused.mcmc_chains(fam12, p, x0, lp0, step0, chol0, zw, uw, lo,
+                              hi, True)
+        chol_w = sampling_factor(w[3], w[4], zw.shape[0] * 16, chol0)
+        warm = lambda: fused.mcmc_chains(fam12, p, x0, lp0, step0, chol0, zw,
+                                         uw, lo, hi, True)
+        samp = lambda: fused.mcmc_chains(fam12, p, *w[:3], chol_w, zs, us,
+                                         lo, hi, False)
+        key = "mcmc_chains" + sfx
+        out[key] = time_ms(lambda: (warm(), samp()), 3)
+        out[key + " warm-up device"] = kernel_device_ms(warm, "mcmc_chains",
+                                                        3)
+        out[key + " sampling device"] = kernel_device_ms(samp,
+                                                         "mcmc_chains", 3)
     return out
 
 

@@ -20,12 +20,15 @@
 #   himmelblau  chip_smoke.py's path e: the audited NORA Runner on
 #           Himmelblau, once per seed in $SEEDS (default 100), each with
 #           its truth evals, moment-KL and fit seconds
-#   kernels K9, K10, K11, K6, K2 and K13 alone at the kernel table's
+#   kernels K9, K10, K11, K6, K2, K13, K4 and K12 alone at the kernel table's
 #           shapes (chip_smoke.time_fit_kernels, RBF and ALL_NODES: ms per
 #           call of K9, K11, K10 at the fit's screen and the route K10
 #           replaced; K6's device ms at B = 66, R = 40; then
 #           chip_smoke.time_k2_k13: K2 at nq = 1, 8 and 3,200, K13's
-#           steady-state and first steps at nlive 400 and 3,200)
+#           steady-state and first steps at nlive 400 and 3,200; then
+#           chip_smoke.time_k4_k12: K4's whole fill at N = 4,096 and a pool
+#           of 8, with one sweep's and one select's device ms, and K12's
+#           path-d run, with each phase's device ms)
 #   sweeps  K2 and K13 alone (chip_smoke.time_k2_k13)
 # The driving code is this script's own chip_smoke.py (run_bench,
 # run_runner), loaded by path; only gpry_tpu_torch comes from each
@@ -93,6 +96,8 @@ elif engine in ('kernels', 'sweeps'):
     dev = torch.device('cuda')
     out = cs.time_fit_kernels(dev) if engine == 'kernels' else {}
     out.update(cs.time_k2_k13(dev))
+    if engine == 'kernels':
+        out.update(cs.time_k4_k12(dev))
     print('RES', tree, engine, json.dumps(out), flush=True)
 elif engine == 'himmelblau':
     from gpry_tpu_torch.models import gp as gpm

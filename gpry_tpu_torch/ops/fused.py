@@ -142,7 +142,7 @@ BUILD_SECONDS = None
 _lib = None
 _lib_lock = threading.Lock()
 
-# The one-warp-per-query sweeps (K2's large-n route, K4's sweep, K5, K7's
+# The one-warp-per-query sweeps (K2's large-n route, K4's route 1, K5, K7's
 # solve) keep one k vector per query in shared memory; the block's query
 # count is the warp count (8) unless nmax forces fewer.
 _K2_MAX_Q = 8
@@ -269,10 +269,12 @@ def library():
         lib.gpry_masked_kernel_matrix.argtypes = [K] + [I] * 4 + [P] * 3 \
             + [I, D, P, P]
         lib.gpry_masked_kernel_matrix.restype = I
-        lib.gpry_kb_sweep.argtypes = [K] + [I] * 5 + [P] * 7 \
-            + [D, D, P, P, P]
+        lib.gpry_kb_plan.argtypes = [K] + [I] * 5 + [P, P, P]
+        lib.gpry_kb_plan.restype = I
+        lib.gpry_kb_sweep.argtypes = [K] + [I] * 6 + [P] * 7 \
+            + [D, D] + [P] * 5
         lib.gpry_kb_sweep.restype = I
-        lib.gpry_kb_select.argtypes = [K] + [I] * 5 + [P] * 18
+        lib.gpry_kb_select.argtypes = [K] + [I] * 7 + [P] * 20
         lib.gpry_kb_select.restype = I
         lib.gpry_meanvar_ungated.argtypes = [K] + [I] * 5 + [P] * 11
         lib.gpry_meanvar_ungated.restype = I
@@ -299,6 +301,8 @@ def library():
         lib.gpry_mcmc_chains_min_smem.restype = ctypes.c_size_t
         lib.gpry_mcmc_chains_work.argtypes = [K] + [I] * 5
         lib.gpry_mcmc_chains_work.restype = ctypes.c_size_t
+        lib.gpry_mcmc_chains_plan.argtypes = [K] + [I] * 6 + [P, P]
+        lib.gpry_mcmc_chains_plan.restype = I
         lib.gpry_mcmc_chains.argtypes = [K] + [I] * 6 + [P] * 18 + [I] \
             + [P] * 9
         lib.gpry_mcmc_chains.restype = I
@@ -1029,7 +1033,7 @@ def gated_mean(family, p, Xq_raw, _design=None):
 
 def _sweep_queries_per_block(nmax, d, spec_doubles):
     """Queries per block of the one-warp-per-query sweeps (K2's large-n
-    route, K4's sweep, K5, K7's solve): one per warp, fewer when nmax-long
+    route, K4's route 1, K5, K7's solve): one per warp, fewer when nmax-long
     k vectors of 8 queries (and the spec program of ``spec_doubles``) do
     not fit in the default 48 KB of shared memory."""
     per_q = 8 * (nmax + 2 * d + 1)
@@ -1066,19 +1070,50 @@ def gated_meanvar_logexp_plan(n, nmax, d, nq, spec_doubles=0,
     (_sweep_queries_per_block), up to nmax ~29,000 at d = 8.  Raises
     ``ValueError`` beyond route 1.
     """
+    blocked = _sub_plan(n, nmax, nq, d + spec_doubles, 2 * d + 3, aligned)
+    if blocked is not None:
+        return (0,) + blocked
+    q = _sweep_queries_per_block(nmax, d, spec_doubles)
+    return 1, q, 8 * (d + 2 * q * d + 3 * q + q * n + spec_doubles)
+
+
+def _sub_plan(n, nmax, nq, fixed, per_q, aligned):
+    """csrc/subst_blocked.cuh sub_plan: ``(Q, smem_bytes)`` of the blocked
+    route for nq queries against n rows (the caller's ``fixed`` doubles and
+    ``per_q`` doubles a query beside the routine's), or None where even Q =
+    8 does not fit or L cannot be copied 16 bytes at a time."""
+    if nmax % 2 or not aligned:
+        return None
     npad = -(-n // _SUB_PB) * _SUB_PB
     q = 32 if nq > _SUB_Q32_NQ else 16 if nq > _SUB_Q16_NQ else 8
-    if nmax % 2 or not aligned:
-        q = 0
     while q >= 8:
         sub = npad * (q + 4) + 2 * _SUB_PB * (npad + 4) + _SUB_WARPS * 64 \
             + _SUB_PB + q + 1
-        smem = 8 * (d + 2 * q * d + 3 * q + spec_doubles + sub)
+        smem = 8 * (fixed + per_q * q + sub)
         if smem <= _SMEM_MAX:
-            return 0, q, smem
+            return q, smem
         q //= 2
+    return None
+
+
+def kriging_believer_fill_plan(n, nmax, d, nq, spec_doubles=0,
+                               aligned=True):
+    """
+    K4's sweep route for ``nq`` candidates against at most ``n`` rows of
+    ``nmax`` at dimension ``d`` (a spec program of ``spec_doubles``), as
+    csrc/kriging_believer_fill.cu k4_plan sizes it: ``(route, Q,
+    smem_bytes)``.  Route 0 solves Q = 8, 16 or 32 candidates a block on
+    csrc/subst_blocked.cuh (Q by nq as K2's, fewer where shared memory
+    forces it; an even ``nmax`` and L 16-byte aligned, ``aligned``); route
+    1 a warp a candidate with Q k vectors of nmax in shared memory
+    (_sweep_queries_per_block).  The round-0 append plans ``nq = 1``.
+    Raises ``ValueError`` beyond route 1.
+    """
+    blocked = _sub_plan(n, nmax, nq, d + spec_doubles, d, aligned)
+    if blocked is not None:
+        return (0,) + blocked
     q = _sweep_queries_per_block(nmax, d, spec_doubles)
-    return 1, q, 8 * (d + 2 * q * d + 3 * q + q * n + spec_doubles)
+    return 1, q, 8 * (d + q * d + q * nmax + spec_doubles)
 
 
 def gated_meanvar_logexp(family, p, Xq_raw, logexp=None):
@@ -1188,11 +1223,22 @@ def kriging_believer_fill(family, p, Xd_raw, y, sigma, acq0, alive0, size,
     the sweep kernel; otherwise the sweep returns the conditioned stds and
     ``acq_values`` is applied in torch between the two kernels of a round.
     Every round stays on the device: nothing is read back to the host.
+    The sweep's route: :func:`kriging_believer_fill_plan`.
     """
     check_family(family)
     if Xd_raw.device.type == "cpu":
         return kriging_believer_fill_plain(family, p, Xd_raw, y, sigma, acq0,
                                            alive0, size, acq_values)
+    return _kb_fill(family, p, Xd_raw, y, sigma, acq0, alive0, size,
+                    acq_values, logexp)[:5]
+
+
+def _kb_fill(family, p, Xd_raw, y, sigma, acq0, alive0, size, acq_values,
+             logexp):
+    """K4's rounds on the card: the five results of
+    :func:`kriging_believer_fill`, then the grown training buffer, factor
+    and valid-row count ``(Xbuf, L, n)`` on the device (None when
+    ``size`` is 0)."""
     dev = Xd_raw.device
     N, d = Xd_raw.shape
     nmax = p.X.shape[0]
@@ -1222,25 +1268,32 @@ def kriging_believer_fill(family, p, Xd_raw, y, sigma, acq0, alive0, size,
     outY, outS, outA, outC = (torch.empty(size, dtype=dt, device=dev)
                               for _ in range(4))
     if size <= 0:
-        return outX, outY, outS, outA, outC
+        return outX, outY, outS, outA, outC, None, None, None
     # working state: updated in place by the kernels, never read on host
     Xq_ = ((Xd_raw - p.x_loc) / p.x_scale).contiguous()
     Xbuf, L = p.X.clone(), p.L.clone()
     alive = alive0.clone()
     n_dev = torch.tensor([p.n], dtype=torch.int32, device=dev)
     swept = torch.empty(N, dtype=dt, device=dev)
+    # each alive candidate's solved row and its sum of squares (the sweep
+    # writes them, the next select appends the pick's)
+    rows = torch.empty((N, nmax), dtype=dt, device=dev) if size > 1 \
+        else swept
+    rsum = torch.empty(N, dtype=dt, device=dev)
     zeta, noise_std = (0.0, 0.0) if logexp is None else logexp
-    Q = _sweep_queries_per_block(nmax, d, _spec_doubles(kern))
+    qchain = _sweep_queries_per_block(nmax, d, _spec_doubles(kern))
     lib = library()
     for i in range(size):
+        # n_dev is at most p.n + i (a round with no pick appends nothing)
+        n_hi = int(p.n) + i
         if i == 0:
             ac = acq0
         else:
             rc = lib.gpry_kb_sweep(
-                kern, int(logexp is not None), N, nmax, d, Q, _ptr(n_dev),
-                _ptr(Xq_), _ptr(y), _ptr(Xbuf), _ptr(L), _ptr(p.theta),
-                _ptr(p.scal), float(zeta), float(noise_std), _ptr(alive),
-                _ptr(swept), _stream())
+                kern, int(logexp is not None), N, n_hi, nmax, d, qchain,
+                _ptr(n_dev), _ptr(Xq_), _ptr(y), _ptr(Xbuf), _ptr(L),
+                _ptr(p.theta), _ptr(p.scal), float(zeta), float(noise_std),
+                _ptr(alive), _ptr(swept), _ptr(rows), _ptr(rsum), _stream())
             _raise_on("kriging_believer_fill (sweep)", rc)
             _count("kriging_believer_fill", family)
             if logexp is None:
@@ -1249,14 +1302,15 @@ def kriging_believer_fill(family, p, Xd_raw, y, sigma, acq0, alive0, size,
             else:
                 ac = swept
         rc = lib.gpry_kb_select(
-            kern, N, nmax, d, i, int(noise.numel() == nmax), _ptr(Xd_raw),
-            _ptr(Xq_), _ptr(y), _ptr(sigma), _ptr(acq0), _ptr(ac),
-            _ptr(alive), _ptr(p.theta), _ptr(noise), _ptr(n_dev),
-            _ptr(Xbuf), _ptr(L), _ptr(outX), _ptr(outY), _ptr(outS),
-            _ptr(outA), _ptr(outC), _stream())
+            kern, N, n_hi, nmax, d, i, int(noise.numel() == nmax),
+            int(i == 0), _ptr(Xd_raw), _ptr(Xq_), _ptr(y), _ptr(sigma),
+            _ptr(acq0), _ptr(ac), _ptr(alive), _ptr(p.theta), _ptr(noise),
+            _ptr(n_dev), _ptr(Xbuf), _ptr(L), _ptr(rows), _ptr(rsum),
+            _ptr(outX), _ptr(outY), _ptr(outS), _ptr(outA), _ptr(outC),
+            _stream())
         _raise_on("kriging_believer_fill (select)", rc)
         _count("kriging_believer_fill", family)
-    return outX, outY, outS, outA, outC
+    return outX, outY, outS, outA, outC, Xbuf, L, n_dev
 
 
 def ns_slice_chains(family, p, x0, lx0, lstar, chol, nrm, u, lo, hi,
@@ -1330,16 +1384,110 @@ def ns_slice_chains(family, p, x0, lx0, lstar, chol, nrm, u, lo, hi,
     return out
 
 
+#: K12's plan (csrc/mcmc_chains.cu): warps a block, the warm-up's cluster
+#: (at most), the sampling phase's most blocks, the ring's depth, the most
+#: warps a chain
+_K12_MAX_WARPS, _K12_MAX_CLUSTER = 16, 16
+_K12_SAMPLE_BLOCKS, _K12_RING, _K12_MAX_W = 128, 16, 8
+
+
+def _staged_doubles(n, nsv, d, spec_doubles):
+    """csrc/common.cuh gpry_staged_doubles."""
+    return 5 * d + (d + 1) * (n + nsv) + spec_doubles
+
+
+def _stage_plan(n, nsv, d, spec_doubles, rest):
+    """csrc/common.cuh gpry_stage_plan: 0 the surrogate in shared memory,
+    1 its support vectors in global memory, 2 X / l as well."""
+    if 8 * (_staged_doubles(n, nsv, d, spec_doubles) + rest) <= _SMEM_MAX:
+        return 0
+    if 8 * (_staged_doubles(n, 0, d, spec_doubles) + rest) <= _SMEM_MAX:
+        return 1
+    return 2
+
+
+def mcmc_chains_min_smem(B, d, spec_doubles=0):
+    """csrc/mcmc_chains.cu gpry_mcmc_chains_min_smem: K12's range, that of
+    the design before this one (one block, a warp a chain): bytes of its
+    smallest staging, evaluation scratch, proposal factor, box, three
+    d-vectors a warp and the accept flags.  Beyond 227 KB the wrapper
+    raises ValueError."""
+    return 8 * (_staged_doubles(0, 0, d, spec_doubles) + 4 * d + 18
+                + d * d + 2 * d + 3 * d * min(B, 32)
+                + (B + 1) // 2)
+
+
+def mcmc_chains_plan(B, n, nsv_eff, d, spec_doubles=0, adapt=False):
+    """
+    K12's launch geometry for one phase, as csrc/mcmc_chains.cu k12_plan
+    computes it: a dict of ``blocks`` (the grid; the warm-up's cluster),
+    ``chains`` (of the fullest block; chain b lives in block b % blocks),
+    ``groups`` a block and ``warps`` a chain (enough that a lane sums
+    about one of the n + nsv_eff rows, up to 8,
+    while the block's chains all run at once in 16 warps), ``ring`` (steps
+    of draws read ahead), ``state_smem`` and ``chol_smem`` (the chains'
+    states and the proposal factor in shared memory), ``stage``
+    (gpry_stage_plan), ``smem`` (bytes) and ``threads``.  The warm-up
+    (``adapt``) runs one cluster of the smallest power of two of blocks at
+    or above B, at most 16; the sampling phase as many blocks as chains up
+    to 128.  None where nothing fits (the wrapper refuses such shapes
+    first).
+    """
+    if adapt:
+        blocks = 1
+        while blocks < B and blocks < _K12_MAX_CLUSTER:
+            blocks *= 2
+    else:
+        per = -(-B // _K12_SAMPLE_BLOCKS)
+        blocks = -(-B // per)
+    chains = -(-B // blocks)
+    w = 1
+    while w < _K12_MAX_W and 32 * w < n + nsv_eff and \
+            2 * w * chains <= _K12_MAX_WARPS:
+        w *= 2
+    g = dict(blocks=blocks, chains=chains,
+             groups=min(chains, _K12_MAX_WARPS // w),
+             warps=w, ring=_K12_RING, state_smem=1, chol_smem=1)
+
+    def rest():
+        threads = 32 * g["groups"] * w
+        return (4 * d + 18 + 2 * d + g["chol_smem"] * d * d
+                + g["groups"] * (g["ring"] * (d + 1) + 3 * d + 2 * w + 1)
+                + g["state_smem"] * chains * (d + 1)
+                + ((2 * B + 7) // 8 + threads if adapt else 0))
+
+    base = _staged_doubles(0, 0, d, spec_doubles)
+    while 8 * (base + rest()) > _SMEM_MAX:
+        if g["ring"] > 1:
+            g["ring"] //= 2
+        elif g["state_smem"]:
+            g["state_smem"] = 0
+        elif g["chol_smem"]:
+            g["chol_smem"] = 0
+        else:
+            return None
+    r = rest()
+    stage = _stage_plan(n, nsv_eff, d, spec_doubles, r)
+    g.update(stage=stage, threads=32 * g["groups"] * w,
+             smem=8 * (_staged_doubles(0 if stage == 2 else n,
+                                       0 if stage >= 1 else nsv_eff, d,
+                                       spec_doubles) + r))
+    return g
+
+
 def mcmc_chains(family, p, x, lp_x, log_step, chol, z, u, lo, hi, adapt):
     """
     K12: one phase of the adaptive Metropolis ensemble on the gated
     surrogate ``p`` under the prior box [lo, hi] (see
     :func:`mcmc_chains_plain` for the arguments and results; ``log_step``
-    a 0-d tensor), every step in one launch: one block, a warp per chain.
-    A surrogate beyond a block's shared memory is read from a staged copy
-    in global memory, as K6 reads it.  Raises ValueError when the
-    proposal factor and the warps' scratch alone exceed a block's shared
-    memory (d above ~140 at 32 or more chains).
+    a 0-d tensor), every step in one launch, the chains spread over blocks
+    (:func:`mcmc_chains_plan`): the sampling phase a block a chain (up to
+    128 blocks), the warm-up one thread-block cluster of up to 16 blocks
+    that couples the chains' step size every step.  A surrogate beyond a
+    block's shared memory is read from a staged copy in global memory, as
+    K6 reads it.  Raises ValueError beyond the range of the design before
+    this one (its proposal factor and warps' scratch in one block's shared
+    memory: d above 125 at 32 or more chains, 163 at one).
     """
     check_family(family)
     if x.device.type == "cpu":

@@ -80,11 +80,13 @@ def dev():
     return torch.device("cuda")
 
 
-def surrogate(family, dev, n=40, nmax=64, d=3, seed=0, nsv=8, svm="fitted"):
+def surrogate(family, dev, n=40, nmax=64, d=3, seed=0, nsv=8, svm="fitted",
+              ls=None):
     """A small surrogate with every gate active: the SVM fitted (or, with
     ``svm="all_finite"``, the placeholder of a run that has seen no -inf),
     a trust box inside the prior and an upper clip.  ``family`` is a fast
-    family or a spec tree (its kernel argument, see family_and_theta)."""
+    family or a spec tree (its kernel argument, see family_and_theta); a
+    fast family's length scale ``ls`` if given."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.as_tensor(np.asarray(a, float), dtype=torch.float64,
                                   device=dev)
@@ -92,6 +94,8 @@ def surrogate(family, dev, n=40, nmax=64, d=3, seed=0, nsv=8, svm="fitted"):
     X[:n] = rng.uniform(0, 1, (n, d))
     y[:n] = np.sin(4 * X[:n]).sum(1)
     family, theta = family_and_theta(family, d)
+    if ls is not None:
+        theta = np.log([1.3] + [ls] * d)
     L, alpha = factorize(family, t(theta), t(X), t(y), n, t(1e-4))
     sv = rng.uniform(0, 1, (nsv, d))
     if svm == "fitted":
@@ -485,19 +489,21 @@ def test_meanvar_ungated_kernel(dev, family, nq):
     assert float(torch.max(torch.abs(sa - sb))) <= atol
 
 
-def _fill_inputs(family, dev, noise, N=500, size=4):
-    """K4's inputs on the small surrogate: candidates inside the trust box
-    with their gated mean, std and LogExp values; scalar or per-row
-    noise."""
+def _fill_inputs(family, dev, noise, N=500, size=4, n=40, nmax=64,
+                 grow=64, ls=None):
+    """K4's inputs on the small surrogate (n of nmax rows, re-padded to
+    ``grow``; a fast family's length scale ``ls``): candidates inside the
+    trust box with their gated mean, std and LogExp values; scalar or
+    per-row noise."""
     from gpry_tpu_torch.acquisition.base import grow_surrogate
     from gpry_tpu_torch.acquisition.functions import LogExp
-    p = surrogate(family, dev)
+    p = surrogate(family, dev, n=n, nmax=nmax, ls=ls)
     family = family_and_theta(family)[0]
     if noise == "vector":
-        p = p.replace(noise_var=torch.linspace(1e-4, 1e-3, 64,
+        p = p.replace(noise_var=torch.linspace(1e-4, 1e-3, nmax,
                                                dtype=torch.float64,
                                                device=dev))
-    p = grow_surrogate(p, 64)
+    p = grow_surrogate(p, grow)
     gen = torch.Generator(device=dev).manual_seed(3)
     Xc = torch.rand((N, 3), generator=gen, dtype=torch.float64,
                     device=dev) * 1.6 - 0.8
@@ -532,6 +538,150 @@ def test_kriging_believer_fill_kernel(dev, family, noise):
         for a, b in zip(out[:4], ref[:4]):
             assert torch.equal(a, b)
         _close(out[4], ref[4], 1e-10)
+
+
+def _same_fill(family, args, acqf, state=False):
+    """K4 in both sweep modes against its plain version on ``args``:
+    identical picks and -inf masks, outC within rel 1e-10; one select per
+    round and one sweep per conditioned round.  With ``state``, every row
+    the fill appended to L against a direct substitution of its pick (rel
+    1e-12) and its diagonal entry against k22 + noise - |S12|^2."""
+    key = "kriging_believer_fill" + ("/spec" if isinstance(family, tuple)
+                                     else "")
+    p, size = args[0], args[6]
+    ref = fused.kriging_believer_fill_plain(family, *args)
+    assert bool(torch.isfinite(ref[4]).all())
+    for logexp in ((acqf.zeta, 0.01), None):
+        n0 = fused.LAUNCHES[key]
+        out = fused._kb_fill(family, *args, logexp) if state else \
+            fused.kriging_believer_fill(family, *args, logexp=logexp)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES[key] == n0 + 2 * size - 1
+        for a, b in zip(out[:4], ref[:4]):
+            assert torch.equal(a, b)
+        _close(out[4], ref[4], 1e-10)
+        if state:
+            Xbuf, L, n_dev = out[5:]
+            assert int(n_dev) == p.n + size
+            for r in range(p.n, p.n + size):
+                k12 = kernel_matrix_rows(family, p.theta, Xbuf[:r],
+                                         Xbuf[r:r + 1])[:, 0]
+                S12 = torch.linalg.solve_triangular(
+                    L[:r, :r], k12[:, None], upper=False)[:, 0]
+                _close(L[r, :r], S12, 1e-12)
+                noise = p.noise_var if p.noise_var.ndim == 0 \
+                    else p.noise_var[r]
+                k22 = kernel_diag(family, p.theta, Xbuf[r:r + 1])[0] + noise
+                s22 = torch.sqrt(torch.clamp_min(
+                    k22 - torch.sum(L[r, :r] ** 2), 1e-12))
+                _close(L[r, r:r + 1], s22[None], 1e-12)
+
+
+def kernel_matrix_rows(family, theta, A, B):
+    from gpry_tpu_torch.ops.kernels import cross_kernel
+    return cross_kernel(family, theta, A, B)
+
+
+@pytest.mark.parametrize("family", ("rbf", "matern32", "all_nodes"))
+def test_kriging_believer_fill_dead_and_partial_blocks(dev, family):
+    """Blocks that mix dead and alive candidates (every third dead from
+    the start) and N = 500 (not a multiple of the 8 candidates a block):
+    the dead ride in their blocks and are never picked."""
+    args, acqf = _fill_inputs(family, dev, "scalar")
+    fam = family_and_theta(family)[0]
+    alive = args[5].clone()
+    alive[::3] = False
+    args = args[:5] + (alive,) + args[6:]
+    assert len(args[1]) % 8 != 0
+    assert fused.kriging_believer_fill_plan(
+        43, 64, 3, len(args[1]),
+        fused._spec_doubles(fused._kern(fam, 3, dev)))[:2] == (0, 8)
+    _same_fill(fam, args, acqf)
+    out = fused.kriging_believer_fill(fam, *args, logexp=(acqf.zeta, 0.01))
+    picks = [int(torch.nonzero(torch.all(args[1] == x, dim=1))[0, 0])
+             for x in out[0]]
+    assert all(i % 3 != 0 for i in picks)
+
+
+@pytest.mark.parametrize("noise", ["scalar", "vector"])
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+def test_kriging_believer_fill_odd_nmax(dev, family, noise):
+    """An odd nmax (65): the sweep takes route 1 (the warp chain) and the
+    round-0 append warp 0's chain; both sweep modes match the plain
+    version, and every appended row its direct substitution."""
+    args, acqf = _fill_inputs(family, dev, noise, grow=65)
+    fam = family_and_theta(family)[0]
+    spec = fused._spec_doubles(fused._kern(fam, 3, dev))
+    assert args[0].L.shape == (65, 65)
+    for nq in (1, len(args[1])):
+        assert fused.kriging_believer_fill_plan(40, 65, 3, nq,
+                                                spec)[0] == 1
+    _same_fill(fam, args, acqf, state=True)
+
+
+@pytest.mark.parametrize("noise", ["scalar", "vector"])
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+def test_kriging_believer_fill_appends_the_swept_row(dev, family, noise):
+    """Every row the fill appends (round 0's solved in the select, the
+    others copied from the sweep's solved rows) equals a direct
+    substitution of the pick against the factor at that round's n, within
+    rel 1e-12, with its diagonal entry; of 8,000 candidates drawn, the
+    more than 1,056 with a finite acquisition make the sweep take 16
+    candidates a block."""
+    args, acqf = _fill_inputs(family, dev, noise, N=8000, size=5)
+    fam = family_and_theta(family)[0]
+    assert len(args[1]) > 1056
+    spec = fused._spec_doubles(fused._kern(fam, 3, dev))
+    assert fused.kriging_believer_fill_plan(44, 64, 3, len(args[1]),
+                                            spec)[:2] == (0, 16)
+    _same_fill(fam, args, acqf, state=True)
+
+
+@pytest.mark.parametrize("family", ("rbf", "matern52"))
+def test_kriging_believer_fill_only_q8_fits(dev, family):
+    """Past the n at which 16 candidates a block no longer fit in shared
+    memory (N = 1,100 candidates, d = 3; ~550 training points, a length
+    scale of 0.08 so that the factor stays well conditioned), the sweep
+    keeps route 0 with 8 a block, and the fill matches its plain
+    version."""
+    from gpry_tpu_torch.config import bucket_size
+    fam = family_and_theta(family)[0]
+    spec = fused._spec_doubles(fused._kern(fam, 3, dev))
+    plan = fused.kriging_believer_fill_plan
+    n = 300
+    while plan(n + 3, bucket_size(n + 4), 3, 1100, spec)[1] == 16:
+        n += 8
+    nmax = bucket_size(n + 4)
+    assert plan(n, nmax, 3, 1100, spec)[:2] == (0, 8)
+    assert plan(n + 3, nmax, 3, 1100, spec)[:2] == (0, 8)
+    args, acqf = _fill_inputs(family, dev, "scalar", N=3000, n=n, nmax=nmax,
+                              grow=nmax, ls=0.08)
+    assert len(args[1]) > 1056
+    _same_fill(fam, args, acqf, state=True)
+
+
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+@pytest.mark.parametrize("d", (2, 8, 32))
+def test_kriging_believer_fill_plan_matches_the_kernel(dev, family, d):
+    """fused.kriging_believer_fill_plan gives k4_plan's route, candidates
+    a block and shared memory, at an even and an odd nmax and for L's data
+    16-byte aligned or 8 bytes off."""
+    fam = family_and_theta(family, d)[0]
+    kern = fused._kern(fam, d, dev)
+    spec = fused._spec_doubles(kern)
+    lib = fused.library()
+    for nq in (1, 500, 1056, 1057, 4096, 4224, 4225):
+        for n in (0, 1, 224, 600, 1200, 5000):
+            for nmax in (max(64, n + 8 + n % 2), max(65, (n + 8) | 1)):
+                qc = fused._sweep_queries_per_block(nmax, d, spec)
+                for at in (4096, 4104):
+                    route, q, smem = fused.kriging_believer_fill_plan(
+                        n, nmax, d, nq, spec, aligned=at % 16 == 0)
+                    Q, sm = ctypes.c_int(), ctypes.c_size_t()
+                    assert lib.gpry_kb_plan(
+                        kern, nq, n, nmax, d, qc, ctypes.c_void_p(at),
+                        ctypes.byref(Q), ctypes.byref(sm)) == route
+                    assert (Q.value, sm.value) == (q, smem)
 
 
 def test_kernels_refuse_grad_and_float32(dev):
@@ -1382,6 +1532,125 @@ def test_mcmc_chains_beyond_smem(dev, family, n, nmax, nsv, work):
         ref = fused.mcmc_chains_plain(fused._in_box_logp(family, p, lo, hi),
                                       x0, lp0, step, chol, z, u, adapt)
         _same_chains(out, ref, 1e-10)
+
+
+@pytest.mark.parametrize("adapt", (True, False), ids=("warmup", "sampling"))
+@pytest.mark.parametrize("B, d", ((1, 3), (16, 3), (17, 3), (64, 32)))
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+def test_mcmc_chains_spread(dev, family, B, d, adapt):
+    """The chains spread over blocks: 1, 16 and 17 chains at d = 3 (the
+    warm-up's cluster of 1, 16 and 16 blocks, 17 leaving one block two
+    chains) and 64 at d = 32 (16 blocks of 4): step for step against the
+    plain version, one launch for the phase."""
+    p = surrogate(family, dev, d=d, svm="all_finite" if d > 3 else "fitted")
+    key = count_key("mcmc_chains", family)
+    fam = family_and_theta(family, d)[0]
+    args = _mcmc_inputs(fam, p, B, 40, half=0.85 if d > 3 else 1.0)
+    g = fused.mcmc_chains_plan(B, p.n, 8 if d == 3 else 0, d,
+                               fused._spec_doubles(fused._kern(fam, d, dev)),
+                               adapt=adapt)
+    assert g["blocks"] == (min(16, 1 << (B - 1).bit_length()) if adapt
+                           else B)
+    n0 = fused.LAUNCHES[key]
+    out = fused.mcmc_chains(fam, p, *args, adapt)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[key] == n0 + 1
+    ref = fused.mcmc_chains_plain(
+        fused._in_box_logp(fam, p, args[6], args[7]), *args[:6], adapt)
+    _same_chains(out, ref)
+
+
+@pytest.mark.parametrize("B", (16, 17, 40))
+@pytest.mark.parametrize("family", ("rbf", "c_rbf_white"))
+def test_mcmc_chains_cluster_edge(dev, family, B):
+    """The warm-up's cluster of 16 blocks (the non-portable size) where a
+    block holds a whole SM: n = 5,000 rows at d = 3 staged in shared
+    memory, more than half of an SM's, so a block an SM; the cluster
+    launches and agrees with the plain version step for step."""
+    p = surrogate(family, dev, n=5000, nmax=5008, svm="fitted")
+    fam = family_and_theta(family)[0]
+    spec = fused._spec_doubles(fused._kern(fam, 3, dev))
+    g = fused.mcmc_chains_plan(B, 5000, 8, 3, spec, adapt=True)
+    assert (g["blocks"], g["stage"]) == (16, 0)
+    assert g["smem"] > 227 * 1024 // 2
+    args = _mcmc_inputs(fam, p, B, 40)
+    ref = fused.mcmc_chains_plain(
+        fused._in_box_logp(fam, p, args[6], args[7]), *args[:6], True)
+    _same_chains(fused.mcmc_chains(fam, p, *args, True), ref, 1e-10)
+
+
+@pytest.mark.parametrize("n, nmax, warps", (
+    (24, 32, 1), (56, 64, 2), (120, 128, 4), (2100, 2112, 8)))
+@pytest.mark.parametrize("adapt", (True, False), ids=("warmup", "sampling"))
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+def test_mcmc_chains_warps_per_chain(dev, family, adapt, n, nmax, warps):
+    """A chain's evaluation split over 1, 2, 4 and 8 warps, as the plan
+    picks them from n + nsv (8 support vectors) for 16 chains at d = 16
+    (at n = 2,100, X / l read from global memory), agrees with the plain
+    version step for step."""
+    p = surrogate(family, dev, n=n, nmax=nmax, d=16, svm="fitted")
+    fam = family_and_theta(family, 16)[0]
+    spec = fused._spec_doubles(fused._kern(fam, 16, dev))
+    assert fused.mcmc_chains_plan(16, n, 8, 16, spec,
+                                  adapt=adapt)["warps"] == warps
+    args = _mcmc_inputs(fam, p, 16, 20)
+    ref = fused.mcmc_chains_plain(
+        fused._in_box_logp(fam, p, args[6], args[7]), *args[:6], adapt)
+    _same_chains(fused.mcmc_chains(fam, p, *args, adapt), ref, 1e-10)
+
+
+@pytest.mark.parametrize("adapt, B, d, ring, states_global, factor_global", (
+    (True, 1000, 64, 8, False, False), (True, 2000, 100, 1, True, False),
+    (True, 1, 163, 1, True, True), (False, 2000, 100, 4, False, False),
+    (False, 1, 163, 1, True, False)),
+    ids=("warmup-ring", "warmup-states", "warmup-factor", "sampling-ring",
+         "sampling-states"))
+def test_mcmc_chains_plan_fallbacks(dev, adapt, B, d, ring, states_global,
+                                    factor_global):
+    """Where the ring of draws, the chains' states and the proposal factor
+    do not all fit beside the staged surrogate (many chains a block, or d
+    at the edge of the range), the plan of the phase run shortens the
+    ring, then keeps the states in the output buffers, then (the warm-up
+    at d = 163) reads the factor from global memory; each agrees with the
+    plain version."""
+    p = surrogate("rbf", dev, d=d, svm="all_finite")
+    g = fused.mcmc_chains_plan(B, p.n, 0, d, adapt=adapt)
+    assert (g["ring"], g["state_smem"], g["chol_smem"]) == \
+        (ring, int(not states_global), int(not factor_global))
+    args = _mcmc_inputs("rbf", p, B, 6, half=0.85)
+    out = fused.mcmc_chains("rbf", p, *args, adapt)
+    ref = fused.mcmc_chains_plain(
+        fused._in_box_logp("rbf", p, args[6], args[7]), *args[:6], adapt)
+    _same_chains(out, ref, 1e-10)
+
+
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+def test_mcmc_chains_plan_matches_the_kernel(dev, family):
+    """fused.mcmc_chains_plan gives k12_plan's geometry and shared memory,
+    and fused.mcmc_chains_min_smem the range gate's bytes, over chains,
+    rows, support vectors, d and both phases."""
+    lib = fused.library()
+    for d in (1, 3, 8, 32, 80, 119):
+        fam = family_and_theta(family, d)[0]
+        kern = fused._kern(fam, d, dev)
+        spec = fused._spec_doubles(kern)
+        for B in (1, 16, 17, 64, 200, 1000):
+            assert lib.gpry_mcmc_chains_min_smem(kern, B, d) == \
+                fused.mcmc_chains_min_smem(B, d, spec)
+            if fused.mcmc_chains_min_smem(B, d, spec) > 227 * 1024:
+                continue
+            for n, nsv in ((224, 8), (1100, 1152), (4000, 0)):
+                for adapt in (0, 1):
+                    g = fused.mcmc_chains_plan(B, n, nsv, d, spec, adapt)
+                    out = (ctypes.c_int * 8)()
+                    sm = ctypes.c_size_t()
+                    assert lib.gpry_mcmc_chains_plan(
+                        kern, B, n, nsv, d, MODE_FITTED, adapt, out,
+                        ctypes.byref(sm)) == 0
+                    assert list(out) == [g[k] for k in (
+                        "blocks", "chains", "groups", "warps", "ring",
+                        "state_smem", "chol_smem", "stage")]
+                    assert sm.value == g["smem"]
 
 
 def ns_state(dev, nlive, d, kind, seed=0):
