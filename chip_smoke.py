@@ -10,8 +10,11 @@ Drive gpry_tpu_torch once on one CUDA card.
    ``gpry_tpu_torch/csrc``, one nvcc per source, all at once.
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes of the main paths (d = 8, n = 224 valid rows in a bucket of
-   nmax = 320; K1 at nq = 16, 66, 2,000, 16,384 and 65,536 in both of
-   its designs, K2 at nq = 3,200, K3 at R = 2,048, K4 at N = 4,096 candidates
+   nmax = 320; K1 at nq = 16, 66, 2,000, 16,384 and 65,536, each in the
+   geometry its plan gives it, K2 at nq = 3,200, K3 at R = 2,048, at R = 1
+   and as the row panels of appends of 1 and 8 points (each panel equal to
+   the whole matrix's rows bit for bit, the whole matrix bit for bit
+   symmetric on the fast families), K4 at N = 4,096 candidates
    and a pool of 8, K5 at the audit screen's nq = 4,096, K6 at the NS's
    B = 66 and 33 chains of 40 repeats, K7 and K8 at nq = 1, 64 and 1,024,
    K9 at 8 restart lanes, lane 0 on a training point, with no upper
@@ -26,8 +29,9 @@ Drive gpry_tpu_torch once on one CUDA card.
    nlive 200, 400 and 3,200 (d = 64); K1, K6 and K12 with the SVM fitted
    and all finite), for the four fast families and,
    in each kernel's spec mode, for a composite kernel with every node kind
-   (ALL_NODES); time both with CUDA events (K1 and K6 also by their
-   kernel's own duration in a ``torch.profiler`` trace), and compute each
+   (ALL_NODES); time both with CUDA events (K1, K3 at R = 1 and its
+   panels, and K6 also by their kernel's own duration in a
+   ``torch.profiler`` trace), and compute each
    kernel's bound: the larger of its FP64 operations over the H100 SXM's
    FP64 peak and its bytes over 3.35 TB/s.  K1's, K6's and K12's
    operations count only the sums their inputs need: the SVM decision of a
@@ -294,7 +298,6 @@ PATH_KERNELS = {
 }
 # the thirteen kernels' symbols, by row of the kernels line
 SYMBOLS = {"gated_mean_kernel": "gated_mean",
-           "gated_mean_small_kernel": "gated_mean",
            "gated_meanvar_blocked": "gated_meanvar_logexp",
            "gated_meanvar_chain": "gated_meanvar_logexp",
            "masked_kernel_matrix_kernel": "masked_kernel_matrix_batched",
@@ -1229,16 +1232,29 @@ def check_k13(dev):
                                    "flops", "bytes", "shape")}}
 
 
+def k1_bound(family, p, Xq):
+    """K1's bound at queries Xq: the sums their inputs need (needed_sums);
+    the queries, the training set and the support vectors in, the outputs
+    out."""
+    nq = Xq.shape[0]
+    n_svm, n_gp = needed_sums(p, Xq)
+    return {"svm_sums": n_svm, "gp_sums": n_gp, **bound(
+        sum_flops(n_svm, n_gp, family),
+        8 * (nq * D + nq + N * D + N + NSV * (D + 1) + 4 * D))}
+
+
 def check_k1(dev, rng, families, timed, sizes):
-    """K1 at the batch sizes of the main paths in both designs (block per
-    query, tiled) with the SVM fitted and all finite; ``timed`` (SVM
-    fitted) timed in the wrapper's own choice and each design."""
+    """K1 at the batch sizes of the main paths with the SVM fitted and all
+    finite, each in the geometry its plan gives it (gated_mean_plan);
+    ``timed`` (SVM fitted) timed at every size by CUDA events and by its
+    device ms (torch.profiler)."""
     import torch
     from gpry_tpu_torch.ops import fused
     worst = 0.0
     shapes = {}
     for fam in families:
         label = "spec" if is_spec(fam) else fam
+        spec_doubles = fused._spec_doubles(fused._kern(fam, D, dev))
         for svm in ("fitted", "all_finite"):
             p = synthetic_surrogate(fam, dev, seed=11, svm=svm)
             is_timed = fam == timed and svm == "fitted"
@@ -1246,45 +1262,36 @@ def check_k1(dev, rng, families, timed, sizes):
                 Xq = torch.as_tensor(rng.uniform(-5, 5, (nq, D)),
                                      dtype=torch.float64, device=dev)
                 b = fused.gated_mean_plain(fam, p, Xq)
-                shape = {}
-                for design in ("block", "tiled"):
-                    a = fused.gated_mean(fam, p, Xq, _design=design)
-                    torch.cuda.synchronize()
-                    err, rel = rel_err(a, b)
-                    log(f"[K1] {label:8s} svm {svm:10s} nq={nq:6d} "
-                        f"{design}: max abs err {err:.3e}, rel {rel:.3e}, "
-                        f"finite {int(torch.isfinite(b).sum())}")
-                    if not rel <= TOL_K1:
-                        raise AssertionError(f"K1 {label} {svm} nq={nq} "
-                                             f"{design}: rel {rel} > {TOL_K1}")
-                    worst = max(worst, err)
-                    if is_timed:
-                        reps = 20 if nq == 65536 else 200
-                        call = lambda: fused.gated_mean(fam, p, Xq,
-                                                        _design=design)
-                        shape[f"ms_{design}"] = time_ms(call, reps)
-                        shape[f"device_ms_{design}"] = kernel_device_ms(
-                            call, "gated_mean", 20)
+                a = fused.gated_mean(fam, p, Xq)
+                torch.cuda.synchronize()
+                err, rel = rel_err(a, b)
+                geo = fused.gated_mean_plan(
+                    nq, N, NSV if svm == "fitted" else 0, D, spec_doubles)
+                log(f"[K1] {label:8s} svm {svm:10s} nq={nq:6d} plan "
+                    f"{geo[:5]}: max abs err {err:.3e}, rel {rel:.3e}, "
+                    f"finite {int(torch.isfinite(b).sum())}")
+                if not rel <= TOL_K1:
+                    raise AssertionError(f"K1 {label} {svm} nq={nq}: rel "
+                                         f"{rel} > {TOL_K1}")
+                worst = max(worst, err)
                 if not is_timed:
                     continue
                 reps = 20 if nq == 65536 else 200
-                shape["ms"] = time_ms(lambda: fused.gated_mean(fam, p, Xq),
-                                      reps)
-                shape["plain_ms"] = time_ms(
-                    lambda: fused.gated_mean_plain(fam, p, Xq),
-                    reps if not is_spec(fam) else 5)
-                n_svm, n_gp = needed_sums(p, Xq)
-                shape.update({"svm_sums": n_svm, "gp_sums": n_gp})
-                shape.update(bound(
-                    sum_flops(n_svm, n_gp, fam),
-                    8 * (nq * D + nq + N * D + N + NSV * (D + 1) + 4 * D)))
+                call = lambda: fused.gated_mean(fam, p, Xq)
+                shape = {"plan": geo[:5], "ms": time_ms(call, reps),
+                         "device_ms": kernel_device_ms(call, "gated_mean",
+                                                       20),
+                         "plain_ms": time_ms(
+                             lambda: fused.gated_mean_plain(fam, p, Xq),
+                             reps if not is_spec(fam) else 5),
+                         **k1_bound(fam, p, Xq)}
                 shapes[f"nq={nq}"] = shape
                 log(f"[K1] {label} nq={nq}: " + json.dumps(shape))
     top = shapes["nq=65536"]
     return {"max_abs_err": worst, "shapes": shapes,
             "shape": f"nq=65536 n={N} nmax={NMAX} d={D}",
-            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "flops", "bytes")}}
+            **{k: top[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "flops", "bytes")}}
 
 
 def k2_bound(family, nq):
@@ -1376,9 +1383,20 @@ def check_k2(dev, rng, families, timed):
                                    "flops", "bytes")}}
 
 
+# K3's row panels: the appends of 1 and 8 points (chol_append, rows n -
+# k .. n of the grown set)
+K3_PANELS = (1, 8)
+
+
 def check_k3(dev, rng, families, timed):
     """K3 at the fit's LML screen (R = 2048 thetas, one theta row per
-    matrix), scalar and vector noise."""
+    matrix), scalar and vector noise; at the paths' shapes, one theta row
+    (factorize) and the row panels of K3_PANELS (chol_append): each panel
+    equal to the whole matrix's rows bit for bit, the whole matrix bit for
+    bit symmetric on the fast families (the spec families within TOL_K3 of
+    the plain version, as the whole matrix is); ``timed`` at R = 1 and the
+    panels by CUDA events and device ms (torch.profiler), each with its
+    bound."""
     import numpy as np
     import torch
     from gpry_tpu_torch.ops import fused
@@ -1405,6 +1423,13 @@ def check_k3(dev, rng, families, timed):
             fam, th[i:i + chunk], X, N, noise)
             for i in range(0, len(th), chunk)])
 
+    def timed_at(fam, th, noise, rows, reps, **b):
+        call = lambda: fused.masked_kernel_matrix_batched(
+            fam, th, X, N, noise, rows=rows)
+        return {"ms": time_ms(call, reps),
+                "device_ms": kernel_device_ms(call, "masked_kernel_matrix",
+                                              50), **b}
+
     row = {}
     for fam in families:
         label = "spec" if is_spec(fam) else fam
@@ -1425,21 +1450,43 @@ def check_k3(dev, rng, families, timed):
             if not rel <= TOL_K3:
                 raise AssertionError(f"K3 {label}: rel {rel} > {TOL_K3}")
             worst = max(worst, err)
+            if not is_spec(fam) and not torch.equal(a, a.transpose(1, 2)):
+                raise AssertionError(f"K3 {label}: the whole matrix is not "
+                                     "bit for bit symmetric")
+            for k in K3_PANELS:
+                P = fused.masked_kernel_matrix_batched(
+                    fam, th[:64], X, N, noise, rows=(N - k, N))
+                Pb = fused.masked_kernel_matrix_plain(
+                    fam, th[:64], X, N, noise, rows=(N - k, N))
+                sync()
+                if not torch.equal(P, a[:64, N - k:N]):
+                    raise AssertionError(f"K3 {label}: the panel of {k} "
+                                         "rows is not the whole matrix's")
+                perr, prel = rel_err(P, Pb)
+                if not prel <= TOL_K3:
+                    raise AssertionError(f"K3 {label} panel {k}: rel "
+                                         f"{prel} > {TOL_K3}")
+                worst = max(worst, perr)
             del a, b
             if fam == timed and noise.ndim == 0:
                 ms = time_ms(lambda: fused.masked_kernel_matrix_batched(
                     fam, thetas, X, N, noise), 10)
                 plain = plain_once if is_spec(fam) else time_ms(
                     lambda: k3_plain(fam, thetas, noise), 3)
-                # the paths' launches: one theta row (factorize, chol_append)
-                r1 = {"ms": time_ms(lambda: fused.masked_kernel_matrix_batched(
-                    fam, thetas[:1], X, N, noise), 200),
-                      **k3_bound(timed, 1)}
+                # the paths' launches: one theta row (factorize), the
+                # panels (chol_append)
+                r1 = timed_at(fam, thetas[:1], noise, None, 200,
+                              **k3_bound(timed, 1))
+                panels = {f"k={k}": timed_at(fam, thetas[:1], noise,
+                                             (N - k, N), 200,
+                                             **k3_bound(timed, 1, k))
+                          for k in K3_PANELS}
                 log(f"[K3] {label} R={R}: kernel {ms:.4f} ms, plain "
-                    f"{plain:.4f} ms; R=1: kernel {r1['ms']:.4f} ms, bound "
-                    f"{r1['bound_ms']:.6f} ms")
+                    f"{plain:.4f} ms; R=1: " + json.dumps(r1) +
+                    "; panels: " + json.dumps(panels))
                 row = {"ms": ms, "plain_ms": plain, "r1": r1,
-                       "path_bound_ms": r1["bound_ms"]}
+                       "panels": panels, "path_bound_ms": r1["bound_ms"],
+                       "panel_bound_ms": panels["k=1"]["bound_ms"]}
     row.update({"max_abs_err": worst,
                 "shape": f"R={R} n={N} nmax={NMAX} d={D}"})
     row.update(k3_bound(timed, R))
@@ -1447,11 +1494,16 @@ def check_k3(dev, rng, families, timed):
     return row
 
 
-def k3_bound(family, R):
-    """K3's bound for R theta rows: every valid entry of every theta's K;
-    the whole padded matrix written."""
-    return bound(R * N * N * pair_flops(family),
-                 8 * (R * (D + 1) + N * D + R * NMAX * NMAX))
+def k3_bound(family, R, k=None):
+    """K3's bound for R theta rows: every valid entry of every theta's K
+    once (the lower triangle: the matrix is symmetric), the whole padded
+    matrix written; with k, a panel of k valid rows: k N entries, k rows
+    written."""
+    if k is None:
+        return bound(R * N * (N + 1) // 2 * pair_flops(family),
+                     8 * (R * (D + 1) + N * D + R * NMAX * NMAX))
+    return bound(R * k * N * pair_flops(family),
+                 8 * (R * (D + 1) + N * D + R * k * NMAX))
 
 
 def check_k7(dev, rng, families, timed):
@@ -2207,6 +2259,78 @@ def time_k4_k12(dev):
     return out
 
 
+def _digest(*tensors):
+    """A short hash of the tensors' bytes: equal in two trees exactly when
+    every value agrees bit for bit."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def time_k1_k3(dev):
+    """K1 and K3 at the kernel table's shapes, RBF and ALL_NODES: K1 at nq
+    = 66, 2,000 and 65,536 (the SVM fitted, queries over [-5, 5]^D), ms
+    per call (CUDA events, 200 calls, 20 at 65,536) and device ms
+    (torch.profiler, 20 calls); K3 at R = 1 and 2,048 (n = N of NMAX),
+    ms and device ms; linalg.chol_append of 1 and 8 points onto N - k
+    rows, ms per append (CUDA events, 200) and K3's device ms in it (its
+    panel where the tree builds one, else its whole matrix); and digests
+    of K3's outputs (R = 1, the first 64 matrices at R = 2,048) and of the
+    appended factor and alpha, equal in two trees that agree bit for
+    bit.  It calls only the wrappers, with their
+    arguments of every version since K3, so that compare_trees.sh can run
+    it on an older checkout's gpry_tpu_torch."""
+    import numpy as np
+    import torch
+    from gpry_tpu_torch.ops import fused, linalg
+    out = {}
+    rng = np.random.default_rng(13)
+    t = lambda a: torch.as_tensor(np.asarray(a, float), dtype=torch.float64,
+                                  device=dev)
+    X = np.zeros((NMAX, D))
+    X[:N] = rng.uniform(0, 1, (N, D))
+    y = np.zeros(NMAX)
+    y[:N] = np.sin(3 * X[:N]).sum(1)
+    noise = t(1e-4)
+    for fam, sfx in (("rbf", ""), (spec_kernel()[0], "/spec")):
+        p = synthetic_surrogate(fam, dev, seed=11)
+        for nq in (66, 2000, 65536):
+            Xq = t(rng.uniform(-5, 5, (nq, D)))
+            call = lambda: fused.gated_mean(fam, p, Xq)
+            key = f"gated_mean{sfx} nq={nq}"
+            out[key] = time_ms(call, 20 if nq == 65536 else 200)
+            out[key + " device"] = kernel_device_ms(call, "gated_mean", 20)
+        theta = np.asarray(spec_kernel()[1]) if sfx else \
+            np.log([1.0] + [0.5] * D)
+        thetas = t(theta + rng.uniform(-0.3, 0.3, (2048, len(theta))))
+        digests, Xd = [], t(X)
+        for R in (1, 2048):
+            th = thetas[:R]
+            call = lambda: fused.masked_kernel_matrix_batched(
+                fam, th, Xd, N, noise)
+            key = f"masked_kernel_matrix{sfx} R={R}"
+            out[key] = time_ms(call, 200 if R == 1 else 10)
+            out[key + " device"] = kernel_device_ms(call, "masked_kernel",
+                                                    20)
+            digests.append(call()[:64].clone())
+        for k in (1, 8):
+            Xs, ys = t(X), t(y)
+            Xs[N - k:], ys[N - k:] = 0.0, 0.0
+            L0, _ = linalg.factorize(fam, thetas[0], Xs, ys, N - k, noise)
+            args = (fam, thetas[0], Xs, ys, N - k, noise, L0,
+                    t(X[N - k:N]), t(y[N - k:N]))
+            call = lambda: linalg.chol_append(*args)
+            key = f"chol_append{sfx} k={k}"
+            out[key] = time_ms(call, 200)
+            out[key + " K3 device"] = kernel_device_ms(call, "masked_kernel",
+                                                       20)
+            digests += list(call()[3:])
+        out[f"digest{sfx}"] = _digest(*digests)
+    return out
+
+
 def check_kernels(dev):
     """Compare K1-K13 with their plain versions, the fast families and the
     ALL_NODES spec (K13 has no spec instance); returns per-kernel rows
@@ -2596,6 +2720,26 @@ MCMC_RUNS = {"runs": 0}
 NS_SEG = 8
 # the believer steps of the BatchOptimizer (its LogExp ascents) per path
 BELIEVER = {"steps": 0}
+# K3's row panels per path, by row of the kernels line (a trace holds one
+# symbol for K3's whole matrices and its panels)
+K3_PANELS_RUN = {"masked_kernel_matrix_batched": 0,
+                 "masked_kernel_matrix_batched/spec": 0}
+
+
+def count_k3_panels():
+    """Wrap ops.linalg.masked_kernel_matrix, through which every K3 call
+    of the port goes, to count its row panels (chol_append's) into
+    K3_PANELS_RUN."""
+    from gpry_tpu_torch.ops import linalg
+    inner = linalg.masked_kernel_matrix
+
+    def counted(family, *args, rows=None, **kwargs):
+        if rows is not None and rows[1] > rows[0]:
+            K3_PANELS_RUN["masked_kernel_matrix_batched"
+                          + ("/spec" if is_spec(family) else "")] += 1
+        return inner(family, *args, rows=rows, **kwargs)
+
+    linalg.masked_kernel_matrix = counted
 
 
 def count_believer_steps():
@@ -2872,6 +3016,7 @@ def drive(name, fn, *args, **kwargs):
                    max_reads_over_bound=-1)
     MCMC_RUNS.update(runs=0)
     BELIEVER.update(steps=0)
+    K3_PANELS_RUN.update({k: 0 for k in K3_PANELS_RUN})
     FITS.update({k: 0 for k in FITS})
     POLISHES.clear()
     t0 = time.perf_counter()
@@ -2886,6 +3031,9 @@ def drive(name, fn, *args, **kwargs):
     # run, CUPTI's record of each launch, is in wall_s)
     trace["profiler_start_stop_s"] = time.perf_counter() - t0 - (t2 - t1)
     launches = dict(fused.LAUNCHES)
+    trace["k3_panels"] = dict(K3_PANELS_RUN)
+    log(f"[{name}] K3 launches, whole matrices and panels: " + json.dumps(
+        {k: (launches[k] - c, c) for k, c in K3_PANELS_RUN.items()}))
     # the trace may miss a launch at its ends: printed, not gated
     missed = {row: (sum(by_symbol.values()), launches[row])
               for row, by_symbol in trace["kernel_launches"].items()
@@ -2972,6 +3120,7 @@ def drive_paths():
     t0 = time.perf_counter()
     time_ns_runs()
     count_believer_steps()
+    count_k3_panels()
     instrument_fits()
     paths, launches, ns = {}, {}, {}
     paths["batchoptimizer"], launches["batchoptimizer"], \
@@ -3010,9 +3159,11 @@ def rank_of(name, row, paths):
     call's, at its timed shape), the launches the traces hold (by symbol:
     K4's sweep and select, K7's two kernels apart), and rank_s, the seconds
     above the bound: the device time less the launches times the bound of
-    one launch at the paths' shapes (K3: one theta row, row["r1"]; K4: a
-    fill's bound over its 2 SIZE - 1 launches; K7: a call's over its two;
-    the others: the kernel row's bound, at its timed shape).  A path
+    one launch at the paths' shapes (K3: one theta row, row["r1"], for a
+    whole matrix, a panel of one row for a panel, the panels counted
+    apart, K3_PANELS_RUN; K4: a fill's
+    bound over its 2 SIZE - 1 launches; K7: a call's over its two; the
+    others: the kernel row's bound, at its timed shape).  A path
     whose trace held no device activity gives null for its device ms, and
     then for the sum and rank_s."""
     by_path = {p: None if v["device"]["kernel_ms"] is None
@@ -3027,15 +3178,19 @@ def rank_of(name, row, paths):
         per_launch = row["bound_ms"] / (2 * SIZE - 1)
     if name.startswith("predict_meancov"):
         per_launch = row["bound_ms"] / 2
-    n = sum(by_symbol.values())
-    if None in by_path.values():
-        return {"device_ms_by_path": by_path, "paths_device_ms": None,
-                "device_launches": by_symbol, "launch_bound_ms": per_launch,
-                "rank_s": None}
-    total = sum(by_path.values())
-    return {"device_ms_by_path": by_path, "paths_device_ms": total,
-            "device_launches": by_symbol, "launch_bound_ms": per_launch,
-            "rank_s": 1e-3 * (total - n * per_launch)}
+    panels = sum(v["device"]["k3_panels"].get(name, 0)
+                 for v in paths.values())
+    bound_s = 1e-3 * (per_launch * (sum(by_symbol.values()) - panels)
+                      + row.get("panel_bound_ms", 0.0) * panels)
+    out = {"device_ms_by_path": by_path, "paths_device_ms": None,
+           "device_launches": by_symbol, "launch_bound_ms": per_launch,
+           "rank_s": None}
+    if name.startswith("masked_kernel_matrix_batched"):
+        out["panel_launches"] = panels
+    if None not in by_path.values():
+        total = sum(by_path.values())
+        out.update(paths_device_ms=total, rank_s=1e-3 * total - bound_s)
+    return out
 
 
 def main():

@@ -306,8 +306,10 @@ static cudaError_t gpry_set_smem(K kernel, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
-// Block-cooperative gated mean of one or two points (K1's small-batch
-// design and K6).  A block stages the surrogate in shared memory once; the
+// Block-cooperative gated mean of one or two points.  (Its staging serves
+// K6 and K12; gpry_block_gated_mean2 itself has no caller left: K6
+// evaluates with gpry_block_gated_mean_line, K1 streams its rows.)  A
+// block stages the surrogate in shared memory once; the
 // threads then split the n valid training rows and the support vectors of
 // every evaluation and reduce with gpry_warp_sum plus one shared-memory
 // step, so that one evaluation costs a few exponentials per thread and two

@@ -12,7 +12,8 @@ versions, and the wrappers that choose between them.
   predict_meanvar); plain version :func:`gated_meanvar_logexp_plain`.
 * K3 ``masked_kernel_matrix_batched`` (``csrc/masked_kernel_matrix.cu``)
   replaces ops/linalg.py:34 masked_kernel_matrix as vmapped by
-  models/gp.py:188 _lml_batch; plain version
+  models/gp.py:188 _lml_batch, and as a row panel the blocks of
+  ops/linalg.py:82 chol_append; plain version
   :func:`masked_kernel_matrix_plain`.
 * K4 ``kriging_believer_fill`` (``csrc/kriging_believer_fill.cu``)
   replaces acquisition/ranked_pool.py:41 _bulk_fill_device; plain version
@@ -148,8 +149,9 @@ _lib_lock = threading.Lock()
 _K2_MAX_Q = 8
 _SMEM_DEFAULT = 48 * 1024
 _SMEM_MAX = 227 * 1024
-# threads of K1's block design: one thread per (point, coordinate) of two
-# points prepares an evaluation
+# threads of the block-cooperative evaluation (csrc/common.cuh
+# GPRY_BLOCK_THREADS; K6's staging): one thread per (point, coordinate) of
+# two points prepares an evaluation
 _BLOCK_THREADS = 128
 #: the largest d of K6 and K13 (the range of the port's nested sampler)
 CHAINS_MAX_D = _BLOCK_THREADS // 2
@@ -250,11 +252,11 @@ def library():
             return _lib
         lib = ctypes.CDLL(build())
         P, I, D, K = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, _Kern
-        lib.gpry_gated_mean.argtypes = [K] + [I] * 5 + [P] * 11 \
+        lib.gpry_gated_mean.argtypes = [K] + [I] * 4 + [P] * 11 \
             + [I, P, P]
         lib.gpry_gated_mean.restype = I
-        lib.gpry_gated_mean_small_smem.argtypes = [K] + [I] * 4
-        lib.gpry_gated_mean_small_smem.restype = ctypes.c_size_t
+        lib.gpry_gated_mean_plan.argtypes = [K] + [I] * 4 + [P, P]
+        lib.gpry_gated_mean_plan.restype = I
         lib.gpry_ns_slice_chains.argtypes = [K] + [I] * 5 + [P] * 18 \
             + [I] + [P] * 7
         lib.gpry_ns_slice_chains.restype = I
@@ -266,7 +268,7 @@ def library():
         lib.gpry_gated_meanvar_logexp_plan.argtypes = [K] + [I] * 5 \
             + [P, P, P]
         lib.gpry_gated_meanvar_logexp_plan.restype = I
-        lib.gpry_masked_kernel_matrix.argtypes = [K] + [I] * 4 + [P] * 3 \
+        lib.gpry_masked_kernel_matrix.argtypes = [K] + [I] * 6 + [P] * 3 \
             + [I, D, P, P]
         lib.gpry_masked_kernel_matrix.restype = I
         lib.gpry_kb_plan.argtypes = [K] + [I] * 5 + [P, P, P]
@@ -515,17 +517,25 @@ def gated_meanvar_logexp_plain(family, p, Xq_raw, logexp=None):
 
 
 def masked_kernel_matrix_plain(family, thetas, X, n, noise_var,
-                               rel_jitter=0.0):
+                               rel_jitter=0.0, rows=None):
     """
     Plain K3 (differentiable in ``thetas``): the padded training covariance
     ``[[K_valid + (noise + rel_jitter * exp(theta[0])) I, 0], [0, I]]`` for
     every leading index of ``thetas`` (..., p), its diagonal the same-point
     covariance (``kernel_diag``: a WhiteKernel term enters only there), as
     gpry_tpu/ops/linalg.py:34.  ``noise_var`` is a scalar or an (nmax,)
-    vector.
+    vector.  ``rows=(r0, r1)`` gives rows r0..r1-1 alone, (..., r1 - r0,
+    nmax), each entry the whole matrix's bit for bit (the same operations
+    on the same operands; the diagonal and the noise by the global row).
     """
     nmax = X.shape[0]
     m = (torch.arange(nmax, device=X.device) < n).to(X.dtype)
+    noise = torch.as_tensor(noise_var, dtype=X.dtype, device=X.device)
+    diag = noise.expand(nmax) + \
+        rel_jitter * torch.exp(thetas[..., 0])[..., None]
+    diag_fill = torch.where(m > 0, diag, torch.ones_like(diag))
+    if rows is not None:
+        return _masked_kernel_rows(family, thetas, X, m, diag_fill, *rows)
     K = cross_kernel(family, thetas, X, X)
     if isinstance(family, tuple):
         # gpry_tpu/ops/linalg.py:47 restores it for every kernel; a fast
@@ -535,11 +545,26 @@ def masked_kernel_matrix_plain(family, thetas, X, n, noise_var,
         K = K + torch.diag_embed(kernel_diag(family, thetas, X)
                                  - torch.diagonal(K, dim1=-2, dim2=-1))
     K = K * (m[:, None] * m[None, :])
-    noise = torch.as_tensor(noise_var, dtype=X.dtype, device=X.device)
-    diag = noise.expand(nmax) + \
-        rel_jitter * torch.exp(thetas[..., 0])[..., None]
-    diag_fill = torch.where(m > 0, diag, torch.ones_like(diag))
     return K + torch.diag_embed(diag_fill)
+
+
+def _masked_kernel_rows(family, thetas, X, m, diag_fill, r0, r1):
+    """Rows r0..r1-1 of :func:`masked_kernel_matrix_plain`'s matrix: what
+    ``diag_embed`` adds there (+0.0 off the diagonal, as it does) added on
+    the global diagonal."""
+    nmax = X.shape[0]
+    if not 0 <= r0 <= r1 <= nmax:
+        raise ValueError(f"rows ({r0}, {r1}) outside 0..{nmax}.")
+    on = torch.arange(r0, r1, device=X.device)[:, None] == \
+        torch.arange(nmax, device=X.device)[None, :]
+    zero = torch.zeros((), dtype=X.dtype, device=X.device)
+    K = cross_kernel(family, thetas, X[r0:r1], X)
+    if isinstance(family, tuple):
+        fix = kernel_diag(family, thetas, X)[..., r0:r1] - \
+            torch.diagonal(K, offset=r0, dim1=-2, dim2=-1)
+        K = K + torch.where(on, fix[..., :, None], zero)
+    K = K * (m[r0:r1, None] * m[None, :])
+    return K + torch.where(on, diag_fill[..., r0:r1, None], zero)
 
 
 def kriging_believer_fill_plain(family, p, Xd_raw, y, sigma, acq0, alive0,
@@ -992,13 +1017,9 @@ def ns_step_plain(st, xs, ls, cs, starts, k0_dead, H0, log_prec,
 # ---------------------------------------------------------------------------
 
 
-def gated_mean(family, p, Xq_raw, _design=None):
-    """K1: gated posterior mean at ``Xq_raw`` (nq, d) for surrogate ``p``.
-
-    K1 has two designs: one block per query when the surrogate fits in a
-    block's shared memory and 2 d <= 128, else the tiled one (one thread
-    per query).  ``_design`` ("block" or "tiled") forces one, for the
-    kernel's own checks."""
+def gated_mean(family, p, Xq_raw):
+    """K1: gated posterior mean at ``Xq_raw`` (nq, d) for surrogate ``p``
+    (geometry: :func:`gated_mean_plan`)."""
     check_family(family)
     if Xq_raw.device.type == "cpu":
         return gated_mean_plain(family, p, Xq_raw)
@@ -1010,18 +1031,8 @@ def gated_mean(family, p, Xq_raw, _design=None):
     out = torch.empty(nq, dtype=torch.float64, device=Xq_raw.device)
     if nq == 0:
         return out
-    lib = library()
-    nsv = p.svm.sv.shape[0]
-    fits = 2 * d <= _BLOCK_THREADS and lib.gpry_gated_mean_small_smem(
-        kern, int(p.n), nsv, d, int(p.svm.mode)) <= _SMEM_MAX
-    if _design not in (None, "block", "tiled"):
-        raise ValueError(f"gated_mean: unknown design {_design!r}.")
-    if _design == "block" and not fits:
-        raise ValueError("gated_mean: the block design needs the surrogate "
-                         "in shared memory and 2 d <= 128.")
-    block = fits if _design is None else _design == "block"
-    rc = lib.gpry_gated_mean(
-        kern, int(block), nq, int(p.n), nsv, d,
+    rc = library().gpry_gated_mean(
+        kern, nq, int(p.n), p.svm.sv.shape[0], d,
         *(_ptr(tensors[k]) for k in (
             "Xq_raw", "X", "alpha", "theta", "x_loc", "x_scale",
             "trust_lo", "trust_hi", "sv", "dual", "scal")),
@@ -1029,6 +1040,63 @@ def gated_mean(family, p, Xq_raw, _design=None):
     _raise_on("gated_mean", rc)
     _count("gated_mean", family)
     return out
+
+
+#: K1 (csrc/gated_mean.cu k1_plan): warps a block at most, the blocks of
+#: one wave (2 on each of 132 SMs), the blocks of a launch with clusters
+#: (one an SM), rows a split sums at least, rows a chunk takes from one
+#: staged tile, the smallest tile, the largest cluster
+_K1_WARPS, _K1_WAVE_BLOCKS, _K1_CLUSTER_BLOCKS = 8, 264, 132
+_K1_MIN_ROWS = 2
+_K1_TILE_ROWS, _K1_MIN_TILE, _K1_MAX_CLUSTER = 32, 8, 16
+
+
+def gated_mean_plan(nq, n, nsv, d, spec_doubles=0):
+    """
+    K1's geometry for ``nq`` queries against ``n`` training rows and
+    ``nsv`` support vectors (0 unless the SVM is fitted) at dimension
+    ``d`` (a spec program of ``spec_doubles``), as csrc/gated_mean.cu
+    k1_plan sizes it: ``(qw, sw, cl, tr, dq, smem_bytes)``.  A warp holds
+    32 queries; a block ``qw`` query warps and ``qw sw`` warps (a power of
+    2 ``sw`` up to 8 warps), a cluster ``cl`` blocks that split the rows
+    further: as many splits as one wave of K1_WAVE_BLOCKS blocks holds,
+    and at 8 a block a cluster of up to 16 within K1_CLUSTER_BLOCKS blocks
+    in all, each split at least K1_MIN_ROWS rows.  (The kernel deals its
+    live query warps' rows to its warps in chunks, whatever share of the
+    queries the trust box leaves.)  A staged
+    tile holds ``tr`` rows (32 a chunk, halved, then ``qw``, then ``sw``,
+    until the block fits in shared memory); ``dq`` the register instance
+    (d <= 8, 32; 0: the queries read from shared memory, and every spec
+    program).  Raises ``ValueError`` where even one warp with 8-row tiles
+    does not fit.
+    """
+    qt = max(1, -(-nq // 32))
+    most = max(1, (n + nsv) // _K1_MIN_ROWS)
+    sw = 1
+    while 2 * sw <= min(most, _K1_WARPS) and -(-qt // min(
+            _K1_WARPS // (2 * sw), qt)) <= _K1_WAVE_BLOCKS:
+        sw *= 2
+    cl = max(1, min(_K1_MAX_CLUSTER, most // _K1_WARPS,
+                    _K1_CLUSTER_BLOCKS // qt)) if sw == _K1_WARPS else 1
+    qw = max(1, min(_K1_WARPS // sw, qt))
+    dq = 0 if spec_doubles else 8 if d <= 8 else 32 if d <= 32 else 0
+    tr = _K1_TILE_ROWS * qw * sw
+    while True:
+        qb = 32 * qw
+        smem = 8 * (d + (1 if spec_doubles else 2) * d * qb
+                    + 2 * tr * (d + 1) + 2 * qw * sw * qb
+                    + (qb + _K1_WARPS) // 2 + spec_doubles)
+        if smem <= _SMEM_MAX:
+            return qw, sw, cl, tr, dq, smem
+        if tr > _K1_MIN_TILE:
+            tr //= 2
+        elif qw > 1:
+            qw //= 2
+        elif sw > 1:
+            sw //= 2
+        else:
+            raise ValueError(f"gated_mean: d={d} needs more shared memory "
+                             "than a Hopper block has.")
 
 
 def _sweep_queries_per_block(nmax, d, spec_doubles):
@@ -1180,15 +1248,19 @@ def meanvar_ungated(family, p, Xq_raw):
 
 
 def masked_kernel_matrix_batched(family, thetas, X, n, noise_var,
-                                 rel_jitter=0.0):
+                                 rel_jitter=0.0, rows=None):
     """K3: padded training covariances (R, nmax, nmax) for ``thetas``
-    (R, p); ``noise_var`` a scalar or an (nmax,) vector."""
+    (R, p); ``noise_var`` a scalar or an (nmax,) vector.  ``rows=(r0,
+    r1)``: rows r0..r1-1 of each matrix alone, (R, r1 - r0, nmax)."""
     check_family(family)
     if X.device.type == "cpu":
         return masked_kernel_matrix_plain(family, thetas, X, n, noise_var,
-                                          rel_jitter)
+                                          rel_jitter, rows)
     R = thetas.shape[0]
     nmax, d = X.shape
+    r0, r1 = (0, nmax) if rows is None else rows
+    if not 0 <= r0 <= r1 <= nmax:
+        raise ValueError(f"rows ({r0}, {r1}) outside 0..{nmax}.")
     kern = _kern(family, d, X.device)
     if thetas.shape != (R, kern.ntheta):
         raise ValueError(f"thetas must be (R, {kern.ntheta}); got "
@@ -1201,12 +1273,12 @@ def masked_kernel_matrix_batched(family, thetas, X, n, noise_var,
         raise ValueError("noise_var must be a scalar or an (nmax,) vector.")
     _check_cuda("masked_kernel_matrix_batched", X.device, thetas=thetas, X=X,
                 noise=noise)
-    out = torch.empty((R, nmax, nmax), dtype=torch.float64, device=X.device)
-    if R == 0 or nmax == 0:
+    out = torch.empty((R, r1 - r0, nmax), dtype=torch.float64,
+                      device=X.device)
+    if R == 0 or r1 == r0:
         return out
-    lib = library()
-    rc = lib.gpry_masked_kernel_matrix(
-        kern, R, nmax, int(n), d, _ptr(thetas), _ptr(X),
+    rc = library().gpry_masked_kernel_matrix(
+        kern, R, nmax, int(n), d, r0, r1, _ptr(thetas), _ptr(X),
         _ptr(noise), int(noise.numel() == nmax), float(rel_jitter),
         _ptr(out), _stream())
     _raise_on("masked_kernel_matrix_batched", rc)

@@ -6,14 +6,14 @@ As in gpry_tpu/ops/linalg.py, training arrays are padded to a bucket size
 and ``y`` are zero, and the padded kernel matrix is ``[[K_valid, 0],
 [0, I]]`` so its Cholesky factor is ``[[L, 0], [0, I]]``.
 
-The padded matrices of ``factorize`` and ``chol_append`` come from the K3
-kernel (``ops.fused``); their Cholesky factorizations and triangular
-solves are torch.  The batched LML (``lml_batch``: the fit's screen and
-re-score) is the K10 kernel's wrapper, and ``predict_meancov`` (the mean
-and full covariance, gpry_tpu/ops/linalg.py:172) the K7 kernel's, both
-from ``ops.fused``.  A lane whose matrix is not positive definite gives
-NaN (as JAX's Cholesky does) instead of an exception: the callers test
-for NaN.
+The padded matrix of ``factorize`` and the new rows of ``chol_append``
+(a row panel) come from the K3 kernel (``ops.fused``); their Cholesky
+factorizations and triangular solves are torch.  The batched LML
+(``lml_batch``: the fit's screen and re-score) is the K10 kernel's
+wrapper, and ``predict_meancov`` (the mean and full covariance,
+gpry_tpu/ops/linalg.py:172) the K7 kernel's, both from ``ops.fused``.  A
+lane whose matrix is not positive definite gives NaN (as JAX's Cholesky
+does) instead of an exception: the callers test for NaN.
 """
 
 import torch
@@ -28,10 +28,13 @@ def _row_mask(n, nmax, dtype, device):
     return (torch.arange(nmax, device=device) < n).to(dtype)
 
 
-def masked_kernel_matrix(family, theta, X, n, noise_var, rel_jitter=0.0):
-    """Padded training covariance for one ``theta`` (through K3)."""
+def masked_kernel_matrix(family, theta, X, n, noise_var, rel_jitter=0.0,
+                         rows=None):
+    """Padded training covariance for one ``theta`` (through K3); ``rows=
+    (r0, r1)``: its rows r0..r1-1 alone."""
     return masked_kernel_matrix_batched(
-        family, theta[None].contiguous(), X, n, noise_var, rel_jitter)[0]
+        family, theta[None].contiguous(), X, n, noise_var, rel_jitter,
+        rows)[0]
 
 
 def _solve_alpha(L, y):
@@ -52,8 +55,11 @@ def chol_append(family, theta, X, y, n, noise_var, L, X_new, y_new):
     Incremental block Cholesky append of ``k`` new points at rows
     ``n..n+k``; returns ``(X', y', n', L', alpha')`` (new tensors, the
     inputs are not modified).  The new rows of L are ``[S12^T, S22]`` with
-    ``S12 = L^-1 K(X_old, X_new)`` and ``S22 = chol(K22 - S12^T S12)``;
-    both blocks are read off one K3 build of the grown set.
+    ``S12 = L^-1 K(X_old, X_new)`` and ``S22 = chol(K22 - S12^T S12)``.
+    K3 builds only the k new rows of the grown set, a (k, nmax) panel P,
+    as gpry_tpu/ops/linalg.py:104,113 builds the two blocks: ``K12 =
+    P[:, :n]^T`` (the matrix is symmetric bit for bit) and ``K22 = P[:,
+    n:n+k]``.
     """
     nmax = X.shape[0]
     k = X_new.shape[0]
@@ -61,11 +67,12 @@ def chol_append(family, theta, X, y, n, noise_var, L, X_new, y_new):
     X2[n:n + k] = X_new
     y2 = y.clone()
     y2[n:n + k] = y_new
-    K = masked_kernel_matrix(family, theta, X2, n + k, noise_var)
+    P = masked_kernel_matrix(family, theta, X2, n + k, noise_var,
+                             rows=(n, n + k))                 # (k, nmax)
     m = _row_mask(n, nmax, X.dtype, X.device)
-    K12 = K[:, n:n + k] * m[:, None]                          # (nmax, k)
+    K12 = (P.T * m[:, None]).contiguous()                     # (nmax, k)
     S12 = torch.linalg.solve_triangular(L, K12, upper=False)  # (nmax, k)
-    K22 = K[n:n + k, n:n + k]
+    K22 = P[:, n:n + k]
     S22 = cholesky_nan(K22 - S12.T @ S12)
     L2 = L.clone(memory_format=torch.contiguous_format)
     rows = torch.zeros((k, nmax), dtype=L.dtype, device=L.device)

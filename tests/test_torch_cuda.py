@@ -19,7 +19,8 @@ from gpry_tpu_torch.models.classifier import MODE_ALL_FINITE, MODE_FITTED, \
 from gpry_tpu_torch.models.gp import SurrogateParams
 from gpry_tpu_torch.ops import fused
 from gpry_tpu_torch.ops.kernels import build_kernel_spec, kernel_diag
-from gpry_tpu_torch.ops.linalg import factorize
+from gpry_tpu_torch.ops.linalg import chol_append, factorize, \
+    masked_kernel_matrix
 
 pytestmark = pytest.mark.cuda
 FAST = ("rbf", "matern12", "matern32", "matern52")
@@ -129,29 +130,93 @@ def test_gated_mean_kernel(dev, family):
     assert fused.LAUNCHES[key] == n0 + 1
 
 
+# K1 at (nq, n, d): the paths' batch sizes (one query, the MCMC's start
+# tries and kill batches 16-66, the NS prior phase 2,000, 16,384 and
+# 32,768, the IS refine 65,536, and 100,000) at n = 224; few rows
+# (one warp a query warp, four splits, eight warps with no cluster) and
+# clusters at small nq (n 224, 320); n streamed
+# far beyond shared memory (4,000, 20,000: clusters of 16, many tiles);
+# each register instance and the queries in shared memory (d 16, 40).
+# Every shape's geometry comes from its shape alone (gated_mean_plan);
+# test_torch_k1_k3_plan.py checks that these reach every kind the plan
+# has.
+K1_SHAPES = ((1, 224, 3), (16, 224, 3), (66, 224, 3), (2000, 224, 3),
+             (16384, 224, 3), (32768, 224, 3), (65536, 224, 3),
+             (100000, 224, 3),
+             (66, 1, 3), (66, 20, 3), (16, 320, 3), (16, 4000, 3),
+             (16, 20000, 3), (16384, 4000, 3), (66, 224, 16),
+             (65536, 224, 16), (66, 224, 40), (65536, 224, 40))
+
+
+def k1_surrogate(family, dev, n, d, svm, seed=0, nsv=8):
+    """A surrogate for K1 alone (no factor: K1 reads X and alpha): n
+    training rows in [0, 1]^d, alpha ~ N(0, 1) / sqrt(n) so that the mean
+    stays O(1) below a clip of 10, the trust box and the SVM of
+    :func:`surrogate`."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(np.asarray(a, float), dtype=torch.float64,
+                                  device=dev)
+    family, theta = family_and_theta(family, d)
+    p = surrogate(family if isinstance(family, str) else "rbf", dev, n=4,
+                  nmax=8, d=d, seed=seed, nsv=nsv, svm=svm)
+    return p.replace(
+        theta=t(theta), X=t(rng.uniform(0, 1, (n, d))), y=t(np.zeros(n)),
+        n=n, alpha=t(rng.normal(size=n) / np.sqrt(max(n, 1))),
+        L=torch.empty(0, dtype=torch.float64, device=dev),
+        clip_max=t(10.0))
+
+
 @pytest.mark.parametrize("svm", ["fitted", "all_finite"])
-@pytest.mark.parametrize("nq", [1, 16, 66, 2000, 65536])
+@pytest.mark.parametrize("shape", K1_SHAPES)
 @pytest.mark.parametrize("family", FAMILIES)
-def test_gated_mean_kernel_designs(dev, family, nq, svm):
-    """K1 at the batch sizes of the main paths (one query, the MCMC step,
-    the NS kill batch, the NS prior phase, the IS refine), with the SVM
-    fitted and all finite: the wrapper's own choice, then each design
-    forced; rel <= 1e-12 against the plain version."""
-    p = surrogate(family, dev, svm=svm)
-    key, family = count_key("gated_mean", family), family_and_theta(family)[0]
-    Xq = torch.rand((nq, 3), dtype=torch.float64, device=dev) * 2.2 - 1.1
+def test_gated_mean_kernel_shapes(dev, family, shape, svm):
+    """K1 at K1_SHAPES, the SVM fitted and all finite: one launch, rel <=
+    1e-12 against the plain version, the geometry the plan gives that
+    shape (the C plan equal to the host mirror)."""
+    nq, n, d = shape
+    key = count_key("gated_mean", family)
+    p = k1_surrogate(family, dev, n, d, svm)
+    fam = family_and_theta(family, d)[0]
+    kern = fused._kern(fam, d, dev)
+    nsv = p.svm.sv.shape[0] if svm == "fitted" else 0
+    geo, sm = (ctypes.c_int * 5)(), ctypes.c_size_t()
+    assert fused.library().gpry_gated_mean_plan(
+        kern, nq, n, nsv, d, geo, ctypes.byref(sm)) == 0
+    assert tuple(geo) + (sm.value,) == fused.gated_mean_plan(
+        nq, n, nsv, d, fused._spec_doubles(kern))
+    gen = torch.Generator(device=dev).manual_seed(nq + n + d)
+    Xq = torch.rand((nq, d), generator=gen, dtype=torch.float64,
+                    device=dev) * 2.2 - 1.1
     # the first queries inside the trust box, so that some pass the gates
     Xq[:8] *= 0.4
-    ref = fused.gated_mean_plain(family, p, Xq)
-    for design in (None, "tiled", "block"):
-        n0 = fused.LAUNCHES[key]
-        out = fused.gated_mean(family, p, Xq, _design=design)
-        torch.cuda.synchronize()
-        assert fused.LAUNCHES[key] == n0 + 1
-        if bool(torch.isfinite(ref).any()):
-            _close(out, ref, 1e-12)
-        else:
-            assert torch.equal(out, ref)
+    ref = fused.gated_mean_plain(fam, p, Xq)
+    n0 = fused.LAUNCHES[key]
+    out = fused.gated_mean(fam, p, Xq)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[key] == n0 + 1
+    if bool(torch.isfinite(ref).any()):
+        _close(out, ref, 1e-12)
+    else:
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+@pytest.mark.parametrize("d", (2, 8, 16, 40, 90))
+def test_gated_mean_plan_matches_the_kernel(dev, family, d):
+    """fused.gated_mean_plan gives k1_plan's geometry and shared memory
+    over a grid of batch sizes, rows and support vectors."""
+    fam = family_and_theta(family, d)[0]
+    kern = fused._kern(fam, d, dev)
+    spec = fused._spec_doubles(kern)
+    lib = fused.library()
+    geo, sm = (ctypes.c_int * 5)(), ctypes.c_size_t()
+    for nq in (1, 31, 33, 66, 400, 2000, 16384, 65536, 1 << 20):
+        for n in (0, 1, 7, 64, 224, 1000, 4000, 20000, 100000):
+            for nsv in (0, 8, 100):
+                want = fused.gated_mean_plan(nq, n, nsv, d, spec)
+                assert lib.gpry_gated_mean_plan(
+                    kern, nq, n, nsv, d, geo, ctypes.byref(sm)) == 0
+                assert tuple(geo) + (sm.value,) == want
 
 
 def _chain_inputs(family, p, B, R, seed=0):
@@ -463,6 +528,111 @@ def test_masked_kernel_matrix_kernel(dev, family):
                                                   noise, 1e-5),
                fused.masked_kernel_matrix_plain(family, th, p.X, p.n, noise,
                                                 1e-5), 1e-12)
+
+
+def _k3_inputs(family, dev, n, nmax, d, R=3, seed=0):
+    """(kernel argument, R theta rows, X with n valid rows of nmax, scalar
+    and vector noise) for K3."""
+    rng = np.random.default_rng(seed)
+    fam, theta = family_and_theta(family, d)
+    t = lambda a: torch.as_tensor(np.asarray(a, float), dtype=torch.float64,
+                                  device=dev)
+    X = np.zeros((nmax, d))
+    X[:n] = rng.uniform(0, 1, (n, d))
+    th = theta + 0.3 * rng.normal(size=(R, len(theta)))
+    return fam, t(th), t(X), (t(1e-4), t(rng.uniform(1e-5, 1e-3, nmax)))
+
+
+# (n, nmax, d): the paths' bucket (224 of 320), a partial last tile (70 of
+# 70 and 50 of 70), one row, no row, and d = 440, where the staged points
+# fill nearly all of a block's shared memory
+K3_SHAPES = ((224, 320, 8), (70, 70, 3), (50, 70, 3), (1, 64, 3),
+             (0, 64, 3), (40, 64, 440))
+# d = 440 for the fast families only: a spec program's exp(+-theta) puts
+# it past a block's shared memory
+K3_CASES = [(f, s) for f in FAMILIES for s in K3_SHAPES
+            if s[2] < 440 or f in FAST]
+
+
+@pytest.mark.parametrize("family, shape", K3_CASES)
+def test_masked_kernel_matrix_whole_is_symmetric(dev, family, shape):
+    """The whole matrix against its plain version at rel 1e-12, and bit
+    for bit symmetric."""
+    n, nmax, d = shape
+    fam, th, X, noises = _k3_inputs(family, dev, n, nmax, d)
+    for noise in noises:
+        K = fused.masked_kernel_matrix_batched(fam, th, X, n, noise, 1e-5)
+        torch.cuda.synchronize()
+        _close(K, fused.masked_kernel_matrix_plain(fam, th, X, n, noise,
+                                                   1e-5), 1e-12)
+        assert torch.equal(K, K.transpose(1, 2))
+
+
+@pytest.mark.parametrize("family, shape", K3_CASES)
+def test_masked_kernel_matrix_panel(dev, family, shape):
+    """Row panels (a new row, an append's 8 across n, the padding, the
+    first and last rows, all rows but the first): one launch each (none
+    for an empty panel), equal to the whole matrix's rows bit for bit and
+    to the plain panel at rel 1e-12."""
+    n, nmax, d = shape
+    key = count_key("masked_kernel_matrix_batched", family)
+    fam, th, X, noises = _k3_inputs(family, dev, n, nmax, d)
+    for noise in noises:
+        K = fused.masked_kernel_matrix_batched(fam, th, X, n, noise, 1e-5)
+        for r0, r1 in ((n, min(nmax, n + 1)), (max(0, n - 4),
+                                               min(nmax, n + 4)),
+                       (0, 1), (nmax - 1, nmax), (1, nmax)):
+            n0 = fused.LAUNCHES[key]
+            P = fused.masked_kernel_matrix_batched(fam, th, X, n, noise,
+                                                   1e-5, rows=(r0, r1))
+            torch.cuda.synchronize()
+            assert fused.LAUNCHES[key] == n0 + (r1 > r0)
+            assert torch.equal(P, K[:, r0:r1])
+            if r1 > r0:
+                _close(P, fused.masked_kernel_matrix_plain(
+                    fam, th, X, n, noise, 1e-5, rows=(r0, r1)), 1e-12)
+
+
+def _chol_append_full_build(family, theta, X, y, n, noise_var, L, X_new,
+                            y_new):
+    """The append before the panel: both blocks read off one K3 build of
+    the grown set's whole matrix."""
+    nmax, k = X.shape[0], X_new.shape[0]
+    X2, y2 = X.clone(), y.clone()
+    X2[n:n + k], y2[n:n + k] = X_new, y_new
+    K = masked_kernel_matrix(family, theta, X2, n + k, noise_var)
+    m = (torch.arange(nmax, device=X.device) < n).to(X.dtype)
+    S12 = torch.linalg.solve_triangular(L, K[:, n:n + k] * m[:, None],
+                                        upper=False)
+    S22 = fused.cholesky_nan(K[n:n + k, n:n + k] - S12.T @ S12)
+    L2 = L.clone(memory_format=torch.contiguous_format)
+    rows = torch.zeros((k, nmax), dtype=L.dtype, device=L.device)
+    rows[:, :n] = S12[:n].T
+    rows[:, n:n + k] = S22
+    L2[n:n + k] = rows
+    z = torch.linalg.solve_triangular(L2, y2[:, None], upper=False)
+    return L2, torch.linalg.solve_triangular(L2.T, z, upper=True)[:, 0]
+
+
+@pytest.mark.parametrize("k", (1, 8))
+@pytest.mark.parametrize("family", FAMILIES)
+def test_chol_append_panel_on_the_card(dev, family, k):
+    """chol_append through K3's panel gives the factor and alpha of the
+    whole-matrix route bit for bit (one K3 launch, a panel of k rows)."""
+    p = surrogate(family, dev, n=40 + k, nmax=64)
+    fam = family_and_theta(family)[0]
+    X, y = p.X.clone(), p.y.clone()
+    X[40:], y[40:] = 0.0, 0.0
+    L0, _ = factorize(fam, p.theta, X, y, 40, p.noise_var)
+    args = (fam, p.theta, X, y, 40, p.noise_var, L0, p.X[40:40 + k],
+            p.y[40:40 + k])
+    key = count_key("masked_kernel_matrix_batched", family)
+    n0 = fused.LAUNCHES[key]
+    got = chol_append(*args)
+    assert fused.LAUNCHES[key] == n0 + 1
+    want = _chol_append_full_build(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[3], want[0]) and torch.equal(got[4], want[1])
 
 
 @pytest.mark.parametrize("nq", [4096, 2048])
