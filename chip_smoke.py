@@ -15,8 +15,10 @@ Drive gpry_tpu_torch once on one CUDA card.
    and as the row panels of appends of 1 and 8 points (each panel equal to
    the whole matrix's rows bit for bit, the whole matrix bit for bit
    symmetric on the fast families), K4 at N = 4,096 candidates
-   and a pool of 8, K5 at the audit screen's nq = 4,096, K6 at the NS's
-   B = 66 and 33 chains of 40 repeats, K7 and K8 at nq = 1, 64 and 1,024,
+   and a pool of 8, K5 at the audit's nq = 1, 8, 256, 2,048 and 4,096
+   (its std K2's bit for bit where K2's gates pass), K6 at the NS's B = 66
+   and 33 chains of 40 repeats, K7 at nq = 1, 64 and 1,024, K8 at nq = 1,
+   8, 32, 64 and 1,024 (its mean and std K5's bit for bit),
    K9 at 8 restart lanes, lane 0 on a training point, with no upper
    clip and with one that binds at half of the starts; K10 at the fit's
    LML screen of R = 2,048 theta rows, scalar and vector noise, and in
@@ -130,9 +132,15 @@ NQ_COV, TOL_COV_DIAG = 1024, 1e-9
 TOL_K5, TOL_K5_SIGMA = 1e-10, 1e-7
 # K5 at the audit screen
 NQ_SCREEN = 4096
+# K5 at the audit's batch sizes: the calibrations' few points, a polish's
+# 256 cloud points and 2,048, the screen's NQ_SCREEN
+K5_NQ = (1, 8, 256, 2048, NQ_SCREEN)
 # K8: mean and std within rel TOL_K8, both gradients within TOL_K8_GRAD of
 # their max |.|
 TOL_K8, TOL_K8_GRAD = 1e-10, 1e-8
+# K8 at the generic ascent's lanes (8, 32), at 64 and at predict's NQ_COV
+# draws; timed at K8_TIMED
+K8_NQ, K8_TIMED = (1, 8, 32, 64, NQ_COV), (8, 32, NQ_COV)
 # K9 per lane: x within TOL_K9_X of the box width, f within
 # TOL_K9_F (1 + |f|); step for step (the same nev) over K9_STEPS
 # iterations
@@ -304,11 +312,13 @@ SYMBOLS = {"gated_mean_kernel": "gated_mean",
            "kb_sweep_blocked": "kriging_believer_fill",
            "kb_sweep_chain": "kriging_believer_fill",
            "kb_select_kernel": "kriging_believer_fill",
-           "meanvar_ungated_kernel": "meanvar_ungated",
+           "meanvar_ungated_blocked": "meanvar_ungated",
+           "meanvar_ungated_chain": "meanvar_ungated",
            "ns_slice_chains_kernel": "ns_slice_chains",
            "meancov_solve_kernel": "predict_meancov",
            "meancov_solve_blocked": "predict_meancov",
            "meancov_cov_kernel": "predict_meancov",
+           "meanstd_grad_blocked": "meanstd_grad",
            "meanstd_grad_kernel": "meanstd_grad",
            "lbfgs_logexp_ascent_kernel": "lbfgs_logexp_ascent",
            "lml_value_grad_kernel": "lml_value_grad",
@@ -693,51 +703,93 @@ def check_k4(dev, rng, families, timed):
     return row
 
 
+def k5_bound(family, nq):
+    """K5's bound at nq queries (n = N of NMAX, d = D): per query the k
+    vector, the length-n forward substitution (n^2 / 2 multiply-adds), the
+    mean and the sum of squares; bytes: the queries, the training rows,
+    alpha, the valid triangle of L, two outputs."""
+    return bound(nq * (N * pair_flops(family) + N * N + 4 * N),
+                 8 * (nq * D + 2 * nq + N * D + N + N * (N + 1) // 2
+                      + 4 * D))
+
+
 def check_k5(dev, rng, families, timed):
-    """K5 against its plain version at the audit screen (nq = NQ_SCREEN,
-    the first 64 queries on training points)."""
+    """K5 against its plain version at the audit's batch sizes K5_NQ (the
+    calibrations' few points, a polish's 256, 2,048 and the screen's
+    NQ_SCREEN; k2_queries, the last min(nq // 2, 64) on training points):
+    the mean within rel TOL_K5, the std within TOL_K5_SIGMA sqrt(sigma^2)
+    y_scale.  Where K5 and K2 take the same route-0 plan (asserted at
+    these shapes), K5's std equals K2's bit for bit wherever K2's gates
+    pass, and its mean wherever the clip does not bite too (some query of
+    each family's batches in each).  Timed at each nq (CUDA events back to
+    back, and the kernel's device ms in a torch.profiler trace), with the
+    bound at each."""
     import torch
     from gpry_tpu_torch.ops import fused
     from gpry_tpu_torch.ops.kernels import kernel_diag
     worst = 0.0
-    row = {}
+    shapes = {}
     for fam in families:
         label = "spec" if is_spec(fam) else fam
         p = synthetic_surrogate(fam, dev, seed=14)
-        Xq = torch.as_tensor(rng.uniform(-5, 5, (NQ_SCREEN, D)),
-                             dtype=torch.float64, device=dev)
-        Xq[:64] = p.X[:64] * p.x_scale + p.x_loc
-        ma, sa = fused.meanvar_ungated(fam, p, Xq)
-        mb, sb = fused.meanvar_ungated_plain(fam, p, Xq)
-        torch.cuda.synchronize()
-        err_m, rel_m = rel_err(ma, mb)
-        err_s = float(torch.max(torch.abs(sa - sb)))
-        prior = kernel_diag(fam, p.theta, (Xq - p.x_loc) / p.x_scale)
-        tol_s = TOL_K5_SIGMA * float(torch.sqrt(prior.max()) * p.y_scale)
-        log(f"[K5] {label:8s} nq={NQ_SCREEN}: mean max abs err {err_m:.3e} "
-            f"rel {rel_m:.3e}; std max abs err {err_s:.3e} (tol "
-            f"{tol_s:.3e})")
-        if not (rel_m <= TOL_K5 and err_s <= tol_s):
-            raise AssertionError(f"K5 {label}: mean rel {rel_m} > {TOL_K5} "
-                                 f"or std abs {err_s} > {tol_s}")
-        worst = max(worst, err_m, err_s)
-        if fam == timed:
-            ms = time_ms(lambda: fused.meanvar_ungated(fam, p, Xq), 50)
-            plain = time_ms(lambda: fused.meanvar_ungated_plain(fam, p, Xq),
-                            50)
-            log(f"[K5] {label} nq={NQ_SCREEN}: kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms")
-            row = {"ms": ms, "plain_ms": plain}
-    row["max_abs_err"] = worst
-    row["shape"] = f"nq={NQ_SCREEN} n={N} nmax={NMAX} d={D}"
-    # per query: the k vector, the length-n forward substitution (n^2 / 2
-    # multiply-adds), the mean and the sum of squares; bytes: the queries,
-    # the training rows, alpha, the valid triangle of L, two outputs
-    nq = NQ_SCREEN
-    row.update(bound(nq * (N * pair_flops(timed) + N * N + 4 * N),
-                     8 * (nq * D + 2 * nq + N * D + N + N * (N + 1) // 2
-                          + 4 * D)))
-    return row
+        sd = fused._spec_doubles(fused._kern(fam, D, dev))
+        gated = below = 0
+        for nq in K5_NQ:
+            Xq = k2_queries(p, rng, nq, dev)
+            k = min(nq // 2, 64)
+            if k:
+                Xq[nq - k:] = p.X[:k] * p.x_scale + p.x_loc
+            ma, sa = fused.meanvar_ungated(fam, p, Xq)
+            mb, sb = fused.meanvar_ungated_plain(fam, p, Xq)
+            m2, s2 = fused.gated_meanvar_logexp(fam, p, Xq)
+            torch.cuda.synchronize()
+            err_m, rel_m = rel_err(ma, mb)
+            err_s = float(torch.max(torch.abs(sa - sb)))
+            prior = kernel_diag(fam, p.theta, (Xq - p.x_loc) / p.x_scale)
+            tol_s = TOL_K5_SIGMA * float(torch.sqrt(prior.max())
+                                         * p.y_scale)
+            plan = fused.meanvar_ungated_plan(N, NMAX, D, nq, sd)
+            if plan[:2] != fused.gated_meanvar_logexp_plan(N, NMAX, D, nq,
+                                                           sd)[:2]:
+                raise AssertionError(f"K5 {label} nq={nq}: K2's plan "
+                                     "differs from K5's")
+            ok = torch.isfinite(m2)
+            free = ok & (ma < p.clip_max)
+            gated, below = gated + int(ok.sum()), below + int(free.sum())
+            same_s = torch.equal(sa[ok], s2[ok])
+            same_m = torch.equal(ma[free], m2[free])
+            log(f"[K5] {label:8s} nq={nq:5d} route {plan[:2]}: mean max abs "
+                f"err {err_m:.3e} rel {rel_m:.3e}; std max abs err "
+                f"{err_s:.3e} (tol {tol_s:.3e}); against K2 on "
+                f"{int(ok.sum())} gated queries: std bit for bit {same_s}, "
+                f"mean ({int(free.sum())} below the clip) {same_m}")
+            if not (rel_m <= TOL_K5 and err_s <= tol_s):
+                raise AssertionError(f"K5 {label} nq={nq}: mean rel {rel_m} "
+                                     f"> {TOL_K5} or std abs {err_s} > "
+                                     f"{tol_s}")
+            if not (same_s and same_m):
+                raise AssertionError(f"K5 {label} nq={nq}: not K2's "
+                                     "ungated values bit for bit")
+            worst = max(worst, err_m, err_s)
+            if fam != timed:
+                continue
+            call = lambda: fused.meanvar_ungated(fam, p, Xq)
+            shape = {"ms": time_ms(call, 50 if nq > 16 else 200),
+                     "device_ms": kernel_device_ms(call, "meanvar_ungated",
+                                                   50),
+                     "plain_ms": time_ms(lambda: fused.meanvar_ungated_plain(
+                         fam, p, Xq), 20),
+                     "route": plan[:2], **k5_bound(fam, nq)}
+            shapes[f"nq={nq}"] = shape
+            log(f"[K5] {label} nq={nq}: " + json.dumps(shape))
+        if not (gated and below):
+            raise AssertionError(f"K5 {label}: no query passed K2's gates "
+                                 "(below the clip)")
+    top = shapes[f"nq={NQ_SCREEN}"]
+    return {"max_abs_err": worst, "shapes": shapes,
+            "shape": f"nq={NQ_SCREEN} n={N} nmax={NMAX} d={D}",
+            **{k: top[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "flops", "bytes")}}
 
 
 def k6_inputs(family, dev, B, seed, svm="fitted"):
@@ -1568,21 +1620,34 @@ def grad_row_flops(family):
     return (1 + D) * pair_flops(family) + 4 * D
 
 
+def k8_bound(family, nq):
+    """K8's bound at nq queries (n = N of NMAX, d = D): per query k and k .
+    alpha, the two substitutions (n^2 / 2 multiply-adds each), each row's
+    gradient; bytes: the queries, the training rows, alpha, the valid
+    triangle of L, the four outputs."""
+    return bound(
+        nq * (N * (pair_flops(family) + 2) + 2 * N * N
+              + N * grad_row_flops(family)),
+        8 * (nq * D + N * D + N + N * (N + 1) // 2 + nq * (2 + 2 * D)))
+
+
 def check_k8(dev, rng, families, timed):
-    """K8 against its plain version (autograd) at nq = 1, 64 and NQ_COV,
-    the first queries on training points: mean and std within rel TOL_K8,
-    both gradients within TOL_K8_GRAD of their max |.|; its mean and std
-    also against K5's on the same points (the mean within rel TOL_K8, the
-    std within K5's absolute TOL_K5_SIGMA sqrt(sigma^2) y_scale)."""
+    """K8 against its plain version (autograd) at K8_NQ (the generic
+    ascent's lanes, predict's draws), the first queries on training
+    points: mean and std within rel TOL_K8, both gradients within
+    TOL_K8_GRAD of their max |.|.  Where K8 and K5 take the same route-0
+    plan (asserted at these shapes), K8's mean and std equal K5's bit for
+    bit.  Timed at K8_TIMED (CUDA events back to back, and the kernel's
+    device ms in a torch.profiler trace), with the bound at each."""
     import torch
     from gpry_tpu_torch.ops import fused
-    from gpry_tpu_torch.ops.kernels import kernel_diag
     worst = 0.0
-    row = {}
+    shapes = {}
     for fam in families:
         label = "spec" if is_spec(fam) else fam
         p = synthetic_surrogate(fam, dev, seed=17)
-        for nq in (1, 64, NQ_COV):
+        sd = fused._spec_doubles(fused._kern(fam, D, dev))
+        for nq in K8_NQ:
             Xq = torch.as_tensor(rng.uniform(-5, 5, (nq, D)),
                                  dtype=torch.float64, device=dev)
             Xq[:min(nq, 32)] = p.X[:min(nq, 32)] * p.x_scale + p.x_loc
@@ -1601,35 +1666,32 @@ def check_k8(dev, rng, families, timed):
                     raise AssertionError(f"K8 {label} nq={nq} {what}: rel "
                                          f"{rel} > {tol}")
                 worst = max(worst, err)
-            _, rel_m5 = rel_err(out[0], m5)
-            err_s5 = float(torch.max(torch.abs(out[1] - s5)))
-            prior = kernel_diag(fam, p.theta, (Xq - p.x_loc) / p.x_scale)
-            tol_s5 = TOL_K5_SIGMA * float(torch.sqrt(prior.max())
-                                          * p.y_scale)
-            log(f"[K8] {label:8s} nq={nq:5d}: " + "; ".join(errs)
-                + f"; against K5: mean rel {rel_m5:.3e}, std abs "
-                f"{err_s5:.3e} (tol {tol_s5:.3e})")
-            if not (rel_m5 <= TOL_K8 and err_s5 <= tol_s5):
-                raise AssertionError(f"K8 {label} nq={nq}: against K5 mean "
-                                     f"rel {rel_m5}, std abs {err_s5}")
-            if fam == timed and nq == NQ_COV:
-                ms = time_ms(lambda: fused.meanstd_grad(fam, p, Xq), 20)
-                plain = time_ms(
-                    lambda: fused.meanstd_grad_plain(fam, p, Xq), 5)
-                log(f"[K8] {label} nq={nq}: kernel {ms:.4f} ms, plain "
-                    f"{plain:.4f} ms")
-                row = {"ms": ms, "plain_ms": plain}
-    nq = NQ_COV
-    row.update({"max_abs_err": worst,
-                "shape": f"nq={nq} n={N} nmax={NMAX} d={D}"})
-    # per query: k and k . alpha, the two substitutions (n^2 / 2
-    # multiply-adds each), each row's gradient; bytes: the queries, the
-    # training rows, alpha, the valid triangle of L, the four outputs
-    row.update(bound(
-        nq * (N * (pair_flops(timed) + 2) + 2 * N * N
-              + N * grad_row_flops(timed)),
-        8 * (nq * D + N * D + N + N * (N + 1) // 2 + nq * (2 + 2 * D))))
-    return row
+            plan = fused.meanstd_grad_plan(N, NMAX, D, nq, sd)
+            if plan[0] != 0 or plan != fused.meanvar_ungated_plan(N, NMAX, D,
+                                                                  nq, sd):
+                raise AssertionError(f"K8 {label} nq={nq}: K5's plan differs "
+                                     "from K8's route 0")
+            same = torch.equal(out[0], m5) and torch.equal(out[1], s5)
+            log(f"[K8] {label:8s} nq={nq:5d} route {plan[:2]}: "
+                + "; ".join(errs) + f"; mean and std K5's bit for bit {same}")
+            if not same:
+                raise AssertionError(f"K8 {label} nq={nq}: mean and std not "
+                                     "K5's bit for bit")
+            if fam != timed or nq not in K8_TIMED:
+                continue
+            call = lambda: fused.meanstd_grad(fam, p, Xq)
+            shape = {"ms": time_ms(call, 20 if nq > 64 else 200),
+                     "device_ms": kernel_device_ms(call, "meanstd_grad", 20),
+                     "plain_ms": time_ms(lambda: fused.meanstd_grad_plain(
+                         fam, p, Xq), 5),
+                     "route": plan[:2], **k8_bound(fam, nq)}
+            shapes[f"nq={nq}"] = shape
+            log(f"[K8] {label} nq={nq}: " + json.dumps(shape))
+    top = shapes[f"nq={NQ_COV}"]
+    return {"max_abs_err": worst, "shapes": shapes,
+            "shape": f"nq={NQ_COV} n={N} nmax={NMAX} d={D}",
+            **{k: top[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "flops", "bytes")}}
 
 
 def k9_inputs(family, dev, seed, clip=False, n=N):
@@ -2256,6 +2318,35 @@ def time_k4_k12(dev):
                                                         3)
         out[key + " sampling device"] = kernel_device_ms(samp,
                                                          "mcmc_chains", 3)
+    return out
+
+
+def time_k5_k8(dev):
+    """K5 and K8 at the kernel table's shapes (n = N of NMAX, d = D; RBF
+    and ALL_NODES; queries over [-5, 5]^D): K5 at nq = 1, 256 and
+    NQ_SCREEN, K8 at nq = 8 and NQ_COV, ms per call (CUDA events, 200
+    calls at the small batches, 50 above) and device ms (torch.profiler,
+    50 calls).  It calls only the wrappers, with their arguments of every
+    version since K8, so that compare_trees.sh can run it on an older
+    checkout's gpry_tpu_torch."""
+    import numpy as np
+    import torch
+    from gpry_tpu_torch.ops import fused
+    out = {}
+    rng = np.random.default_rng(15)
+    for fam, sfx in (("rbf", ""), (spec_kernel()[0], "/spec")):
+        p = synthetic_surrogate(fam, dev, seed=14)
+        for name, fn, nqs in (
+                ("meanvar_ungated", fused.meanvar_ungated,
+                 (1, 256, NQ_SCREEN)),
+                ("meanstd_grad", fused.meanstd_grad, (8, NQ_COV))):
+            for nq in nqs:
+                Xq = torch.as_tensor(rng.uniform(-5, 5, (nq, D)),
+                                     dtype=torch.float64, device=dev)
+                call = lambda: fn(fam, p, Xq)
+                key = f"{name}{sfx} nq={nq}"
+                out[key] = time_ms(call, 50 if nq > 256 else 200)
+                out[key + " device"] = kernel_device_ms(call, name, 50)
     return out
 
 

@@ -20,11 +20,11 @@
 #   himmelblau  chip_smoke.py's path e: the audited NORA Runner on
 #           Himmelblau, once per seed in $SEEDS (default 100), each with
 #           its truth evals, moment-KL and fit seconds
-#   kernels K9, K10, K11, K6, K2, K13, K4, K12, K1 and K3 alone at the
-#           kernel table's
-#           shapes (chip_smoke.time_fit_kernels, RBF and ALL_NODES: ms per
-#           call of K9, K11, K10 at the fit's screen and the route K10
-#           replaced; K6's device ms at B = 66, R = 40; then
+#   kernels K9, K10, K11, K6, K2, K13, K4, K12, K1, K3, K5 and K8 alone
+#           at the kernel table's shapes (chip_smoke.time_fit_kernels,
+#           RBF and ALL_NODES: ms per call of K9, K11, K10 at the fit's
+#           screen and the route K10 replaced; K6's device ms at B = 66,
+#           R = 40; then
 #           chip_smoke.time_k2_k13: K2 at nq = 1, 8 and 3,200, K13's
 #           steady-state and first steps at nlive 400 and 3,200; then
 #           chip_smoke.time_k4_k12: K4's whole fill at N = 4,096 and a pool
@@ -33,7 +33,9 @@
 #           chip_smoke.time_k1_k3: K1 at nq = 66, 2,000 and 65,536, K3 at
 #           R = 1 and 2,048 and the appends of 1 and 8 points, ms and
 #           device ms, with digests of K3's outputs and of the appended
-#           factor that agree where two trees agree bit for bit)
+#           factor that agree where two trees agree bit for bit; then
+#           chip_smoke.time_k5_k8: K5 at nq = 1, 256 and 4,096, K8 at nq =
+#           8 and 1,024, ms and device ms)
 #   sweeps  K2 and K13 alone (chip_smoke.time_k2_k13)
 # The driving code is this script's own chip_smoke.py (run_bench,
 # run_runner), loaded by path; only gpry_tpu_torch comes from each
@@ -104,6 +106,7 @@ elif engine in ('kernels', 'sweeps'):
     if engine == 'kernels':
         out.update(cs.time_k4_k12(dev))
         out.update(cs.time_k1_k3(dev))
+        out.update(cs.time_k5_k8(dev))
     print('RES', tree, engine, json.dumps(out), flush=True)
 elif engine == 'himmelblau':
     from gpry_tpu_torch.models import gp as gpm

@@ -306,14 +306,13 @@ static cudaError_t gpry_set_smem(K kernel, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
-// Block-cooperative gated mean of one or two points.  (Its staging serves
-// K6 and K12; gpry_block_gated_mean2 itself has no caller left: K6
-// evaluates with gpry_block_gated_mean_line, K1 streams its rows.)  A
-// block stages the surrogate in shared memory once; the
-// threads then split the n valid training rows and the support vectors of
-// every evaluation and reduce with gpry_warp_sum plus one shared-memory
-// step, so that one evaluation costs a few exponentials per thread and two
-// block barriers instead of one thread's serial loop over all rows.
+// The block-cooperative gated mean (its staging serves K6 and K12; K6
+// evaluates with gpry_block_gated_mean_line below).  A block stages the
+// surrogate in shared memory once; the threads then split the n valid
+// training rows and the support vectors of every evaluation and reduce
+// with gpry_warp_sum, so that one evaluation costs a few exponentials per
+// thread and two block barriers instead of one thread's serial loop over
+// all rows.
 // ---------------------------------------------------------------------------
 
 #define GPRY_BLOCK_THREADS 128
@@ -434,116 +433,9 @@ __device__ __forceinline__ GprySurrogate gpry_stage_surrogate(
   return s;
 }
 
-// The gated mean (-inf outside the trust box, outside the optional prior
-// box [lo, hi] and where the SVM predicts infinite; clipped above) of the
-// points p in `need` (bit p), by the whole block; every thread gets the
-// same out[p].  Point p's raw coordinate k is base[p][k] + t[p] * dir[k]
-// (two roundings, as torch's x + t * e) or base[p][k] when dir is null.
-// spec: the staged program (SPEC only).  Entry: the bases and dir are
-// visible to the block.  Two barriers.
-template <bool SPEC>
-__device__ __forceinline__ void gpry_block_gated_mean2(
-    const GprySurrogate& s, const GprySpec& spec, GpryEvalScratch* sc,
-    int need,
-    const double* base0, const double* base1, const double* dir,
-    double t0, double t1, const double* lo, const double* hi,
-    double out[2]) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int d = s.d;
-  int* bad = sc->bad + sc->parity;
-  // A: one thread per (point, coordinate) transforms and gates.
-  if (tid < 2 * d) {
-    const int p = tid / d, k = tid - p * d;
-    if (need & (1 << p)) {
-      const double* b = p ? base1 : base0;
-      const double xr = dir ? __dadd_rn(b[k], __dmul_rn(p ? t1 : t0, dir[k]))
-                            : b[k];
-      bool ok = (xr >= s.trust_lo[k]) && (xr <= s.trust_hi[k]);
-      if (lo) ok = ok && (xr >= lo[k]) && (xr <= hi[k]);
-      if (!ok) atomicOr(bad, 1 << p);
-      const double xp = (xr - s.x_loc[k]) / s.x_scale[k];
-      sc->qpre[p * d + k] = xp;
-      sc->qls[p * d + k] = xp / s.ls[k];
-    }
-  }
-  __syncthreads();
-  // B: the threads split the rows; only points inside the gates are summed.
-  int live = need & ~(*bad);
-  if (s.svm_mode == GPRY_MODE_NONE_FINITE) live = 0;
-  const bool l0 = live & 1, l1 = live & 2;
-  double a0 = 0.0, a1 = 0.0, c0 = 0.0, c1 = 0.0;
-  if (live) {
-    const double* q0 = sc->qls;
-    const double* q1 = sc->qls + d;
-    for (int j = tid; j < s.n; j += blockDim.x) {
-      const double w = s.alpha[j];
-      if constexpr (SPEC) {
-        // qls is the preprocessed point (ls = 1), Xt the preprocessed X
-        if (l0) a0 += gpry_spec_cov(spec, q0, 1, s.Xt + j, s.n, d) * w;
-        if (l1) a1 += gpry_spec_cov(spec, q1, 1, s.Xt + j, s.n, d) * w;
-      } else {
-        double sq0 = 0.0, sq1 = 0.0;
-        for (int k = 0; k < d; ++k) {
-          const double xj = s.Xt[(size_t)k * s.n + j];
-          const double f0 = q0[k] - xj, f1 = q1[k] - xj;
-          sq0 += f0 * f0;
-          sq1 += f1 * f1;
-        }
-        if (l0) a0 += (s.variance * gpry_k_of_sq(s.family, sq0)) * w;
-        if (l1) a1 += (s.variance * gpry_k_of_sq(s.family, sq1)) * w;
-      }
-    }
-    const double* p0 = sc->qpre;
-    const double* p1 = sc->qpre + d;
-    for (int j = tid; j < s.nsv; j += blockDim.x) {
-      double sq0 = 0.0, sq1 = 0.0;
-      for (int k = 0; k < d; ++k) {
-        const double v = s.svt[(size_t)k * s.nsv + j];
-        const double f0 = p0[k] - v, f1 = p1[k] - v;
-        sq0 += f0 * f0;
-        sq1 += f1 * f1;
-      }
-      const double w = s.dual[j];
-      if (l0) c0 += exp(-s.gamma * sq0) * w;
-      if (l1) c1 += exp(-s.gamma * sq1) * w;
-    }
-    a0 = gpry_warp_sum(a0);
-    a1 = gpry_warp_sum(a1);
-    c0 = gpry_warp_sum(c0);
-    c1 = gpry_warp_sum(c1);
-    if (lane == 0) {
-      sc->red[4 * warp + 0] = a0;
-      sc->red[4 * warp + 1] = a1;
-      sc->red[4 * warp + 2] = c0;
-      sc->red[4 * warp + 3] = c1;
-    }
-  }
-  __syncthreads();
-  // C: every thread sums the warps' partials in the same order.
-  if (live) {
-    a0 = a1 = c0 = c1 = 0.0;
-    for (int w = 0; w < GPRY_BLOCK_WARPS; ++w) {
-      a0 += sc->red[4 * w + 0];
-      a1 += sc->red[4 * w + 1];
-      c0 += sc->red[4 * w + 2];
-      c1 += sc->red[4 * w + 3];
-    }
-  }
-  const double m0 = gpry_clip(a0 * s.y_scale + s.y_loc, s.clip_max);
-  const double m1 = gpry_clip(a1 * s.y_scale + s.y_loc, s.clip_max);
-  out[0] = (l0 && gpry_svm_finite(s.svm_mode, c0, s.intercept)) ? m0
-                                                                : -INFINITY;
-  out[1] = (l1 && gpry_svm_finite(s.svm_mode, c1, s.intercept)) ? m1
-                                                                : -INFINITY;
-  // every thread read this slot before the second barrier; the next
-  // evaluation uses the other one
-  if (tid == 0) *bad = 0;
-  sc->parity ^= 1;
-}
-
 // ---------------------------------------------------------------------------
-// The same gated mean of up to PMAX points of one line a pass (K6): point q
-// is x + t_of(q) dir, all evaluated with two barriers.  A warp sums a
+// The gated mean of up to PMAX points of one line a pass (K6): point q is
+// x + t_of(q) dir, all evaluated with two barriers.  A warp sums a
 // point (warp q mod warps): lane s the rows s, s + 32, ... (the fast
 // families GPRY_LINE_ROWS of them at a time) and the support vectors
 // likewise, then the warp's xor tree, and its lane 0 applies the gates, so
@@ -596,9 +488,9 @@ __device__ __forceinline__ double gpry_line_gate(const GprySurrogate& s,
   return gpry_svm_finite(s.svm_mode, c, s.intercept) ? m : -INFINITY;
 }
 
-// The gated mean (gpry_block_gated_mean2's gates: the trust box, the
-// optional prior box [lo, hi], the SVM, the clip) of the np <= PMAX points
-// x + t_of(q) dir (two roundings, as torch's x + t * e), by the whole
+// The gated mean (its gates: the trust box, the optional prior box [lo,
+// hi], the SVM, the clip) of the np <= PMAX points x + t_of(q) dir (two
+// roundings, as torch's x + t * e), by the whole
 // block; every thread gets the same out[q] for q < np (out[q] for q >= np
 // is not defined).  t_of(q) must give every thread the same value.  Entry:
 // x and dir visible to the block.  Two barriers (with CL = 2 the second a
@@ -731,57 +623,6 @@ __device__ __forceinline__ void gpry_block_gated_mean_line(
   // evaluation uses the other one
   if (tid == 0) *bad = 0;
   sc->parity ^= 1;
-}
-
-// The gated mean of one point by one warp (K12): the semantics of
-// gpry_block_gated_mean2 with the prior box [lo, hi], for the raw point xr
-// (d, visible to the warp); qpre and qls are the warp's scratch (d each).
-// The lanes split the rows and the support vectors; the xor-tree sums give
-// every lane the same value, which every lane returns.  No block barrier.
-template <bool SPEC>
-__device__ __forceinline__ double gpry_warp_gated_mean(
-    const GprySurrogate& s, const GprySpec& spec, const double* xr,
-    double* qpre, double* qls, const double* lo, const double* hi,
-    int lane) {
-  const int d = s.d;
-  bool ok = true;
-  for (int k = lane; k < d; k += 32) {
-    const double v = xr[k];
-    ok = ok && (v >= s.trust_lo[k]) && (v <= s.trust_hi[k]) &&
-         (v >= lo[k]) && (v <= hi[k]);
-    const double xp = (v - s.x_loc[k]) / s.x_scale[k];
-    qpre[k] = xp;
-    qls[k] = xp / s.ls[k];
-  }
-  ok = __all_sync(0xffffffffu, ok);
-  __syncwarp();
-  if (!ok || s.svm_mode == GPRY_MODE_NONE_FINITE) return -INFINITY;
-  double a = 0.0, c = 0.0;
-  for (int j = lane; j < s.n; j += 32) {
-    const double w = s.alpha[j];
-    if constexpr (SPEC) {
-      a += gpry_spec_cov(spec, qls, 1, s.Xt + j, s.n, d) * w;
-    } else {
-      double sq = 0.0;
-      for (int k = 0; k < d; ++k) {
-        const double f = qls[k] - s.Xt[(size_t)k * s.n + j];
-        sq += f * f;
-      }
-      a += (s.variance * gpry_k_of_sq(s.family, sq)) * w;
-    }
-  }
-  for (int j = lane; j < s.nsv; j += 32) {
-    double sq = 0.0;
-    for (int k = 0; k < d; ++k) {
-      const double f = qpre[k] - s.svt[(size_t)k * s.nsv + j];
-      sq += f * f;
-    }
-    c += exp(-s.gamma * sq) * s.dual[j];
-  }
-  a = gpry_warp_sum(a);
-  c = gpry_warp_sum(c);
-  const double m = gpry_clip(a * s.y_scale + s.y_loc, s.clip_max);
-  return gpry_svm_finite(s.svm_mode, c, s.intercept) ? m : -INFINITY;
 }
 
 // ---------------------------------------------------------------------------
@@ -1080,8 +921,9 @@ __device__ __forceinline__ void gpry_warp_back_subst(
 
 // ---------------------------------------------------------------------------
 // The ungated GP mean and latent variance of one point, and their
-// gradients, by a whole block of GPRY_BLOCK_THREADS (K8 one block per
-// query, K9 one block per restart lane).  The block stages ls, x_loc,
+// gradients, by a whole block of GPRY_BLOCK_THREADS (K8's route 1 one
+// block per query; K9 stages the same GP, one block per restart lane, for
+// its own evaluation).  The block stages ls, x_loc,
 // x_scale, alpha, a work vector and X / ls (column-major; X as it is in
 // spec mode) in shared memory; L stays in global memory (the 50 MB L2
 // holds it).  A training set too large for shared memory reads X from
@@ -1182,15 +1024,15 @@ __device__ __forceinline__ double gpry_xt(const GpryGP& g, int j, int k) {
 
 // The mean k . alpha and the latent variance prior - |L^-1 k|^2 (not
 // clamped) of the point q (d: preprocessed, divided by ls in fast mode;
-// visible to the block) in the GP's coordinates, into res[0], res[1]; with
-// GRAD also, in the preprocessed coordinates,
+// visible to the block) in the GP's coordinates, into res[0], res[1], and
+// their gradients in the preprocessed coordinates,
 //   res[2 + k]     = d mean / dq_k = sum_j alpha_j dk_j / dq_k,
 //   res[2 + d + k] = d var / dq_k  = d prior / dq_k - 2 sum_j w_j dk_j / dq_k
 // with w = L^-T L^-1 k.  The threads split the rows for k and its
 // gradient (block reductions of 1 and 2 d sums); one warp runs the two
 // substitution chains.  Every thread calls it; it ends with a barrier,
 // after which res is visible.
-template <bool SPEC, bool GRAD>
+template <bool SPEC>
 __device__ void gpry_block_meanvar_grad(const GpryGP& g, const GprySpec& spec,
                                         const double* q) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1216,7 +1058,7 @@ __device__ void gpry_block_meanvar_grad(const GpryGP& g, const GprySpec& spec,
   __syncthreads();
   if (warp == 0) {
     const double sumsq = gpry_warp_forward_subst(g.L, g.nmax, n, g.kv, lane);
-    if constexpr (GRAD) gpry_warp_back_subst(g.L, g.nmax, n, g.kv, lane);
+    gpry_warp_back_subst(g.L, g.nmax, n, g.kv, lane);
     if (lane == 0) {
       double mm = 0.0;
       for (int w = 0; w < GPRY_BLOCK_WARPS; ++w) mm += g.red[w];
@@ -1226,66 +1068,64 @@ __device__ void gpry_block_meanvar_grad(const GpryGP& g, const GprySpec& spec,
     }
   }
   __syncthreads();
-  if constexpr (GRAD) {
-    // per thread: sum_j alpha_j grad k_j and sum_j w_j grad k_j over its
-    // rows (fast mode: without the common 1 / ls_k)
-    double am[GPRY_GRAD_MAX_D], aw[GPRY_GRAD_MAX_D];
-    for (int k = 0; k < d; ++k) am[k] = aw[k] = 0.0;
-    for (int j = tid; j < n; j += blockDim.x) {
-      const double a = g.alpha[j], w = g.kv[j];
-      if constexpr (SPEC) {
-        double gk[GPRY_GRAD_MAX_D];
-        gpry_spec_grad(spec, q, 1, g.Xt + (size_t)j * g.xj, g.xk, d, false,
-                       gk);
-        for (int k = 0; k < d; ++k) {
-          am[k] += a * gk[k];
-          aw[k] += w * gk[k];
-        }
-      } else {
-        double sq = 0.0;
-        for (int k = 0; k < d; ++k) {
-          const double df = q[k] - gpry_xt(g, j, k);
-          sq += df * df;
-        }
-        const double c = 2.0 * g.variance * gpry_dk_dsq(g.family, sq);
-        const double ca = c * a, cw = c * w;
-        for (int k = 0; k < d; ++k) {
-          const double df = q[k] - gpry_xt(g, j, k);
-          am[k] += ca * df;
-          aw[k] += cw * df;
-        }
+  // per thread: sum_j alpha_j grad k_j and sum_j w_j grad k_j over its
+  // rows (fast mode: without the common 1 / ls_k)
+  double am[GPRY_GRAD_MAX_D], aw[GPRY_GRAD_MAX_D];
+  for (int k = 0; k < d; ++k) am[k] = aw[k] = 0.0;
+  for (int j = tid; j < n; j += blockDim.x) {
+    const double a = g.alpha[j], w = g.kv[j];
+    if constexpr (SPEC) {
+      double gk[GPRY_GRAD_MAX_D];
+      gpry_spec_grad(spec, q, 1, g.Xt + (size_t)j * g.xj, g.xk, d, false,
+                     gk);
+      for (int k = 0; k < d; ++k) {
+        am[k] += a * gk[k];
+        aw[k] += w * gk[k];
+      }
+    } else {
+      double sq = 0.0;
+      for (int k = 0; k < d; ++k) {
+        const double df = q[k] - gpry_xt(g, j, k);
+        sq += df * df;
+      }
+      const double c = 2.0 * g.variance * gpry_dk_dsq(g.family, sq);
+      const double ca = c * a, cw = c * w;
+      for (int k = 0; k < d; ++k) {
+        const double df = q[k] - gpry_xt(g, j, k);
+        am[k] += ca * df;
+        aw[k] += cw * df;
       }
     }
-    double* part = g.red + GPRY_BLOCK_WARPS;  // [warp][2 d]
-    double* gprior = part + GPRY_BLOCK_WARPS * 2 * d;
-    for (int k = 0; k < d; ++k) {
-      const double sa = gpry_warp_sum(am[k]);
-      const double sw = gpry_warp_sum(aw[k]);
-      if (lane == 0) {
-        part[warp * 2 * d + k] = sa;
-        part[warp * 2 * d + d + k] = sw;
-      }
-    }
-    if (tid == 0) {
-      if constexpr (SPEC) {
-        gpry_spec_grad(spec, q, 1, q, 1, d, true, gprior);
-      } else {
-        for (int k = 0; k < d; ++k) gprior[k] = 0.0;
-      }
-    }
-    __syncthreads();
-    if (tid < 2 * d) {
-      double s = 0.0;
-      for (int w = 0; w < GPRY_BLOCK_WARPS; ++w) s += part[w * 2 * d + tid];
-      const int k = tid < d ? tid : tid - d;
-      s = s / g.ls[k];
-      if (tid < d)
-        g.res[2 + k] = s;
-      else
-        g.res[2 + d + k] = gprior[k] - 2.0 * s;
-    }
-    __syncthreads();
   }
+  double* part = g.red + GPRY_BLOCK_WARPS;  // [warp][2 d]
+  double* gprior = part + GPRY_BLOCK_WARPS * 2 * d;
+  for (int k = 0; k < d; ++k) {
+    const double sa = gpry_warp_sum(am[k]);
+    const double sw = gpry_warp_sum(aw[k]);
+    if (lane == 0) {
+      part[warp * 2 * d + k] = sa;
+      part[warp * 2 * d + d + k] = sw;
+    }
+  }
+  if (tid == 0) {
+    if constexpr (SPEC) {
+      gpry_spec_grad(spec, q, 1, q, 1, d, true, gprior);
+    } else {
+      for (int k = 0; k < d; ++k) gprior[k] = 0.0;
+    }
+  }
+  __syncthreads();
+  if (tid < 2 * d) {
+    double s = 0.0;
+    for (int w = 0; w < GPRY_BLOCK_WARPS; ++w) s += part[w * 2 * d + tid];
+    const int k = tid < d ? tid : tid - d;
+    s = s / g.ls[k];
+    if (tid < d)
+      g.res[2 + k] = s;
+    else
+      g.res[2 + d + k] = gprior[k] - 2.0 * s;
+  }
+  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------

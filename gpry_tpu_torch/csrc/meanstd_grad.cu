@@ -14,27 +14,60 @@
 //                 (0 where var < 0, as torch's clamp_min gradient), with
 //   d var / dx' = d prior/dx' - 2 sum_j w_j dk_j/dx',  w = L^-T L^-1 k.
 //
-// Design: one block of 128 threads per query (grid-stride over the
-// queries), the block routine gpry_block_meanvar_grad of common.cuh: the
-// surrogate (X / l, alpha, a work vector) staged in shared memory once per
-// block, the threads split the rows for k and its gradient and reduce 1
-// and 2 d sums, one warp runs the forward and the back substitution
-// against L in global memory.  Above 48 KB of shared memory the kernel
-// opts in (gpry_set_smem); beyond the 227 KB a block holds, X is read from
-// global memory.
+// Design: two routes, chosen by the host side of this file (k8_plan,
+// mirrored by ops/fused.py meanstd_grad_plan):
+//
+// * Route 0, blocked (meanstd_grad_blocked): a block of SUB_THREADS owns
+//   Q = 8, 16 or 32 queries (subst_blocked.cuh's sub_plan with K5's
+//   shared layout, so K5's Q: 8 up to nq = 1,056, so 128 blocks at
+//   1,024) and runs sub_ungated of subst_blocked.cuh, K5's body: the k
+//   vectors (sub_build_k), k . alpha (sub_dot_alpha), V = L^-1 K
+//   (sub_forward), so mean and std are K5's operations, bit for bit where
+//   the two take the same Q; then W = L^-T V in place (sub_backward: 16-row
+//   column panels of L staged by cp.async from the bottom, the update on
+//   the FP64 tensor cores, the diagonal block by a half-warp a query), and
+//   the gradient sweep: the training rows staged again (over the length
+//   scales), T = 256 / Q threads a query split its rows, each recomputing
+//   the squared distance from direct differences (q_k - x_jk) and c =
+//   2 sigma^2 dk/dsq, and summing alpha_j c (q_k - x_jk) and w_j c (q_k -
+//   x_jk) per coordinate in registers; a shuffle tree sums the T threads.
+//   The sums stay in that form: alpha cancels heavily on a fitted GP, and
+//   q_k sum alpha c - sum alpha c x_k would lose the gradient's digits.
+//   The per-thread sums hold GD = 8 or 32 coordinates (two instances).  It
+//   takes n as long as the panels, V and the queries fit in shared memory
+//   (n <= 640 at d = 8) and L's rows are 16-byte aligned (even nmax).
+// * Route 1 (meanstd_grad_kernel), K8's design before route 0: one block
+//   of 128 threads per query (grid-stride over the queries), the block
+//   routine gpry_block_meanvar_grad of common.cuh: the surrogate (X / l,
+//   alpha, a work vector) staged in shared memory once per block, the
+//   threads split the rows for k and its gradient and reduce 1 and 2 d
+//   sums, one warp runs the forward and the back substitution against L
+//   in global memory.  Above 48 KB of shared memory the kernel opts in
+//   (gpry_set_smem); beyond the 227 KB a block holds, X is read from
+//   global memory.  For an odd nmax, an unaligned L, or n beyond route 0.
 //
 // What bounds it on the H100.  Per query 2 n^2 / 2 multiply-adds of the
 // two substitutions and about n (5 d + 3) for k and its gradient: 1.1e8
 // FP64 operations at nq = 1,024, n = 224, d = 8, 1.7 us at 67 TFLOP/s.
-// The two substitutions are chains of n dependent warp steps (a reduction
-// for the forward one, a barrier for the back one), so latency, not the
-// FP64 rate, bounds each query; 1,024 queries give about 8 blocks per SM.
+// Route 0 is bound by the dependent chains of its 2 x 14 panels (update,
+// barrier, 16 shuffle steps, barrier); route 1 by each query's 2 n
+// dependent warp steps (a reduction for the forward substitution, a
+// barrier for the back one).
 //
 // Spec mode (template SPEC): k comes from the interpreter of common.cuh,
 // its gradient from the interpreter's forward mode (gpry_spec_grad), and
 // the prior and its gradient (DotProduct only) from its diagonal program.
-#include "common.cuh"
+#include "subst_blocked.cuh"
 
+// Route 0; GD: the largest d its per-thread sums hold.
+template <bool SPEC, int GD>
+__global__ void __launch_bounds__(SUB_THREADS)
+meanstd_grad_blocked(SubUngated a) {
+  extern __shared__ double smem[];
+  sub_ungated<SPEC, GD>(a, smem);
+}
+
+// Route 1.
 template <bool SPEC>
 __global__ void __launch_bounds__(GPRY_BLOCK_THREADS) meanstd_grad_kernel(
     GpryKern kern, int nq, int n, int nmax, int d, int stage_x,
@@ -57,7 +90,7 @@ __global__ void __launch_bounds__(GPRY_BLOCK_THREADS) meanstd_grad_kernel(
       q[tid] = (Xq_raw[(size_t)b * d + tid] - g.x_loc[tid]) /
                g.x_scale[tid] / g.ls[tid];
     __syncthreads();
-    gpry_block_meanvar_grad<SPEC, true>(g, spec, q);
+    gpry_block_meanvar_grad<SPEC>(g, spec, q);
     const double var_raw = g.res[1];
     const double var = (var_raw < 0.0) ? 0.0 : var_raw;  // NaN stays NaN
     const double sd = sqrt(var);
@@ -78,6 +111,40 @@ __global__ void __launch_bounds__(GPRY_BLOCK_THREADS) meanstd_grad_kernel(
   }
 }
 
+// Route 1's shared memory: the staged GP with X if that fits (*stage_x),
+// else without.
+static size_t k8_chain_smem(const GpryKern& kern, int n, int d,
+                            bool* stage_x) {
+  const size_t spec = gpry_spec_doubles(kern);
+  *stage_x = true;
+  size_t smem = sizeof(double) * (gpry_gp_doubles(n, d, true, spec) + d);
+  if (smem > GPRY_MAX_SMEM) {
+    *stage_x = false;
+    smem = sizeof(double) * (gpry_gp_doubles(n, d, false, spec) + d);
+  }
+  return smem;
+}
+
+// The route (0 blocked, 1 a block a query; -1 beyond shared memory) for
+// nq queries against n training rows of the (nmax, nmax) factor L, the
+// queries a block *Q (1 on route 1) and the shared memory *smem.
+static int k8_plan(const GpryKern& kern, int nq, int n, int nmax, int d,
+                   const void* L, int* Q, size_t* smem) {
+  if (sub_plan(nq, n, nmax, L, (size_t)d + gpry_spec_doubles(kern),
+               (size_t)d + 1, Q, smem) == 0)
+    return 0;
+  bool stage_x;
+  *Q = 1;
+  *smem = k8_chain_smem(kern, n, d, &stage_x);
+  return *smem <= GPRY_MAX_SMEM ? 1 : -1;
+}
+
+extern "C" int gpry_meanstd_grad_plan(GpryKern kern, int nq, int n,
+                                      int nmax, int d, const void* L, int* Q,
+                                      size_t* smem) {
+  return k8_plan(kern, nq, n, nmax, d, L, Q, smem);
+}
+
 // scal = [y_loc, y_scale, ...] (the surrogate's packed gate scalars)
 extern "C" int gpry_meanstd_grad(
     GpryKern kern, int nq, int n, int nmax, int d, const void* Xq_raw,
@@ -87,17 +154,35 @@ extern "C" int gpry_meanstd_grad(
     void* stream) {
   if (d > GPRY_GRAD_MAX_D || nq < 0) return (int)cudaErrorInvalidValue;
   if (nq == 0) return 0;
-  const size_t spec = gpry_spec_doubles(kern);
-  bool stage_x = true;
-  size_t smem = sizeof(double) * (gpry_gp_doubles(n, d, true, spec) + d);
-  if (smem > GPRY_MAX_SMEM) {
-    stage_x = false;
-    smem = sizeof(double) * (gpry_gp_doubles(n, d, false, spec) + d);
+  int Q = 0;
+  size_t smem = 0;
+  const int route = k8_plan(kern, nq, n, nmax, d, L, &Q, &smem);
+  if (route < 0) return (int)cudaErrorInvalidConfiguration;
+  const bool spec = kern.nodes > 0;
+  cudaError_t e;
+  if (route == 0) {
+    auto kernel = spec ? (d <= 8 ? meanstd_grad_blocked<true, 8>
+                                 : meanstd_grad_blocked<true, 32>)
+                       : (d <= 8 ? meanstd_grad_blocked<false, 8>
+                                 : meanstd_grad_blocked<false, 32>);
+    e = gpry_set_smem(kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    const SubUngated a{kern, nq, n, nmax, d, Q,
+                       (const double*)Xq_raw, (const double*)X,
+                       (const double*)alpha, (const double*)L,
+                       (const double*)theta, (const double*)x_loc,
+                       (const double*)x_scale, (const double*)scal,
+                       (double*)mean_out, (double*)std_out,
+                       (double*)gmean_out, (double*)gstd_out};
+    kernel<<<(nq + Q - 1) / Q, SUB_THREADS, smem, (cudaStream_t)stream>>>(
+        a);
+    return (int)cudaGetLastError();
   }
-  if (smem > GPRY_MAX_SMEM) return (int)cudaErrorInvalidConfiguration;
-  auto kernel = kern.nodes ? meanstd_grad_kernel<true>
-                           : meanstd_grad_kernel<false>;
-  cudaError_t e = gpry_set_smem(kernel, smem);
+  bool stage_x;
+  k8_chain_smem(kern, n, d, &stage_x);
+  auto kernel = spec ? meanstd_grad_kernel<true>
+                     : meanstd_grad_kernel<false>;
+  e = gpry_set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);

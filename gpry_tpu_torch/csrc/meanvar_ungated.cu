@@ -10,33 +10,60 @@
 //   mean = k . alpha * y_scale + y_loc
 //   var  = max(sigma^2 - ||L^-1 k||^2, 0),  std = sqrt(var) * y_scale
 //
-// Design: K2's body (gated_meanvar_logexp.cu) without its SVM and trust
-// gates, its upper clip and its LogExp epilogue.  A block of 8 warps owns
-// Q queries (Q chosen by the host from nmax, so that Q k vectors fit in
-// shared memory); phase 1 fills the Q x n k vectors with all threads,
-// phase 2 gives each warp one query: the warp reduces k . alpha, then runs
-// the n sequential substitution steps against the row-major padded factor
-// L (gpry_warp_forward_subst).
+// Design: K2's two routes (gated_meanvar_logexp.cu) without its SVM and
+// trust gates, its upper clip and its LogExp epilogue, chosen by the host
+// side of this file (k5_plan, mirrored by ops/fused.py
+// meanvar_ungated_plan):
+//
+// * Route 0, blocked (meanvar_ungated_blocked): a block of SUB_THREADS
+//   owns Q = 8, 16 or 32 queries (subst_blocked.cuh's sub_plan: Q by nq,
+//   fewer where shared memory forces it) and runs sub_ungated of
+//   subst_blocked.cuh: the k vectors as the rows of V (sub_build_k), k .
+//   alpha a warp a query (sub_dot_alpha), V = L^-1 K for all Q at once
+//   (sub_forward: 16-row panels of L staged by cp.async once per block,
+//   the update on the FP64 tensor cores, the diagonal block by a
+//   half-warp a query), then a thread a query writes mean and std.  K2
+//   calls the same routine with the same sub_plan rule, so at one nq
+//   (the same Q) K5's std is K2's ungated std bit for bit, and its mean
+//   K2's wherever the clip does not bite; K8 (meanstd_grad.cu) runs the
+//   same body with its gradients.  It takes n as long as the panels, V
+//   and the queries fit in shared memory (Q = 8: n <= 640 at d = 8) and
+//   L's rows are 16-byte aligned (an even nmax).
+// * Route 1, the chain (meanvar_ungated_chain), K5's design before route
+//   0: Q queries a block (Q chosen by the host from nmax, so that Q k
+//   vectors fit in shared memory); phase 1 fills the Q x n k vectors with
+//   all threads, phase 2 gives each warp one query: the warp reduces k .
+//   alpha, then runs the n sequential substitution steps against the
+//   row-major padded factor L (gpry_warp_forward_subst).  For an odd
+//   nmax, an L that is not 16-byte aligned, or n beyond route 0.
 //
 // What bounds it on the H100.  Per query about n^2 / 2 multiply-adds of
 // substitution and n (3d + 3) for the k vector: 2.3e8 FP64 operations at
 // the audit screen (nq = 4,096, n = 224, d = 8), 3.5 us at the card's
 // 67 TFLOP/s; the bytes (queries, training rows, the valid triangle of L,
-// the outputs) are 0.55 MB.  Each substitution step depends on the one
-// before, so the
-// chain of n dependent warp reductions, each reading a row of L from L2,
-// bounds it (latency, not throughput), as it does K2.
+// the outputs) are 0.55 MB.  Route 0 is bound by the dependent chain of a
+// block's 14 panels (update, barrier, 16 shuffle steps, barrier), as K2's
+// route 0; route 1 by each query's n dependent warp reductions.
 //
 // Spec mode (template SPEC), as K2's: the interpreter of common.cuh builds
 // the k vectors from the preprocessed coordinates, and the prior variance
 // is the query's gpry_spec_diag.
-#include "common.cuh"
+#include "subst_blocked.cuh"
 
 #define K5_THREADS 256
 #define K5_WARPS (K5_THREADS / 32)
 
+// Route 0.
 template <bool SPEC>
-__global__ void meanvar_ungated_kernel(
+__global__ void __launch_bounds__(SUB_THREADS)
+meanvar_ungated_blocked(SubUngated a) {
+  extern __shared__ double smem[];
+  sub_ungated<SPEC, 0>(a, smem);
+}
+
+// Route 1.
+template <bool SPEC>
+__global__ void meanvar_ungated_chain(
     GpryKern kern, int nq, int n, int nmax, int d, int Q,
     const double* __restrict__ Xq_raw, const double* __restrict__ X,
     const double* __restrict__ alpha, const double* __restrict__ L,
@@ -114,21 +141,61 @@ static size_t meanvar_ungated_smem(const GpryKern& kern, int n, int d,
                            gpry_spec_doubles(kern));
 }
 
+// The route (0 blocked, 1 the chain; sub_plan) for nq queries against n
+// training rows of the (nmax, nmax) factor L, the queries a block *Q and
+// the shared memory *smem; qchain is the chain's queries a block.
+static int k5_plan(const GpryKern& kern, int nq, int n, int nmax, int d,
+                   int qchain, const void* L, int* Q, size_t* smem) {
+  if (sub_plan(nq, n, nmax, L, (size_t)d + gpry_spec_doubles(kern),
+               (size_t)d + 1, Q, smem) == 0)
+    return 0;
+  *Q = qchain;
+  *smem = meanvar_ungated_smem(kern, n, d, qchain);
+  return 1;
+}
+
+extern "C" int gpry_meanvar_ungated_plan(GpryKern kern, int nq, int n,
+                                         int nmax, int d, int qchain,
+                                         const void* L, int* Q,
+                                         size_t* smem) {
+  return k5_plan(kern, nq, n, nmax, d, qchain, L, Q, smem);
+}
+
 // scal = [y_loc, y_scale, ...] (the surrogate's packed gate scalars; only
-// the first two are read)
+// the first two are read); qchain: route 1's queries a block.
 extern "C" int gpry_meanvar_ungated(
-    GpryKern kern, int nq, int n, int nmax, int d, int Q, const void* Xq_raw,
-    const void* X, const void* alpha, const void* L, const void* theta,
-    const void* x_loc, const void* x_scale, const void* scal,
-    void* mean_out, void* std_out, void* stream) {
-  const size_t smem = meanvar_ungated_smem(kern, n, d, Q);
-  auto kernel = kern.nodes ? meanvar_ungated_kernel<true>
-                           : meanvar_ungated_kernel<false>;
-  cudaError_t e = gpry_set_smem(kernel, smem);
+    GpryKern kern, int nq, int n, int nmax, int d, int qchain,
+    const void* Xq_raw, const void* X, const void* alpha, const void* L,
+    const void* theta, const void* x_loc, const void* x_scale,
+    const void* scal, void* mean_out, void* std_out, void* stream) {
+  int Q = 0;
+  size_t smem = 0;
+  const int route = k5_plan(kern, nq, n, nmax, d, qchain, L, &Q, &smem);
+  const bool spec = kern.nodes > 0;
+  cudaError_t e;
+  if (route == 0) {
+    auto kernel = spec ? meanvar_ungated_blocked<true>
+                       : meanvar_ungated_blocked<false>;
+    e = gpry_set_smem(kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (nq <= 0) return 0;
+    const SubUngated a{kern, nq, n, nmax, d, Q,
+                       (const double*)Xq_raw, (const double*)X,
+                       (const double*)alpha, (const double*)L,
+                       (const double*)theta, (const double*)x_loc,
+                       (const double*)x_scale, (const double*)scal,
+                       (double*)mean_out, (double*)std_out, nullptr,
+                       nullptr};
+    kernel<<<(nq + Q - 1) / Q, SUB_THREADS, smem, (cudaStream_t)stream>>>(
+        a);
+    return (int)cudaGetLastError();
+  }
+  auto kernel = spec ? meanvar_ungated_chain<true>
+                     : meanvar_ungated_chain<false>;
+  e = gpry_set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   if (nq <= 0) return 0;
-  const dim3 grid((nq + Q - 1) / Q);
-  kernel<<<grid, K5_THREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<(nq + Q - 1) / Q, K5_THREADS, smem, (cudaStream_t)stream>>>(
       kern, nq, n, nmax, d, Q, (const double*)Xq_raw, (const double*)X,
       (const double*)alpha, (const double*)L, (const double*)theta,
       (const double*)x_loc, (const double*)x_scale, (const double*)scal,

@@ -1,7 +1,8 @@
 // Many queries' forward substitutions against one read of L: the blocked
-// multi-query routine of the sweeps (K2 gated_meanvar_logexp.cu and K7's
-// solve, predict_meancov.cu; written so that K4's sweep and K5 can take it
-// as it is).
+// multi-query routine of the sweeps (K2 gated_meanvar_logexp.cu, K4's
+// sweep kriging_believer_fill.cu, K5 meanvar_ungated.cu, K7's solve
+// predict_meancov.cu and K8 meanstd_grad.cu, which also solves back with
+// sub_backward; K5 and K8 share their whole body, sub_ungated below).
 //
 // For Q queries at once (Q a multiple of 8, up to SUB_MAXQ), a block of
 // SUB_THREADS solves V = L^-1 K in place, K the n x Q matrix of the
@@ -23,12 +24,12 @@
 //   and L's block read as broadcasts, took 3.1x as long on the H100: its
 //   loads and updates serialize in one warp.)
 //
-// The callers (K2's route 0 and K7's solve) share the whole route: the
-// plan (sub_plan: Q by nq and shared memory, and whether L can be copied
-// by cp.async at all), the prologue that builds the k vectors as the rows
-// of V (sub_build_k) and the warp-per-query k . alpha (sub_dot_alpha).
-// So two callers at one nq take the same Q and give bit-identical
-// solutions.
+// The callers (route 0 of K2, K4's sweep, K5 and K8; K7's solve) share
+// the whole route: the plan (sub_plan: Q by nq and shared memory, and
+// whether L can be copied by cp.async at all), the prologue that builds
+// the k vectors as the rows of V (sub_build_k) and the warp-per-query k .
+// alpha (sub_dot_alpha).  So two callers at one nq take the same Q and
+// give bit-identical solutions.
 //
 // Two block barriers a panel.  Layout in shared memory (the caller
 // carves it, sub_doubles): V as n_pad rows of ldq = Q + 4 doubles (row j
@@ -156,7 +157,8 @@ __device__ __forceinline__ void sub_load_panel(const GprySub& s, int slot,
 // the training rows, nmax x d.  The rows (a fast family's over the length
 // scales) are first staged in the panel stages, free until sub_forward
 // starts (n d <= 32 n_pad doubles for d <= 32).  Every thread calls it;
-// qls and ls need be visible only after its first barrier.  Two barriers.
+// ls must be visible on entry, qls only after its first barrier.  Two
+// barriers.
 template <bool SPEC>
 __device__ void sub_build_k(const GprySub& s, int family,
                             const GprySpec& spec, double variance,
@@ -287,4 +289,283 @@ static __device__ void sub_forward(const GprySub& s) {
     s.sumsq[tid] = v;
   }
   __syncthreads();
+}
+
+// Where entry (r, c) of a staged column panel lives: row r of 16 doubles,
+// the column swizzled by the row (c ^ 4 (r mod 4)), so that the tensor-core
+// operand loads of sub_backward (lane (g, t) reads rows 4 i + t, columns 8
+// a + g) hit 16 distinct 8-byte banks in each half-warp, and the pairs of
+// columns that sub_load_cpanel copies stay contiguous.
+__device__ __forceinline__ int sub_cswz(int r, int c) {
+  return r * SUB_PB + (c ^ ((r & 3) << 2));
+}
+
+// Rows P0 .. n_pad - 1 of L, columns P0 .. P0 + 15 (the panel's diagonal
+// block, then L_{>I,I}), into stage `slot` (sub_cswz; zeros outside the n
+// x n block), by cp.async: a thread 16 bytes, eight threads a row.  At
+// most n_pad rows of 16: within a stage's 16 (n_pad + 4) doubles.
+__device__ __forceinline__ void sub_load_cpanel(const GprySub& s, int slot,
+                                                int P0) {
+  const int lda = sub_npad(s.n) + 4, rows = sub_npad(s.n) - P0;
+  double* dst = s.stage + (size_t)slot * SUB_PB * lda;
+  for (int e = threadIdx.x; e < rows * (SUB_PB / 2); e += blockDim.x) {
+    const int r = e >> 3, c = 2 * (e & 7);
+    const bool row = P0 + r < s.n;
+    const double* src = s.L + (size_t)(P0 + r) * s.nmax + P0 + c;
+    double* dp = dst + sub_cswz(r, c);
+    if (row && P0 + c + 1 < s.n) {
+      __pipeline_memcpy_async(dp, src, 2 * sizeof(double));
+    } else {
+      if (row && P0 + c < s.n)
+        __pipeline_memcpy_async(dp, src, sizeof(double));
+      else
+        dp[0] = 0.0;
+      dp[1] = 0.0;
+    }
+  }
+}
+
+// W = L^-T V in place for the s.Q queries (after sub_forward: W = L^-T
+// L^-1 K), in the solve form.  Panels of SUB_PB rows from the bottom,
+// left-looking: W_I = L_II^-T (V_I - L_{>I,I}^T W_{>I}).  L's column panel
+// (16 contiguous doubles a row) is staged by cp.async in the two stages,
+// the next panel's copy running while this one is solved; the update runs
+// on the FP64 tensor cores (gpry_dmma, the transposed operand read from
+// the stage), split over the warps as sub_forward's; the 16 x 16 diagonal
+// block is solved by a half-warp a query, lane r holding column r of
+// L_II.  Every thread calls it; V must be visible to all threads on entry
+// (sub_forward ends with a barrier), and W is on exit (after a barrier).
+// Rows n .. n_pad - 1 of V stay zero.
+static __device__ void sub_backward(const GprySub& s) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = s.n, Q = s.Q, ldq = Q + 4, npad = sub_npad(n);
+  const int lda = npad + 4, np = npad / SUB_PB;
+  const int nqt = Q / 8, tiles = 2 * nqt;
+  const int splits = SUB_WARPS / tiles;
+  const int tile = warp % tiles, split = warp / tiles;
+  const int ta = tile / nqt, tb = tile - ta * nqt;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int hr = lane & 15, h = tid >> 4;
+
+  if (np > 0) sub_load_cpanel(s, (np - 1) & 1, (np - 1) * SUB_PB);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  for (int p = np - 1; p >= 0; --p) {
+    const int P0 = p * SUB_PB, K = npad - P0 - SUB_PB;
+    if (p > 0) sub_load_cpanel(s, (p - 1) & 1, P0 - SUB_PB);
+    __pipeline_commit();
+    const double* Lc = s.stage + (size_t)(p & 1) * SUB_PB * lda;
+    // the update's shares on the tensor cores: A = L_{>I,I}^T (A[i][k] at
+    // staged row 16 + k, column i), B = W_{>I}
+    if (K > 0) {
+      double d0 = 0.0, d1 = 0.0;
+      const int ca = 8 * ta + g;
+      const double* Bcol =
+          s.V + (size_t)(P0 + SUB_PB + t4) * ldq + 8 * tb + g;
+      for (int k0 = 4 * split; k0 < K; k0 += 4 * splits)
+        gpry_dmma(d0, d1, Lc[sub_cswz(SUB_PB + k0 + t4, ca)],
+                  Bcol[(size_t)k0 * ldq]);
+      double* o = s.part + warp * 64 + g * 8 + 2 * t4;
+      o[0] = d0;
+      o[1] = d1;
+    }
+    if (tid >= SUB_THREADS - SUB_PB) {
+      const int j = tid - (SUB_THREADS - SUB_PB);
+      s.dinv[j] = P0 + j < n ? 1.0 / Lc[sub_cswz(j, j)] : 0.0;
+    }
+    __syncthreads();
+    // the diagonal block, upper triangular L_II^T: a half-warp a query
+    const int pn = n - P0 < SUB_PB ? n - P0 : SUB_PB;
+    const bool mine = hr < pn;
+    double Ur[SUB_PB];
+#pragma unroll
+    for (int j = 0; j < SUB_PB; ++j)
+      Ur[j] = (mine && j > hr) ? Lc[sub_cswz(j, hr)] : 0.0;
+    const double di = s.dinv[hr];
+#pragma unroll
+    for (int qq = 0; qq < SUB_MAXQ / 16; ++qq) {
+      const int q = h + 16 * qq;
+      if (q >= Q) break;  // uniform over the warp
+      double* vq = s.V + (size_t)(P0 + hr) * ldq + q;
+      double r = *vq;
+      if (K > 0) {
+        const int at = ((hr >> 3) * nqt + (q >> 3)) * 64 + (hr & 7) * 8 +
+                       (q & 7);
+        for (int sp = 0; sp < splits; ++sp)
+          r -= s.part[sp * tiles * 64 + at];
+      }
+      double x = 0.0;
+#pragma unroll
+      for (int j = SUB_PB - 1; j >= 0; --j) {
+        const double xj = __shfl_sync(0xffffffffu, r * di, j, 16);
+        if (hr == j) x = xj;
+        r -= Ur[j] * xj;
+      }
+      if (mine) *vq = x;
+    }
+    // the next panel's rows landed, this one's solution visible
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The ungated sweep on route 0: K5's raw-space mean and std (GD = 0) and
+// K8's, with their gradients in the raw coordinates (GD = 8 or 32, the
+// largest d its per-thread sums hold), of a block's Q queries.  One body,
+// so that where K5 and K8 take the same Q their mean and std are the same
+// operations, bit for bit.
+//
+//   x' = (x - x_loc) / x_scale,  k = sigma^2 k(x' / l, X / l)
+//   mean = k . alpha * y_scale + y_loc
+//   var  = prior - |L^-1 k|^2,  std = sqrt(max(var, 0)) * y_scale
+//   d mean / dx = y_scale sum_j alpha_j dk_j/dx' / x_scale
+//   d std / dx  = y_scale / (2 std') d var/dx' / x_scale (0 where var < 0),
+//   d var / dx' = d prior/dx' - 2 sum_j w_j dk_j/dx',  w = L^-T L^-1 k.
+//
+// Shared layout (sub_plan's fixed doubles d + the spec program, d + 1 a
+// query): ls[d] | qls[Q][d] | m[Q] | spec program | subst_blocked's area.
+// ---------------------------------------------------------------------------
+
+struct SubUngated {
+  GpryKern kern;
+  int nq, n, nmax, d, Q;
+  const double *Xq_raw, *X, *alpha, *L, *theta, *x_loc, *x_scale, *scal;
+  double *mean_out, *std_out, *gmean_out, *gstd_out;
+};
+
+// The mean and std of query q0 + qi from its k . alpha and ||L^-1 k||^2;
+// returns the variance before the clamp.
+template <bool SPEC>
+__device__ __forceinline__ double sub_ungated_out(const SubUngated& a,
+                                                  const GprySpec& spec,
+                                                  double variance,
+                                                  const double* qv, int q,
+                                                  double m, double sumsq) {
+  const double y_loc = a.scal[0], y_scale = a.scal[1];
+  const double prior = SPEC ? gpry_spec_diag(spec, qv, 1, a.d) : variance;
+  const double var0 = prior - sumsq;
+  const double var = (var0 < 0.0) ? 0.0 : var0;  // NaN stays NaN
+  a.mean_out[q] = m * y_scale + y_loc;
+  a.std_out[q] = sqrt(var) * y_scale;
+  return var0;
+}
+
+template <bool SPEC, int GD>
+__device__ __forceinline__ void sub_ungated(const SubUngated& a,
+                                            double* smem) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int Q = a.Q, d = a.d, n = a.n, q0 = blockIdx.x * Q;
+  const int nqb = min(Q, a.nq - q0);
+  double* ls = smem;
+  double* qls = ls + d;
+  double* ms = qls + (size_t)Q * d;
+  double* prog = ms + Q;
+  const GprySub sub = sub_carve(a.L, n, a.nmax, Q,
+                                prog + gpry_spec_doubles(a.kern));
+  GprySpec spec;
+  if constexpr (SPEC)
+    spec = gpry_stage_spec(prog, a.kern, a.theta, tid, blockDim.x);
+  for (int k = tid; k < d; k += blockDim.x)
+    ls[k] = SPEC ? 1.0 : exp(a.theta[1 + k]);
+  __syncthreads();
+  const double variance = SPEC ? 1.0 : exp(a.theta[0]);
+  // the queries, preprocessed and over the length scales (1 in spec mode)
+  for (int idx = tid; idx < nqb * d; idx += blockDim.x) {
+    const int k = idx % d;
+    qls[idx] = (a.Xq_raw[(size_t)q0 * d + idx] - a.x_loc[k]) /
+               a.x_scale[k] / ls[k];
+  }
+  // the k vectors as the rows of V, k . alpha a warp a query
+  sub_build_k<SPEC>(sub, a.kern.family, spec, variance, ls, qls, a.X, d,
+                    nqb);
+  for (int qi = warp; qi < nqb; qi += SUB_WARPS) {
+    const double m = sub_dot_alpha(sub.V + qi, Q + 4, n, a.alpha);
+    if (lane == 0) ms[qi] = m;
+  }
+  __syncthreads();
+  // V = L^-1 K
+  sub_forward(sub);
+  if constexpr (GD == 0) {
+    for (int qi = tid; qi < nqb; qi += blockDim.x)
+      sub_ungated_out<SPEC>(a, spec, variance, qls + qi * d, q0 + qi,
+                            ms[qi], sub.sumsq[qi]);
+  } else {
+    // W = L^-T L^-1 K
+    sub_backward(sub);
+    // the training rows again (as sub_build_k staged them), over the
+    // length scales, in the stages
+    for (int e = tid; e < n * d; e += blockDim.x)
+      sub.stage[e] = SPEC ? a.X[e] : a.X[e] / ls[e % d];
+    __syncthreads();
+    // the gradient sweep: T threads a query, thread r of them the rows r,
+    // r + T, ...; each squared distance again from direct differences
+    const int T = SUB_THREADS / Q, qi = tid / T, r = tid - qi * T;
+    const int ldq = Q + 4;
+    const double* qv = qls + qi * d;
+    double am[GD], aw[GD];
+#pragma unroll
+    for (int k = 0; k < GD; ++k) am[k] = aw[k] = 0.0;
+    for (int j = r; qi < nqb && j < n; j += T) {
+      const double al = a.alpha[j], w = sub.V[(size_t)j * ldq + qi];
+      const double* xj = sub.stage + (size_t)j * d;
+      if constexpr (SPEC) {
+        double gk[GPRY_GRAD_MAX_D];
+        gpry_spec_grad(spec, qv, 1, xj, 1, d, false, gk);
+#pragma unroll
+        for (int k = 0; k < GD; ++k)
+          if (k < d) {
+            am[k] += al * gk[k];
+            aw[k] += w * gk[k];
+          }
+      } else {
+        double sq = 0.0;
+#pragma unroll
+        for (int k = 0; k < GD; ++k)
+          if (k < d) {
+            const double df = qv[k] - xj[k];
+            sq += df * df;
+          }
+        const double c = 2.0 * variance * gpry_dk_dsq(a.kern.family, sq);
+        const double ca = c * al, cw = c * w;
+#pragma unroll
+        for (int k = 0; k < GD; ++k)
+          if (k < d) {
+            const double df = qv[k] - xj[k];
+            am[k] += ca * df;
+            aw[k] += cw * df;
+          }
+      }
+    }
+    // the T threads' sums (T = 32, 16 or 8 neighbouring lanes)
+    for (int off = T / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int k = 0; k < GD; ++k)
+        if (k < d) {
+          am[k] += __shfl_xor_sync(0xffffffffu, am[k], off);
+          aw[k] += __shfl_xor_sync(0xffffffffu, aw[k], off);
+        }
+    }
+    if (r == 0 && qi < nqb) {
+      const int q = q0 + qi;
+      const double var0 = sub_ungated_out<SPEC>(
+          a, spec, variance, qv, q, ms[qi], sub.sumsq[qi]);
+      const double y_scale = a.scal[1];
+      const double sd = sqrt((var0 < 0.0) ? 0.0 : var0);
+      // torch: the std's gradient y_scale / (2 sqrt(var)) passes the
+      // clamp only where var >= 0
+      const double dsd = var0 >= 0.0 ? y_scale / (2.0 * sd) : 0.0;
+      double gprior[GPRY_GRAD_MAX_D];
+      if constexpr (SPEC) gpry_spec_grad(spec, qv, 1, qv, 1, d, true, gprior);
+#pragma unroll
+      for (int k = 0; k < GD; ++k)
+        if (k < d) {
+          const double sa = am[k] / ls[k], sw = aw[k] / ls[k];
+          a.gmean_out[(size_t)q * d + k] = sa * y_scale / a.x_scale[k];
+          a.gstd_out[(size_t)q * d + k] =
+              dsd * ((SPEC ? gprior[k] : 0.0) - 2.0 * sw) / a.x_scale[k];
+        }
+    }
+  }
 }

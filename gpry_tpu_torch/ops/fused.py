@@ -143,9 +143,9 @@ BUILD_SECONDS = None
 _lib = None
 _lib_lock = threading.Lock()
 
-# The one-warp-per-query sweeps (K2's large-n route, K4's route 1, K5, K7's
-# solve) keep one k vector per query in shared memory; the block's query
-# count is the warp count (8) unless nmax forces fewer.
+# The one-warp-per-query sweeps (K2's large-n route, K4's route 1, K5's
+# route 1, K7's solve) keep one k vector per query in shared memory; the
+# block's query count is the warp count (8) unless nmax forces fewer.
 _K2_MAX_Q = 8
 _SMEM_DEFAULT = 48 * 1024
 _SMEM_MAX = 227 * 1024
@@ -280,10 +280,14 @@ def library():
         lib.gpry_kb_select.restype = I
         lib.gpry_meanvar_ungated.argtypes = [K] + [I] * 5 + [P] * 11
         lib.gpry_meanvar_ungated.restype = I
+        lib.gpry_meanvar_ungated_plan.argtypes = [K] + [I] * 5 + [P] * 3
+        lib.gpry_meanvar_ungated_plan.restype = I
         lib.gpry_predict_meancov.argtypes = [K] + [I] * 5 + [P] * 9
         lib.gpry_predict_meancov.restype = I
         lib.gpry_meanstd_grad.argtypes = [K] + [I] * 4 + [P] * 13
         lib.gpry_meanstd_grad.restype = I
+        lib.gpry_meanstd_grad_plan.argtypes = [K] + [I] * 4 + [P] * 3
+        lib.gpry_meanstd_grad_plan.restype = I
         lib.gpry_lbfgs_logexp_ascent.argtypes = [K] + [I] * 5 + [P] * 10 \
             + [D, D] + [P] * 4
         lib.gpry_lbfgs_logexp_ascent.restype = I
@@ -1101,9 +1105,9 @@ def gated_mean_plan(nq, n, nsv, d, spec_doubles=0):
 
 def _sweep_queries_per_block(nmax, d, spec_doubles):
     """Queries per block of the one-warp-per-query sweeps (K2's large-n
-    route, K4's route 1, K5, K7's solve): one per warp, fewer when nmax-long
-    k vectors of 8 queries (and the spec program of ``spec_doubles``) do
-    not fit in the default 48 KB of shared memory."""
+    route, K4's route 1, K5's route 1, K7's solve): one per warp, fewer
+    when nmax-long k vectors of 8 queries (and the spec program of
+    ``spec_doubles``) do not fit in the default 48 KB of shared memory."""
     per_q = 8 * (nmax + 2 * d + 1)
     fixed = 8 * (d + spec_doubles)
     q = min(_K2_MAX_Q, (_SMEM_DEFAULT - fixed) // per_q)
@@ -1184,6 +1188,54 @@ def kriging_believer_fill_plan(n, nmax, d, nq, spec_doubles=0,
     return 1, q, 8 * (d + q * d + q * nmax + spec_doubles)
 
 
+def meanvar_ungated_plan(n, nmax, d, nq, spec_doubles=0, aligned=True):
+    """
+    K5's route for ``nq`` queries against ``n`` valid training rows of
+    ``nmax`` at dimension ``d`` (a spec program of ``spec_doubles``), as
+    csrc/meanvar_ungated.cu k5_plan sizes it: ``(route, Q, smem_bytes)``.
+    Route 0 solves Q = 8, 16 or 32 queries a block on csrc/subst_blocked.cuh
+    (Q by nq as K2's, fewer where shared memory forces it; at d = 8, Q =
+    8, n <= 640; an even ``nmax`` and L 16-byte aligned, ``aligned``);
+    route 1 a warp a query with Q k vectors in shared memory
+    (_sweep_queries_per_block).  Raises ``ValueError`` beyond route 1.
+    """
+    blocked = _sub_plan(n, nmax, nq, d + spec_doubles, d + 1, aligned)
+    if blocked is not None:
+        return (0,) + blocked
+    q = _sweep_queries_per_block(nmax, d, spec_doubles)
+    return 1, q, 8 * (d + q * d + q * n + spec_doubles)
+
+
+def _gp_doubles(n, d, stage_x, spec_doubles):
+    """csrc/common.cuh gpry_gp_doubles: the staged GP of the block routine
+    (K8's route 1, K9)."""
+    red = _BLOCK_WARPS * (2 * d + 1) + d + 1
+    return 5 * d + 2 + red + 2 * n + stage_x * d * n + spec_doubles
+
+
+def meanstd_grad_plan(n, nmax, d, nq, spec_doubles=0, aligned=True):
+    """
+    K8's route for ``nq`` queries against ``n`` valid training rows of
+    ``nmax`` at dimension ``d`` (a spec program of ``spec_doubles``), as
+    csrc/meanstd_grad.cu k8_plan sizes it: ``(route, Q, smem_bytes)``.
+    Route 0 is K5's route 0 (the same Q and shared memory) with a blocked
+    back substitution and the gradient sweep; route 1 a block of 128
+    threads a query (Q = 1), X staged in shared memory while it fits, read
+    from global memory beyond.  Raises ``ValueError`` for d above
+    GRAD_MAX_D and beyond route 1.
+    """
+    _check_grad_d("meanstd_grad", d)
+    blocked = _sub_plan(n, nmax, nq, d + spec_doubles, d + 1, aligned)
+    if blocked is not None:
+        return (0,) + blocked
+    for stage_x in (1, 0):
+        smem = 8 * (_gp_doubles(n, d, stage_x, spec_doubles) + d)
+        if smem <= _SMEM_MAX:
+            return 1, 1, smem
+    raise ValueError(f"meanstd_grad: n={n} at d={d} needs more shared "
+                     "memory than a Hopper block has.")
+
+
 def gated_meanvar_logexp(family, p, Xq_raw, logexp=None):
     """K2: gated ``(mean, std)`` at ``Xq_raw``, or with
     ``logexp=(zeta, noise_std)`` the gated LogExp acquisition values
@@ -1219,7 +1271,8 @@ def gated_meanvar_logexp(family, p, Xq_raw, logexp=None):
 
 def meanvar_ungated(family, p, Xq_raw):
     """K5: the raw-space ``(mean, std)`` at ``Xq_raw`` with no gate and no
-    clip, for no-grad sweeps (the convergence audit)."""
+    clip, for no-grad sweeps (the convergence audit; routes:
+    :func:`meanvar_ungated_plan`)."""
     check_family(family)
     if Xq_raw.device.type == "cpu":
         return meanvar_ungated_plain(family, p, Xq_raw)
@@ -1234,10 +1287,12 @@ def meanvar_ungated(family, p, Xq_raw):
     std = torch.empty_like(mean)
     if nq == 0:
         return mean, std
+    # the plan's Q is the chain's queries a block where it takes route 1
+    qchain = meanvar_ungated_plan(int(p.n), nmax, d, nq, _spec_doubles(kern),
+                                  p.L.data_ptr() % 16 == 0)[1]
     lib = library()
     rc = lib.gpry_meanvar_ungated(
-        kern, nq, int(p.n), nmax, d,
-        _sweep_queries_per_block(nmax, d, _spec_doubles(kern)),
+        kern, nq, int(p.n), nmax, d, qchain,
         *(_ptr(tensors[k]) for k in (
             "Xq_raw", "X", "alpha", "L", "theta", "x_loc", "x_scale",
             "scal")),
@@ -1748,12 +1803,11 @@ def lbfgs_logexp_ascent_plan(n, d, spec_doubles=0):
     n <= 12,180, route 2 n <= 13,236 (12,756 at d = 32).  Raises
     ``ValueError`` beyond route 2.
     """
-    red = _BLOCK_WARPS * (2 * d + 1) + d + 1
     for route in (0, 1, 2):
         sub = 2 * n + _tri(n) if route == 0 else \
             _BLOCK_WARPS * _K9_P + _K9_STAGES[route] * _K9_P * _K9_TLD
         for stage_x in (1, 0):
-            gp = 5 * d + 2 + red + 2 * n + stage_x * d * n + spec_doubles
+            gp = _gp_doubles(n, d, stage_x, spec_doubles)
             smem = 8 * (gp + 10 * d + _lane_doubles(d) + sub)
             if smem <= _SMEM_MAX:
                 return route, stage_x, smem
@@ -1855,8 +1909,8 @@ def _check_grad_d(name, d):
 def meanstd_grad(family, p, Xq_raw):
     """
     K8: the raw-space ``(mean, std, d mean/dx, d std/dx)`` of the ungated,
-    unclipped surrogate at ``Xq_raw`` (nq, d), one block per query, in one
-    launch (see :func:`meanstd_grad_plain`).
+    unclipped surrogate at ``Xq_raw`` (nq, d) in one launch (see
+    :func:`meanstd_grad_plain`; routes: :func:`meanstd_grad_plan`).
     """
     check_family(family)
     if Xq_raw.device.type == "cpu":
@@ -1870,6 +1924,8 @@ def meanstd_grad(family, p, Xq_raw):
     nmax = p.X.shape[0]
     kern = _kern(family, d, dev)
     _check_theta("meanstd_grad", kern, p.theta)
+    # raises ValueError beyond the kernel's routes, before any launch
+    meanstd_grad_plan(int(p.n), nmax, d, nq, _spec_doubles(kern))
     mean = torch.empty(nq, dtype=torch.float64, device=dev)
     std = torch.empty_like(mean)
     g_mean = torch.empty((nq, d), dtype=torch.float64, device=dev)

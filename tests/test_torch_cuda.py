@@ -635,18 +635,25 @@ def test_chol_append_panel_on_the_card(dev, family, k):
     assert torch.equal(got[3], want[0]) and torch.equal(got[4], want[1])
 
 
-@pytest.mark.parametrize("nq", [4096, 2048])
+@pytest.mark.parametrize("nq", [1, 8, 256, 2048, 4096])
 @pytest.mark.parametrize("family", FAMILIES)
 def test_meanvar_ungated_kernel(dev, family, nq):
-    """K5 against its plain version at the audit's screen (4,096) and
-    polish (2,048) sizes, training points included: mean within rel 1e-10;
-    std within an absolute 1e-7 sqrt(sigma^2) y_scale (sigma^2 - |v|^2
-    cancels to ~0 at a training point); one launch per call."""
+    """K5 against its plain version at the audit's batch sizes (the
+    calibrations' few points, a polish's 256 and 2,048, the screen's
+    4,096), training points included: mean within rel 1e-10; std within an
+    absolute 1e-7 sqrt(sigma^2) y_scale (sigma^2 - |v|^2 cancels to ~0 at a
+    training point); one launch per call."""
     p = surrogate(family, dev)
     key = count_key("meanvar_ungated", family)
     family = family_and_theta(family)[0]
     Xq = torch.rand((nq, 3), dtype=torch.float64, device=dev) * 2.2 - 1.1
-    Xq[:40] = p.X[:40] * p.x_scale + p.x_loc
+    Xq[:min(nq, 40)] = p.X[:min(nq, 40)] * p.x_scale + p.x_loc
+    _k5_same(family, p, Xq, key)
+
+
+def _k5_same(family, p, Xq, key):
+    """K5 against its plain version (the tolerances of
+    test_meanvar_ungated_kernel), one launch."""
     n0 = fused.LAUNCHES[key]
     ma, sa = fused.meanvar_ungated(family, p, Xq)
     mb, sb = fused.meanvar_ungated_plain(family, p, Xq)
@@ -657,6 +664,105 @@ def test_meanvar_ungated_kernel(dev, family, nq):
     prior = kernel_diag(family, p.theta, (Xq - p.x_loc) / p.x_scale)
     atol = 1e-7 * float(torch.sqrt(prior.max()) * p.y_scale)
     assert float(torch.max(torch.abs(sa - sb))) <= atol
+
+
+# K5's and K8's shapes at d = 8 by route: the paths' (route 0), an odd nmax
+# and n beyond route 0's shared memory (route 1)
+UNGATED_SHAPES = {"paths": (224, 320, 0), "odd_nmax": (224, 321, 1),
+                  "large_n": (700, 704, 1)}
+
+
+@pytest.mark.parametrize("shape", sorted(UNGATED_SHAPES))
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+def test_meanvar_ungated_kernel_routes(dev, family, shape):
+    """K5 (both instances) on each route at d = 8, at nq = 1, 8, 256,
+    2,048 and 4,096, the first queries on training points."""
+    n, nmax, route = UNGATED_SHAPES[shape]
+    d = 8
+    p = _k2_surrogate(family, dev, n, nmax, d, "fitted", "scalar")
+    key = count_key("meanvar_ungated", family)
+    fam = family_and_theta(family, d)[0]
+    sd = fused._spec_doubles(fused._kern(fam, d, dev))
+    rng = np.random.default_rng(n + nmax)
+    for nq in (1, 8, 256, 2048, 4096):
+        assert fused.meanvar_ungated_plan(n, nmax, d, nq, sd)[0] == route
+        Xq = torch.as_tensor(_k2_queries(rng, nq, d), dtype=torch.float64,
+                             device=dev)
+        Xq[:min(nq, 16)] = p.X[:min(nq, 16)] * p.x_scale + p.x_loc
+        _k5_same(fam, p, Xq, key)
+
+
+def _gated_queries(p, rng, nq, d):
+    """nq queries, the first two thirds (at least one) where K2's gates
+    pass (inside the trust box, the SVM finite), the rest across and
+    outside the trust box."""
+    from gpry_tpu_torch.models.classifier import svm_decision
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=p.X.device)
+    inside = (2 * nq + 2) // 3
+    cand = t(rng.uniform(-0.85, 0.85, (64 * inside, d)))
+    ok = cand[svm_decision(p.svm, (cand - p.x_loc) / p.x_scale)]
+    assert ok.shape[0] >= inside
+    return torch.cat([ok[:inside], t(rng.uniform(-1.1, 1.1,
+                                                 (nq - inside, d)))])
+
+
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+def test_meanvar_ungated_is_k2_ungated(dev, family):
+    """Where K5 and K2 take route 0 with the same Q (the paths' shapes),
+    they run one routine: K5's std equals K2's bit for bit wherever K2's
+    gates pass (some query at each nq), and K5's mean equals K2's
+    wherever the clip does not bite (some query over the batches)."""
+    n, nmax, d = 224, 320, 8
+    p = _k2_surrogate(family, dev, n, nmax, d, "fitted", "scalar")
+    fam = family_and_theta(family, d)[0]
+    sd = fused._spec_doubles(fused._kern(fam, d, dev))
+    rng = np.random.default_rng(5)
+    below = 0
+    for nq in (1, 8, 256, 2048, 4096):
+        assert fused.meanvar_ungated_plan(n, nmax, d, nq, sd)[:2] == \
+            fused.gated_meanvar_logexp_plan(n, nmax, d, nq, sd)[:2]
+        Xq = _gated_queries(p, rng, nq, d)
+        m5, s5 = fused.meanvar_ungated(fam, p, Xq)
+        m2, s2 = fused.gated_meanvar_logexp(fam, p, Xq)
+        torch.cuda.synchronize()
+        ok = torch.isfinite(m2)
+        assert bool(ok.any())
+        assert torch.equal(s5[ok], s2[ok])
+        free = ok & (m5 < p.clip_max)
+        below += int(free.sum())
+        assert torch.equal(m5[free], m2[free])
+    assert below
+
+
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+@pytest.mark.parametrize("d", (2, 8, 32))
+def test_meanvar_ungated_plan_matches_the_kernel(dev, family, d):
+    """fused.meanvar_ungated_plan gives k5_plan's route, queries a block
+    and shared memory, and fused.meanstd_grad_plan k8_plan's, at an even
+    and an odd nmax and for L's data 16-byte aligned or 8 bytes off."""
+    fam = family_and_theta(family, d)[0]
+    kern = fused._kern(fam, d, dev)
+    spec = fused._spec_doubles(kern)
+    lib = fused.library()
+    for nq in (1, 1056, 1057, 4224, 4225, 65536):
+        for n in (0, 1, 224, 640, 641, 5000):
+            for nmax in (max(64, n + n % 2), max(65, n | 1)):
+                qc = fused._sweep_queries_per_block(nmax, d, spec)
+                for at in (4096, 4104):
+                    aligned = at % 16 == 0
+                    Q, sm = ctypes.c_int(), ctypes.c_size_t()
+                    route, q, smem = fused.meanvar_ungated_plan(
+                        n, nmax, d, nq, spec, aligned=aligned)
+                    assert lib.gpry_meanvar_ungated_plan(
+                        kern, nq, n, nmax, d, qc, ctypes.c_void_p(at),
+                        ctypes.byref(Q), ctypes.byref(sm)) == route
+                    assert (Q.value, sm.value) == (q, smem)
+                    route, q, smem = fused.meanstd_grad_plan(
+                        n, nmax, d, nq, spec, aligned=aligned)
+                    assert lib.gpry_meanstd_grad_plan(
+                        kern, nq, n, nmax, d, ctypes.c_void_p(at),
+                        ctypes.byref(Q), ctypes.byref(sm)) == route
+                    assert (Q.value, sm.value) == (q, smem)
 
 
 def _fill_inputs(family, dev, noise, N=500, size=4, n=40, nmax=64,
@@ -911,9 +1017,10 @@ def test_spec_beyond_the_kernel_limits_raises(dev):
 
 # K8 and K9 at d = 2, 8 (the main paths' n 224 of nmax 320) and 16: n 1,100
 # of nmax 1,152 stages X in more than 48 KB of shared memory, n 1,800 reads
-# it from global memory (beyond the 227 KB a block holds)
+# it from global memory (beyond the 227 KB a block holds); K8 alone also at
+# an odd nmax.  K8 takes its route 0 at the first two, route 1 at the rest.
 GRAD_SHAPES = [(2, 40, 64), (8, 224, 320), (16, 1100, 1152),
-               (16, 1800, 1856)]
+               (16, 1800, 1856), (8, 224, 321)]
 
 
 def grad_cases(shapes):
@@ -939,21 +1046,47 @@ def _rel_max(a, b):
 
 @pytest.mark.parametrize("family,d,n,nmax", grad_cases(GRAD_SHAPES))
 def test_meanstd_grad_kernel(dev, family, d, n, nmax):
-    """K8 against its plain version (autograd), the first 16 queries on
-    training points: mean and std within rel 1e-10, both gradients within
-    1e-8 of their max |.|; one launch per call."""
+    """K8 against its plain version (autograd) at nq = 1, 8, 32, 300 and
+    1,024 (the generic ascent's lanes, predict's draws), the first 16
+    queries on training points: mean and std within rel 1e-10, both
+    gradients within 1e-8 of their max |.|; one launch per call, on the
+    route its plan gives (route 0 for the first two shapes)."""
     p = _grad_surrogate(family, dev, d, n, nmax)
     key = count_key("meanstd_grad", family)
     family = family_and_theta(family, d)[0]
-    Xq = torch.rand((300, d), dtype=torch.float64, device=dev) * 2.0 - 1.0
-    Xq[:16] = p.X[:16] * p.x_scale + p.x_loc
-    n0 = fused.LAUNCHES[key]
-    out = fused.meanstd_grad(family, p, Xq)
-    torch.cuda.synchronize()
-    assert fused.LAUNCHES[key] == n0 + 1
-    ref = fused.meanstd_grad_plain(family, p, Xq)
-    for a, b, tol in zip(out, ref, (1e-10, 1e-10, 1e-8, 1e-8)):
-        assert _rel_max(a, b) <= tol
+    sd = fused._spec_doubles(fused._kern(family, d, dev))
+    for nq in (1, 8, 32, 300, 1024):
+        assert fused.meanstd_grad_plan(n, nmax, d, nq, sd)[0] == \
+            (0 if (n, nmax) in ((40, 64), (224, 320)) else 1)
+        Xq = torch.rand((nq, d), dtype=torch.float64, device=dev) * 2.0 - 1.0
+        Xq[:min(nq, 16)] = p.X[:min(nq, 16)] * p.x_scale + p.x_loc
+        n0 = fused.LAUNCHES[key]
+        out = fused.meanstd_grad(family, p, Xq)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES[key] == n0 + 1
+        ref = fused.meanstd_grad_plain(family, p, Xq)
+        for a, b, tol in zip(out, ref, (1e-10, 1e-10, 1e-8, 1e-8)):
+            assert _rel_max(a, b) <= tol
+
+
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+@pytest.mark.parametrize("d,n,nmax", ((2, 40, 64), (8, 224, 320)))
+def test_meanstd_grad_mean_std_are_k5s(dev, family, d, n, nmax):
+    """Where K8 and K5 take route 0 with the same Q, K8's mean and std are
+    K5's operations: equal bit for bit, at nq = 1, 8, 32, 300 and 1,024."""
+    p = _grad_surrogate(family, dev, d, n, nmax)
+    fam = family_and_theta(family, d)[0]
+    sd = fused._spec_doubles(fused._kern(fam, d, dev))
+    for nq in (1, 8, 32, 300, 1024):
+        r8 = fused.meanstd_grad_plan(n, nmax, d, nq, sd)
+        assert r8[0] == 0 and r8 == fused.meanvar_ungated_plan(n, nmax, d,
+                                                               nq, sd)
+        Xq = torch.rand((nq, d), dtype=torch.float64, device=dev) * 2.0 - 1.0
+        Xq[:min(nq, 16)] = p.X[:min(nq, 16)] * p.x_scale + p.x_loc
+        m8, s8 = fused.meanstd_grad(fam, p, Xq)[:2]
+        m5, s5 = fused.meanvar_ungated(fam, p, Xq)
+        torch.cuda.synchronize()
+        assert torch.equal(m8, m5) and torch.equal(s8, s5)
 
 
 @pytest.mark.parametrize("clip", (False, True), ids=("noclip", "clip"))
