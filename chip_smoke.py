@@ -17,7 +17,9 @@ Drive gpry_tpu_torch once on one CUDA card.
    symmetric on the fast families), K4 at N = 4,096 candidates
    and a pool of 8, K5 at the audit's nq = 1, 8, 256, 2,048 and 4,096
    (its std K2's bit for bit where K2's gates pass), K6 at the NS's B = 66
-   and 33 chains of 40 repeats, K7 at nq = 1, 64 and 1,024, K8 at nq = 1,
+   and 33 chains of 40 repeats, K7 at nq = 1, 63, 64, 65, 1,000, 1,024
+   and 1,025 (its covariance symmetric and its diagonal K5's sigma^2, bit
+   for bit, L aligned and, at 64, 8 bytes off), K8 at nq = 1,
    8, 32, 64 and 1,024 (its mean and std K5's bit for bit),
    K9 at 8 restart lanes, lane 0 on a training point, with no upper
    clip and with one that binds at half of the starts; K10 at the fit's
@@ -127,6 +129,9 @@ TOL_K7, TOL_K7_COV = 1e-10, 1e-10
 # within TOL_COV_DIAG max diag(cov), absolute (sigma^2 cancels to ~0 at a
 # training point)
 NQ_COV, TOL_COV_DIAG = 1024, 1e-9
+# K7 about the edges of the product's 32-query tiles and at the paths'
+# NQ_COV; timed at K7_TIMED
+K7_NQ, K7_TIMED = (1, 63, 64, 65, 1000, NQ_COV, 1025), (1, 64, NQ_COV)
 # K5: the mean within rel TOL_K5; sigma within TOL_K5_SIGMA sqrt(sigma^2)
 # y_scale absolute (sigma^2 - |v|^2 cancels to ~0 at a training point)
 TOL_K5, TOL_K5_SIGMA = 1e-10, 1e-7
@@ -315,9 +320,9 @@ SYMBOLS = {"gated_mean_kernel": "gated_mean",
            "meanvar_ungated_blocked": "meanvar_ungated",
            "meanvar_ungated_chain": "meanvar_ungated",
            "ns_slice_chains_kernel": "ns_slice_chains",
-           "meancov_solve_kernel": "predict_meancov",
            "meancov_solve_blocked": "predict_meancov",
-           "meancov_cov_kernel": "predict_meancov",
+           "meancov_solve_chain": "predict_meancov",
+           "meancov_cov_dmma": "predict_meancov",
            "meanstd_grad_blocked": "meanstd_grad",
            "meanstd_grad_kernel": "meanstd_grad",
            "lbfgs_logexp_ascent_kernel": "lbfgs_logexp_ascent",
@@ -1558,55 +1563,127 @@ def k3_bound(family, R, k=None):
                  8 * (R * (D + 1) + N * D + R * k * NMAX))
 
 
-def check_k7(dev, rng, families, timed):
-    """K7 against its plain version at nq = 1, 64 and NQ_COV queries (the
-    first ones on training points): the mean within rel TOL_K7, the
-    covariance within an absolute TOL_K7_COV max|K(Xq, Xq)|."""
+def k7_bound(family, nq):
+    """K7's bound at nq queries (n = N of NMAX, d = D): the k vectors and
+    the mean, the substitutions (n^2 / 2 multiply-adds per query), and
+    Kqq - V^T V on one triangle (the covariance is symmetric); bytes: the
+    queries, the training rows, alpha, the valid triangle of L, the mean
+    and the whole covariance."""
+    return bound(
+        nq * N * (pair_flops(family) + 2) + nq * N * N
+        + nq * (nq + 1) // 2 * (pair_flops(family) + 2 * N),
+        8 * (nq * D + N * D + N + N * (N + 1) // 2 + nq + nq * nq))
+
+
+def at_offset(t):
+    """A contiguous copy of ``t`` whose data starts 8 bytes into its
+    buffer (not 16-byte aligned: the solves take their route 1)."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def k7_same_sigma(fam, p, Xq, cov):
+    """Whether sqrt(max(diag(cov), 0)) y_scale equals K5's sigma at the
+    same queries bit for bit: K5 is given Xq as raw coordinates with x_loc
+    0 and x_scale 1, so that it forms K7's coordinates exactly."""
     import torch
     from gpry_tpu_torch.ops import fused
+    p5 = p.replace(x_loc=torch.zeros_like(p.x_loc),
+                   x_scale=torch.ones_like(p.x_scale))
+    s5 = fused.meanvar_ungated(fam, p5, Xq)[1]
+    s7 = torch.sqrt(torch.clamp_min(torch.diagonal(cov), 0.0)) * p.y_scale
+    return bool(torch.equal(s7, s5))
+
+
+def check_k7(dev, rng, families, timed):
+    """K7 against its plain version at K7_NQ queries (the first ones on
+    training points): the mean within rel TOL_K7, the covariance within an
+    absolute TOL_K7_COV max|K(Xq, Xq)|, symmetric bit for bit, and
+    sqrt(max(diag(cov), 0)) y_scale K5's sigma bit for bit (k7_same_sigma;
+    K7's plan, route and Q, asserted K5's), with L 16-byte aligned (route
+    0) and, at nq = 64, 8 bytes off (route 1).  Timed at K7_TIMED: the call
+    (CUDA events), each of its two kernels' device ms (torch.profiler), the
+    plain version, and at NQ_COV the library's two phases as yardsticks
+    (never called by the port): solve_triangular for V and addmm for
+    Kqq - V^T V."""
+    import torch
+    from gpry_tpu_torch.ops import fused
+    from gpry_tpu_torch.ops.kernels import cross_kernel
     worst = 0.0
-    row = {}
+    shapes = {}
     for fam in families:
         label = "spec" if is_spec(fam) else fam
         p = synthetic_surrogate(fam, dev, seed=16)
-        for nq in (1, 64, NQ_COV):
+        sd = fused._spec_doubles(fused._kern(fam, D, dev))
+        for nq, layout in [(nq, "aligned") for nq in K7_NQ] + \
+                [(64, "offset")]:
             Xq = torch.as_tensor(rng.uniform(0, 1, (nq, D)),
                                  dtype=torch.float64, device=dev)
             Xq[:min(nq, 32)] = p.X[:min(nq, 32)]
-            args = (p.theta, p.X, p.n, p.noise_var, p.L, p.alpha, Xq)
+            q = p if layout == "aligned" else p.replace(L=at_offset(p.L))
+            args = (q.theta, q.X, q.n, q.noise_var, q.L, q.alpha, Xq)
             ma, ca = fused.predict_meancov(fam, *args)
             mb, cb = fused.predict_meancov_plain(fam, *args)
             kqq = fused.predict_meancov_plain(
-                fam, p.theta, p.X, 0, p.noise_var, p.L, p.alpha, Xq)[1]
+                fam, q.theta, q.X, 0, q.noise_var, q.L, q.alpha, Xq)[1]
             sync()
             err_m, rel_m = rel_err(ma, mb)
             err_c = float(torch.max(torch.abs(ca - cb)))
             tol_c = TOL_K7_COV * float(torch.max(torch.abs(kqq)))
-            log(f"[K7] {label:8s} nq={nq:5d}: mean rel {rel_m:.3e}; cov max "
-                f"abs err {err_c:.3e} (tol {tol_c:.3e})")
+            aligned = q.L.data_ptr() % 16 == 0
+            plan = fused.predict_meancov_plan(N, NMAX, D, nq, sd, aligned)
+            if plan[:2] != fused.meanvar_ungated_plan(N, NMAX, D, nq, sd,
+                                                      aligned)[:2] or \
+                    plan[0] != (layout == "offset"):
+                raise AssertionError(f"K7 {label} nq={nq} {layout}: route "
+                                     f"{plan[:2]} is not K5's")
+            sym = bool(torch.equal(ca, ca.T))
+            same = k7_same_sigma(fam, q, Xq, ca)
+            log(f"[K7] {label:8s} nq={nq:5d} route {plan[:2]}: mean rel "
+                f"{rel_m:.3e}; cov max abs err {err_c:.3e} (tol "
+                f"{tol_c:.3e}); symmetric bit for bit {sym}; sigma K5's "
+                f"bit for bit {same}")
             if not (rel_m <= TOL_K7 and err_c <= tol_c):
                 raise AssertionError(f"K7 {label} nq={nq}: mean rel {rel_m} "
                                      f"or cov abs {err_c} > {tol_c}")
+            if not (sym and same):
+                raise AssertionError(f"K7 {label} nq={nq} {layout}: cov not "
+                                     "symmetric or its diagonal not K5's "
+                                     "sigma^2, bit for bit")
             worst = max(worst, err_m, err_c)
-            if fam == timed and nq == NQ_COV:
-                ms = time_ms(lambda: fused.predict_meancov(fam, *args), 20)
-                plain = time_ms(
-                    lambda: fused.predict_meancov_plain(fam, *args), 20)
-                log(f"[K7] {label} nq={nq}: kernel {ms:.4f} ms, plain "
-                    f"{plain:.4f} ms")
-                row = {"ms": ms, "plain_ms": plain}
-    nq = NQ_COV
-    row.update({"max_abs_err": worst,
-                "shape": f"nq={nq} n={N} nmax={NMAX} d={D}"})
-    # the k vectors and the mean, the substitutions (n^2 / 2 multiply-adds
-    # per query), and Kqq - V^T V on one triangle (the covariance is
-    # symmetric); bytes: the queries, the training rows, alpha, the valid
-    # triangle of L, the mean and the whole covariance
-    row.update(bound(
-        nq * N * (pair_flops(timed) + 2) + nq * N * N
-        + nq * (nq + 1) // 2 * (pair_flops(timed) + 2 * N),
-        8 * (nq * D + N * D + N + N * (N + 1) // 2 + nq + nq * nq)))
-    return row
+            if fam != timed or nq not in K7_TIMED or layout != "aligned":
+                continue
+            call = lambda: fused.predict_meancov(fam, *args)
+            shape = {"ms": time_ms(call, 200 if nq < NQ_COV else 50),
+                     "solve_device_ms": kernel_device_ms(
+                         call, "meancov_solve", 50),
+                     "product_device_ms": kernel_device_ms(
+                         call, "meancov_cov", 50),
+                     "plain_ms": time_ms(lambda: fused.predict_meancov_plain(
+                         fam, *args), 20),
+                     "route": plan[:2], **k7_bound(fam, nq)}
+            if nq == NQ_COV:
+                Ln = q.L[:N, :N]
+                KqT = cross_kernel(fam, q.theta, q.X[:N], Xq)
+                Vt = torch.linalg.solve_triangular(Ln, KqT, upper=False)
+                shape["library_solve_ms"] = time_ms(
+                    lambda: torch.linalg.solve_triangular(Ln, KqT,
+                                                          upper=False), 50)
+                shape["library_product_ms"] = time_ms(
+                    lambda: torch.addmm(kqq, Vt.T, Vt, alpha=-1), 50)
+            shapes[f"nq={nq}"] = shape
+            log(f"[K7] {label} nq={nq}: " + json.dumps(shape))
+    top = shapes[f"nq={NQ_COV}"]
+    return {"max_abs_err": worst, "shapes": shapes,
+            "shape": f"nq={NQ_COV} n={N} nmax={NMAX} d={D}",
+            **{k: top[k] for k in ("ms", "solve_device_ms",
+                                   "product_device_ms", "plain_ms",
+                                   "library_solve_ms", "library_product_ms",
+                                   "bound_ms", "bound_by", "flops",
+                                   "bytes")}}
 
 
 def grad_row_flops(family):
@@ -2347,6 +2424,39 @@ def time_k5_k8(dev):
                 key = f"{name}{sfx} nq={nq}"
                 out[key] = time_ms(call, 50 if nq > 256 else 200)
                 out[key + " device"] = kernel_device_ms(call, name, 50)
+    return out
+
+
+def time_k7(dev):
+    """K7 at nq = 1, 64 and NQ_COV (check_k7's surrogates and queries, RBF
+    and ALL_NODES): ms per call (CUDA events, 200 calls, 50 at NQ_COV) and
+    the device ms of its solve and of its product (torch.profiler, 50
+    calls; the kernels' names of every version since K7 contain
+    "meancov_solve" and "meancov_cov").  It calls only the wrapper, with
+    its arguments of every version since K7, so that compare_trees.sh can
+    run it on an older checkout's gpry_tpu_torch."""
+    import numpy as np
+    import torch
+    from gpry_tpu_torch.ops import fused
+    out = {}
+    rng = np.random.default_rng(16)
+    for fam, sfx in (("rbf", ""), (spec_kernel()[0], "/spec")):
+        p = synthetic_surrogate(fam, dev, seed=16)
+        for nq in (1, 64, NQ_COV):
+            Xq = torch.as_tensor(rng.uniform(0, 1, (nq, D)),
+                                 dtype=torch.float64, device=dev)
+            Xq[:min(nq, 32)] = p.X[:min(nq, 32)]
+            call = lambda: fused.predict_meancov(fam, p.theta, p.X, p.n,
+                                                 p.noise_var, p.L, p.alpha,
+                                                 Xq)
+            key = f"predict_meancov{sfx} nq={nq}"
+            out[key] = time_ms(call, 50 if nq == NQ_COV else 200)
+            solve = kernel_device_ms(call, "meancov_solve", 50)
+            prod = kernel_device_ms(call, "meancov_cov", 50)
+            out[key + " solve device"] = solve
+            out[key + " product device"] = prod
+            out[key + " device"] = None if None in (solve, prod) else \
+                solve + prod
     return out
 
 

@@ -20,7 +20,7 @@
 #   himmelblau  chip_smoke.py's path e: the audited NORA Runner on
 #           Himmelblau, once per seed in $SEEDS (default 100), each with
 #           its truth evals, moment-KL and fit seconds
-#   kernels K9, K10, K11, K6, K2, K13, K4, K12, K1, K3, K5 and K8 alone
+#   kernels K9, K10, K11, K6, K2, K13, K4, K12, K1, K3, K5, K8 and K7 alone
 #           at the kernel table's shapes (chip_smoke.time_fit_kernels,
 #           RBF and ALL_NODES: ms per call of K9, K11, K10 at the fit's
 #           screen and the route K10 replaced; K6's device ms at B = 66,
@@ -35,7 +35,9 @@
 #           device ms, with digests of K3's outputs and of the appended
 #           factor that agree where two trees agree bit for bit; then
 #           chip_smoke.time_k5_k8: K5 at nq = 1, 256 and 4,096, K8 at nq =
-#           8 and 1,024, ms and device ms)
+#           8 and 1,024, ms and device ms; then chip_smoke.time_k7: K7 at
+#           nq = 1, 64 and 1,024, ms and its solve's and product's device
+#           ms)
 #   sweeps  K2 and K13 alone (chip_smoke.time_k2_k13)
 # The driving code is this script's own chip_smoke.py (run_bench,
 # run_runner), loaded by path; only gpry_tpu_torch comes from each
@@ -107,6 +109,7 @@ elif engine in ('kernels', 'sweeps'):
         out.update(cs.time_k4_k12(dev))
         out.update(cs.time_k1_k3(dev))
         out.update(cs.time_k5_k8(dev))
+        out.update(cs.time_k7(dev))
     print('RES', tree, engine, json.dumps(out), flush=True)
 elif engine == 'himmelblau':
     from gpry_tpu_torch.models import gp as gpm

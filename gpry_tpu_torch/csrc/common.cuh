@@ -114,6 +114,21 @@ __device__ __forceinline__ void gpry_dmma(double& d0, double& d1, double a,
       : "d"(a), "d"(b));
 }
 
+// D += A B on the FP64 tensor cores, one m16n8k4 step of a whole warp
+// (sm_90): lane (g, t) holds A[g][t] and A[g + 8][t] of the 16 x 4 A,
+// B[t][g] of the 4 x 8 B and D[g][2t], D[g][2t + 1], D[g + 8][2t],
+// D[g + 8][2t + 1] of the 16 x 8 D: two m8n8k4 steps that share B, in one
+// instruction.
+__device__ __forceinline__ void gpry_dmma16(double& d0, double& d1,
+                                            double& d2, double& d3,
+                                            double a0, double a1, double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(d0), "+d"(d1), "+d"(d2), "+d"(d3)
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
 // Forward substitution L v = k for one query, by one warp: v holds k on
 // entry and L^-1 k on exit (rows 0..n-1; the padded rows of L are the
 // identity and k is zero there).  L is row-major with leading dimension

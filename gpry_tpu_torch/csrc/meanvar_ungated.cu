@@ -12,8 +12,8 @@
 //
 // Design: K2's two routes (gated_meanvar_logexp.cu) without its SVM and
 // trust gates, its upper clip and its LogExp epilogue, chosen by the host
-// side of this file (k5_plan, mirrored by ops/fused.py
-// meanvar_ungated_plan):
+// side of this file (sub_ungated_plan of subst_blocked.cuh, mirrored by
+// ops/fused.py meanvar_ungated_plan):
 //
 // * Route 0, blocked (meanvar_ungated_blocked): a block of SUB_THREADS
 //   owns Q = 8, 16 or 32 queries (subst_blocked.cuh's sub_plan: Q by nq,
@@ -135,30 +135,15 @@ __global__ void meanvar_ungated_chain(
   }
 }
 
-static size_t meanvar_ungated_smem(const GpryKern& kern, int n, int d,
-                                   int Q) {
-  return sizeof(double) * ((size_t)d + (size_t)Q * d + (size_t)Q * n +
-                           gpry_spec_doubles(kern));
-}
-
-// The route (0 blocked, 1 the chain; sub_plan) for nq queries against n
-// training rows of the (nmax, nmax) factor L, the queries a block *Q and
-// the shared memory *smem; qchain is the chain's queries a block.
-static int k5_plan(const GpryKern& kern, int nq, int n, int nmax, int d,
-                   int qchain, const void* L, int* Q, size_t* smem) {
-  if (sub_plan(nq, n, nmax, L, (size_t)d + gpry_spec_doubles(kern),
-               (size_t)d + 1, Q, smem) == 0)
-    return 0;
-  *Q = qchain;
-  *smem = meanvar_ungated_smem(kern, n, d, qchain);
-  return 1;
-}
-
+// The route (0 blocked, 1 the chain; sub_ungated_plan, K7's solve's rule
+// too) for nq queries against n training rows of the (nmax, nmax) factor
+// L, the queries a block *Q and the shared memory *smem; qchain is the
+// chain's queries a block.
 extern "C" int gpry_meanvar_ungated_plan(GpryKern kern, int nq, int n,
                                          int nmax, int d, int qchain,
                                          const void* L, int* Q,
                                          size_t* smem) {
-  return k5_plan(kern, nq, n, nmax, d, qchain, L, Q, smem);
+  return sub_ungated_plan(kern, nq, n, nmax, d, qchain, L, Q, smem);
 }
 
 // scal = [y_loc, y_scale, ...] (the surrogate's packed gate scalars; only
@@ -170,7 +155,8 @@ extern "C" int gpry_meanvar_ungated(
     const void* scal, void* mean_out, void* std_out, void* stream) {
   int Q = 0;
   size_t smem = 0;
-  const int route = k5_plan(kern, nq, n, nmax, d, qchain, L, &Q, &smem);
+  const int route =
+      sub_ungated_plan(kern, nq, n, nmax, d, qchain, L, &Q, &smem);
   const bool spec = kern.nodes > 0;
   cudaError_t e;
   if (route == 0) {

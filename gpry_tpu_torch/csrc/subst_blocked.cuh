@@ -96,6 +96,23 @@ static inline int sub_plan(int nq, int n, int nmax, const void* L,
   return 1;
 }
 
+// The route of K5's sweep and K7's solve, by K5's layout (fixed d + the
+// spec program, d + 1 a query): 0, this routine with *Q and *smem by
+// sub_plan; else 1, the caller's warp-per-query chain, Q = qchain, with
+// ls[d] | qls[Q][d] | kv[Q][n] | spec program in shared memory.  One rule,
+// so K5 and K7 solve with the same Q at every nq, bit for bit.
+static inline int sub_ungated_plan(const GpryKern& kern, int nq, int n,
+                                   int nmax, int d, int qchain,
+                                   const void* L, int* Q, size_t* smem) {
+  if (sub_plan(nq, n, nmax, L, (size_t)d + gpry_spec_doubles(kern),
+               (size_t)d + 1, Q, smem) == 0)
+    return 0;
+  *Q = qchain;
+  *smem = sizeof(double) * ((size_t)d + (size_t)qchain * d +
+                            (size_t)qchain * n + gpry_spec_doubles(kern));
+  return 1;
+}
+
 struct GprySub {
   const double* L;  // (nmax, nmax) row-major, global memory
   int n, nmax, Q;

@@ -28,8 +28,9 @@ versions, and the wrappers that choose between them.
   one launch; plain version :func:`ns_slice_chains_plain`, the lock-step
   loop :func:`slice_chains_lockstep` on K1's plain version.
 * K7 ``predict_meancov`` (``csrc/predict_meancov.cu``) replaces
-  ops/linalg.py:172 predict_meancov (``predict(return_cov=True)``); plain
-  version :func:`predict_meancov_plain`.
+  ops/linalg.py:172 predict_meancov (``predict(return_cov=True)``): K5's
+  solve, then the lower tiles of K(Xq, Xq) - V^T V on the FP64 tensor
+  cores; plain version :func:`predict_meancov_plain`.
 * K8 ``meanstd_grad`` (``csrc/meanstd_grad.cu``) replaces the
   ``jax.vmap(jax.jacfwd(surrogate_mean_std_smooth))`` of models/gp.py:1272
   (``predict(return_mean_grad=, return_std_grad=)``) and serves the
@@ -284,6 +285,8 @@ def library():
         lib.gpry_meanvar_ungated_plan.restype = I
         lib.gpry_predict_meancov.argtypes = [K] + [I] * 5 + [P] * 9
         lib.gpry_predict_meancov.restype = I
+        lib.gpry_predict_meancov_plan.argtypes = [K] + [I] * 5 + [P] * 5
+        lib.gpry_predict_meancov_plan.restype = I
         lib.gpry_meanstd_grad.argtypes = [K] + [I] * 4 + [P] * 13
         lib.gpry_meanstd_grad.restype = I
         lib.gpry_meanstd_grad_plan.argtypes = [K] + [I] * 4 + [P] * 3
@@ -1192,18 +1195,61 @@ def meanvar_ungated_plan(n, nmax, d, nq, spec_doubles=0, aligned=True):
     """
     K5's route for ``nq`` queries against ``n`` valid training rows of
     ``nmax`` at dimension ``d`` (a spec program of ``spec_doubles``), as
-    csrc/meanvar_ungated.cu k5_plan sizes it: ``(route, Q, smem_bytes)``.
-    Route 0 solves Q = 8, 16 or 32 queries a block on csrc/subst_blocked.cuh
-    (Q by nq as K2's, fewer where shared memory forces it; at d = 8, Q =
-    8, n <= 640; an even ``nmax`` and L 16-byte aligned, ``aligned``);
-    route 1 a warp a query with Q k vectors in shared memory
-    (_sweep_queries_per_block).  Raises ``ValueError`` beyond route 1.
+    csrc/subst_blocked.cuh sub_ungated_plan sizes it (K7's solve too):
+    ``(route, Q, smem_bytes)``.  Route 0 solves Q = 8, 16 or 32 queries a
+    block on csrc/subst_blocked.cuh (Q by nq as K2's, fewer where shared
+    memory forces it; at d = 8, Q = 8, n <= 640; an even ``nmax`` and L
+    16-byte aligned, ``aligned``); route 1 a warp a query with Q k vectors
+    in shared memory (_sweep_queries_per_block).  Raises ``ValueError``
+    beyond route 1.
     """
     blocked = _sub_plan(n, nmax, nq, d + spec_doubles, d + 1, aligned)
     if blocked is not None:
         return (0,) + blocked
     q = _sweep_queries_per_block(nmax, d, spec_doubles)
     return 1, q, 8 * (d + q * d + q * n + spec_doubles)
+
+
+#: K7's product (csrc/predict_meancov.cu K7_T, K7_KC): the block's output
+#: tile and the training rows a stage (each staged row padded by 4 doubles)
+_K7_T, _K7_KC = 32, 32
+
+
+def predict_meancov_plan(n, nmax, d, nq, spec_doubles=0, aligned=True):
+    """
+    K7's plan for ``nq`` queries against ``n`` valid training rows of
+    ``nmax`` at dimension ``d`` (a spec program of ``spec_doubles``), as
+    csrc/predict_meancov.cu k7_plan sizes it: ``(route, Q, smem_solve,
+    ldv, tiles, smem_product)``.  The solve takes K5's rule (its layout:
+    fixed d + the spec program, d + 1 a query), so K7 and K5 take the
+    same route and Q at every nq: route 0 solves Q = 8, 16 or 32 queries
+    a block on csrc/subst_blocked.cuh (an even ``nmax`` and L 16-byte
+    aligned, ``aligned``), route 1 a warp a query with Q k vectors in
+    shared memory (_sweep_queries_per_block).  V is nq rows of ``ldv`` =
+    n rounded up to 16 doubles; the product launches the ``tiles`` lower
+    32 x 32 tiles of the covariance.  Raises ``ValueError`` beyond route 1
+    and where the product's tile points do not fit in shared memory (d
+    above 375).
+    """
+    route, q, smem_a = meanvar_ungated_plan(n, nmax, d, nq, spec_doubles,
+                                            aligned)
+    nt = -(-nq // _K7_T)
+    return route, q, smem_a, -(-n // _SUB_PB) * _SUB_PB, nt * (nt + 1) // 2, \
+        _k7_product_smem(d, spec_doubles)
+
+
+def _k7_product_smem(d, spec_doubles):
+    """csrc/predict_meancov.cu meancov_cov_smem: the product's shared
+    bytes (two stages of the tile's 2 K7_T rows of V, the tile's points at
+    an odd stride, the length scales, the spec program); raises
+    ``ValueError`` beyond a block's."""
+    smem = 8 * (4 * _K7_T * (_K7_KC + 4) + 2 * _K7_T * (d | 1) + d
+                + spec_doubles + 1)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"predict_meancov: the covariance tiles' points at "
+                         f"d={d} need more shared memory than a Hopper "
+                         "block has.")
+    return smem
 
 
 def _gp_doubles(n, d, stage_x, spec_doubles):
@@ -1729,8 +1775,12 @@ def predict_meancov(family, theta, X, n, noise_var, L, alpha, Xq):
     """
     K7: the posterior mean and full covariance at ``Xq`` (nq, d), in the
     GP's coordinates (the arguments of :func:`predict_meancov_plain`; ``L``
-    row-major).  Two launches: the solve of every query's column of V,
-    then the tiled ``K(Xq, Xq) - V^T V``.
+    row-major).  Two launches: the solve of every query's column of V (K5's
+    route and Q; the diagonal of the covariance from the solve's own sums,
+    so equal to K5's sigma^2 bit for bit), then ``K(Xq, Xq) - V^T V`` on
+    the lower tiles, on the FP64 tensor cores, each stored at its mirror
+    too (plan: :func:`predict_meancov_plan`).  Raises ``ValueError`` where
+    that plan does.
     """
     check_family(family)
     if Xq.device.type == "cpu":
@@ -1749,11 +1799,14 @@ def predict_meancov(family, theta, X, n, noise_var, L, alpha, Xq):
     cov = torch.empty((nq, nq), dtype=torch.float64, device=dev)
     if nq == 0:
         return mean, cov
-    V = torch.empty(nq * int(n), dtype=torch.float64, device=dev)
+    sd = _spec_doubles(kern)
+    _k7_product_smem(d, sd)
+    # V: nq rows of n rounded up to whole 16-double panels
+    V = torch.empty(nq * (-(-int(n) // _SUB_PB) * _SUB_PB),
+                    dtype=torch.float64, device=dev)
     lib = library()
     rc = lib.gpry_predict_meancov(
-        kern, nq, int(n), nmax, d,
-        _sweep_queries_per_block(nmax, d, _spec_doubles(kern)),
+        kern, nq, int(n), nmax, d, _sweep_queries_per_block(nmax, d, sd),
         _ptr(Xq), _ptr(X), _ptr(alpha), _ptr(L), _ptr(theta), _ptr(V),
         _ptr(mean), _ptr(cov), _stream())
     _raise_on("predict_meancov", rc)

@@ -484,7 +484,8 @@ def test_unaligned_factor_takes_the_large_n_route(dev, family, n, layout):
     """Route 0 copies L's rows 16 bytes at a time.  An odd nmax, or L a
     view 8 bytes into its buffer, takes the large-n route instead, in K2
     (both output modes) and in K7's solve, and both match their plain
-    versions (no misaligned copy, no sticky CUDA error)."""
+    versions (no misaligned copy, no sticky CUDA error); K7's covariance
+    stays symmetric bit for bit."""
     from gpry_tpu_torch.config import bucket_size
     d, nq = 8, 9
     nmax = bucket_size(n) + (layout == "odd_nmax")
@@ -512,6 +513,7 @@ def test_unaligned_factor_takes_the_large_n_route(dev, family, n, layout):
                                       p.L, p.alpha, Xp)[1]
     atol = 1e-10 * float(torch.max(torch.abs(kqq)))
     assert float(torch.max(torch.abs(ca - cb))) <= atol
+    assert torch.equal(ca, ca.T)
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -737,9 +739,10 @@ def test_meanvar_ungated_is_k2_ungated(dev, family):
 @pytest.mark.parametrize("family", ("rbf", "all_nodes"))
 @pytest.mark.parametrize("d", (2, 8, 32))
 def test_meanvar_ungated_plan_matches_the_kernel(dev, family, d):
-    """fused.meanvar_ungated_plan gives k5_plan's route, queries a block
-    and shared memory, and fused.meanstd_grad_plan k8_plan's, at an even
-    and an odd nmax and for L's data 16-byte aligned or 8 bytes off."""
+    """fused.meanvar_ungated_plan gives sub_ungated_plan's route, queries
+    a block and shared memory, and fused.meanstd_grad_plan k8_plan's, at
+    an even and an odd nmax and for L's data 16-byte aligned or 8 bytes
+    off."""
     fam = family_and_theta(family, d)[0]
     kern = fused._kern(fam, d, dev)
     spec = fused._spec_doubles(kern)
@@ -969,13 +972,14 @@ def test_kernels_refuse_grad_and_float32(dev):
         fused.gated_mean("rbf", p, Xq.float())
 
 
-@pytest.mark.parametrize("nq", [1, 64, 1024])
+@pytest.mark.parametrize("nq", [1, 63, 64, 65, 1000, 1024, 1025])
 @pytest.mark.parametrize("family", FAMILIES)
 def test_predict_meancov_kernel(dev, family, nq):
-    """K7 against its plain version, training points among the queries:
-    the mean within rel 1e-10; the covariance within an absolute
-    1e-10 max|K(Xq, Xq)| (K - V^T V cancels near the training points);
-    two launches per call."""
+    """K7 against its plain version, training points among the queries,
+    about the product's 64-query tiles: the mean within rel 1e-10; the
+    covariance within an absolute 1e-10 max|K(Xq, Xq)| (K - V^T V cancels
+    near the training points) and symmetric bit for bit; two launches per
+    call."""
     p = surrogate(family, dev)
     key = count_key("predict_meancov", family)
     family = family_and_theta(family)[0]
@@ -993,6 +997,98 @@ def test_predict_meancov_kernel(dev, family, nq):
                                       p.L, p.alpha, Xq)[1]
     atol = 1e-10 * float(torch.max(torch.abs(kqq)))
     assert float(torch.max(torch.abs(ca - cb))) <= atol
+    assert torch.equal(ca, ca.T)
+
+
+def _k7_sigma(p, cov):
+    """sqrt(max(diag(cov), 0)) y_scale: K7's sigma in K5's units."""
+    return torch.sqrt(torch.clamp_min(torch.diagonal(cov), 0.0)) * p.y_scale
+
+
+@pytest.mark.parametrize("layout", ("aligned", "odd_nmax", "offset"))
+@pytest.mark.parametrize("n", (17, 223, 224))
+@pytest.mark.parametrize("family", ("rbf", "matern32", "all_nodes"))
+def test_predict_meancov_sigma_is_k5s(dev, family, n, layout):
+    """K7's solve takes K5's route and queries a block at every nq (route 0
+    for an aligned L, route 1 for an odd nmax or L 8 bytes off) and forms
+    diag(cov) as K5 forms its variance, so sqrt(max(diag(cov), 0)) y_scale
+    equals K5's sigma bit for bit, both with K7 given the queries as
+    GaussianProcessRegressor.predict preprocesses them ((x - x_loc) /
+    x_scale in torch, which divides as K5's kernel does) and with K5 given
+    them preprocessed and an identity transform; an odd n pads V's rows.
+    The covariance matches its plain version and is symmetric bit for
+    bit."""
+    from gpry_tpu_torch.config import bucket_size
+    d = 8
+    nmax = bucket_size(n) + (layout == "odd_nmax")
+    fam = family_and_theta(family, d)[0]
+    sd = fused._spec_doubles(fused._kern(fam, d, dev))
+    p = _k2_surrogate(family, dev, n, nmax, d, "fitted", "scalar")
+    if layout == "offset":
+        p = p.replace(L=_at_offset(p.L))
+    aligned = p.L.data_ptr() % 16 == 0
+    ident = p.replace(x_loc=torch.zeros_like(p.x_loc),
+                      x_scale=torch.ones_like(p.x_scale))
+    rng = np.random.default_rng(n + nmax)
+    for nq in (1, 64, 65, 1024):
+        plan = fused.predict_meancov_plan(n, nmax, d, nq, sd, aligned)
+        assert plan[:3] == fused.meanvar_ungated_plan(n, nmax, d, nq, sd,
+                                                      aligned)
+        assert plan[0] == (layout != "aligned")
+        Xraw = torch.as_tensor(_k2_queries(rng, nq, d), dtype=torch.float64,
+                               device=dev)
+        Xraw[:min(nq, 16)] = p.X[:min(nq, 16)] * p.x_scale + p.x_loc
+        Xp = ((Xraw - p.x_loc) / p.x_scale).contiguous()
+        args = (p.theta, p.X, p.n, p.noise_var, p.L, p.alpha, Xp)
+        ma, ca = fused.predict_meancov(fam, *args)
+        mb, cb = fused.predict_meancov_plain(fam, *args)
+        s5 = fused.meanvar_ungated(fam, p, Xraw)[1]
+        s5p = fused.meanvar_ungated(fam, ident, Xp)[1]
+        torch.cuda.synchronize()
+        assert torch.equal(_k7_sigma(p, ca), s5p)
+        assert torch.equal(_k7_sigma(p, ca), s5)
+        assert torch.equal(ca, ca.T)
+        _close(ma, mb, 1e-10)
+        kqq = fused.predict_meancov_plain(fam, p.theta, p.X, 0, p.noise_var,
+                                          p.L, p.alpha, Xp)[1]
+        atol = 1e-10 * float(torch.max(torch.abs(kqq)))
+        assert float(torch.max(torch.abs(ca - cb))) <= atol
+
+
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+@pytest.mark.parametrize("d", (2, 8, 32))
+def test_predict_meancov_plan_matches_the_kernel(dev, family, d):
+    """fused.predict_meancov_plan gives k7_plan's solve route, queries a
+    block and shared memory, and the product's tiles and shared memory, at
+    an even and an odd nmax and for L's data 16-byte aligned or 8 bytes
+    off; beyond the product's shared memory both refuse."""
+    fam = family_and_theta(family, d)[0]
+    kern = fused._kern(fam, d, dev)
+    spec = fused._spec_doubles(kern)
+    lib = fused.library()
+    Q, sa, tiles, sb = ctypes.c_int(), ctypes.c_size_t(), ctypes.c_int(), \
+        ctypes.c_size_t()
+    refs = [ctypes.byref(x) for x in (Q, sa, tiles, sb)]
+    for nq in (1, 63, 64, 65, 1056, 1057, 4224, 4225, 65536):
+        for n in (0, 1, 17, 224, 640, 641, 5000):
+            for nmax in (max(64, n + n % 2), max(65, n | 1)):
+                qc = fused._sweep_queries_per_block(nmax, d, spec)
+                for at in (4096, 4104):
+                    route, q, smem, _, nt, smem_b = \
+                        fused.predict_meancov_plan(n, nmax, d, nq, spec,
+                                                   aligned=at % 16 == 0)
+                    assert lib.gpry_predict_meancov_plan(
+                        kern, nq, n, nmax, d, qc, ctypes.c_void_p(at),
+                        *refs) == route
+                    assert (Q.value, sa.value, tiles.value, sb.value) == \
+                        (q, smem, nt, smem_b)
+    if family == "rbf":
+        big = 400
+        with pytest.raises(ValueError, match="shared memory"):
+            fused.predict_meancov_plan(224, 320, big, 64)
+        kb = fused._kern(fam, big, dev)
+        assert lib.gpry_predict_meancov_plan(
+            kb, 64, 224, 320, big, 8, ctypes.c_void_p(4096), *refs) == -1
 
 
 def test_spec_beyond_the_kernel_limits_raises(dev):

@@ -1,6 +1,6 @@
 """
 K5's and K8's host-side plans (``fused.meanvar_ungated_plan``, the mirror
-of csrc/meanvar_ungated.cu k5_plan, and ``fused.meanstd_grad_plan``, of
+of csrc/subst_blocked.cuh sub_ungated_plan, and ``fused.meanstd_grad_plan``, of
 csrc/meanstd_grad.cu k8_plan; the card tests hold each to its C side) on
 the CPU: route 0 (the blocked substitutions of csrc/subst_blocked.cuh)
 takes the paths' shapes, route 1 an odd nmax, an unaligned L and n beyond
