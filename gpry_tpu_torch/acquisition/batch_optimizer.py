@@ -7,7 +7,10 @@ Each believer step is one batched screen of proposer draws (the K2 kernel
 in its LogExp mode), the multistart L-BFGS ascent of the smooth LogExp over
 the polished starts in one K9 launch (any other acquisition: the lock-step
 torch L-BFGS over K8's gradients), a K2 rescore of the endpoints, and an
-O(nmax^2) block-Cholesky append of the lie.
+O(nmax^2) block-Cholesky append of the lie.  With ``acq_optimizer=
+"sampling"`` (scipy's Powell) or a callable, the polish is gradient-free
+and host-driven instead: each objective call is one gated evaluation at
+one point (a K2 launch for LogExp).
 """
 
 import numpy as np
@@ -83,10 +86,10 @@ class BatchOptimizer(GenericGPAcquisition):
                  n_restarts_optimizer="5d", n_repeats_propose=10,
                  preprocessing_X=None, zeta_scaling=0.85, verbose=1,
                  proposer=None, random_state=None):
-        if acq_optimizer not in ("lbfgs", "fmin_l_bfgs_b", None):
-            raise NotImplementedError(
-                f"acq_optimizer={acq_optimizer!r} is not ported yet; only "
-                "'lbfgs' is (ROADMAP.md §A, 'periphery').")
+        if not (callable(acq_optimizer) or acq_optimizer in (
+                "lbfgs", "fmin_l_bfgs_b", "sampling", None)):
+            raise ValueError(f"Unknown acq_optimizer {acq_optimizer!r}: "
+                             "'lbfgs', 'sampling' or a callable.")
         super().__init__(bounds, acq_func=acq_func,
                          preprocessing_X=preprocessing_X,
                          zeta_scaling=zeta_scaling, verbose=verbose)
@@ -145,6 +148,8 @@ class BatchOptimizer(GenericGPAcquisition):
                 family, self.acq_func, p_, noise_std_raw, x0s_, lo_, hi_)
 
         lo, hi = as_t(bounds[:, 0]), as_t(bounds[:, 1])
+        gradient_free = self.acq_optimizer not in ("lbfgs", "fmin_l_bfgs_b",
+                                                   None)
         self.proposer.update(gpr)
         self.proposer.update_bounds(bounds)
 
@@ -173,8 +178,12 @@ class BatchOptimizer(GenericGPAcquisition):
             if len(x0s) < R_polish:
                 x0s = np.vstack([x0s, cand[order[len(x0s):R_polish]]])
 
-            xs, vals = ascend(p, as_t(x0s), lo, hi)
-            xs, vals = xs.cpu().numpy(), vals.cpu().numpy()
+            if gradient_free:
+                xs, vals = self._polish_gradient_free(score, p, x0s, bounds,
+                                                      as_t)
+            else:
+                xs, vals = ascend(p, as_t(x0s), lo, hi)
+                xs, vals = xs.cpu().numpy(), vals.cpu().numpy()
             # fall back to the best screened candidate if the polish failed
             if not np.any(np.isfinite(vals)):
                 best_x = cand[order[0]]
@@ -198,3 +207,32 @@ class BatchOptimizer(GenericGPAcquisition):
                                as_t([y_lie]))
         self.mean, self.cov = None, None
         return X_out, y_lies, acq_out
+
+    def _polish_gradient_free(self, score, p, x0s, bounds, as_t):
+        """
+        Host-driven gradient-free polish of a few screened starts
+        (gpry_tpu/acquisition/batch_optimizer.py:278-310, the reference's
+        ``acq_optimizer="sampling"`` and user callables): scipy's Powell,
+        or ``acq_optimizer(fun, x0, bounds=bounds) -> (x_opt, f_opt)``.
+        Each objective call is one gated evaluation at one point
+        (``score``; K2 for LogExp), counted in ``obj_fun_eval_num``.
+        Returns the optimizer's own ``(x_opt, -f_opt)`` for each start.
+        """
+        import scipy.optimize
+
+        def neg_acq(x):
+            v = float(score(p, as_t(np.atleast_2d(x))).cpu()[0])
+            self.obj_fun_eval_num += 1
+            return -v if np.isfinite(v) else 1e30
+
+        xs, vals = [], []
+        for x0 in np.asarray(x0s)[:max(2, min(4, len(x0s)))]:
+            if callable(self.acq_optimizer):
+                x_opt, f_opt = self.acq_optimizer(neg_acq, x0, bounds=bounds)
+            else:
+                res = scipy.optimize.minimize(neg_acq, x0, method="Powell",
+                                              bounds=bounds)
+                x_opt, f_opt = res.x, float(res.fun)
+            xs.append(np.asarray(x_opt, dtype=float))
+            vals.append(-f_opt if np.isfinite(f_opt) else -np.inf)
+        return np.asarray(xs), np.asarray(vals)

@@ -20,9 +20,11 @@ On the device:
 
 NS effort follows the reference schedule: ``nlive = min(3 n_train,
 nlive_max)`` (in quarters of ``nlive_max``), ``num_repeats = 5d``,
-``precision_criterion = 0.01`` (gpry/gp_acquisition.py:684-699).  Only the
-device sampler is ported: the host NS engines (``sampler="polychord"``,
-...) raise.
+``precision_criterion = 0.01`` (gpry/gp_acquisition.py:684-699).
+``sampler="polychord"``, ``"ultranest"`` or ``"nessai"`` runs that host
+engine (``mc.interfaces``) over the surrogate, each of its likelihood
+requests one K1 sweep; an engine that does not import falls back along the
+reference's chain to the device sampler, with a warning.
 """
 
 import numpy as np
@@ -51,11 +53,6 @@ class NORA(GenericGPAcquisition):
                  precision_criterion_target=0.01, nprior_per_nlive=10,
                  min_ess_reuse="2d", sampler="device", preprocessing_X=None,
                  zeta_scaling=0.85, verbose=1, rng=None):
-        if sampler not in (None, "device"):
-            raise NotImplementedError(
-                f"NORA(sampler={sampler!r}) is not ported yet; only the "
-                "device sampler is (ROADMAP.md §A6: the host NS engines "
-                "come with the periphery).")
         super().__init__(bounds, acq_func=acq_func,
                          preprocessing_X=preprocessing_X,
                          zeta_scaling=zeta_scaling, verbose=verbose)
@@ -99,6 +96,14 @@ class NORA(GenericGPAcquisition):
     # ------------------------------------------------------------- NS running
 
     def _run_ns(self, gpr):
+        if self.sampler not in (None, "device"):
+            # a host engine, with the reference's fallback chain
+            # (gpry/gp_acquisition.py:650-682) ending in the device sampler
+            from gpry_tpu_torch.mc.interfaces import (InterfaceDevice,
+                                                      init_nested_sampler)
+            iface = init_nested_sampler(self.sampler, verbose=self.verbose)
+            if not isinstance(iface, InterfaceDevice):
+                return self._run_ns_host(gpr, iface)
         p = gpr.surrogate_params()
         dt, dev = p.X.dtype, p.X.device
         lo = torch.as_tensor(self.bounds[:, 0], dtype=dt, device=dev)
@@ -126,6 +131,46 @@ class NORA(GenericGPAcquisition):
         self.last_logZ = float(res.logZ)
         self.log(f"[NORA] NS run: {len(X)} samples, nlive={nlive}, "
                  f"logZ={self.last_logZ:.3f}, calls={int(res.n_calls)}",
+                 level=3)
+
+    def _run_ns_host(self, gpr, iface):
+        """NS by a host engine (gpry_tpu/acquisition/nora.py:178): each
+        batch of its likelihood requests is one gated-mean sweep (K1) on
+        the device."""
+        from gpry_tpu_torch.models.gp import surrogate_predict_mean
+        p = gpr.surrogate_params()
+        dt, dev = p.X.dtype, p.X.device
+
+        def logp_host(X):
+            X = np.atleast_2d(np.asarray(X, dtype=float))
+            return surrogate_predict_mean(
+                gpr.family, p, torch.as_tensor(X, dtype=dt, device=dev)
+            ).cpu().numpy()
+
+        nlive = self._nlive(gpr)
+        iface.set_prior(self.bounds)
+        iface.set_precision(
+            nlive=nlive, num_repeats=int(self.num_repeats),
+            precision_criterion=self.precision_criterion_target,
+            nprior=int(self.nprior_per_nlive) * nlive,
+            seed=int(self.rng.integers(2**31)))
+        res = iface.run(logp_host)
+        X = np.asarray(res["X"], dtype=float)
+        logp = np.asarray(res["logpost"], dtype=float)
+        w = np.asarray(res["weights"], dtype=float)
+        keep = np.isfinite(logp) & (w > 0)
+        X, logp, w = X[keep], logp[keep], w[keep]
+        gpr.n_eval += int(res.get("n_calls", len(X)))
+        # std over the sample: one K2 sweep
+        _, sd = surrogate_predict(gpr.family, p,
+                                  torch.as_tensor(X, dtype=dt, device=dev))
+        self.last_MC_X = X
+        self.last_MC_logp = logp
+        self.last_MC_logw = np.log(w / np.max(w))
+        self.last_MC_sigma = sd.cpu().numpy()
+        self.last_logZ = float(res.get("logZ", np.nan))
+        self.log(f"[NORA] host NS run ({type(iface).__name__}): {len(X)} "
+                 f"samples, nlive={nlive}, logZ={self.last_logZ:.3f}",
                  level=3)
 
     def _reweight_last(self, gpr):

@@ -85,7 +85,8 @@ def _slice_chains(logl_fn, params, logl_of, st, nrm, u, lo, hi):
 
 def run_nested_device(logl_fn, params, gen, lo, hi, nlive=200,
                       num_repeats=10, precision_criterion=0.01,
-                      max_dead=5000, kill_batch=None, n_prior=None, seg=8):
+                      max_dead=5000, kill_batch=None, n_prior=None, seg=8,
+                      on_segment=None):
     """
     Nested sampling of ``logl_fn(params, X)`` ((nq, d) -> (nq,)) under a
     uniform prior on the box [lo, hi], on the device of ``lo``.  A
@@ -97,7 +98,7 @@ def run_nested_device(logl_fn, params, gen, lo, hi, nlive=200,
     worst ``n_prior - nlive`` draws are recorded as dead points with exact
     shrinking-live-count volumes.  ``gen`` is the ``torch.Generator`` of
     every draw.  ``seg`` steps are queued between two reads of the stop
-    flag.
+    flag; ``on_segment`` (a heartbeat) is called after each read.
     """
     nlive = int(nlive)
     B = max(1, nlive // 6) if kill_batch is None else int(kill_batch)
@@ -155,7 +156,10 @@ def run_nested_device(logl_fn, params, gen, lo, hi, nlive=200,
         ns_step(st, xs, ls, cs, starts, *consts, select=False)
         queued += seg
         reads += 1
-        if bool(st.done):
+        done = bool(st.done)
+        if on_segment is not None:
+            on_segment()
+        if done:
             break
         if queued > max_dead // B + seg:
             raise RuntimeError("nested sampling did not stop within the "

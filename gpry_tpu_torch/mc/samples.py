@@ -6,8 +6,10 @@ device ensemble MCMC (``mc.mcmc``), followed by the mixture
 importance-sampling refinement (``mc.refine``); all of them score the
 surrogate through the K1 kernel, the NS chains through K6 (with K13's
 bookkeeping) and the MCMC's phases through K12.  ``"uniform"`` draws are
-for tests.  The host samplers of the JAX package (Cobaya, PolyChord,
-UltraNest, nessai) are not ported yet.
+for tests.  ``"polychord"``, ``"ultranest"`` and ``"nessai"`` run that host
+nested sampler (``mc.interfaces``) over the surrogate, each batch of its
+likelihood requests one K1 sweep.  The Cobaya samplers of the JAX package
+are not ported yet.
 """
 
 import os
@@ -66,19 +68,24 @@ def mc_sample_from_gp(gpr, bounds=None, sampler="nested", rng=None,
     """
     Draw MC samples from the surrogate posterior.  ``sampler``: "nested"
     (device NS, ``nlive=50d``, then IS refinement), "mcmc" (device
-    ensemble of adaptive MH chains, then IS refinement) or "uniform"
-    (tests).
+    ensemble of adaptive MH chains, then IS refinement), "uniform"
+    (tests), or a host nested sampler, "polychord", "ultranest" or "nessai"
+    (``ImportError`` where its package is missing).  ``options["heartbeat"]``
+    is called at each read of the device NS's stop flag.
 
     Returns a samples dict: {"X", "logpost", "weights", "logZ" (NS only),
     "rhat" (MCMC only), "n_calls", and the phase times "time_ns" /
     "time_refine" in seconds}.
     """
-    if sampler not in ("nested", "mcmc", "uniform"):
-        raise NotImplementedError(
-            f"sampler={sampler!r} is not ported yet; only 'nested', 'mcmc' "
-            "and 'uniform' are (ROADMAP.md §A6: the host samplers come "
-            "with the periphery).")
     options = dict(options or {})
+    heartbeat = options.pop("heartbeat", None)
+    if str(sampler).startswith("cobaya"):
+        raise NotImplementedError(
+            f"sampler={sampler!r} is not ported to gpry_tpu_torch yet "
+            "(ROADMAP.md §A, 'Cobaya interop').")
+    if sampler not in ("nested", "mcmc", "uniform", "polychord",
+                       "ultranest", "nessai"):
+        raise ValueError(f"Unknown sampler {sampler!r}.")
     bounds = check_and_return_bounds(
         bounds if bounds is not None else gpr.bounds)
     d = bounds.shape[0]
@@ -103,6 +110,10 @@ def mc_sample_from_gp(gpr, bounds=None, sampler="nested", rng=None,
         return _mc_sample_mcmc(gpr, p, logp, gen, lo, hi, bounds, rng,
                                options, verbose)
 
+    if sampler != "nested":
+        return _mc_sample_host_ns(gpr, p, sampler, bounds, rng, options,
+                                  verbose)
+
     nlive = get_Xnumber(options.get("nlive", "50d"), "d", d, dtype=int,
                         varname="nlive")
     num_repeats = get_Xnumber(options.get("num_repeats", "5d"), "d", d,
@@ -112,7 +123,7 @@ def mc_sample_from_gp(gpr, bounds=None, sampler="nested", rng=None,
     res = run_nested_device(
         logp, p, gen, lo, hi, nlive=int(nlive), num_repeats=int(num_repeats),
         precision_criterion=float(options.get("precision_criterion", 0.01)),
-        max_dead=max_dead)
+        max_dead=max_dead, on_segment=heartbeat)
     logw = res.logw.cpu().numpy()
     logl = res.logl.cpu().numpy()
     keep = np.isfinite(logw) & np.isfinite(logl)
@@ -138,6 +149,36 @@ def mc_sample_from_gp(gpr, bounds=None, sampler="nested", rng=None,
             n_draw=int(options.get("refine_n_draw", 65536)),
             verbose=verbose)
         out["time_refine"] = time.perf_counter() - t0
+    return out
+
+
+def _mc_sample_host_ns(gpr, p, sampler, bounds, rng, options, verbose):
+    """A host nested sampler of :func:`mc_sample_from_gp`
+    (gpry_tpu/mc/samples.py:79-104): each batch of its likelihood requests
+    is one gated-mean sweep (K1) on the device."""
+    from gpry_tpu_torch.mc.interfaces import _ns_interfaces
+    d = bounds.shape[0]
+    iface = _ns_interfaces[sampler](verbose=verbose,
+                                    out_dir=options.get("out_dir"))
+    iface.set_prior(bounds, params=options.get("params"))
+    nlive = get_Xnumber(options.get("nlive", "50d"), "d", d, dtype=int,
+                        varname="nlive")
+    num_repeats = get_Xnumber(options.get("num_repeats", "5d"), "d", d,
+                              dtype=int, varname="num_repeats")
+    iface.set_precision(
+        nlive=int(nlive), num_repeats=int(num_repeats),
+        precision_criterion=float(options.get("precision_criterion", 0.01)),
+        nprior=options.get("nprior"), seed=int(rng.integers(2**31)))
+    dt, dev = p.X.dtype, p.X.device
+
+    def logp_host(X):
+        X = np.atleast_2d(np.asarray(X, dtype=float))
+        return surrogate_predict_mean(
+            gpr.family, p, torch.as_tensor(X, dtype=dt, device=dev)
+        ).cpu().numpy()
+
+    out = iface.run(logp_host)
+    gpr.n_eval += int(out.get("n_calls", len(out["X"])))
     return out
 
 

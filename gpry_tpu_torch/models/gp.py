@@ -184,27 +184,32 @@ def surrogate_predict_mean(family, p: SurrogateParams, Xq_raw):
     return gated_mean(family, p, Xq_raw)
 
 
-def _lml_batch_chunked(family, X, y, n, noise_var, thetas, rel_jitter=0.0):
+def _lml_batch_chunked(family, X, y, n, noise_var, thetas, rel_jitter=0.0,
+                       on_chunk=None):
     """
     Memory-budgeted LML sweep (gpry_tpu/models/gp.py:196-232).  On CUDA
     tensors one K10 launch, whose workspace does not grow with the rows.
     On the CPU each lane holds about three nmax^2 temporaries (K, its
     factor, the solve), so a dense screen over a large buffer is cut into
     power-of-two chunks of at most ``LML_SCREEN_BUDGET`` bytes.
+    ``on_chunk`` is called after each chunk (the liveness tick of hang
+    watchdogs).
     """
-    if X.device.type == "cuda":
-        return _lml_batch(family, X, y, n, noise_var, thetas, rel_jitter)
     nmax = int(X.shape[0])
     n_theta = int(thetas.shape[0])
     per_lane = 3 * nmax * nmax * X.element_size()
     chunk = int(LML_SCREEN_BUDGET // max(per_lane, 1))
-    if chunk >= n_theta:
-        return _lml_batch(family, X, y, n, noise_var, thetas, rel_jitter)
-    chunk = max(8, 1 << (max(chunk, 1).bit_length() - 1))
-    return torch.cat([
-        _lml_batch(family, X, y, n, noise_var, thetas[i:i + chunk],
-                   rel_jitter)
-        for i in range(0, n_theta, chunk)])
+    if X.device.type == "cuda" or chunk >= n_theta:
+        chunk = n_theta
+    else:
+        chunk = max(8, 1 << (max(chunk, 1).bit_length() - 1))
+    out = []
+    for i in range(0, n_theta, chunk):
+        out.append(_lml_batch(family, X, y, n, noise_var,
+                              thetas[i:i + chunk], rel_jitter))
+        if on_chunk is not None:
+            on_chunk()
+    return out[0] if len(out) == 1 else torch.cat(out)
 
 
 def _fit_theta_restarts(family, X, y, n, noise_var, theta0s, lo, hi,
@@ -513,6 +518,34 @@ class GaussianProcessRegressor:
             random_state, np.random.Generator) \
             else np.random.default_rng(random_state)
 
+    @staticmethod
+    def compute_threshold_given_sigma(n_sigma, n_dimensions):
+        """Delta-logp depth of the n_sigma contour in n_dimensions
+        (gpry_tpu/models/gp.py:580)."""
+        return delta_logp_of_1d_nstd(n_sigma, n_dimensions)
+
+    def remove_from_data(self, position, fit=True):
+        """
+        Remove training points by index into the full appended set and
+        refresh the model (gpry_tpu/models/gp.py:585): ``fit=True`` refits
+        the hyperparameters, ``fit=False`` refactorizes at the current
+        ones.  The preprocessors and the classifier are refit on what is
+        left.
+        """
+        position = np.atleast_1d(np.asarray(position, dtype=int))
+        n_all = len(self.y_train_all)
+        if np.any((position < 0) | (position >= n_all)):
+            raise ValueError(f"Invalid positions {position} for a training "
+                             f"set of size {n_all}.")
+        keep = np.ones(n_all, dtype=bool)
+        keep[position] = False
+        self.X_train_all = self.X_train_all[keep]
+        self.y_train_all = self.y_train_all[keep]
+        self.noise_level_all = self.noise_level_all[keep]
+        self.n_last_appended = 0
+        self.n_last_appended_finite = 0
+        return self.append_to_data(None, None, fit_gpr=bool(fit))
+
     # ------------------------------------------------------------ data append
 
     def append_to_data(self, X, y, noise_level=None, fit_gpr=True,
@@ -740,6 +773,17 @@ class GaussianProcessRegressor:
 
     # ------------------------------------------------- hyperparameter fit
 
+    def _liveness(self):
+        """Call the optional ``liveness_callback`` (the Runner sets it: it
+        touches the checkpoint's heartbeat file, so that a hang watchdog
+        tells a long fit from a dead process)."""
+        cb = getattr(self, "liveness_callback", None)
+        if cb is not None:
+            try:
+                cb()
+            except Exception:
+                pass
+
     def fit_gpr_hyperparameters(self, simple=False, start_from_current=True,
                                 n_restarts=None, hyperparameter_bounds=None,
                                 maxiter=120):
@@ -797,7 +841,7 @@ class GaussianProcessRegressor:
                 cand = np.vstack([cand, theta0s[:1]])
             lml_c = _lml_batch_chunked(
                 self.family, self._dX, self._dy, n, noise,
-                self._t(cand)).cpu().numpy()
+                self._t(cand), on_chunk=self._liveness).cpu().numpy()
             lml_c = np.where(np.isfinite(lml_c), lml_c, -np.inf)
             self.n_eval_loglike += len(cand)
             if demand_price:
@@ -823,6 +867,7 @@ class GaussianProcessRegressor:
             order = np.argsort(lml_c)[::-1]
             theta0s[i0:] = cand[order[:n_polish - i0]]
 
+        self._liveness()
         thetas, nlls, fit_nevs = _fit_theta_restarts(
             self.family, self._dX, self._dy, n, noise, self._t(theta0s),
             self._t(lo), self._t(hi), maxiter=maxiter)

@@ -315,6 +315,20 @@ def wrap_likelihood(loglike, param_names):
                                     p.POSITIONAL_OR_KEYWORD)])
     except (TypeError, ValueError):
         n_args = 1
-    if n_args == len(param_names) and n_args > 1:
-        return lambda x: loglike(*np.asarray(x))
-    return lambda x: loglike(np.asarray(x))
+    return _WrappedLikelihood(loglike,
+                              n_args == len(param_names) and n_args > 1)
+
+
+class _WrappedLikelihood:
+    """``loglike`` called on one array row, or with one argument per
+    parameter; a class rather than a closure, so that a Truth pickles with
+    the standard ``pickle`` wherever its ``loglike`` does."""
+
+    def __init__(self, loglike, per_param):
+        self.loglike = loglike
+        self.per_param = per_param
+
+    def __call__(self, x):
+        if self.per_param:
+            return self.loglike(*np.asarray(x))
+        return self.loglike(np.asarray(x))

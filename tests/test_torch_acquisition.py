@@ -13,6 +13,8 @@ from gpry_tpu.acquisition import functions as jf
 from gpry_tpu.acquisition.base import append_lie as j_append_lie
 from gpry_tpu.acquisition.batch_optimizer import BatchOptimizer as JBO
 from gpry_tpu.acquisition.batch_optimizer import \
+    _acq_values_gated as j_gated
+from gpry_tpu.acquisition.batch_optimizer import \
     _optimize_restarts as j_optimize
 from gpry_tpu.models.gp import GaussianProcessRegressor as JGPR
 from gpry_tpu.models.gp import surrogate_predict as j_predict
@@ -24,6 +26,8 @@ from gpry_tpu_torch.acquisition import functions as tf
 from gpry_tpu_torch.acquisition.base import append_lie as t_append_lie
 from gpry_tpu_torch.acquisition.base import grow_surrogate
 from gpry_tpu_torch.acquisition.batch_optimizer import BatchOptimizer as TBO
+from gpry_tpu_torch.acquisition.batch_optimizer import \
+    _acq_values_gated as t_gated
 from gpry_tpu_torch.acquisition.batch_optimizer import \
     _optimize_restarts as t_optimize
 from gpry_tpu_torch.models.gp import GaussianProcessRegressor as TGPR
@@ -149,3 +153,131 @@ def test_multi_add_generic_acquisition():
     assert X.shape == (2, D) and np.all(np.isfinite(vals))
     mj, sj = j_predict(j.family, j.surrogate_params(), jnp.asarray(X[:1]))
     np.testing.assert_allclose(lies[0], float(mj[0]), rtol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# The gradient-free polish: acq_optimizer="sampling" (scipy's Powell) and a
+# user callable (tests/test_round3.py:483, 501)
+# ---------------------------------------------------------------------------
+
+
+def _small_fitted(n, scale, seed):
+    rng = np.random.default_rng(seed)
+    bounds = np.array([[-1.0, 1.0]] * 2)
+    gpr = TGPR(bounds=bounds, random_state=rng)
+    X = rng.uniform(-1, 1, size=(n, 2))
+    gpr.append_to_data(X, -scale * np.sum(X**2, axis=1),
+                       fit_gpr={"n_restarts": 2})
+    return gpr, bounds, rng
+
+
+def test_batch_optimizer_sampling_powell():
+    """tests/test_round3.py:483; each objective call is one gated value at
+    one point (K2's plain version here), counted in obj_fun_eval_num, and
+    each polished value is the gated value at its polished point (Powell
+    returns a point it evaluated)."""
+    from gpry_tpu_torch.acquisition import batch_optimizer as tbo
+    gpr, bounds, rng = _small_fitted(14, 8.0, 42)
+    acq = TBO(bounds, acq_optimizer="sampling", n_restarts_optimizer=4,
+              verbose=0)
+    calls, polished = [], []
+    inner = tbo._acq_values_gated
+    polish = acq._polish_gradient_free
+
+    def counted(family, p, zeta, noise, X):
+        calls.append(X.shape[0])
+        return inner(family, p, zeta, noise, X)
+
+    def watched(score, p, x0s, bounds_, as_t):
+        xs, vals = polish(score, p, x0s, bounds_, as_t)
+        n = len(calls)
+        polished.append((vals, np.concatenate(
+            [score(p, as_t(x[None])).numpy() for x in xs])))
+        del calls[n:]
+        return xs, vals
+
+    tbo._acq_values_gated = counted
+    acq._polish_gradient_free = watched
+    try:
+        X_out, y_lies, acq_vals = acq.multi_add(gpr, n_points=2, rng=rng)
+    finally:
+        tbo._acq_values_gated = inner
+    assert X_out.shape == (2, 2)
+    assert np.all(np.isfinite(acq_vals))
+    assert np.all((X_out >= -1) & (X_out <= 1))
+    n_screen = min(10 * 2 * 4, 4000)
+    ones = [c for c in calls if c == 1]
+    assert len(ones) > 0
+    assert acq.obj_fun_eval_num == 2 * n_screen + len(ones)
+    for vals, at_points in polished:
+        np.testing.assert_allclose(vals, at_points, rtol=1e-12)
+
+
+def _polish_twins(optimizer, n_starts=4, seed=6):
+    """The reference's and the port's ``_polish_gradient_free`` on one
+    surrogate (``pair``), the same LogExp and the same starts."""
+    j, t = pair()
+    zeta, noise = D ** -0.85, 0.01
+    x0s = np.random.default_rng(seed).uniform(BOUNDS[:, 0], BOUNDS[:, 1],
+                                              (n_starts, D))
+    bo_j = JBO(BOUNDS, acq_optimizer=optimizer, verbose=0)
+    bo_t = TBO(BOUNDS, acq_optimizer=optimizer, verbose=0)
+    p_j, p_t = j.sweep_params(), t.surrogate_params()
+    out_j = bo_j._polish_gradient_free(
+        lambda p_, X_: j_gated(j.family, p_, zeta, noise, X_), p_j, x0s,
+        BOUNDS, p_j.X.dtype)
+    out_t = bo_t._polish_gradient_free(
+        lambda p_, X_: t_gated(t.family, p_, zeta, noise, X_), p_t, x0s,
+        BOUNDS, T)
+    return out_j, out_t, bo_j.obj_fun_eval_num, bo_t.obj_fun_eval_num
+
+
+def test_polish_gradient_free_matches_jax():
+    """Powell's polish: the reference's points and values on the same
+    surrogate and starts, to Powell's own tolerances (xtol = ftol = 1e-4:
+    the two surfaces differ by rounding, so its line searches stop a few
+    calls apart, at points 1e-6 apart on a flat top)."""
+    for seed in (6, 2):
+        (xs_j, v_j), (xs_t, v_t), n_j, n_t = _polish_twins("sampling",
+                                                           seed=seed)
+        assert n_t > 4 and n_j > 4
+        np.testing.assert_allclose(xs_t, xs_j, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(v_t, v_j, rtol=1e-6)
+
+
+def test_polish_returns_the_callables_answer():
+    """A user callable's own (x_opt, f_opt) is what the polish returns,
+    also where x_opt is a point it never evaluated, as in the reference."""
+    evaluated = []
+
+    def shrink(obj, x0, bounds=None):
+        f = [obj(x0), obj(0.5 * x0)]
+        evaluated.extend([x0, 0.5 * x0])
+        return 0.25 * x0, min(f)
+
+    (xs_j, v_j), (xs_t, v_t), n_j, n_t = _polish_twins(shrink)
+    assert n_t == n_j == 8
+    x0s = np.asarray(evaluated[::2][:4])
+    np.testing.assert_array_equal(xs_t, 0.25 * x0s)
+    np.testing.assert_array_equal(xs_t, xs_j)
+    np.testing.assert_allclose(v_t, v_j, rtol=1e-9)
+
+
+def test_batch_optimizer_callable_optimizer():
+    """tests/test_round3.py:501: a user callable ``(fun, x0, bounds) ->
+    (x, fun(x))``."""
+    gpr, bounds, rng = _small_fitted(10, 5.0, 42)
+    seen = []
+
+    def my_opt(obj, x0, bounds=None):
+        seen.append(bounds)
+        return x0, obj(x0)
+
+    acq = TBO(bounds, acq_optimizer=my_opt, n_restarts_optimizer=4,
+              verbose=0)
+    X_out, _, acq_vals = acq.multi_add(gpr, n_points=1, rng=rng)
+    assert X_out.shape == (1, 2)
+    assert np.all(np.isfinite(acq_vals))
+    assert seen and np.array_equal(seen[0], bounds)
+    with pytest.raises(ValueError, match="acq_optimizer"):
+        TBO(bounds, acq_optimizer="annealing")

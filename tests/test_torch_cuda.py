@@ -2292,3 +2292,89 @@ def test_nested_run_on_k13(dev):
     assert 8 * (segs - 1) < res.n_steps <= 8 * segs
     assert res.n_reads <= -(-res.n_steps // 8) + 2
     assert np.isfinite(res.logZ) and res.n_dead == 10 * res.n_steps
+
+
+def _card_gpr(d=3, n=30, seed=2):
+    """A GPR on the card, factorized at its initial hyperparameters (a
+    well-conditioned kernel) with the SVM fitted on a few -inf points."""
+    from gpry_tpu_torch import config
+    from gpry_tpu_torch.models.gp import GaussianProcessRegressor
+    from gpry_tpu_torch.models.preprocessing import Normalize_bounds, \
+        Normalize_y
+    config.set_device("cuda")
+    rng = np.random.default_rng(seed)
+    bounds = np.array([[-2.0, 2.0]] * d)
+    X = rng.uniform(-2, 2, (n, d))
+    y = -0.5 * np.sum((X / 0.7) ** 2, axis=1)
+    y[np.sum(X ** 2, axis=1) > 9.0] = -np.inf
+    gpr = GaussianProcessRegressor(
+        bounds=bounds, preprocessing_X=Normalize_bounds(bounds),
+        preprocessing_y=Normalize_y(), n_restarts_optimizer=2,
+        random_state=1)
+    gpr.append_to_data(X, y, fit_gpr=False)
+    gpr._fitted = True
+    return gpr, bounds, rng
+
+
+def test_checkpoint_of_the_card_loads_on_the_cpu(dev, tmp_path):
+    """A checkpoint written on the card holds no torch object: it loads
+    with the CPU as the package device, its factor bit for bit the card's,
+    and predicts the card's values within rel 1e-12."""
+    from gpry_tpu_torch import config
+    from gpry_tpu_torch import io as gio
+    gpr, bounds, rng = _card_gpr()
+    Xq = rng.uniform(-2, 2, (64, 3))
+    mu_card, sd_card = gpr.predict(Xq, return_std=True)
+    ck = str(tmp_path / "card")
+    gio.save_checkpoint(ck, {"loglike": None}, gpr, None, None, {}, None)
+    try:
+        config.set_device("cpu")
+        cpu = gio.ensure_gpr(ck)
+        assert cpu._dL.device.type == "cpu" and cpu._device.type == "cpu"
+        assert torch.equal(cpu._dL, gpr._dL.cpu())
+        assert torch.equal(cpu._dalpha, gpr._dalpha.cpu())
+        mu_cpu, sd_cpu = cpu.predict(Xq, return_std=True)
+    finally:
+        config.set_device("cuda")
+    fin = np.isfinite(mu_card)
+    assert fin.any() and np.array_equal(np.isfinite(mu_cpu), fin)
+    np.testing.assert_allclose(mu_cpu[fin], mu_card[fin], rtol=1e-12)
+    np.testing.assert_allclose(sd_cpu, sd_card, rtol=1e-12, atol=1e-14)
+
+
+def test_polish_k2_calls_equal_the_plain_version(dev):
+    """``acq_optimizer="sampling"``: every objective call of the polish is
+    one K2 launch at nq 1, equal to K2's plain version on the same inputs;
+    the launches at nq 1 are the polish's calls."""
+    from gpry_tpu_torch.acquisition import batch_optimizer as bo
+    gpr, bounds, rng = _card_gpr()
+    acq = bo.BatchOptimizer(bounds, acq_optimizer="sampling",
+                            n_restarts_optimizer=4, verbose=0)
+    inner = fused.gated_meanvar_logexp
+    seen = []
+
+    def recorded(family, p, Xq, logexp=None):
+        n0 = fused.LAUNCHES["gated_meanvar_logexp"]
+        out = inner(family, p, Xq, logexp=logexp)
+        if Xq.shape[0] == 1:
+            assert fused.LAUNCHES["gated_meanvar_logexp"] == n0 + 1
+            ref = fused.gated_meanvar_logexp_plain(family, p, Xq,
+                                                   logexp=logexp)
+            seen.append((out, ref))
+        return out
+
+    bo.gated_meanvar_logexp = recorded
+    evals0 = acq.obj_fun_eval_num
+    try:
+        X_out, _, vals = acq.multi_add(gpr, n_points=2, rng=rng)
+    finally:
+        bo.gated_meanvar_logexp = inner
+    n_screen = 2 * min(10 * 3 * 4, 4000)
+    assert len(seen) == acq.obj_fun_eval_num - evals0 - n_screen > 0
+    for out, ref in seen:
+        a, b = out.cpu().numpy(), ref.cpu().numpy()
+        assert np.array_equal(np.isfinite(a), np.isfinite(b))
+        fin = np.isfinite(b)
+        np.testing.assert_allclose(a[fin], b[fin], rtol=1e-10, atol=1e-12)
+    assert np.all(np.isfinite(vals))
+    assert np.all((X_out >= bounds[:, 0]) & (X_out <= bounds[:, 1]))

@@ -160,8 +160,12 @@ def test_mc_sample_uniform_and_refusals():
     s = mc_sample_from_gp(t, sampler="uniform", rng=0,
                           options={"n_samples": 500})
     np.testing.assert_allclose(s["logpost"], t.predict(s["X"]), rtol=1e-12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mc_sample_from_gp(t, sampler="polychord")
+    # the host NS engines are ported (tests/test_torch_interfaces.py); the
+    # Cobaya samplers are not
+    with pytest.raises(NotImplementedError, match="ROADMAP.*Cobaya"):
+        mc_sample_from_gp(t, sampler="cobaya_mcmc")
+    with pytest.raises(ValueError, match="Unknown sampler"):
+        mc_sample_from_gp(t, sampler="polychrod")
 
 
 @pytest.mark.parametrize("shape", [(8, 40, 2), (16, 301, 3), (1, 3, 1)])

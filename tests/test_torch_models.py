@@ -238,3 +238,103 @@ def test_surrogate_params_scal_follows_replace():
     p = ported(j.surrogate_params())
     q = p.replace(y_max=T(3.5))
     assert float(q.scal[5]) == 3.5 and float(p.scal[5]) != 3.5
+
+
+def test_remove_from_data_and_api_conveniences():
+    """tests/test_gp.py:251: remove_from_data, predict_is_finite,
+    training_set_as_df, compute_threshold_given_sigma and
+    set_random_state."""
+    pytest.importorskip("pandas")
+    rng = np.random.default_rng(42)
+    bounds = np.array([[0.0, 1.0]] * 2)
+    X = rng.uniform(size=(20, 2))
+    y = -0.5 * np.sum(((X - 0.5) / 0.2) ** 2, axis=1)
+    y[0] = -np.inf
+    gpr = TGPR(bounds=bounds, preprocessing_X=TNB(bounds),
+               preprocessing_y=TNY(), n_restarts_optimizer=4,
+               random_state=1)
+    gpr.append_to_data(X, y)
+    df = gpr.training_set_as_df
+    assert len(df) == 20 and "is_finite" in df
+    assert gpr.predict_is_finite(X[1:4]).shape == (3,)
+    assert np.isclose(gpr.compute_threshold_given_sigma(20, 2),
+                      gpr._diff_threshold)
+    assert TGPR.compute_threshold_given_sigma(3, 4) == \
+        JGPR.compute_threshold_given_sigma(3, 4)
+
+    n_before = gpr.n_total
+    gpr.remove_from_data([0, 5], fit=False)
+    assert gpr.n_total == n_before - 2
+    assert not np.isin(-np.inf, gpr.y_train_all)
+    np.testing.assert_allclose(gpr.predict(X[1:3]), y[1:3], atol=0.5)
+    gpr.remove_from_data([0], fit=True)
+    assert gpr.n_total == n_before - 3
+    gpr.set_random_state(123)
+    assert isinstance(gpr._rng, np.random.Generator)
+    with pytest.raises(ValueError, match="Invalid positions"):
+        gpr.remove_from_data([gpr.n_total])
+
+
+def test_remove_from_data_matches_jax():
+    """remove_from_data(fit=False) on a GPR carried from the reference's:
+    the same kept training set, factor, alpha and predictions as the
+    reference's own remove_from_data."""
+    j = jax_gpr()
+    t = carried_gpr(j)
+    j.remove_from_data([0, 5, 17], fit=False)
+    t.remove_from_data([0, 5, 17], fit=False)
+    np.testing.assert_array_equal(t.X_train_all, j.X_train_all)
+    np.testing.assert_array_equal(t.y_train_all, j.y_train_all)
+    np.testing.assert_array_equal(t.X_train, j.X_train)
+    np.testing.assert_array_equal(t.y_train, j.y_train)
+    assert t.n == j.n
+    n = t.n
+    np.testing.assert_allclose(t._dL.numpy()[:n, :n],
+                               np.asarray(j._dL)[:n, :n], rtol=1e-12,
+                               atol=1e-14)
+    np.testing.assert_allclose(t._dalpha.numpy()[:n],
+                               np.asarray(j._dalpha)[:n], rtol=1e-10,
+                               atol=1e-12)
+    Xq = queries()
+    mj, sj = j.predict(Xq, return_std=True)
+    mt, st = t.predict(Xq, return_std=True)
+    np.testing.assert_array_equal(np.isfinite(mt), np.isfinite(mj))
+    fin = np.isfinite(mj)
+    np.testing.assert_allclose(mt[fin], mj[fin], rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(st, sj, rtol=1e-10, atol=1e-12)
+
+
+def test_remove_from_data_equals_a_fresh_append():
+    """After ``remove_from_data(fit=False)`` the factor and alpha are a
+    fresh ``append_to_data`` of the kept points at the same theta."""
+    X, y = training(5, 24)
+    gpr = TGPR(bounds=BOUNDS, preprocessing_X=TNB(BOUNDS),
+               preprocessing_y=TNY(), n_restarts_optimizer=2,
+               random_state=7)
+    gpr.append_to_data(X, y, fit_gpr=False)
+    theta = np.copy(gpr._theta)
+    gpr.remove_from_data([1, 7, 19], fit=False)
+    keep = np.setdiff1d(np.arange(len(y)), [1, 7, 19])
+    fresh = TGPR(bounds=BOUNDS, preprocessing_X=TNB(BOUNDS),
+                 preprocessing_y=TNY(), n_restarts_optimizer=2,
+                 random_state=7)
+    fresh._theta = theta
+    fresh.append_to_data(X[keep], y[keep], fit_gpr=False)
+    assert gpr.n == fresh.n
+    np.testing.assert_allclose(gpr._dL.numpy(), fresh._dL.numpy(),
+                               rtol=1e-12, atol=1e-14)
+    np.testing.assert_allclose(gpr._dalpha.numpy(), fresh._dalpha.numpy(),
+                               rtol=1e-12, atol=1e-14)
+
+
+def test_deepcopy_predicts_the_same():
+    """A deep copy of a fitted GPR predicts what the GPR predicts."""
+    import copy
+    X, y = training(6, 20)
+    gpr = TGPR(bounds=BOUNDS, preprocessing_X=TNB(BOUNDS),
+               preprocessing_y=TNY(), n_restarts_optimizer=2,
+               random_state=7)
+    gpr.append_to_data(X, y, fit_gpr=False)
+    Xq = queries(8, 50)
+    np.testing.assert_array_equal(copy.deepcopy(gpr).predict(Xq),
+                                  gpr.predict(Xq))

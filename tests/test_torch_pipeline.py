@@ -90,7 +90,8 @@ def test_generate_mc_sample_and_progress():
 
 
 def test_import_does_not_load_jax():
-    code = ("import sys; import gpry_tpu_torch.run; "
+    code = ("import sys; import gpry_tpu_torch.run, gpry_tpu_torch.io, "
+            "gpry_tpu_torch.parallel.executor, gpry_tpu_torch.mc.interfaces; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('gpry_tpu.')] ; "
             "assert not bad, bad; print('ok')")
@@ -117,18 +118,43 @@ def test_default_device_without_cuda_raises():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"options": {"audit": False},
-     "gp_acquisition": {"NORA": {"sampler": "polychord"}}},
-    {"options": {"audit": False}, "checkpoint": "ckpt",
-     "load_checkpoint": "overwrite"},
-    {"options": {"audit": False}, "mc": "polychord"},
-    {"options": {"audit": False}, "truth_executor": "processes"},
+    {"options": {"audit": False}, "plots": True},
+    {"options": {"audit": False}, "truth_executor": "mpi"},
+    {"options": {"audit": False}, "mc": "cobaya"},
+    {"options": {"audit": False}, "truth_executor": {"mode": "mpi"}},
     {"options": {"audit": False}, "mc": "cobaya_mcmc"},
-    {"options": {"audit": False},
-     "gp_acquisition": {"BatchOptimizer": {"acq_optimizer": "sampling"}}},
+    {"options": {"audit": False}, "mc": {"cobaya_polychord": {}}},
 ])
 def test_features_outside_the_slice_are_refused(kwargs):
     m = random_gaussian(d=2, rng=12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md §A, '(Plots|MPI|Cobaya)"):
         torch_run.Runner(m.loglike, bounds=m.bounds, seed=1, verbose=0,
                          **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"gp_acquisition": {"NORA": {"sampler": "polychord"}}},
+    {"checkpoint": "ckpt", "load_checkpoint": "overwrite"},
+    {"mc": "polychord"},
+    {"truth_executor": "processes"},
+    {"gp_acquisition": {"BatchOptimizer": {"acq_optimizer": "sampling"}}},
+])
+def test_features_of_the_runner_slice_are_built(kwargs, tmp_path):
+    """The features that earlier slices refused build now."""
+    if "checkpoint" in kwargs:
+        kwargs = dict(kwargs, checkpoint=str(tmp_path / "ckpt"))
+    m = random_gaussian(d=2, rng=12)
+    runner = torch_run.Runner(m.loglike, bounds=m.bounds, seed=1,
+                              verbose=0, options={"audit": False}, **kwargs)
+    runner.executor.shutdown()
+
+
+def test_getdist_export_is_refused():
+    m = random_gaussian(d=2, rng=12)
+    runner = torch_run.Runner(m.loglike, bounds=m.bounds, seed=1,
+                              verbose=0)
+    runner.last_mc_result = {"X": np.zeros((2, 2)),
+                             "weights": np.ones(2), "logpost": np.zeros(2)}
+    with pytest.raises(NotImplementedError, match="getdist"):
+        runner.last_mc_samples(as_getdist=True)
