@@ -46,7 +46,7 @@ Drive gpry_tpu_torch once on one CUDA card.
    the sums of the evaluations their plain versions make (iterations and
    nev).  K10 is also timed against the route it replaces (K3,
    ``cholesky_ex`` and ``solve_triangular``).
-3. Drive ten paths (before the checks of 2, after one throwaway trace
+3. Drive twelve paths (before the checks of 2, after one throwaway trace
    that takes the profiler's start-up, each path under a
    ``torch.profiler`` trace of its own, CUDA activity: each kernel's device
    ms by path, the launches the traces hold, ``rank_s`` = device s -
@@ -56,11 +56,12 @@ Drive gpry_tpu_torch once on one CUDA card.
    not printed),
    each with the launch counts set to 0 just before it
    and read just after, and check that each launched its kernels (K9 once
-   per believer step on paths a, f, h and i; on the paths that fit, a, b,
-   c, e, f, h, i and j, K11 once per fit that polishes and K10 once per
-   LML screen and re-score, with no call of the torch L-BFGS or of cholesky_ex inside
-   them; each path's fits and fit seconds are printed, and its polishes
-   are replayed through K11's plain version, the two winners compared by
+   per believer step on paths a, f, h, i and k; on the paths that fit, a,
+   b, c, e, f, h, i, j and k, K11 once per fit that polishes and K10 once
+   per LML screen and re-score, with no call of the torch L-BFGS or of
+   cholesky_ex inside them; each path's fits and fit seconds are printed,
+   and its polishes (but path k's, which are path a's) are replayed
+   through K11's plain version, the two winners compared by
    each solver's own -LML and, for the fast families up to n = 128, by
    a 30-digit one), that
    K1's launches on paths a, b, c and e are below 1% of what the
@@ -118,7 +119,20 @@ Drive gpry_tpu_torch once on one CUDA card.
       nq = 1): every point finite and in bounds, each polished value at
       least its start's, the K2 launches the polish's calls plus a screen
       and a lie a believer step, no K9; the wall time, the calls and a
-      call's device and host microseconds printed.
+      call's device and host microseconds printed;
+   k. the MPI Runner: a's Runner with ``truth_executor="mpi"`` under an
+      in-process 4-rank comm (ranks 1-3 evaluate their slices inside the
+      gather), ``callback=diagnosis`` and a checkpoint: X, y, theta and
+      the truth evals equal a's bit for bit, ranks 1-3 evaluated points,
+      the last command ("stop",), every diagnosis consistent; then a rank-1
+      Runner on the checkpoint waits (no truth call), re-syncs to rank 0's
+      iteration and convergence, and predicts a's mean bit for bit;
+   l. the periphery on a's Runner: the surrogate as a Cobaya likelihood,
+      called at 1,000 points of a's final sample one point a call (one K2
+      launch each, a float back), within rel 1e-12 of a batched predict
+      and of the gated mean (K1), with a call's wall and device
+      microseconds; and, where matplotlib imports, the Runner's plots and
+      ``plot_model_2d`` on a d = 2 Runner (else that is logged).
 
 Prints the card's ``nvidia-smi`` name and power limit, a JSON line with the
 kernel results (spec-mode rows named "<kernel>/spec"), and as the last line
@@ -260,7 +274,10 @@ K11_MAXITER, K11_PERMS = 120, 8
 # for every screen and re-score (the spec-mode key on path f)
 FIT_PATHS = {"batchoptimizer": "", "nora_bench": "", "nora_runner": "",
              "himmelblau_audit": "", "spec_runner": "/spec", "bo_bench": "",
-             "resumed_runner": "", "polish": ""}
+             "resumed_runner": "", "polish": "", "mpi_runner": ""}
+# the fit paths whose polishes are not replayed: path k's fits are path
+# a's, bit for bit (its training sets equal a's)
+NO_REPLAY = ("mpi_runner",)
 # K6 at the NS steps of the main paths: nlive 400 (final NS) and 200
 # (NORA), num_repeats 40; its shrink candidates a pass
 # (csrc/ns_slice_chains.cu K6_WIDTH)
@@ -332,6 +349,14 @@ PATH_KERNELS = {
                        "lml_value_grad", "lbfgs_lml_fit", "ns_step"),
     "polish": ("gated_meanvar_logexp", "masked_kernel_matrix_batched",
                "lml_value_grad", "lbfgs_lml_fit"),
+    # path i's kernels (the diagnosis callback's predictions are K2's)
+    "mpi_runner": ("gated_mean", "gated_meanvar_logexp",
+                   "masked_kernel_matrix_batched", "meanvar_ungated",
+                   "ns_slice_chains", "lbfgs_logexp_ascent",
+                   "lml_value_grad", "lbfgs_lml_fit", "ns_step"),
+    # the Cobaya likelihood's one-point predictions (K2) and the device
+    # samplers' target density it is held against (K1)
+    "periphery": ("gated_mean", "gated_meanvar_logexp"),
 }
 # the thirteen kernels' symbols, by row of the kernels line
 SYMBOLS = {"gated_mean_kernel": "gated_mean",
@@ -358,7 +383,8 @@ SYMBOLS = {"gated_mean_kernel": "gated_mean",
 BELIEVER_PATHS = {"batchoptimizer": "lbfgs_logexp_ascent",
                   "spec_runner": "lbfgs_logexp_ascent/spec",
                   "bo_bench": "lbfgs_logexp_ascent",
-                  "resumed_runner": "lbfgs_logexp_ascent"}
+                  "resumed_runner": "lbfgs_logexp_ascent",
+                  "mpi_runner": "lbfgs_logexp_ascent"}
 # path i against path a: the training sets within rel TOL_RESUME_X, theta
 # within TOL_RESUME_THETA
 TOL_RESUME_X, TOL_RESUME_THETA = 1e-12, 1e-10
@@ -2735,7 +2761,8 @@ def check_grad(label, gpr, seed):
     return summary
 
 
-#: path a's run, for path i: its training sets, theta and truth evals
+#: path a's run, for paths i, k and l: its training sets, theta and truth
+#: evals, its Runner and its final sample
 REFERENCE_RUN = {}
 
 
@@ -2744,7 +2771,8 @@ def run_default_with_cov():
     runner, sample, summary = run_runner("SLICE")
     REFERENCE_RUN.update(
         X=runner.gpr.X_train_all.copy(), y=runner.gpr.y_train_all.copy(),
-        theta=runner.gpr.kernel_theta.copy(), n_total=runner.gpr.n_total)
+        theta=runner.gpr.kernel_theta.copy(), n_total=runner.gpr.n_total,
+        runner=runner, sample=sample)
     summary["cov"] = check_cov("SLICE", runner.gpr, seed=21)
     summary["grad"] = check_grad("SLICE", runner.gpr, seed=21)
     return summary
@@ -3138,6 +3166,315 @@ def run_polish():
             f"polish: {k2} K2 launches for {calls} polish calls and "
             f"{len(steps)} believer steps (a screen and a lie each)")
     return summary
+
+
+class FakeComm4:
+    """Rank 0's side of an in-process 4-rank MPI world (path k): rank 0 is
+    this process; ranks 1-3 evaluate their slices of each broadcast batch
+    inside ``gather``, through ``TruthExecutor._eval_slice`` on ``truth``.
+    Counts the points each rank evaluated."""
+
+    def __init__(self, truth=None):
+        self.truth = truth
+        self.cmds = []
+        self.points = [0, 0, 0, 0]
+
+    def bcast(self, value, root=0):
+        self.cmds.append(value)
+        return value
+
+    def gather(self, value, root=0):
+        import numpy as np
+        from gpry_tpu_torch.parallel import TruthExecutor
+        X = np.atleast_2d(self.cmds[-1][1])
+        out = [value]
+        self.points[0] += len(value)
+        for rank in (1, 2, 3):
+            ex = TruthExecutor(self.truth, mode="serial")
+            out.append(ex._eval_slice(X, rank, 4))
+            self.points[rank] += len(out[-1])
+        return out
+
+
+def set_ranks(comm, rank, size=4, barriers=None):
+    """Set gpry_tpu_torch.mpi's globals to rank ``rank`` of ``size`` over
+    ``comm``, the barrier appending to ``barriers``; returns the old
+    values, for ``set_ranks_back``."""
+    from gpry_tpu_torch import mpi
+    names = ("multiple_processes", "is_main_process", "RANK", "SIZE",
+             "mpi_comm", "sync_processes")
+    old = {k: getattr(mpi, k) for k in names}
+    new = (size > 1, rank == 0, rank, size, comm,
+           lambda: barriers.append(rank))
+    for k, v in zip(names, new):
+        setattr(mpi, k, v)
+    return old
+
+
+def set_ranks_back(old):
+    from gpry_tpu_torch import mpi
+    for k, v in old.items():
+        setattr(mpi, k, v)
+
+
+def run_mpi_runner():
+    """Path k: path a's Runner with ``truth_executor="mpi"`` under an
+    in-process 4-rank comm (FakeComm4: ranks 1-3 evaluate their slices
+    inside the gather), ``callback=diagnosis`` and a checkpoint in a
+    temporary directory.  Its training set, y and theta must equal path
+    a's bit for bit, with the same truth evals: where a slice is evaluated
+    changes no value, and the order is restored.  Ranks 1-3 evaluated
+    some points, rank 0 not all; the last command is ("stop",); every
+    iteration's diagnosis has consistent sizes.  Then, as rank 1 (its
+    barrier stubbed), a second Runner on the checkpoint with the serial
+    executor waits instead of serving, makes no truth call, re-syncs to
+    rank 0's iteration and convergence, and its GPR predicts path a's
+    mean at NQ_COV points bit for bit."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from model_generator import random_gaussian
+    from gpry_tpu_torch.diag import diagnosis
+    from gpry_tpu_torch.run import Runner
+    ref = REFERENCE_RUN
+    if not ref:
+        raise AssertionError("mpi_runner: path a has not run")
+    model = random_gaussian(d=D, rng=10 + D)
+    root = tempfile.mkdtemp(prefix="gpry_mpi_")
+    ckpt = os.path.join(root, "ckpt")
+    reports, barriers, calls = [], [], {"rank1": 0}
+    comm = FakeComm4()
+
+    def rank1_loglike(x):
+        calls["rank1"] += 1
+        return model.loglike(x)
+
+    old = set_ranks(comm, 0, barriers=barriers)
+    try:
+        t0 = time.perf_counter()
+        runner = Runner(model.loglike, bounds=model.bounds, seed=1,
+                        verbose=2, truth_executor="mpi",
+                        callback=lambda r: reports.append(diagnosis(r)),
+                        checkpoint=ckpt, load_checkpoint="overwrite")
+        comm.truth = runner.truth
+        runner.run()
+        t_run = time.perf_counter() - t0
+        set_ranks(comm, 1, barriers=barriers)
+        t0 = time.perf_counter()
+        rank1 = Runner(rank1_loglike, bounds=model.bounds, verbose=2,
+                       checkpoint=ckpt, load_checkpoint="resume")
+        rank1.current_iteration, rank1.has_converged = 0, False
+        rank1.run()
+        t_rank1 = time.perf_counter() - t0
+    finally:
+        set_ranks_back(old)
+        shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(21)
+    b = model.bounds
+    Xq = rng.uniform(b[:, 0], b[:, 1], (NQ_COV, D))
+    mean_a = ref["runner"].gpr.predict(Xq)
+    mean_1 = rank1.gpr.predict(Xq)
+    gpr = runner.gpr
+    same = gpr.X_train_all.shape == ref["X"].shape and \
+        np.array_equal(gpr.X_train_all, ref["X"]) and \
+        np.array_equal(gpr.y_train_all, ref["y"]) and \
+        np.array_equal(gpr.kernel_theta, ref["theta"])
+    summary = {
+        "run_s": t_run, "rank1_s": t_rank1, "n_total": int(gpr.n_total),
+        "n_total_path_a": int(ref["n_total"]),
+        "iterations": int(runner.current_iteration),
+        "converged": bool(runner.has_converged),
+        "equal_to_path_a": bool(same),
+        "points_by_rank": list(comm.points),
+        "broadcasts": len(comm.cmds), "last_command": list(comm.cmds[-1]),
+        "diagnoses": len(reports),
+        "max_residual_last_batch": max(
+            (r.get("max_residual_last_batch", 0.0) for r in reports),
+            default=None),
+        "rank1_truth_calls": calls["rank1"], "barriers": barriers,
+        "rank1_iteration": int(rank1.current_iteration),
+        "rank1_converged": bool(rank1.has_converged),
+        "rank1_mean_equal": bool(np.array_equal(mean_1, mean_a,
+                                                equal_nan=True))}
+    log("[MPI] " + json.dumps(summary))
+    if not same or gpr.n_total != ref["n_total"]:
+        raise AssertionError(f"mpi_runner: differs from path a "
+                             f"({gpr.n_total} truth evals, path a "
+                             f"{ref['n_total']})")
+    if not (sum(comm.points[1:]) > 0 and comm.points[0] < gpr.n_total):
+        raise AssertionError(f"mpi_runner: points by rank {comm.points}")
+    if comm.cmds[-1] != ("stop",) or barriers[:1] != [0]:
+        raise AssertionError(f"mpi_runner: the workers were not released "
+                             f"(last command {comm.cmds[-1]}, barriers "
+                             f"{barriers})")
+    if len(reports) != runner.current_iteration or \
+            not all(r["sizes_consistent"] for r in reports):
+        raise AssertionError(f"mpi_runner: diagnoses {reports}")
+    if calls["rank1"] or barriers != [0, 1] or \
+            rank1.current_iteration != runner.current_iteration or \
+            rank1.has_converged != runner.has_converged:
+        raise AssertionError(f"mpi_runner: rank 1 did not wait and re-sync: "
+                             f"{summary}")
+    if not summary["rank1_mean_equal"]:
+        raise AssertionError("mpi_runner: rank 1's GPR does not predict "
+                             "path a's mean bit for bit")
+    return summary
+
+
+#: path l's Cobaya likelihood calls, one point each
+N_COBAYA_CALLS = 1000
+#: path l: each call within this of the batched predictions (relative)
+TOL_COBAYA = 1e-12
+
+
+def run_periphery():
+    """Path l, on path a's fitted Runner: the surrogate as a Cobaya
+    likelihood (``cobaya_generate_gp_model_input``), called once per point
+    at N_COBAYA_CALLS points of path a's final sample, as Cobaya calls it.
+    Each call is one ``gpr.predict`` of one point (one K2 launch, one host
+    read) and returns a float; each value is held within TOL_COBAYA
+    (relative) against one batched ``gpr.predict`` plus the log prior
+    volume, and against the device samplers' target density (the gated
+    mean, K1) at the same points within the rounding bound of their sum,
+    n eps y_scale sum_i |k_i alpha_i| (K1 and K2 sum k . alpha in other
+    orders, and a fitted GP's alpha cancels: gated_mean_bound).  Then, where matplotlib imports, the
+    Runner's plots (``plot_mc``, ``plot_distance_distribution``,
+    ``plot_progress(trace=True, slices=True)``) and, on a d = 2 Runner of
+    a few iterations, ``plot_model_2d`` of the mean, std and acquisition
+    into a temporary directory, each file not empty; where it does not,
+    that is logged and nothing is rendered."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from gpry_tpu_torch.mc.cobaya_mc import cobaya_generate_gp_model_input
+    from gpry_tpu_torch.mc.samples import surrogate_logp_fn
+    from gpry_tpu_torch.ops import fused
+    ref = REFERENCE_RUN
+    if not ref:
+        raise AssertionError("periphery: path a has not run")
+    runner, sample = ref["runner"], ref["sample"]
+    gpr = runner.gpr
+    params = runner.truth.params
+    info = cobaya_generate_gp_model_input(gpr, params=params)
+    lkl = info["likelihood"]["gp"]["external"]
+    X = np.ascontiguousarray(sample["X"][:N_COBAYA_CALLS])
+    kwargs = [dict(zip(params, map(float, x))) for x in X]
+    vol = float(np.sum(np.log(gpr.bounds[:, 1] - gpr.bounds[:, 0])))
+    k2_0 = fused.LAUNCHES["gated_meanvar_logexp"]
+    t0 = time.perf_counter()
+    got = [lkl(**kw) for kw in kwargs]
+    t_calls = time.perf_counter() - t0
+    k2 = fused.LAUNCHES["gated_meanvar_logexp"] - k2_0
+    floats = all(type(v) is float for v in got)
+    got = np.array(got)
+    want = gpr.predict(X) + vol
+    p = gpr.surrogate_params()
+    dens = surrogate_logp_fn(gpr.family)(
+        p, torch.as_tensor(X, dtype=p.X.dtype, device=p.X.device)
+    ).cpu().numpy() + vol
+
+    def rel(a, b):
+        fin = np.isfinite(b)
+        if not np.array_equal(np.isfinite(a), fin) or \
+                not np.array_equal(a[~fin], b[~fin]):
+            return math.inf
+        return float(np.max(np.abs(a[fin] - b[fin]) / np.abs(b[fin]))) \
+            if fin.any() else 0.0
+
+    summary = {"calls": len(got), "calls_s": t_calls,
+               "call_us": 1e6 * t_calls / len(got), "k2_launches": k2,
+               "finite": int(np.isfinite(got).sum()), "floats": floats,
+               "rel_err_batched_predict": rel(got, want),
+               "rel_err_gated_mean": rel(got, dens), "plots": None}
+    fin = np.isfinite(dens)
+    bound = gated_mean_bound(gpr, p, X)
+    err = np.abs(got - dens)
+    summary["max_abs_err_gated_mean"] = float(np.max(err[fin], initial=0.0))
+    summary["max_err_over_bound_gated_mean"] = float(
+        np.max(err[fin] / bound[fin], initial=0.0)) \
+        if np.array_equal(np.isfinite(got), fin) else math.inf
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as excpt:
+        log(f"[PERIPHERY] matplotlib does not import here ({excpt}): no "
+            "plot rendered")
+    else:
+        root = tempfile.mkdtemp(prefix="gpry_plots_")
+        try:
+            summary["plots"] = render_plots(runner, root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    log("[PERIPHERY] " + json.dumps(summary))
+    if not floats or k2 != len(got):
+        raise AssertionError(f"periphery: {k2} K2 launches for {len(got)} "
+                             f"likelihood calls (floats: {floats})")
+    if not (summary["rel_err_batched_predict"] <= TOL_COBAYA
+            and summary["max_err_over_bound_gated_mean"] <= 1.0):
+        raise AssertionError(f"periphery: the Cobaya likelihood differs: "
+                             f"{summary}")
+    if summary["finite"] < len(got) // 2:
+        raise AssertionError("periphery: most likelihood values are -inf")
+    return summary
+
+
+def gated_mean_bound(gpr, p, X):
+    """The rounding bound of the surrogate mean's sum at each row of X,
+    n eps |y_scale| sum_i |k(x, x_i) alpha_i| (n the valid rows), within
+    which two kernels that sum k . alpha in other orders agree."""
+    import numpy as np
+    import torch
+    from gpry_tpu_torch.ops import fused
+    Xt = torch.as_tensor(X, dtype=p.X.dtype, device=p.X.device)
+    Xq_ = (Xt - p.x_loc) / p.x_scale
+    terms = (fused._cross_masked(gpr.family, p, Xq_) * p.alpha).abs().sum(1)
+    eps = float(np.finfo(np.float64).eps)
+    return (p.n * eps * abs(float(p.y_scale)) * terms).cpu().numpy()
+
+
+def render_plots(runner, root):
+    """Path l's plots (matplotlib imports): path a's Runner's, and
+    ``plot_model_2d`` on a d = 2 Runner of a few iterations; returns each
+    file's bytes, and raises if one is empty."""
+    import numpy as np
+    import torch
+    from model_generator import random_gaussian
+    from gpry_tpu_torch import plots as gplots
+    from gpry_tpu_torch.run import Runner
+    files = {"mc": os.path.join(root, "mc.png"),
+             "distance": os.path.join(root, "distance.png")}
+    runner.plot_mc(output=files["mc"])
+    runner.plot_distance_distribution(output=files["distance"])
+    keep, runner.checkpoint = runner.checkpoint, root
+    try:
+        runner.plot_progress(trace=True, slices=True)
+    finally:
+        runner.checkpoint = keep
+    for name in ("timing", "convergence", "trace", "slices"):
+        files[name] = os.path.join(root, "images", name + ".png")
+    m2 = random_gaussian(d=2, rng=12)
+    small = Runner(m2.loglike, bounds=m2.bounds, seed=1, verbose=1,
+                   options={"max_total": 14, "n_points_per_acq": 2},
+                   convergence_criterion="DontConverge", mc="uniform")
+    small.run()
+    acq = small.acquisition.acq_func
+    noise = float(np.mean(small.gpr.noise_level))
+
+    def acq_fn(mu, sd):
+        return acq.values(torch.as_tensor(mu), torch.as_tensor(sd),
+                          small.gpr.y_max, noise).numpy()
+
+    for what, kw in (("mean", {}), ("std", {}),
+                     ("acq", {"acq_func": acq_fn})):
+        files["model_2d_" + what] = os.path.join(root, f"model_{what}.png")
+        gplots.plot_model_2d(small.gpr, what=what,
+                             save=files["model_2d_" + what], **kw)
+    sizes = {k: os.path.getsize(f) if os.path.exists(f) else 0
+             for k, f in files.items()}
+    empty = [k for k, v in sizes.items() if not v]
+    if empty:
+        raise AssertionError(f"periphery: empty or missing plots {empty}")
+    return sizes
 
 
 def run_mcmc(runner, ns_sample):
@@ -3584,7 +3921,7 @@ def drive(name, fn, *args, **kwargs):
             f"{name}: {launches[k9]} K9 launches for "
             f"{ns['believer_steps']} believer steps")
     check_fits(name, launches, ns["fits"])
-    if name in FIT_PATHS:
+    if name in FIT_PATHS and name not in NO_REPLAY:
         ns["fits"]["replay"] = replay_fits(name)
     POLISHES.clear()
     before = LOCKSTEP_K1_LAUNCHES.get(name)
@@ -3637,7 +3974,7 @@ def warm_profiler():
 
 
 def drive_paths():
-    """The ten paths in order; returns their summaries and launches."""
+    """The twelve paths in order; returns their summaries and launches."""
     warm_profiler()
     t0 = time.perf_counter()
     time_ns_runs()
@@ -3671,13 +4008,18 @@ def drive_paths():
         "polish", run_polish)
     polish_per_call(paths["polish"], launches["polish"],
                     ns["polish"]["device"])
+    paths["mpi_runner"], launches["mpi_runner"], ns["mpi_runner"] = drive(
+        "mpi_runner", run_mpi_runner)
+    paths["periphery"], launches["periphery"], ns["periphery"] = drive(
+        "periphery", run_periphery)
+    cobaya_per_call(paths["periphery"], ns["periphery"]["device"])
     for name, stats in ns.items():
         paths[name]["device"] = stats.pop("device")
         paths[name]["believer_steps"] = stats.pop("believer_steps")
         paths[name]["gp_fits"] = stats.pop("fits")
         paths[name]["mcmc_runs"] = stats.pop("mcmc_runs")
         paths[name]["nested_sampling"] = stats
-    log(f"[PATHS] all ten paths in {time.perf_counter() - t0:.1f} s")
+    log(f"[PATHS] all twelve paths in {time.perf_counter() - t0:.1f} s")
     return paths, launches
 
 
@@ -3711,6 +4053,25 @@ def polish_per_call(summary, launches, trace):
         "host_us": None if device_us is None else wall_us - device_us,
         "k2_launches_traced": k2_traced}
     log("[POLISH] a call: " + json.dumps(summary["per_call"]))
+
+
+def cobaya_per_call(summary, trace):
+    """Path l's cost of one Cobaya likelihood call: its wall time, and K2's
+    device time a launch in the path's trace (the mean over all its K2
+    launches there: the calls', the one batched predict's and the plots'
+    where they rendered) and its share of the wall."""
+    k2_ms = None if trace["kernel_ms"] is None else \
+        trace["kernel_ms"].get("gated_meanvar_logexp")
+    k2_traced = sum(trace["kernel_launches"].get(
+        "gated_meanvar_logexp", {}).values())
+    device_us = None if not (k2_ms and k2_traced) else \
+        1e3 * k2_ms / k2_traced
+    summary["per_call"] = {
+        "wall_us": summary["call_us"], "k2_device_us": device_us,
+        "device_share": None if device_us is None
+        else device_us / summary["call_us"],
+        "k2_launches_traced": k2_traced}
+    log("[PERIPHERY] a call: " + json.dumps(summary["per_call"]))
 
 
 def rank_of(name, row, paths):

@@ -13,6 +13,21 @@ __version__ = "0.1.0"
 from gpry_tpu_torch import config  # noqa: F401
 
 
+def check_cobaya_installed():
+    """Whether Cobaya can be imported (reference: gpry/__init__.py)."""
+    try:
+        import cobaya  # noqa: F401
+    except ModuleNotFoundError:
+        return False
+    return True
+
+
+def get_cobaya_class():
+    """The Cobaya sampler wrapper class (reference: gpry/__init__.py)."""
+    from gpry_tpu_torch.cobaya import CobayaWrapper
+    return CobayaWrapper
+
+
 def __getattr__(name):
     # Lazy top-level exports (keep `import gpry_tpu_torch` light).
     if name == "Runner":
@@ -24,4 +39,10 @@ def __getattr__(name):
     if name == "Truth":
         from gpry_tpu_torch.truth import Truth
         return Truth
+    if name == "CobayaWrapper":
+        from gpry_tpu_torch.cobaya import CobayaWrapper
+        return CobayaWrapper
+    if name == "run_resilient":
+        from gpry_tpu_torch.run import run_resilient
+        return run_resilient
     raise AttributeError(f"module 'gpry_tpu_torch' has no attribute '{name}'")

@@ -306,6 +306,15 @@ class NORA(GenericGPAcquisition):
         w = np.exp(self.last_MC_logw - np.max(self.last_MC_logw))
         return self.last_MC_X, self.last_MC_logp, w
 
+    def last_MC_sample_getdist(self, params=None):
+        """The last NS sample as getdist ``MCSamples`` (gpry_tpu's
+        ``NORA.last_MC_sample_getdist``); ``ImportError`` where getdist is
+        missing."""
+        from gpry_tpu_torch.mc.samples import samples_dict_to_getdist
+        X, logp, w = self.last_MC_sample()
+        return samples_dict_to_getdist(
+            {"X": X, "logpost": logp, "weights": w}, params=params)
+
     def __getstate__(self):
         state = self.__dict__.copy()
         state["rng"] = None

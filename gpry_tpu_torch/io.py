@@ -22,7 +22,9 @@ A truth whose callable the standard pickle cannot carry (a lambda, a
 closure) is stored without it: ``tru.pkl`` then holds the rest of the
 re-init dict and the flag ``loglike_pickled = False``, the other five files
 are written as usual, and a resume needs the callable again
-(``Runner(loglike=...)``, or ``read_checkpoint(path, loglike=...)``).
+(``Runner(loglike=...)``, or ``read_checkpoint(path, loglike=...)``).  So
+does a Cobaya model whose info holds such a callable (``model_pickled =
+False``): a resume needs the model again.
 """
 
 import os
@@ -115,16 +117,19 @@ def _truth_dict(truth):
     if not hasattr(truth, "as_dict"):
         return truth
     out = dict(truth.as_dict())
-    if "loglike" not in out:
+    # the callable: a Truth's loglike, or a TruthCobaya's model info (which
+    # holds its likelihoods' callables)
+    key = "loglike" if "loglike" in out else "model"
+    if key not in out:
         return out
     try:
-        pickle.dumps(out["loglike"])
+        pickle.dumps(out[key])
     except (pickle.PicklingError, AttributeError, TypeError) as excpt:
-        out["loglike"] = None
-        out["loglike_pickled"] = False
-        out["loglike_error"] = f"{type(excpt).__name__}: {excpt}"
+        out[key] = None
+        out[f"{key}_pickled"] = False
+        out[f"{key}_error"] = f"{type(excpt).__name__}: {excpt}"
     else:
-        out["loglike_pickled"] = True
+        out[f"{key}_pickled"] = True
     return out
 
 
@@ -176,6 +181,19 @@ def _truth_of(truth_dict, path, loglike=None):
     the checkpoint could not hold)."""
     if not isinstance(truth_dict, dict):
         return truth_dict
+    if truth_dict.get("model_pickled") is False:
+        # a Cobaya model whose info pickle could not carry: the caller
+        # passes the model again
+        from gpry_tpu_torch.truth import TruthCobaya
+        if loglike is None or not hasattr(loglike, "logposterior"):
+            raise ValueError(
+                f"The checkpoint at {path} holds no Cobaya model: its info "
+                "could not be pickled when it was written "
+                f"({truth_dict.get('model_error')}). Pass the model again to "
+                "resume: Runner(model, checkpoint=..., "
+                "load_checkpoint='resume') or read_checkpoint(path, "
+                "loglike=model).")
+        return TruthCobaya(loglike)
     if truth_dict.get("model") is not None:
         # TruthCobaya: rebuild the Cobaya Model from its info dict
         from cobaya.model import get_model

@@ -8,8 +8,11 @@ surrogate through the K1 kernel, the NS chains through K6 (with K13's
 bookkeeping) and the MCMC's phases through K12.  ``"uniform"`` draws are
 for tests.  ``"polychord"``, ``"ultranest"`` and ``"nessai"`` run that host
 nested sampler (``mc.interfaces``) over the surrogate, each batch of its
-likelihood requests one K1 sweep.  The Cobaya samplers of the JAX package
-are not ported yet.
+likelihood requests one K1 sweep.  ``"cobaya"`` / ``"cobaya_mcmc"`` and
+``"cobaya_polychord"`` run a Cobaya sampler over the surrogate
+(``mc.cobaya_mc``), one K2 launch (``gpr.predict`` of one point) a
+likelihood call.  A samples dict converts to getdist's ``MCSamples``
+(:func:`samples_dict_to_getdist`).
 """
 
 import os
@@ -69,8 +72,11 @@ def mc_sample_from_gp(gpr, bounds=None, sampler="nested", rng=None,
     Draw MC samples from the surrogate posterior.  ``sampler``: "nested"
     (device NS, ``nlive=50d``, then IS refinement), "mcmc" (device
     ensemble of adaptive MH chains, then IS refinement), "uniform"
-    (tests), or a host nested sampler, "polychord", "ultranest" or "nessai"
-    (``ImportError`` where its package is missing).  ``options["heartbeat"]``
+    (tests), a host nested sampler, "polychord", "ultranest" or "nessai",
+    or a Cobaya sampler over the surrogate, "cobaya" (its mcmc),
+    "cobaya_mcmc" or "cobaya_polychord" (``options["params"]`` names the
+    parameters, ``options["covmat"]`` is the mcmc's proposal covariance;
+    ``ImportError`` where the package is missing).  ``options["heartbeat"]``
     is called at each read of the device NS's stop flag.
 
     Returns a samples dict: {"X", "logpost", "weights", "logZ" (NS only),
@@ -79,10 +85,14 @@ def mc_sample_from_gp(gpr, bounds=None, sampler="nested", rng=None,
     """
     options = dict(options or {})
     heartbeat = options.pop("heartbeat", None)
-    if str(sampler).startswith("cobaya"):
-        raise NotImplementedError(
-            f"sampler={sampler!r} is not ported to gpry_tpu_torch yet "
-            "(ROADMAP.md §A, 'Cobaya interop').")
+    if sampler in ("cobaya", "cobaya_mcmc", "cobaya_polychord"):
+        # the surrogate as a Cobaya likelihood (gpry_tpu/mc/samples.py:56-63)
+        from gpry_tpu_torch.mc.cobaya_mc import mc_sample_from_gp_cobaya
+        flavor = "polychord" if sampler.endswith("polychord") else "mcmc"
+        return mc_sample_from_gp_cobaya(
+            gpr, bounds=bounds, params=options.pop("params", None),
+            sampler=flavor, covmat=options.pop("covmat", None),
+            add_options=options, rng=rng, verbose=verbose)
     if sampler not in ("nested", "mcmc", "uniform", "polychord",
                        "ultranest", "nessai"):
         raise ValueError(f"Unknown sampler {sampler!r}.")
@@ -223,6 +233,32 @@ def _mc_sample_mcmc(gpr, p, logp, gen, lo, hi, bounds, rng, options,
             verbose=verbose)
         out["time_refine"] = time.perf_counter() - t0
     return out
+
+
+def process_gdsamples(samples_dict, params=None, name=None):
+    """Alias of :func:`samples_dict_to_getdist` (reference: gpry/mc.py:459)."""
+    return samples_dict_to_getdist(samples_dict, params=params, name=name)
+
+
+def samples_dict_to_getdist(samples_dict, params=None, name=None):
+    """
+    A samples dict as a ``getdist.MCSamples`` (reference: gpry/mc.py:484);
+    ``ImportError`` where getdist is missing.
+    """
+    try:
+        from getdist import MCSamples
+    except ImportError as excpt:
+        raise ImportError(
+            "getdist is not installed; install it for MCSamples export."
+        ) from excpt
+    X = np.asarray(samples_dict["X"])
+    return MCSamples(
+        samples=X,
+        weights=np.asarray(samples_dict.get("weights")),
+        loglikes=-np.asarray(samples_dict.get("logpost")),
+        names=params or generic_params_names(X.shape[1]),
+        name_tag=name,
+    )
 
 
 def write_samples_txt(samples_dict, path, params=None):

@@ -55,6 +55,15 @@ def _load():
         return lib
 
 
+def available():
+    """Whether the SMO trainer builds and loads."""
+    try:
+        _load()
+        return True
+    except NativeBuildError:
+        return False
+
+
 def train_rbf_svc(X, y_bool, C=1e7, gamma=None, tol=1e-3, max_iter=0):
     """
     Train a binary RBF C-SVC; returns (support_vectors, signed dual coefs,

@@ -8,3 +8,9 @@ from gpry_tpu_torch.ops.kernels import (  # noqa: F401
     spec_diag,
     theta_bounds_dynamic,
 )
+from gpry_tpu_torch.ops.linalg import (  # noqa: F401
+    masked_cholesky,
+    masked_lml,
+    chol_append,
+    solve_lower,
+)

@@ -172,3 +172,17 @@ def minimize_lbfgs_bounded(fun, x0, lo, hi, maxiter=100, tol=1e-8, **kw):
     u, *rest = minimize_lbfgs(lambda u: fun(to_constrained(u, lo, hi)),
                               u0, maxiter=maxiter, tol=tol, **kw)
     return (to_constrained(u, lo, hi), *rest)
+
+
+def multistart_minimize(fun, x0s, lo, hi, maxiter=100, tol=1e-8,
+                        count_evals=False):
+    """
+    Multi-start bounded minimization (gpry_tpu/ops/lbfgs.py:180): the
+    starts ``x0s`` (R, d) are the lanes of one batched solve of the lane
+    objectives ``fun`` (R, d) -> (R,).  Returns ``(xs (R, d), fs (R,))``,
+    the caller picks the best; with ``count_evals=True`` also each lane's
+    objective evaluations (R,).
+    """
+    xs, fs, nev = minimize_lbfgs_bounded(fun, x0s, lo, hi, maxiter=maxiter,
+                                         tol=tol)
+    return (xs, fs, nev) if count_evals else (xs, fs)

@@ -42,6 +42,20 @@ def _solve_alpha(L, y):
     return torch.linalg.solve_triangular(L.T, z, upper=True)[:, 0]
 
 
+def masked_cholesky(K):
+    """Cholesky factor of a padded kernel matrix (its identity padding
+    stays identity), gpry_tpu/ops/linalg.py:59."""
+    return torch.linalg.cholesky(K)
+
+
+def solve_lower(L, B):
+    """The triangular solve L z = B, L lower, B a vector or a matrix
+    (gpry_tpu/ops/linalg.py:64)."""
+    if B.ndim == 1:
+        return torch.linalg.solve_triangular(L, B[:, None], upper=False)[:, 0]
+    return torch.linalg.solve_triangular(L, B, upper=False)
+
+
 def factorize(family, theta, X, y, n, noise_var):
     """Full (re-)factorization: ``(L, alpha)``, ``alpha = K^-1 y``; ``L``
     is row-major (the layout K2 reads)."""

@@ -22,9 +22,13 @@ is "nested" (default), "mcmc", "uniform" or a host nested sampler
 ``checkpoint=`` saves its state after every iteration (``io``) and resumes
 from it (``load_checkpoint="resume"``); :func:`run_resilient` retries a run
 through CUDA out-of-memory errors from its checkpoint.  The truth runs
-serially or in a thread or process pool (``truth_executor``).  Features of
-later slices raise ``NotImplementedError`` naming their ROADMAP.md item:
-plots and getdist export, Cobaya interop and MPI.
+serially, in a thread or process pool or over MPI ranks
+(``truth_executor``); under a multi-rank MPI launch the loop stays on rank
+0 (``_run_mpi_guarded``).  A Cobaya Model can be the truth, and the final
+sample can come from a Cobaya sampler over the surrogate
+(``mc="cobaya_mcmc"``); ``plots=True`` writes progress plots into the
+checkpoint after every iteration, and ``last_mc_samples(as_getdist=True)``
+exports the sample to getdist.
 
 Defaults follow gpry/run.py:531-537: n_initial=3d, max_initial=30d^1.5,
 max_total=70d^1.5, n_points_per_acq=d, fit_full_every=2*sqrt(d) (full
@@ -40,6 +44,7 @@ import torch
 
 from gpry_tpu_torch import config
 from gpry_tpu_torch import io as gio
+from gpry_tpu_torch import mpi
 from gpry_tpu_torch.acquisition import proposal as proposal_module
 from gpry_tpu_torch.acquisition.base import GenericGPAcquisition
 from gpry_tpu_torch.acquisition.batch_optimizer import BatchOptimizer
@@ -69,20 +74,10 @@ _VERBOSITY_ERROR, _VERBOSITY_WARN, _VERBOSITY_INFO = 1, 2, 3
 _VERBOSITY_DEBUG = 4
 
 
-#: the ROADMAP.md items of the features the port does not have yet
-_PLOTS = "Plots, diagnosis and getdist export"
-_COBAYA = "Cobaya interop"
-
-#: the final samplers of mc_sample_from_gp: the device ones and the host
-#: nested samplers of mc.interfaces
+#: the final samplers of mc_sample_from_gp: the device ones, the host
+#: nested samplers of mc.interfaces and the Cobaya samplers of mc.cobaya_mc
 _MC_SAMPLERS = ("nested", "mcmc", "uniform", "polychord", "ultranest",
-                "nessai")
-
-
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to gpry_tpu_torch yet (ROADMAP.md §A, "
-        f"'{item}').")
+                "nessai", "cobaya", "cobaya_mcmc", "cobaya_polychord")
 
 
 class Runner:
@@ -97,8 +92,7 @@ class Runner:
                  callback=None, callback_is_MPI_aware=False, options=None,
                  checkpoint=None, load_checkpoint=None, seed=None, mc=None,
                  plots=False, verbose=3, truth_executor="serial"):
-        if plots:
-            raise _not_ported("plots=True", _PLOTS)
+        self.plots = plots
         self.verbose = verbose
         self.rng = get_random_generator(seed)
         self.callback = callback
@@ -150,9 +144,12 @@ class Runner:
                     raise RuntimeError(
                         f"Incomplete checkpoint at {checkpoint}: found "
                         f"{found}. Delete it or use 'overwrite'.")
-            else:
+            elif mpi.is_main_process:
                 # saves skip tru.pkl when present: a truth left by an
-                # earlier run must go now
+                # earlier run must go now.  On the main process only:
+                # under mpirun every rank builds a Runner, and a rank that
+                # reached this line after rank 0's first saves would delete
+                # the state of the loop that rank 0 drives
                 gio.clear_checkpoint(checkpoint)
         if resuming:
             self.log("Resuming from checkpoint...", _VERBOSITY_INFO)
@@ -256,6 +253,12 @@ class Runner:
     @property
     def d(self):
         return self.truth.d
+
+    @property
+    def model(self):
+        """The Cobaya Model, where the truth wraps one
+        (gpry_tpu/run.py:238-241)."""
+        return getattr(self.truth, "model", None)
 
     @property
     def prior_bounds(self):
@@ -501,8 +504,6 @@ class Runner:
                        "options": dict(mc.get("options") or {})}
         else:
             raise ValueError(f"Cannot parse mc spec {mc!r}.")
-        if str(out["sampler"]).startswith("cobaya"):
-            raise _not_ported(f"mc sampler {out['sampler']!r}", _COBAYA)
         if out["sampler"] not in _MC_SAMPLERS:
             raise ValueError(f"Unknown mc sampler {out['sampler']!r}; "
                              f"available: {list(_MC_SAMPLERS)}.")
@@ -511,8 +512,57 @@ class Runner:
     # ---------------------------------------------------------------- the loop
 
     def run(self):
-        """The active-learning loop (reference: gpry/run.py:776-1061)."""
-        self._run_main_loop()
+        """
+        The active-learning loop (reference: gpry/run.py:776-1061).
+
+        Under a multi-rank MPI launch the design is single-controller:
+        rank 0 runs the loop, and the other ranks serve its truth batches
+        (``truth_executor="mpi"``) or wait at a barrier, then re-sync from
+        the checkpoint, instead of each rank running the loop and racing
+        on the checkpoint's files.
+        """
+        return self._run_mpi_guarded()
+
+    def _run_mpi_guarded(self):
+        """:meth:`run` under MPI (gpry_tpu/run.py:527-575)."""
+        if mpi.multiple_processes and not mpi.is_main_process:
+            if self.executor.mode == "mpi":
+                self.log(f"Multi-rank MPI launch: rank {mpi.RANK} serving "
+                         "truth evaluations (the loop runs on rank 0).",
+                         _VERBOSITY_WARN)
+                self.executor.serve()
+            else:
+                self.log("Multi-rank MPI launch: rank 0 runs the loop; "
+                         f"rank {mpi.RANK} waits.", _VERBOSITY_WARN)
+            mpi.sync_processes()
+            if self.checkpoint is not None and \
+                    bool(np.all(gio.check_checkpoint(self.checkpoint))):
+                (self.truth, self.gpr, self.acquisition,
+                 self.convergence_criterion, self.options,
+                 self.progress) = gio.read_checkpoint(
+                     self.checkpoint, truth=self.truth)
+                runtime = self.options.pop("_runtime", None)
+                if runtime:
+                    # rank 0's final loop state, for user code on any rank
+                    self.current_iteration = int(
+                        runtime.get("current_iteration", 0))
+                    self.has_converged = bool(
+                        runtime.get("has_converged", False))
+            return self
+        try:
+            self._run_main_loop()
+        except Exception as excpt:
+            # after a retryable error the workers stay in serve():
+            # run_resilient's next Runner broadcasts its first batch to
+            # them (a stop now would deadlock that collective).  They are
+            # released by a clean finish, or go down with the job
+            if mpi.multiple_processes and not is_retryable_cuda_error(excpt):
+                self.executor.stop_workers()
+                mpi.sync_processes()
+            raise
+        if mpi.multiple_processes:
+            self.executor.stop_workers()
+            mpi.sync_processes()
         return self
 
     def _run_main_loop(self):
@@ -799,7 +849,14 @@ class Runner:
                     self.log("Diagnosis failed: convergence vetoed.",
                              _VERBOSITY_WARN)
                     self.has_converged = False
+            self.progress.mpi_sync()
             self._save_checkpoint()
+            if self.plots:
+                try:
+                    self.plot_progress()
+                except Exception as excpt:  # plots must never kill the run
+                    self.log(f"Progress plotting failed: {excpt}",
+                             _VERBOSITY_WARN)
 
         if not self.has_converged:
             self.log("Budget exhausted (or stopped) without convergence; "
@@ -1505,12 +1562,14 @@ class Runner:
         return result
 
     def last_mc_samples(self, as_getdist=False):
-        """Last MC samples as (X, weights, logpost)
+        """Last MC samples as (X, weights, logpost), or getdist MCSamples
         (reference: gpry/run.py:1716-1745)."""
         if self.last_mc_result is None:
             raise ValueError("No MC sample generated yet.")
         if as_getdist:
-            raise _not_ported("getdist export", _PLOTS)
+            from gpry_tpu_torch.mc.samples import samples_dict_to_getdist
+            return samples_dict_to_getdist(self.last_mc_result,
+                                           params=self.truth.params)
         r = self.last_mc_result
         return r["X"], r["weights"], r["logpost"]
 
@@ -1637,6 +1696,48 @@ class Runner:
         except Exception as excpt:
             self.log(f"Checkpoint saving failed: {excpt}", _VERBOSITY_WARN)
 
+    # ------------------------------------------------------------------ plots
+
+    def plot_progress(self, timing=True, convergence=True, trace=False,
+                      slices=False, ext="png"):
+        """Progress plots into <checkpoint>/images
+        (reference: gpry/run.py:1470-1592)."""
+        from gpry_tpu_torch import plots as gplots
+        path = os.path.join(self.checkpoint or ".", "images")
+        os.makedirs(path, exist_ok=True)
+        if timing:
+            self.progress.plot_timing(
+                save=os.path.join(path, f"timing.{ext}"))
+        if convergence:
+            gplots.plot_convergence(
+                self.convergence_criterion,
+                save=os.path.join(path, f"convergence.{ext}"))
+        if trace:
+            gplots.plot_trace(self.gpr,
+                              save=os.path.join(path, f"trace.{ext}"))
+        if slices:
+            gplots.plot_slices(self.truth, self.gpr,
+                               save=os.path.join(path, f"slices.{ext}"))
+
+    def plot_mc(self, add_training=True, output=None):
+        """Corner plot of the last MC sample (reference: gpry/run.py:1786)."""
+        from gpry_tpu_torch import plots as gplots
+        if self.last_mc_result is None:
+            raise ValueError("No MC sample generated yet.")
+        return gplots.plot_corner(
+            self.last_mc_result, params=self.truth.params,
+            gpr=self.gpr if add_training else None,
+            fiducial_point=self.fiducial_point,
+            fiducial_MC=self.fiducial_MC, save=output)
+
+    def plot_distance_distribution(self, output=None):
+        """Reference: gpry/run.py:1866."""
+        from gpry_tpu_torch import plots as gplots
+        if self.last_mc_result is None:
+            raise ValueError("No MC sample generated yet.")
+        return gplots.plot_distance_distribution(
+            self.gpr, self.last_mc_result, save=output)
+
     def _touch_liveness(self):
         """Touch ``<checkpoint>/liveness.heartbeat``: proof of progress for
         a watchdog on the checkpoint's mtime, at phase boundaries finer
@@ -1678,6 +1779,14 @@ def is_sticky_cuda_error(excpt):
     context unusable."""
     msg = f"{type(excpt).__name__}: {excpt}".lower()
     return any(m in msg for m in _STICKY_CUDA_MARKERS)
+
+
+def is_retryable_cuda_error(excpt):
+    """Whether :func:`run_resilient` retries a run that raised ``excpt``:
+    a CUDA out-of-memory error, which leaves the CUDA context usable.  A
+    sticky CUDA error and any other exception are not retried."""
+    return isinstance(excpt, torch.cuda.OutOfMemoryError) \
+        and not is_sticky_cuda_error(excpt)
 
 
 def run_resilient(loglike=None, checkpoint=None, max_retries=3,
@@ -1723,9 +1832,7 @@ def run_resilient(loglike=None, checkpoint=None, max_retries=3,
                     f"from the checkpoint: Runner(..., checkpoint="
                     f"{checkpoint!r}, load_checkpoint='resume').") \
                     from excpt
-            # an out-of-memory error leaves the CUDA context usable
-            if not isinstance(excpt, torch.cuda.OutOfMemoryError) \
-                    or attempt >= max_retries:
+            if not is_retryable_cuda_error(excpt) or attempt >= max_retries:
                 raise
             wait = retry_wait_s * (2 ** attempt)
             attempt += 1

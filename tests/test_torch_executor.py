@@ -1,8 +1,8 @@
 """
 gpry_tpu_torch's truth executors on the CPU (gpry_tpu_torch/parallel/
 executor.py): twins of tests/test_parallel.py:108, 124, 146 and 250, the
-process pool's start method, the serializer without cloudpickle, and the
-"mpi" mode's refusal.
+process pool's start method, the serializer without cloudpickle, and an
+unknown mode's refusal.
 """
 
 import pickle
@@ -138,7 +138,12 @@ def test_closure_without_cloudpickle_raises(monkeypatch):
 
 
 def test_mpi_and_unknown_modes_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*MPI"):
-        TruthExecutor(_T(), mode="mpi")
+    """An unknown mode is refused.  The "mpi" mode, refused until it was
+    ported, now builds, and in a single-process world evaluates serially
+    (its ranks are held in tests/test_torch_mpi.py)."""
+    ex = TruthExecutor(_T(), mode="mpi")
+    X = np.random.default_rng(0).normal(size=(4, 3))
+    np.testing.assert_array_equal(ex.logp_batch(X),
+                                  [-np.sum(x**2) for x in X])
     with pytest.raises(ValueError, match="Unknown executor mode"):
         TruthExecutor(_T(), mode="fibers")

@@ -4,6 +4,8 @@ the CPU.  Random draws come from torch Generators, so runs are compared with
 the analytic truth and with the JAX package by distribution, not by index.
 """
 
+import sys
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -155,14 +157,17 @@ def test_mc_sample_from_gp_nested_with_refine(tmp_path):
     assert np.loadtxt(path).shape == (len(s_t["X"]), 4)
 
 
-def test_mc_sample_uniform_and_refusals():
+def test_mc_sample_uniform_and_refusals(monkeypatch):
     _, t = _gprs()
     s = mc_sample_from_gp(t, sampler="uniform", rng=0,
                           options={"n_samples": 500})
     np.testing.assert_allclose(s["logpost"], t.predict(s["X"]), rtol=1e-12)
-    # the host NS engines are ported (tests/test_torch_interfaces.py); the
-    # Cobaya samplers are not
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Cobaya"):
+    # the host NS engines and the Cobaya samplers are ported
+    # (tests/test_torch_interfaces.py, tests/test_torch_cobaya.py); without
+    # cobaya the Cobaya route raises ImportError, as gpry_tpu's does
+    for name in ("cobaya", "cobaya.model"):
+        monkeypatch.setitem(sys.modules, name, None)
+    with pytest.raises(ImportError, match="cobaya"):
         mc_sample_from_gp(t, sampler="cobaya_mcmc")
     with pytest.raises(ValueError, match="Unknown sampler"):
         mc_sample_from_gp(t, sampler="polychrod")
