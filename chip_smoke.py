@@ -2,12 +2,13 @@
 """
 Drive gpry_tpu_torch once on one CUDA card.
 
-1. Build the thirteen CUDA kernels (K1 gated_mean, K2
+1. Build the fourteen CUDA kernels (K1 gated_mean, K2
    gated_meanvar_logexp, K3 masked_kernel_matrix_batched, K4
    kriging_believer_fill, K5 meanvar_ungated, K6 ns_slice_chains, K7
    predict_meancov, K8 meanstd_grad, K9 lbfgs_logexp_ascent, K10
-   lml_value_grad, K11 lbfgs_lml_fit, K12 mcmc_chains, K13 ns_step) from
-   ``gpry_tpu_torch/csrc``, one nvcc per source, all at once.
+   lml_value_grad, K11 lbfgs_lml_fit, K12 mcmc_chains, K13 ns_step, K14
+   tp_cross_mean and tp_quad) from ``gpry_tpu_torch/csrc``, one nvcc per
+   source, all at once.
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes of the main paths (d = 8, n = 224 valid rows in a bucket of
    nmax = 320; K1 at nq = 16, 66, 2,000, 16,384 and 65,536, each in the
@@ -30,7 +31,9 @@ Drive gpry_tpu_torch once on one CUDA card.
    (d = 8, 16 chains) and at d = 32 (64 chains) and beyond shared memory,
    step for step over the first 50 steps of each phase, then whole
    1,000 + 2,000-step runs by their statistics; K13 on crafted states at
-   nlive 200, 400 and 3,200 (d = 64); K1, K6 and K12 with the SVM fitted
+   nlive 200, 400 and 3,200 (d = 64); K14 on every shard of path m's TP
+   predict (n = 900 of nmax = 1,024 over 4 shards) at nq = 1, 64 and
+   255, tp_quad beside ``torch.einsum``; K1, K6 and K12 with the SVM fitted
    and all finite), for the four fast families and,
    in each kernel's spec mode, for a composite kernel with every node kind
    (ALL_NODES); time both with CUDA events (K1, K3 at R = 1 and its
@@ -46,7 +49,7 @@ Drive gpry_tpu_torch once on one CUDA card.
    the sums of the evaluations their plain versions make (iterations and
    nev).  K10 is also timed against the route it replaces (K3,
    ``cholesky_ex`` and ``solve_triangular``).
-3. Drive twelve paths (before the checks of 2, after one throwaway trace
+3. Drive thirteen paths (before the checks of 2, after one throwaway trace
    that takes the profiler's start-up, each path under a
    ``torch.profiler`` trace of its own, CUDA activity: each kernel's device
    ms by path, the launches the traces hold, ``rank_s`` = device s -
@@ -68,8 +71,9 @@ Drive gpry_tpu_torch once on one CUDA card.
    lock-step nested sampler made there (LOCKSTEP_K1_LAUNCHES), that every
    MCMC run launched K12 twice (and path d K1 twice: the start tries and
    the IS refine), that every NS run launched K13 once per queued step
-   and once per segment end and K6 once per queued step, reading the host
-   at most ceil(steps / 8) + 2 times, and print the seconds each path
+   and once per segment end and K6 once per queued step and chain shard,
+   reading the host at most ceil(steps / 8) + 2 times, and print the
+   seconds each path
    spent in nested sampling:
    a. the default entry point: ``Runner(loglike, bounds).run()`` (the
       BatchOptimizer loop with the convergence audit) then
@@ -132,7 +136,20 @@ Drive gpry_tpu_torch once on one CUDA card.
       launch each, a float back), within rel 1e-12 of a batched predict
       and of the gated mean (K1), with a call's wall and device
       microseconds; and, where matplotlib imports, the Runner's plots and
-      ``plot_model_2d`` on a d = 2 Runner (else that is logged).
+      ``plot_model_2d`` on a d = 2 Runner (else that is logged);
+   m. the device mesh (``gpry_tpu_torch/parallel/mesh.py``) over every
+      visible card where there are two or more, else 4 shards on cuda:0
+      (its distinct cards printed): the DP predict at nq = 4,096 on b's
+      point, the fit's 16 restart lanes on h's data and an NS run with
+      its chains over the shards, each equal to its unsharded launch bit
+      for bit; the TP predict (K14) on a d = 8 surrogate of n = 900 in
+      nmax = 1,024 at nq = 64 within tests/test_parallel.py's tolerances,
+      and its sigma gap on a's final surrogate (printed, not gated); then
+      a's Runner with ``available_mesh`` forced to the mesh: SHARD_STATS'
+      fit and predict above 0 and, with no TP predict, a's training sets
+      (rel 1e-10) and theta (rel 1e-4).
+   Paths a-l run inside ``mesh_disabled()``, so that their evals and
+   equalities are one card's on any machine.
 
 Prints the card's ``nvidia-smi`` name and power limit, a JSON line with the
 kernel results (spec-mode rows named "<kernel>/spec"), and as the last line
@@ -255,6 +272,10 @@ SOURCES = {
                     "gpry_tpu/mc/mcmc.py:44"),
     "ns_step": ("gpry_tpu_torch/csrc/ns_step.cu",
                 "gpry_tpu/mc/nested.py:184"),
+    "tp_cross_mean": ("gpry_tpu_torch/csrc/tp_predict_partial.cu",
+                      "gpry_tpu/parallel/mesh.py:188"),
+    "tp_quad": ("gpry_tpu_torch/csrc/tp_predict_partial.cu",
+                "gpry_tpu/parallel/mesh.py:196"),
 }
 # K10: the LML within rel TOL_K10 on well-conditioned rows (the plain
 # factor's smallest pivot^2 at least K10_WELL max diag(K)); the NaN masks
@@ -274,10 +295,12 @@ K11_MAXITER, K11_PERMS = 120, 8
 # for every screen and re-score (the spec-mode key on path f)
 FIT_PATHS = {"batchoptimizer": "", "nora_bench": "", "nora_runner": "",
              "himmelblau_audit": "", "spec_runner": "/spec", "bo_bench": "",
-             "resumed_runner": "", "polish": "", "mpi_runner": ""}
+             "resumed_runner": "", "polish": "", "mpi_runner": "",
+             "mesh": ""}
 # the fit paths whose polishes are not replayed: path k's fits are path
-# a's, bit for bit (its training sets equal a's)
-NO_REPLAY = ("mpi_runner",)
+# a's, bit for bit (its training sets equal a's), and so are path m's
+# (each split into the mesh's shards, a polish each)
+NO_REPLAY = ("mpi_runner", "mesh")
 # K6 at the NS steps of the main paths: nlive 400 (final NS) and 200
 # (NORA), num_repeats 40; its shrink candidates a pass
 # (csrc/ns_slice_chains.cu K6_WIDTH)
@@ -309,6 +332,23 @@ K13_KINDS = ("ties", "neg_inf", "nan", "plateau")
 # K2 at the believer's one-point predict, a small batch and the
 # acquisition screen
 K2_NQ = (1, 8, 3200)
+# path m: the shards of the logical mesh on one card (every visible card
+# where there are two or more), the DP predict's queries at bench.py's
+# NORA point, the TP predict's surrogate (n valid rows of nmax, d = D) and
+# queries, the fit's restart lanes and the NS's live points
+MESH_LOGICAL, MESH_DP_NQ = 4, 4096
+MESH_TP_N, MESH_TP_NMAX, MESH_TP_NQ = 900, 1024, 64
+MESH_FIT_LANES, MESH_NS_NLIVE = 16, 400
+# the TP predict against the single-device one: tests/test_parallel.py's
+# tolerances (mean rtol, atol; sigma rtol, atol)
+TOL_TP_MEAN, TOL_TP_STD = (1e-9, 1e-12), (1e-6, 1e-9)
+# K14 against its plain versions: max abs error over each output's scale
+# (K_shard: its largest entry; the partial mean and quadratic form: the
+# largest sum of the absolute values of their terms)
+TOL_K14 = 1e-12
+# path m's Runner against path a's: the training sets within rel
+# TOL_MESH_X, theta within rel TOL_MESH_THETA (tests/test_parallel.py's)
+TOL_MESH_X, TOL_MESH_THETA = 1e-10, 1e-4
 # K1's launches on paths a, b, c and e when every slice step was a K1
 # call (the chip run of the commit before K6; PERF.md, section 6)
 LOCKSTEP_K1_LAUNCHES = {"batchoptimizer": 284164, "nora_bench": 199803,
@@ -357,8 +397,12 @@ PATH_KERNELS = {
     # the Cobaya likelihood's one-point predictions (K2) and the device
     # samplers' target density it is held against (K1)
     "periphery": ("gated_mean", "gated_meanvar_logexp"),
+    # the DP predict (K2), the NS's chains (K6, K13), the fit's lanes
+    # (K11), the TP predict (K14) and path a's Runner under the mesh
+    "mesh": ("gated_meanvar_logexp", "ns_slice_chains", "lbfgs_lml_fit",
+             "ns_step", "tp_cross_mean", "tp_quad"),
 }
-# the thirteen kernels' symbols, by row of the kernels line
+# the fourteen kernels' symbols, by row of the kernels line
 SYMBOLS = {"gated_mean_kernel": "gated_mean",
            "gated_meanvar_blocked": "gated_meanvar_logexp",
            "gated_meanvar_chain": "gated_meanvar_logexp",
@@ -378,13 +422,17 @@ SYMBOLS = {"gated_mean_kernel": "gated_mean",
            "lml_value_grad_kernel": "lml_value_grad",
            "lbfgs_lml_fit_kernel": "lbfgs_lml_fit",
            "mcmc_chains_kernel": "mcmc_chains",
-           "ns_step_kernel": "ns_step"}
+           "ns_step_kernel": "ns_step",
+           "tp_cross_mean_kernel": "tp_cross_mean",
+           "tp_quad_kernel": "tp_quad",
+           "tp_quad_sum_kernel": "tp_quad"}
 # the paths whose BatchOptimizer must launch K9 once per believer step
 BELIEVER_PATHS = {"batchoptimizer": "lbfgs_logexp_ascent",
                   "spec_runner": "lbfgs_logexp_ascent/spec",
                   "bo_bench": "lbfgs_logexp_ascent",
                   "resumed_runner": "lbfgs_logexp_ascent",
-                  "mpi_runner": "lbfgs_logexp_ascent"}
+                  "mpi_runner": "lbfgs_logexp_ascent",
+                  "mesh": "lbfgs_logexp_ascent"}
 # path i against path a: the training sets within rel TOL_RESUME_X, theta
 # within TOL_RESUME_THETA
 TOL_RESUME_X, TOL_RESUME_THETA = 1e-12, 1e-10
@@ -2589,9 +2637,128 @@ def time_k1_k3(dev):
     return out
 
 
+def k14_inputs(family, dev, P, nq, seed=31):
+    """K14's arguments at path m's TP predict: the RBF surrogate of
+    MESH_TP_N valid rows of MESH_TP_NMAX (d = D) split over P shards, its
+    K^-1 (parallel.mesh._kinv_for) and nq queries in the prior box; for a
+    spec tree its theta (the training rows and M are the RBF's: K14's
+    checks need no factorization of the spec).  Returns (p, theta, Xq_
+    (nq, D), M)."""
+    import numpy as np
+    import torch
+    from gpry_tpu_torch.parallel import mesh as mesh_mod
+    p = synthetic_surrogate("rbf", dev, seed, svm="all_finite",
+                            n=MESH_TP_N, nmax=MESH_TP_NMAX)
+    rng = np.random.default_rng(seed)
+    Xq = torch.as_tensor(rng.uniform(-5, 5, (nq, D)), dtype=torch.float64,
+                         device=dev)
+    Xq_ = ((Xq - p.x_loc) / p.x_scale).contiguous()
+    theta = p.theta if not is_spec(family) else torch.as_tensor(
+        np.asarray(spec_kernel()[1], float), dtype=torch.float64,
+        device=dev)
+    return p, theta, Xq_, mesh_mod._kinv_for(p)
+
+
+def k14_bounds(family, nloc, nmax, nq):
+    """K14's bounds for one shard: (a) the nloc x nq pair evaluations and
+    their multiply-adds with alpha, over X_shard, alpha, Xq read and
+    K_shard, the mean written; (b) 2 nloc nmax nq operations over M_shard,
+    k_full and K_shard read and the nq sums written."""
+    a = bound(nloc * nq * (pair_flops(family) + 2),
+              8 * (nloc * D + nloc + nq * D + nloc * nq + nq))
+    b = bound(2 * nloc * nmax * nq,
+              8 * (nloc * nmax + nmax * nq + nloc * nq + nq))
+    return a, b
+
+
+def check_k14(dev, families, timed):
+    """K14 against its plain versions at path m's TP shapes (MESH_TP_N of
+    MESH_TP_NMAX split over MESH_LOGICAL shards of nloc rows, MESH_TP_NQ
+    queries; also nq 1 and 255): every shard's K_shard, partial mean and
+    partial quadratic form within TOL_K14 of their scale (rel_k14), the
+    fast families and the spec.  Timed (CUDA events) at the row's shape,
+    the last shard (its padding rows) for ``timed``; tp_quad beside
+    ``torch.einsum("ij,jq,iq->q", ...)``, the one library call of the
+    same function.  Returns (rows of tp_cross_mean for ``timed``'s mode,
+    row of tp_quad or None in spec mode)."""
+    import torch
+    from gpry_tpu_torch.ops import fused
+    P = MESH_LOGICAL
+    nloc = MESH_TP_NMAX // P
+    errs = {"K": 0.0, "mean": 0.0, "quad": 0.0}
+    for fam in families:
+        for nq in (1, MESH_TP_NQ, 255):
+            p, theta, Xq_, M = k14_inputs(fam, dev, P, nq)
+            Ks = []
+            for i in range(P):
+                r0 = i * nloc
+                args = (fam, theta, p.X[r0:r0 + nloc],
+                        p.alpha[r0:r0 + nloc], Xq_, r0, p.n)
+                K, mean = fused.tp_cross_mean(*args)
+                Kr, meanr = fused.tp_cross_mean_plain(*args)
+                errs["K"] = max(errs["K"], rel_k14(K, Kr, Kr.abs()))
+                errs["mean"] = max(errs["mean"], rel_k14(
+                    mean, meanr, (Kr.abs() * args[3].abs()[:, None]).sum(0)))
+                Ks.append(Kr)
+            k_full = torch.cat(Ks)
+            for i in range(P):
+                Mi = M[i * nloc:(i + 1) * nloc]
+                quad = fused.tp_quad(Mi, k_full, Ks[i])
+                quadr = fused.tp_quad_plain(Mi, k_full, Ks[i])
+                scale = (Ks[i].abs() * (Mi.abs() @ k_full.abs())).sum(0)
+                errs["quad"] = max(errs["quad"], rel_k14(quad, quadr, scale))
+    log(f"[K14] {'spec' if is_spec(timed) else 'fast'}: max error over "
+        f"scale " + json.dumps(errs))
+    if max(errs.values()) > TOL_K14:
+        raise AssertionError(f"K14 disagrees with its plain versions: "
+                             f"{errs} > {TOL_K14}")
+    p, theta, Xq_, M = k14_inputs(timed, dev, P, MESH_TP_NQ)
+    r0 = (P - 1) * nloc
+    args = (timed, theta, p.X[r0:], p.alpha[r0:], Xq_, r0, p.n)
+    ba, bb = k14_bounds(timed, nloc, MESH_TP_NMAX, MESH_TP_NQ)
+    row_a = {"max_abs_err": errs["mean"], "nloc": nloc,
+             "nmax": MESH_TP_NMAX, "nq": MESH_TP_NQ,
+             "ms": time_ms(lambda: fused.tp_cross_mean(*args), 200),
+             "device_ms": kernel_device_ms(
+                 lambda: fused.tp_cross_mean(*args), "tp_cross_mean", 50),
+             "plain_ms": time_ms(lambda: fused.tp_cross_mean_plain(*args),
+                                 50), **ba}
+    log(f"[K14] tp_cross_mean{' spec' if is_spec(timed) else ''}: "
+        + json.dumps(row_a))
+    if is_spec(timed):
+        return row_a, None
+    K = fused.tp_cross_mean_plain(*args)[0]
+    k_full = torch.cat([fused.tp_cross_mean_plain(
+        timed, theta, p.X[i * nloc:(i + 1) * nloc],
+        p.alpha[i * nloc:(i + 1) * nloc], Xq_, i * nloc, p.n)[0]
+        for i in range(P)])
+    Mi = M[r0:]
+    row_b = {"max_abs_err": errs["quad"], "nloc": nloc,
+             "nmax": MESH_TP_NMAX, "nq": MESH_TP_NQ,
+             "ms": time_ms(lambda: fused.tp_quad(Mi, k_full, K), 200),
+             "device_ms": kernel_device_ms(
+                 lambda: fused.tp_quad(Mi, k_full, K), "tp_quad", 50),
+             "plain_ms": time_ms(lambda: fused.tp_quad_plain(Mi, k_full, K),
+                                 200),
+             "library_ms": time_ms(lambda: torch.einsum(
+                 "ij,jq,iq->q", Mi, k_full, K), 200), **bb}
+    log("[K14] tp_quad: " + json.dumps(row_b))
+    return row_a, row_b
+
+
+def rel_k14(a, b, scale):
+    """max |a - b| over max(scale) (K14's checks)."""
+    import torch
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise AssertionError("K14: a non-finite output")
+    return float(torch.max(torch.abs(a - b))) / max(
+        float(torch.max(scale)), 1e-300)
+
+
 def check_kernels(dev):
-    """Compare K1-K13 with their plain versions, the fast families and the
-    ALL_NODES spec (K13 has no spec instance); returns per-kernel rows
+    """Compare K1-K14 with their plain versions, the fast families and the
+    ALL_NODES spec (K13 and K14's tp_quad have no spec instance); returns
+    per-kernel rows
     (spec mode as "<name>/spec")."""
     import numpy as np
     import torch
@@ -2620,6 +2787,9 @@ def check_kernels(dev):
         rows["mcmc_chains" + sfx] = check_k12(dev, fams, timed)
         if not sfx:
             rows["ns_step"] = check_k13(dev)
+        rows["tp_cross_mean" + sfx], quad = check_k14(dev, fams, timed)
+        if quad is not None:
+            rows["tp_quad"] = quad
         torch.cuda.empty_cache()
         log(f"[CHECKS] {'spec' if sfx else 'fast families'}: "
             f"{time.perf_counter() - t0:.1f} s")
@@ -3570,8 +3740,214 @@ def run_himmelblau_audit(seed=100):
     return summary
 
 
+def mesh_devices():
+    """Path m's mesh: every visible card where there are two or more,
+    else MESH_LOGICAL shards on cuda:0."""
+    import torch
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", 0)] * MESH_LOGICAL
+
+
+def bits_equal(label, got, want):
+    """Fail unless the tensors are equal bit for bit (NaN where NaN)."""
+    import torch
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not torch.equal(
+                torch.nan_to_num(g, nan=7.0), torch.nan_to_num(w, nan=7.0)) \
+                or not torch.equal(torch.isnan(g), torch.isnan(w)):
+            raise AssertionError(f"mesh: {label} differs from the unsharded "
+                                 "launch")
+
+
+def run_mesh():
+    """Path m: the device mesh (gpry_tpu_torch/parallel/mesh.py) over
+    mesh_devices(), each shard's kernels launched on its own card:
+    * the DP predict at MESH_DP_NQ queries on bench.py's NORA point (d =
+      8, N = 224, a 26-restart fit): K2 on every shard, equal to the
+      unsharded ``surrogate_predict`` bit for bit;
+    * the TP predict on a d = 8 surrogate of MESH_TP_N rows of
+      MESH_TP_NMAX at MESH_TP_NQ queries (K14 on every shard): within
+      tests/test_parallel.py's tolerances of the single-device predict,
+      its largest sigma gap printed; and on path a's final surrogate (a
+      fitted, ill-conditioned d = 8 GP) at 255 points of its final sample,
+      the largest |sigma_TP - sigma_solve| / sigma printed, not gated;
+    * ``_sharded_fit_theta`` with MESH_FIT_LANES restarts on path h's
+      data (N = 224): every lane's theta, -LML and evals equal the
+      unsharded K11 launch's bit for bit;
+    * an NS run (nlive MESH_NS_NLIVE, its kill batch the largest multiple
+      of the mesh size not above nlive / 6) with its chains over the mesh
+      (K6 on every shard): X, logZ and n_dead equal the unsharded run's
+      bit for bit (the draws stay on the run's generator);
+    * path a's Runner and its K7 / K8 checks with ``available_mesh``
+      forced to the mesh: SHARD_STATS' fit and predict > 0, tp reported;
+      with no TP predict the training sets within rel TOL_MESH_X of path
+      a's and theta within TOL_MESH_THETA, else KL <= KL_GATE and the
+      truth evals within max(4, 25%) of path a's."""
+    import numpy as np
+    import torch
+    from gpry_tpu_torch.mc import samples
+    from gpry_tpu_torch.models import gp as gpm
+    from gpry_tpu_torch.parallel import mesh as mesh_mod
+    mesh = mesh_mod.make_mesh(mesh_devices())
+    P = mesh.shape["data"]
+    log(f"[MESH] {P} shards over {mesh.n_distinct} distinct card(s): "
+        + ", ".join(str(d) for d in mesh.devices))
+    summary = {"shards": P, "distinct_cards": mesh.n_distinct}
+    dev = mesh.devices[0]
+
+    # DP predict at bench.py's NORA point
+    from gpry_tpu_torch.models.preprocessing import Normalize_bounds, \
+        Normalize_y
+    bounds, X, y = bench_data()
+    gpr = gpm.GaussianProcessRegressor(
+        bounds=bounds, preprocessing_X=Normalize_bounds(bounds),
+        preprocessing_y=Normalize_y(), random_state=0, verbose=0)
+    gpr.append_to_data(X, y, fit_gpr=False)
+    gpr.fit_gpr_hyperparameters(n_restarts=10 + 2 * D)
+    p = gpr.surrogate_params()
+    rng = np.random.default_rng(41)
+    Xq = torch.as_tensor(rng.uniform(0, 1, (MESH_DP_NQ, D)),
+                         dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    got = mesh_mod.sharded_predict(gpr.family, p, Xq, mesh)
+    sync()
+    summary["dp_predict_s"] = time.perf_counter() - t0
+    bits_equal("the DP predict", got, gpm.surrogate_predict(gpr.family, p,
+                                                             Xq))
+
+    # TP predict
+    pt, _, _, _ = k14_inputs("rbf", dev, P, MESH_TP_NQ)
+    Xt = torch.as_tensor(rng.uniform(-5, 5, (MESH_TP_NQ, D)),
+                         dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    mean_tp, std_tp = mesh_mod.tp_predict("rbf", pt, Xt, mesh)
+    sync()
+    summary["tp_predict_s"] = time.perf_counter() - t0
+    mean_1, std_1 = gpm.surrogate_predict("rbf", pt, Xt)
+    summary["tp_synthetic"] = tp_gap(mean_tp, std_tp, mean_1, std_1)
+    if not summary["tp_synthetic"]["within"]:
+        raise AssertionError("mesh: the TP predict is outside "
+                             "tests/test_parallel.py's tolerances: "
+                             + json.dumps(summary["tp_synthetic"]))
+    ref = REFERENCE_RUN["runner"].gpr
+    pa = ref.surrogate_params()
+    if pa.X.shape[0] % P == 0:
+        Xa = torch.as_tensor(REFERENCE_RUN["sample"]["X"][:255],
+                             dtype=torch.float64, device=dev)
+        summary["tp_path_a"] = tp_gap(
+            *mesh_mod.tp_predict(ref.family, pa, Xa, mesh),
+            *gpm.surrogate_predict(ref.family, pa, Xa))
+        summary["tp_path_a"]["nmax"] = int(pa.X.shape[0])
+        summary["tp_path_a"]["n"] = int(pa.n)
+
+    # the fit's lanes
+    fg, t = fit_data(dev)
+    lo, hi = fg.theta_bounds[:, 0], fg.theta_bounds[:, 1]
+    th0 = np.random.default_rng(43).uniform(lo, hi, (MESH_FIT_LANES,
+                                                      len(lo)))
+    args = (fg.family, fg._dX, fg._dy, fg.n, fg._noise_t(), t(th0), t(lo),
+            t(hi))
+    t0 = time.perf_counter()
+    got = mesh_mod._sharded_fit_theta(*args, mesh, maxiter=120)
+    sync()
+    summary["fit_s"] = time.perf_counter() - t0
+    bits_equal("the fit's lanes", got,
+               gpm._fit_theta_restarts(*args, maxiter=120))
+    summary["fit_nev"] = [int(v) for v in got[2].tolist()]
+
+    # the NS's chains
+    lo8 = torch.zeros(D, dtype=torch.float64, device=dev)
+    hi8 = torch.ones(D, dtype=torch.float64, device=dev)
+    B = (MESH_NS_NLIVE // 6) // P * P
+    runs = []
+    for m in (mesh, None):
+        gen = torch.Generator(device=dev).manual_seed(45)
+        t0 = time.perf_counter()
+        runs.append(samples.run_nested_device(
+            samples.surrogate_logp_fn(gpr.family), p, gen, lo8, hi8,
+            nlive=MESH_NS_NLIVE, num_repeats=5 * D, kill_batch=B,
+            max_dead=60 * MESH_NS_NLIVE, mesh=m))
+        sync()
+        summary["ns_s" if m is not None else "ns_unsharded_s"] = \
+            time.perf_counter() - t0
+    rs, r1 = runs
+    if not (rs.n_dead == r1.n_dead and rs.logZ == r1.logZ
+            and rs.n_calls == r1.n_calls):
+        raise AssertionError(f"mesh: the sharded NS run ({rs.n_dead} dead, "
+                             f"logZ {rs.logZ}) is not the unsharded one's "
+                             f"({r1.n_dead}, {r1.logZ})")
+    bits_equal("the NS run", (rs.X, rs.logl, rs.logw),
+               (r1.X, r1.logl, r1.logw))
+    summary["ns"] = {"kill_batch": B, "n_dead": rs.n_dead,
+                     "logZ": rs.logZ, "steps": rs.n_steps}
+
+    # path a's Runner under the mesh
+    mesh_mod.SHARD_STATS.update(predict=0, fit=0, tp=0)
+    inner = mesh_mod.available_mesh
+    mesh_mod.available_mesh = lambda *a, **k: mesh
+    try:
+        runner, _, summary["runner"] = run_runner("MESH")
+        summary["runner"]["cov"] = check_cov("MESH", runner.gpr, seed=21)
+        summary["runner"]["grad"] = check_grad("MESH", runner.gpr, seed=21)
+    finally:
+        mesh_mod.available_mesh = inner
+    stats = dict(mesh_mod.SHARD_STATS)
+    summary["shard_stats"] = stats
+    g = runner.gpr
+    n_a = REFERENCE_RUN["n_total"]
+    if stats["tp"] == 0:
+        gap = {"n_total": int(g.n_total), "n_total_path_a": n_a}
+        if g.X_train_all.shape == REFERENCE_RUN["X"].shape:
+            gap.update({k: float(np.max(np.abs(a - b) / np.maximum(
+                np.abs(b), 1e-300))) for k, a, b in (
+                ("X_rel", g.X_train_all, REFERENCE_RUN["X"]),
+                ("y_rel", g.y_train_all, REFERENCE_RUN["y"]),
+                ("theta_rel", g.kernel_theta, REFERENCE_RUN["theta"]))})
+        same = "X_rel" in gap and gap["X_rel"] <= TOL_MESH_X and \
+            gap["y_rel"] <= TOL_MESH_X and gap["theta_rel"] <= TOL_MESH_THETA
+        summary["runner"].update(path_a_gap=gap, equal_to_path_a=bool(same),
+                                 bit_equal_to_path_a=bool(
+                                     same and gap["X_rel"] == 0
+                                     and gap["theta_rel"] == 0))
+        if not same:
+            raise AssertionError("mesh: the Runner under the mesh left path "
+                                 "a's trajectory: " + json.dumps(gap))
+    elif abs(g.n_total - n_a) > max(4, 0.25 * n_a):
+        raise AssertionError(f"mesh: {g.n_total} truth evals under the "
+                             f"mesh, path a {n_a}")
+    log("[MESH] " + json.dumps(summary))
+    if not (stats["fit"] > 0 and stats["predict"] > 0):
+        raise AssertionError(f"mesh: the Runner did not dispatch through "
+                             f"the mesh: {stats}")
+    return summary
+
+
+def tp_gap(mean_tp, std_tp, mean_1, std_1):
+    """The TP predict against the single-device one: the largest mean and
+    sigma errors, the largest |sigma_TP - sigma_solve| / sigma (sigma >
+    0), and whether both are within TOL_TP_MEAN / TOL_TP_STD (rtol,
+    atol)."""
+    import torch
+    if not torch.equal(torch.isfinite(mean_tp), torch.isfinite(mean_1)):
+        raise AssertionError("mesh: the TP predict's gates differ")
+    fin = torch.isfinite(mean_1)
+    dm = torch.abs(mean_tp[fin] - mean_1[fin])
+    ds = torch.abs(std_tp - std_1)
+    pos = std_1 > 0
+    (mr, ma), (sr, sa) = TOL_TP_MEAN, TOL_TP_STD
+    return {"nq": int(mean_1.numel()),
+            "max_abs_mean_err": float(dm.max()) if dm.numel() else 0.0,
+            "max_abs_sigma_err": float(ds.max()),
+            "max_rel_sigma_gap": float((ds[pos] / std_1[pos]).max())
+            if bool(pos.any()) else 0.0,
+            "within": bool(torch.all(dm <= ma + mr * mean_1[fin].abs())
+                           and torch.all(ds <= sa + sr * std_1.abs()))}
+
+
 NS_RUNS = {"runs": 0, "steps": 0, "s": 0.0, "segments": 0, "reads": 0,
-           "max_reads_over_bound": -1}
+           "max_reads_over_bound": -1, "k6_launches": 0}
 # the MCMC runs per path (mc_sample_from_gp(sampler="mcmc") and the
 # GaussianKL criteria's fallback)
 MCMC_RUNS = {"runs": 0}
@@ -3614,6 +3990,16 @@ def count_believer_steps():
     batch_optimizer._optimize_restarts = counted
 
 
+def chain_shards(mesh, nlive, kill_batch=None):
+    """The shards an NS run splits each step's chains over: the mesh's
+    size where it divides the kill batch (mc.nested.run_nested_device's
+    rule), else 1 (K6 once per queued step)."""
+    B = max(1, int(nlive) // 6) if kill_batch is None else int(kill_batch)
+    if mesh is None or B % mesh.shape["data"]:
+        return 1
+    return mesh.shape["data"]
+
+
 def time_ns_runs():
     """Wrap the nested sampler where the port calls it (the final MC and
     NORA) to count its runs, steps, segments (of NS_SEG queued steps) and
@@ -3635,6 +4021,9 @@ def time_ns_runs():
         NS_RUNS["steps"] += res.n_steps
         NS_RUNS["segments"] += res.n_reads - 1
         NS_RUNS["reads"] += res.n_reads
+        NS_RUNS["k6_launches"] += NS_SEG * (res.n_reads - 1) * chain_shards(
+            kwargs.get("mesh"), kwargs.get("nlive", 200),
+            kwargs.get("kill_batch"))
         over = res.n_reads - (-(-res.n_steps // NS_SEG) + 2)
         NS_RUNS["max_reads_over_bound"] = max(
             NS_RUNS["max_reads_over_bound"], over)
@@ -3872,7 +4261,7 @@ def drive(name, fn, *args, **kwargs):
     import torch
     fused.reset_launch_counts()
     NS_RUNS.update(runs=0, steps=0, s=0.0, segments=0, reads=0,
-                   max_reads_over_bound=-1)
+                   max_reads_over_bound=-1, k6_launches=0)
     MCMC_RUNS.update(runs=0)
     BELIEVER.update(steps=0)
     K3_PANELS_RUN.update({k: 0 for k in K3_PANELS_RUN})
@@ -3936,14 +4325,15 @@ def drive(name, fn, *args, **kwargs):
 def check_mc_launches(name, launches, ns):
     """The Monte-Carlo runs of a path went through K12 and K13: two K12
     launches per MCMC run; per NS run K13 once per queued step (NS_SEG a
-    segment) and once per segment end, K6 once per queued step, and at
+    segment) and once per segment end, K6 once per queued step and chain
+    shard (chain_shards: 1 without a mesh), and at
     most ceil(steps / NS_SEG) + 2 host reads; and on the MCMC path K1 only
     for the start tries and the IS refine (2 launches)."""
     k12 = launches["mcmc_chains"] + launches["mcmc_chains/spec"]
     k6 = launches["ns_slice_chains"] + launches["ns_slice_chains/spec"]
     want = {"mcmc_chains": (k12, 2 * ns["mcmc_runs"]),
             "ns_step": (launches["ns_step"], (NS_SEG + 1) * ns["segments"]),
-            "ns_slice_chains": (k6, NS_SEG * ns["segments"])}
+            "ns_slice_chains": (k6, ns["k6_launches"])}
     for kernel, (got, expected) in want.items():
         if got != expected:
             raise AssertionError(f"{name}: {got} {kernel} launches, "
@@ -3974,7 +4364,11 @@ def warm_profiler():
 
 
 def drive_paths():
-    """The twelve paths in order; returns their summaries and launches."""
+    """The thirteen paths in order, (a)-(l) with the device mesh disabled
+    (their evals and equalities stay those of one card whatever the
+    machine holds), then (m) on the mesh; returns their summaries and
+    launches."""
+    from gpry_tpu_torch.parallel import mesh as mesh_mod
     warm_profiler()
     t0 = time.perf_counter()
     time_ns_runs()
@@ -3982,6 +4376,21 @@ def drive_paths():
     count_k3_panels()
     instrument_fits()
     paths, launches, ns = {}, {}, {}
+    with mesh_mod.mesh_disabled():
+        drive_single_card_paths(paths, launches, ns)
+    paths["mesh"], launches["mesh"], ns["mesh"] = drive("mesh", run_mesh)
+    for name, stats in ns.items():
+        paths[name]["device"] = stats.pop("device")
+        paths[name]["believer_steps"] = stats.pop("believer_steps")
+        paths[name]["gp_fits"] = stats.pop("fits")
+        paths[name]["mcmc_runs"] = stats.pop("mcmc_runs")
+        paths[name]["nested_sampling"] = stats
+    log(f"[PATHS] all thirteen paths in {time.perf_counter() - t0:.1f} s")
+    return paths, launches
+
+
+def drive_single_card_paths(paths, launches, ns):
+    """Paths (a)-(l) in order, into the dicts of drive_paths."""
     paths["batchoptimizer"], launches["batchoptimizer"], \
         ns["batchoptimizer"] = drive("batchoptimizer", run_default_with_cov)
     paths["nora_bench"], launches["nora_bench"], ns["nora_bench"] = drive(
@@ -4013,14 +4422,6 @@ def drive_paths():
     paths["periphery"], launches["periphery"], ns["periphery"] = drive(
         "periphery", run_periphery)
     cobaya_per_call(paths["periphery"], ns["periphery"]["device"])
-    for name, stats in ns.items():
-        paths[name]["device"] = stats.pop("device")
-        paths[name]["believer_steps"] = stats.pop("believer_steps")
-        paths[name]["gp_fits"] = stats.pop("fits")
-        paths[name]["mcmc_runs"] = stats.pop("mcmc_runs")
-        paths[name]["nested_sampling"] = stats
-    log(f"[PATHS] all twelve paths in {time.perf_counter() - t0:.1f} s")
-    return paths, launches
 
 
 def polish_per_call(summary, launches, trace):
@@ -4097,7 +4498,7 @@ def rank_of(name, row, paths):
     per_launch = row.get("path_bound_ms", row["bound_ms"])
     if name.startswith("kriging_believer_fill"):
         per_launch = row["bound_ms"] / (2 * SIZE - 1)
-    if name.startswith("predict_meancov"):
+    if name.startswith("predict_meancov") or name == "tp_quad":
         per_launch = row["bound_ms"] / 2
     panels = sum(v["device"]["k3_panels"].get(name, 0)
                  for v in paths.values())
@@ -4150,8 +4551,9 @@ def main():
     for base, (src, replaces) in SOURCES.items():
         for name in (base,) if base in fused.NO_SPEC else \
                 (base, base + "/spec"):
-            # library_ms: no single PyTorch call computes any of the
-            # thirteen functions (PERF.md, section 6, says why for each)
+            # library_ms: no single PyTorch call computes any of K1-K13
+            # or K14's tp_cross_mean (PERF.md, section 6, says why for
+            # each); tp_quad's row carries torch.einsum's time
             row = {"name": name, "route": "cuda", "source": src,
                    "replaces": replaces,
                    "launches": sum(c[name] for c in launches.values()),

@@ -34,7 +34,7 @@ from gpry_tpu_torch.acquisition.base import GenericGPAcquisition
 from gpry_tpu_torch.acquisition.ranked_pool import RankedPool
 from gpry_tpu_torch.mc.nested import run_nested_device
 from gpry_tpu_torch.mc.samples import surrogate_logp_fn
-from gpry_tpu_torch.models.gp import surrogate_predict
+from gpry_tpu_torch.parallel import mesh as _mesh
 from gpry_tpu_torch.parallel.rng import torch_generator_from_rng
 from gpry_tpu_torch.utils.tools import (check_and_return_bounds,
                                         mean_covmat_from_samples)
@@ -111,19 +111,22 @@ class NORA(GenericGPAcquisition):
         nlive = self._nlive(gpr)
         max_dead = int(nlive * max(8, 2 * self.d))
         gen = torch_generator_from_rng(self.rng, dev)
+        # each step's chains DP-split over the available mesh (the analogue
+        # of PolyChord's MPI-parallel live-point evolution)
         res = run_nested_device(
             surrogate_logp_fn(gpr.family), p, gen, lo, hi, nlive=nlive,
             num_repeats=int(self.num_repeats),
             precision_criterion=self.precision_criterion_target,
-            max_dead=max_dead, n_prior=int(self.nprior_per_nlive) * nlive)
+            max_dead=max_dead, n_prior=int(self.nprior_per_nlive) * nlive,
+            mesh=_mesh.available_mesh(p.X))
         gpr.n_eval += int(res.n_calls)
         logw = res.logw.cpu().numpy()
         logl = res.logl.cpu().numpy()
         keep = np.isfinite(logw) & np.isfinite(logl)
         X = res.X.cpu().numpy()[keep]
-        # std over the sample: one K2 sweep
-        _, sd = surrogate_predict(gpr.family, p,
-                                  torch.as_tensor(X, dtype=dt, device=dev))
+        # std over the sample: one K2 sweep, row-split over the mesh
+        _, sd = _mesh.predict_maybe_sharded(
+            gpr.family, p, torch.as_tensor(X, dtype=dt, device=dev))
         self.last_MC_X = X
         self.last_MC_logp = logl[keep]
         self.last_MC_logw = logw[keep]
@@ -161,9 +164,9 @@ class NORA(GenericGPAcquisition):
         keep = np.isfinite(logp) & (w > 0)
         X, logp, w = X[keep], logp[keep], w[keep]
         gpr.n_eval += int(res.get("n_calls", len(X)))
-        # std over the sample: one K2 sweep
-        _, sd = surrogate_predict(gpr.family, p,
-                                  torch.as_tensor(X, dtype=dt, device=dev))
+        # std over the sample: one K2 sweep, row-split over the mesh
+        _, sd = _mesh.predict_maybe_sharded(
+            gpr.family, p, torch.as_tensor(X, dtype=dt, device=dev))
         self.last_MC_X = X
         self.last_MC_logp = logp
         self.last_MC_logw = np.log(w / np.max(w))
@@ -177,7 +180,7 @@ class NORA(GenericGPAcquisition):
         """Reuse the stored NS sample under the updated GP
         (reference: gpry/gp_acquisition.py:875-919)."""
         p = gpr.surrogate_params()
-        mu, sd = surrogate_predict(
+        mu, sd = _mesh.predict_maybe_sharded(
             gpr.family, p, torch.as_tensor(self.last_MC_X, dtype=p.X.dtype,
                                            device=p.X.device))
         mu = mu.cpu().numpy()

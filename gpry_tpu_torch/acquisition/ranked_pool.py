@@ -12,8 +12,10 @@ at each of the ``size`` rounds one sweep computes the conditioned std of
 all remaining candidates, the argmax is appended as a believer lie, and
 non-finite entries drop out.  With the acquisition function object at
 hand the whole fill is the K4 kernel (``ops.fused.kriging_believer_fill``),
-with no host read per round; without it, a per-round host loop over K2
-sweeps does the same.
+with no host read per round; without it, or with a device mesh up, a
+per-round host loop over K2 sweeps does the same (with a mesh its sweeps
+are row-split over the devices: ``parallel.mesh.predict_maybe_sharded``,
+through which every prediction here goes).
 """
 
 import numpy as np
@@ -22,8 +24,14 @@ import torch
 from gpry_tpu_torch import config
 from gpry_tpu_torch.acquisition.base import append_lie, grow_surrogate
 from gpry_tpu_torch.acquisition.functions import LogExp
-from gpry_tpu_torch.models.gp import surrogate_predict
 from gpry_tpu_torch.ops.fused import kriging_believer_fill
+from gpry_tpu_torch.parallel import mesh as _mesh
+
+
+def _predict(family, p, Xq):
+    """Gated ``(mean, std)`` (K2), row-split over the device mesh when one
+    is up (the same results)."""
+    return _mesh.predict_maybe_sharded(family, p, Xq)
 
 
 class RankedPool:
@@ -79,7 +87,7 @@ class RankedPool:
 
     def _sd(self, p, X):
         """Gated std of ``X`` (host numpy) under snapshot ``p`` (K2)."""
-        _, sd = surrogate_predict(self._family, p, self._t(np.atleast_2d(X)))
+        _, sd = _predict(self._family, p, self._t(np.atleast_2d(X)))
         return sd.cpu().numpy()
 
     def _conditioned_params(self, i):
@@ -113,8 +121,7 @@ class RankedPool:
         """
         X = np.atleast_2d(np.asarray(X, dtype=float))
         if y is None or sigma is None:
-            mu, sd = surrogate_predict(self._family, self._params0(),
-                                       self._t(X))
+            mu, sd = _predict(self._family, self._params0(), self._t(X))
             y = mu.cpu().numpy() if y is None else np.atleast_1d(y)
             sigma = sd.cpu().numpy() if sigma is None \
                 else np.atleast_1d(sigma)
@@ -151,7 +158,9 @@ class RankedPool:
             return
         alive = np.ones(len(X), dtype=bool)
         p0 = self._params0()
-        if self._acqf is not None:
+        if self._acqf is not None and _mesh.available_mesh(p0.X) is None:
+            # one device: the whole greedy fill is one K4 run; with a mesh
+            # the host loop below keeps the sweeps row-split over it
             self._add_bulk_device(p0, X, y, sigma, acq)
             return
         Xd = self._t(X)
@@ -162,7 +171,7 @@ class RankedPool:
                 acq_cond = np.where(alive, acq, -np.inf)
             else:
                 p = self._conditioned_params(i)
-                _, sd_cond = surrogate_predict(self._family, p, Xd)
+                _, sd_cond = _predict(self._family, p, Xd)
                 acq_cond = np.asarray(self._acq_func(y, sd_cond.cpu().numpy()))
                 # conditioned-ineligible candidates drop out permanently
                 acq_cond = np.where(alive & np.isfinite(acq_cond),
@@ -207,8 +216,8 @@ class RankedPool:
         """
         X = np.atleast_1d(np.asarray(X, dtype=float))
         if y is None or sigma is None:
-            mu, sd = surrogate_predict(self._family, self._params0(),
-                                       self._t(X[None]))
+            mu, sd = _predict(self._family, self._params0(),
+                              self._t(X[None]))
             y = float(mu[0]) if y is None else float(y)
             sigma = float(sd[0]) if sigma is None else float(sigma)
         if acq is None:

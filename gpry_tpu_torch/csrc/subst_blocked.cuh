@@ -14,9 +14,15 @@
 //   double-buffered: the next panel's copy runs while this one is solved.
 //   So L is read once per block of Q queries, not once per query.
 // * The update V_I -= L_I,<I V_<I runs on the FP64 tensor cores
-//   (gpry_dmma, m8n8k4): 2 x Q / 8 output tiles of 8 x 8, shared by the 8
-//   warps, each tile's k range split SUB_WARPS / tiles ways; the shares
-//   are summed in order by the solve below.
+//   (gpry_dmma, m8n8k4): 2 x Q / 8 output tiles of 8 x 8, each tile's k
+//   range split SUB_SPLITS ways (interleaved chunks of 4), the Q (tile,
+//   split) shares dealt to the 8 warps (Q / 8 a warp, one after
+//   another); the shares are summed in split order by the solve below.
+//   The split does not depend on Q, so a query's solution is the same
+//   bits whatever Q its block takes (whatever the batch it came in: a
+//   batch split into shards, parallel/mesh.py, solves as the whole batch
+//   does).  It costs ~10% at Q = 16 against the Q-dependent split it
+//   replaced (PERF.md, PR 18).
 // * The 16 x 16 diagonal block is solved by a half-warp per query, lane r
 //   holding row r of the block in registers (a step of the chain: one
 //   product with the staged 1 / L_jj, one shuffle, one update), as K9's
@@ -28,8 +34,8 @@
 // the whole route: the plan (sub_plan: Q by nq and shared memory, and
 // whether L can be copied by cp.async at all), the prologue that builds
 // the k vectors as the rows of V (sub_build_k) and the warp-per-query k .
-// alpha (sub_dot_alpha).  So two callers at one nq take the same Q and
-// give bit-identical solutions.
+// alpha (sub_dot_alpha).  So two callers give bit-identical solutions
+// (at any nq: the solutions do not depend on Q).
 //
 // Two block barriers a panel.  Layout in shared memory (the caller
 // carves it, sub_doubles): V as n_pad rows of ldq = Q + 4 doubles (row j
@@ -51,11 +57,13 @@
 #define SUB_MAXQ 32
 // the queries a block by the batch size nq: 8 for small batches (their
 // blocks then split the tensor-core tiles' work), 16 above SUB_Q16_NQ
-// (the acquisition screen), 32 above SUB_Q32_NQ.  The k-split of the
-// update depends on Q, so two kernels that take the same Q (K2 and K7 at
-// one nq) give bit-identical solutions.
+// (the acquisition screen), 32 above SUB_Q32_NQ.  The update's k-split
+// is SUB_SPLITS whatever Q is, so the solutions do not depend on Q.
 #define SUB_Q16_NQ 1056
 #define SUB_Q32_NQ 4224
+// the ways each update tile's k range is split (SUB_WARPS / 2: Q = 8's
+// two tiles fill the 8 warps)
+#define SUB_SPLITS 4
 
 __host__ __device__ inline int sub_queries(int nq) {
   return nq > SUB_Q32_NQ ? 32 : nq > SUB_Q16_NQ ? 16 : 8;
@@ -66,10 +74,11 @@ __host__ __device__ inline int sub_npad(int n) {
 }
 
 // Doubles of the routine's shared memory: V, the two stages, the tiles'
-// shares (one 8 x 8 tile a warp), 1 / L_jj, sumsq, and one to align.
+// shares (SUB_SPLITS 8 x 8 shares a tile: Q x 64), 1 / L_jj, sumsq, and
+// one to align.
 __host__ __device__ inline size_t sub_doubles(int n, int Q) {
   const size_t np = (size_t)sub_npad(n);
-  return np * (Q + 4) + 2 * SUB_PB * (np + 4) + SUB_WARPS * 64 + SUB_PB +
+  return np * (Q + 4) + 2 * SUB_PB * (np + 4) + (size_t)Q * 64 + SUB_PB +
          Q + 1;
 }
 
@@ -118,7 +127,7 @@ struct GprySub {
   int n, nmax, Q;
   double* V;       // sub_npad(n) x (Q + 4)
   double* stage;   // 2 x SUB_PB x (sub_npad(n) + 4)
-  double* part;    // SUB_WARPS x 64
+  double* part;    // Q x 64: the (split, tile) shares
   double* dinv;    // SUB_PB: the panel's 1 / L_jj
   double* sumsq;   // Q
 };
@@ -134,7 +143,7 @@ __device__ __forceinline__ GprySub sub_carve(const double* L, int n,
   s.V = at + (((size_t)at & 15) ? 1 : 0);
   s.stage = s.V + (size_t)np * (Q + 4);
   s.part = s.stage + 2 * SUB_PB * ((size_t)np + 4);
-  s.dinv = s.part + SUB_WARPS * 64;
+  s.dinv = s.part + (size_t)Q * 64;
   s.sumsq = s.dinv + SUB_PB;
   return s;
 }
@@ -229,9 +238,6 @@ static __device__ void sub_forward(const GprySub& s) {
   const int n = s.n, Q = s.Q, ldq = Q + 4;
   const int lda = sub_npad(n) + 4, np = sub_npad(n) / SUB_PB;
   const int nqt = Q / 8, tiles = 2 * nqt;
-  const int splits = SUB_WARPS / tiles;  // 4, 2 or 1 (Q = 8, 16, 32)
-  const int tile = warp % tiles, split = warp / tiles;
-  const int ta = tile / nqt, tb = tile - ta * nqt;
   const int g = lane >> 2, t4 = lane & 3;
   // the solve: half-warp h takes queries h, h + 16 (both halves of a warp
   // take a query or neither: Q is a multiple of 8)
@@ -246,16 +252,21 @@ static __device__ void sub_forward(const GprySub& s) {
     if (p + 1 < np) sub_load_panel(s, (p + 1) & 1, P0 + SUB_PB);
     __pipeline_commit();
     const double* Lp = s.stage + (size_t)(p & 1) * SUB_PB * lda;
-    // the update's shares on the tensor cores
+    // the update's shares on the tensor cores: share `task` is tile
+    // task % tiles, split task / tiles
     if (P0 > 0) {
-      double d0 = 0.0, d1 = 0.0;
-      const double* Arow = Lp + (8 * ta + g) * lda + t4;
-      const double* Bcol = s.V + (size_t)t4 * ldq + 8 * tb + g;
-      for (int k0 = 4 * split; k0 < P0; k0 += 4 * splits)
-        gpry_dmma(d0, d1, Arow[k0], Bcol[(size_t)k0 * ldq]);
-      double* o = s.part + warp * 64 + g * 8 + 2 * t4;
-      o[0] = d0;
-      o[1] = d1;
+      for (int task = warp; task < SUB_SPLITS * tiles; task += SUB_WARPS) {
+        const int tile = task % tiles, split = task / tiles;
+        const int ta = tile / nqt, tb = tile - ta * nqt;
+        double d0 = 0.0, d1 = 0.0;
+        const double* Arow = Lp + (8 * ta + g) * lda + t4;
+        const double* Bcol = s.V + (size_t)t4 * ldq + 8 * tb + g;
+        for (int k0 = 4 * split; k0 < P0; k0 += 4 * SUB_SPLITS)
+          gpry_dmma(d0, d1, Arow[k0], Bcol[(size_t)k0 * ldq]);
+        double* o = s.part + task * 64 + g * 8 + 2 * t4;
+        o[0] = d0;
+        o[1] = d1;
+      }
     }
     if (tid >= SUB_THREADS - SUB_PB) {
       const int j = tid - (SUB_THREADS - SUB_PB);
@@ -279,7 +290,7 @@ static __device__ void sub_forward(const GprySub& s) {
       if (P0 > 0) {
         const int at = ((hr >> 3) * nqt + (q >> 3)) * 64 + (hr & 7) * 8 +
                        (q & 7);
-        for (int sp = 0; sp < splits; ++sp)
+        for (int sp = 0; sp < SUB_SPLITS; ++sp)
           r -= s.part[sp * tiles * 64 + at];
       }
       double x = 0.0;
@@ -348,7 +359,7 @@ __device__ __forceinline__ void sub_load_cpanel(const GprySub& s, int slot,
 // (16 contiguous doubles a row) is staged by cp.async in the two stages,
 // the next panel's copy running while this one is solved; the update runs
 // on the FP64 tensor cores (gpry_dmma, the transposed operand read from
-// the stage), split over the warps as sub_forward's; the 16 x 16 diagonal
+// the stage), split as sub_forward's; the 16 x 16 diagonal
 // block is solved by a half-warp a query, lane r holding column r of
 // L_II.  Every thread calls it; V must be visible to all threads on entry
 // (sub_forward ends with a barrier), and W is on exit (after a barrier).
@@ -358,9 +369,6 @@ static __device__ void sub_backward(const GprySub& s) {
   const int n = s.n, Q = s.Q, ldq = Q + 4, npad = sub_npad(n);
   const int lda = npad + 4, np = npad / SUB_PB;
   const int nqt = Q / 8, tiles = 2 * nqt;
-  const int splits = SUB_WARPS / tiles;
-  const int tile = warp % tiles, split = warp / tiles;
-  const int ta = tile / nqt, tb = tile - ta * nqt;
   const int g = lane >> 2, t4 = lane & 3;
   const int hr = lane & 15, h = tid >> 4;
 
@@ -376,16 +384,20 @@ static __device__ void sub_backward(const GprySub& s) {
     // the update's shares on the tensor cores: A = L_{>I,I}^T (A[i][k] at
     // staged row 16 + k, column i), B = W_{>I}
     if (K > 0) {
-      double d0 = 0.0, d1 = 0.0;
-      const int ca = 8 * ta + g;
-      const double* Bcol =
-          s.V + (size_t)(P0 + SUB_PB + t4) * ldq + 8 * tb + g;
-      for (int k0 = 4 * split; k0 < K; k0 += 4 * splits)
-        gpry_dmma(d0, d1, Lc[sub_cswz(SUB_PB + k0 + t4, ca)],
-                  Bcol[(size_t)k0 * ldq]);
-      double* o = s.part + warp * 64 + g * 8 + 2 * t4;
-      o[0] = d0;
-      o[1] = d1;
+      for (int task = warp; task < SUB_SPLITS * tiles; task += SUB_WARPS) {
+        const int tile = task % tiles, split = task / tiles;
+        const int ta = tile / nqt, tb = tile - ta * nqt;
+        double d0 = 0.0, d1 = 0.0;
+        const int ca = 8 * ta + g;
+        const double* Bcol =
+            s.V + (size_t)(P0 + SUB_PB + t4) * ldq + 8 * tb + g;
+        for (int k0 = 4 * split; k0 < K; k0 += 4 * SUB_SPLITS)
+          gpry_dmma(d0, d1, Lc[sub_cswz(SUB_PB + k0 + t4, ca)],
+                    Bcol[(size_t)k0 * ldq]);
+        double* o = s.part + task * 64 + g * 8 + 2 * t4;
+        o[0] = d0;
+        o[1] = d1;
+      }
     }
     if (tid >= SUB_THREADS - SUB_PB) {
       const int j = tid - (SUB_THREADS - SUB_PB);
@@ -409,7 +421,7 @@ static __device__ void sub_backward(const GprySub& s) {
       if (K > 0) {
         const int at = ((hr >> 3) * nqt + (q >> 3)) * 64 + (hr & 7) * 8 +
                        (q & 7);
-        for (int sp = 0; sp < splits; ++sp)
+        for (int sp = 0; sp < SUB_SPLITS; ++sp)
           r -= s.part[sp * tiles * 64 + at];
       }
       double x = 0.0;

@@ -87,8 +87,10 @@ class InterfaceDevice(NSInterface):
         from gpry_tpu_torch.mc.nested import run_nested_device
         from gpry_tpu_torch.parallel.rng import torch_generator_from_rng
         dt, dev = config.FIT_DTYPE, config.get_device()
+        from gpry_tpu_torch.parallel import mesh as mesh_mod
         if isinstance(logp_fn_and_params, tuple):
             fn, params = logp_fn_and_params
+            mesh = mesh_mod.available_mesh(platform=dev.type)
         else:
             host_fn = logp_fn_and_params
 
@@ -97,7 +99,8 @@ class InterfaceDevice(NSInterface):
                 return torch.as_tensor(out.reshape(X.shape[0]), dtype=dt,
                                        device=X.device)
 
-            params = None
+            # every batch goes through the host: unmeshed
+            params, mesh = None, None
         lo = torch.as_tensor(self.bounds[:, 0], dtype=dt, device=dev)
         hi = torch.as_tensor(self.bounds[:, 1], dtype=dt, device=dev)
         if self.seed is not None:
@@ -109,7 +112,8 @@ class InterfaceDevice(NSInterface):
             fn, params, gen, lo, hi, nlive=nlive,
             num_repeats=self.num_repeats or 5 * d,
             precision_criterion=self.precision_criterion or 0.01,
-            max_dead=int(nlive * max(10, 3 * d)), n_prior=self.nprior)
+            max_dead=int(nlive * max(10, 3 * d)), n_prior=self.nprior,
+            mesh=mesh)
         logw = res.logw.cpu().numpy()
         keep = np.isfinite(logw)
         return {"X": res.X.cpu().numpy()[keep],

@@ -39,6 +39,7 @@ import torch
 
 from gpry_tpu_torch.ops.fused import NS_SHRINKS, NSState, ns_step, \
     slice_chains_lockstep
+from gpry_tpu_torch.parallel.mesh import sharded_slice_chains
 
 
 class NSResult(NamedTuple):
@@ -68,25 +69,29 @@ def _volume_consts(nlive, n_prior, max_dead):
     return logx_prev, log_shell, float(inv_n[:k0_dead].sum())
 
 
-def _slice_chains(logl_fn, params, logl_of, st, nrm, u, lo, hi):
+def _slice_chains(logl_fn, params, logl_of, st, nrm, u, lo, hi, mesh=None):
     """
     The ``B`` constrained slice chains of one step from the state ``st``
     (``ops.fused.NSState``) on the draws ``nrm`` (R, B, d) and ``u`` (R, 31,
-    B): ``logl_fn``'s own ``slice_chains`` route if it has one, else the
-    lock-step loop on ``logl_of``.  Returns (x, lx, calls (B,)).
+    B): ``logl_fn``'s own ``slice_chains`` route if it has one (its chains
+    split over ``mesh`` when given), else the lock-step loop on
+    ``logl_of``.  Returns (x, lx, calls (B,)).
     """
     route = getattr(logl_fn, "slice_chains", None)
-    if route is not None:
-        return route(params, st.x0, st.lx0, st.lstar, st.chol, nrm, u, lo,
-                     hi, st.done)
-    return slice_chains_lockstep(logl_of, st.x0, st.lx0, st.lstar, st.chol,
-                                 nrm, u)
+    if route is None:
+        return slice_chains_lockstep(logl_of, st.x0, st.lx0, st.lstar,
+                                     st.chol, nrm, u)
+    if mesh is not None:
+        return sharded_slice_chains(route, params, st.x0, st.lx0, st.lstar,
+                                    st.chol, nrm, u, lo, hi, st.done, mesh)
+    return route(params, st.x0, st.lx0, st.lstar, st.chol, nrm, u, lo, hi,
+                 st.done)
 
 
 def run_nested_device(logl_fn, params, gen, lo, hi, nlive=200,
                       num_repeats=10, precision_criterion=0.01,
                       max_dead=5000, kill_batch=None, n_prior=None, seg=8,
-                      on_segment=None):
+                      on_segment=None, mesh=None):
     """
     Nested sampling of ``logl_fn(params, X)`` ((nq, d) -> (nq,)) under a
     uniform prior on the box [lo, hi], on the device of ``lo``.  A
@@ -99,11 +104,20 @@ def run_nested_device(logl_fn, params, gen, lo, hi, nlive=200,
     shrinking-live-count volumes.  ``gen`` is the ``torch.Generator`` of
     every draw.  ``seg`` steps are queued between two reads of the stop
     flag; ``on_segment`` (a heartbeat) is called after each read.
+
+    With ``mesh`` (a 1-D device mesh, ``parallel.mesh``, whose size
+    divides the kill batch ``B``) each step's chains are split over the
+    mesh, each shard's on its own device (K6 there); the draws stay on the
+    run's generator and the chains are independent, so the run's samples
+    equal the unsharded run's whatever the mesh.  The lock-step loop of a
+    log-density with no ``slice_chains`` route runs unsharded.
     """
     nlive = int(nlive)
     B = max(1, nlive // 6) if kill_batch is None else int(kill_batch)
     n_prior = nlive if n_prior is None or n_prior < nlive else int(n_prior)
     max_dead, seg, R = int(max_dead), max(1, int(seg)), int(num_repeats)
+    if mesh is not None and B % mesh.shape["data"]:
+        mesh = None
     dt, dev = lo.dtype, lo.device
     d = lo.shape[0]
     k0_dead = n_prior - nlive
@@ -152,7 +166,7 @@ def run_nested_device(logl_fn, params, gen, lo, hi, nlive=200,
             u = torch.rand((R, 1 + NS_SHRINKS, B), generator=gen, **f64)
             ns_step(st, xs, ls, cs, starts, *consts)
             xs, ls, cs = _slice_chains(logl_fn, params, logl_of, st, nrm, u,
-                                       lo, hi)
+                                       lo, hi, mesh)
         ns_step(st, xs, ls, cs, starts, *consts, select=False)
         queued += seg
         reads += 1

@@ -25,6 +25,7 @@ from gpry_tpu_torch.mc.mcmc import run_mcmc_device, split_rhat
 from gpry_tpu_torch.mc.nested import run_nested_device
 from gpry_tpu_torch.models.gp import surrogate_predict_mean
 from gpry_tpu_torch.ops.fused import mcmc_chains, ns_slice_chains
+from gpry_tpu_torch.parallel import mesh as _mesh
 from gpry_tpu_torch.parallel.rng import torch_generator_from_rng
 from gpry_tpu_torch.utils.tools import (check_and_return_bounds,
                                         generic_params_names, get_Xnumber)
@@ -130,10 +131,12 @@ def mc_sample_from_gp(gpr, bounds=None, sampler="nested", rng=None,
                               dtype=int, varname="num_repeats")
     max_dead = int(options.get("max_dead", max(4000, 60 * nlive)))
     t0 = time.perf_counter()
+    # each step's chains DP-split over the available device mesh
     res = run_nested_device(
         logp, p, gen, lo, hi, nlive=int(nlive), num_repeats=int(num_repeats),
         precision_criterion=float(options.get("precision_criterion", 0.01)),
-        max_dead=max_dead, on_segment=heartbeat)
+        max_dead=max_dead, on_segment=heartbeat,
+        mesh=_mesh.available_mesh(p.X))
     logw = res.logw.cpu().numpy()
     logl = res.logl.cpu().numpy()
     keep = np.isfinite(logw) & np.isfinite(logl)

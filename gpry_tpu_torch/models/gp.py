@@ -14,6 +14,9 @@ The GP surrogate model (port of gpry_tpu/models/gp.py).
   reference's prediction semantics; the gated sweeps are the K1 / K2 CUDA
   kernels, the convergence audit's ungated sweeps K5, the full covariance
   of ``predict(return_cov=True)`` K7 (``ops.fused``).
+* With a device mesh (``parallel.mesh``: two or more cards) the fit's
+  restart lanes and ``predict``'s rows are split over the cards; the
+  results are the single card's.
 * ``kernel`` is the reference's auto-built C() * RBF / Matern (a fast
   family) or any sklearn-style kernel expression, compiled to a spec tree
   (``ops.kernels.build_kernel_spec``) that every kernel runs in its spec
@@ -43,6 +46,7 @@ from gpry_tpu_torch.ops.kernels import build_kernel_spec, make_theta, \
 from gpry_tpu_torch.ops.linalg import chol_append, factorize, \
     predict_meancov, predict_meanvar
 from gpry_tpu_torch.ops.linalg import lml_batch as _lml_batch
+from gpry_tpu_torch.parallel import mesh as _mesh
 from gpry_tpu_torch.utils.tools import check_and_return_bounds, \
     delta_logp_of_1d_nstd, get_Xnumber, shrink_bounds
 
@@ -868,7 +872,10 @@ class GaussianProcessRegressor:
             theta0s[i0:] = cand[order[:n_polish - i0]]
 
         self._liveness()
-        thetas, nlls, fit_nevs = _fit_theta_restarts(
+        # the restarts are DP-split over the device mesh when one is up
+        # (parallel/mesh.py; the reference's MPI restart split,
+        # gpry/run.py:1253-1293): the same lanes either way
+        thetas, nlls, fit_nevs = _mesh.fit_theta_restarts_maybe_sharded(
             self.family, self._dX, self._dy, n, noise, self._t(theta0s),
             self._t(lo), self._t(hi), maxiter=maxiter)
         nlls = nlls.cpu().numpy()
@@ -1012,13 +1019,17 @@ class GaussianProcessRegressor:
             p = p.replace(trust_lo=self._t(np.full(self.d, -np.inf)),
                           trust_hi=self._t(np.full(self.d, np.inf)))
         Xd = self._t(X)
-        mean, std = surrogate_predict(self.family, p, Xd)
         if return_cov:
+            mean, std = surrogate_predict(self.family, p, Xd)
             Xq_ = ((Xd - p.x_loc) / p.x_scale).contiguous()
             _, cov_ = predict_meancov(self.family, p.theta, p.X, p.n,
                                       p.noise_var, p.L, p.alpha, Xq_)
             cov = cov_.cpu().numpy() * float(p.y_scale) ** 2
             return mean.cpu().numpy(), cov
+        # mesh-aware dispatch: large batches DP-split over the rows, small
+        # ones with a large training buffer TP-split over the training
+        # axis, otherwise the single-device K2 (parallel/mesh.py)
+        mean, std = _mesh.predict_maybe_sharded(self.family, p, Xd)
         out = [mean.cpu().numpy()]
         if return_std:
             out.append(std.cpu().numpy())

@@ -59,13 +59,19 @@ versions, and the wrappers that choose between them.
   ``outer_body`` outside the slice chains, :211-275); plain version
   :func:`ns_step_plain`.  It never evaluates the covariance, so it has no
   spec instance.
+* K14 ``tp_cross_mean`` and ``tp_quad`` (``csrc/tp_predict_partial.cu``)
+  replace the ``local`` body of parallel/mesh.py:188-199 _tp_predict_raw:
+  one shard's cross covariances and partial mean, then its partial of the
+  quadratic form k^T K^-1 k; plain versions :func:`tp_cross_mean_plain`,
+  :func:`tp_quad_plain`.  ``tp_quad`` evaluates no covariance, so it has
+  no spec instance.
 
-Every kernel but K13 takes the covariance as a fast family (C() * RBF / Matern
-with ARD length scales) or as a kernel spec tree (ops/kernels.py), which
-:func:`encode_spec` turns into a post-order program that the kernels'
-spec mode interprets (``csrc/common.cuh``).  A tree beyond
-``SPEC_MAX_NODES`` nodes or ``SPEC_MAX_STACK`` stack entries raises
-``ValueError`` for CUDA tensors.
+Every kernel but K13 and K14's ``tp_quad`` takes the covariance as a fast
+family (C() * RBF / Matern with ARD length scales) or as a kernel spec
+tree (ops/kernels.py), which :func:`encode_spec` turns into a post-order
+program that the kernels' spec mode interprets (``csrc/common.cuh``).  A
+tree beyond ``SPEC_MAX_NODES`` nodes or ``SPEC_MAX_STACK`` stack entries
+raises ``ValueError`` for CUDA tensors.
 
 A wrapper runs the plain version only when its input tensor lies on the
 CPU.  For a CUDA tensor it launches the kernel or raises: there is no
@@ -75,20 +81,26 @@ surrogate are K8's own outputs (models/gp.py wraps it in an autograd
 Function); the fit's gradients in theta are K10's (its gradient mode) and
 K11's (its own evaluation).
 
-The thirteen sources compile in parallel, one ``nvcc`` per source, and link
+The fourteen sources compile in parallel, one ``nvcc`` per source, and link
 into a shared library with a plain C interface
 (``_build/libgpry_kernels.so`` inside the package), at first use, and load
 over ``ctypes``.  Every launch goes on PyTorch's
-current stream and is checked with ``cudaGetLastError``.
+current stream and is checked with ``cudaGetLastError``.  The wrappers
+that a device mesh's shards call (K2, K6, K11, K14: ``parallel.mesh``)
+launch with their tensors' device made torch's current device
+(:func:`_launch_on`), on that device's current stream.
 
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made (for K4,
 both of its kernels: one select per round and one sweep per conditioned
 round; for K6 one per call, with the staging kernel that a surrogate too
 large for shared memory needs first; for K7 both of its kernels, two per
-call; for K12 one per phase, with the same staging kernel when needed).
+call; for K12 one per phase, with the same staging kernel when needed;
+for K14's ``tp_quad`` both of its kernels, the panels' product and their
+sum, two per call).
 Launches in spec mode count under ``"<name>/spec"``.
 """
 
+import contextlib
 import ctypes
 import math
 import os
@@ -112,7 +124,8 @@ _SOURCES = ("gated_mean.cu", "gated_meanvar_logexp.cu",
             "masked_kernel_matrix.cu", "kriging_believer_fill.cu",
             "meanvar_ungated.cu", "ns_slice_chains.cu", "predict_meancov.cu",
             "meanstd_grad.cu", "lbfgs_logexp_ascent.cu", "lml_value_grad.cu",
-            "lbfgs_lml_fit.cu", "mcmc_chains.cu", "ns_step.cu")
+            "lbfgs_lml_fit.cu", "mcmc_chains.cu", "ns_step.cu",
+            "tp_predict_partial.cu")
 _HEADERS = ("common.cuh", "lml_blocked.cuh", "subst_blocked.cuh")
 _LIB_PATH = os.path.join(_BUILD, "libgpry_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -130,9 +143,10 @@ KERNELS = ("gated_mean", "gated_meanvar_logexp",
            "masked_kernel_matrix_batched", "kriging_believer_fill",
            "meanvar_ungated", "ns_slice_chains", "predict_meancov",
            "meanstd_grad", "lbfgs_logexp_ascent", "lml_value_grad",
-           "lbfgs_lml_fit", "mcmc_chains", "ns_step")
+           "lbfgs_lml_fit", "mcmc_chains", "ns_step", "tp_cross_mean",
+           "tp_quad")
 #: the kernels with no spec instance (they never evaluate the covariance)
-NO_SPEC = ("ns_step",)
+NO_SPEC = ("ns_step", "tp_quad")
 #: launches per kernel made by the wrappers (never by the plain versions),
 #: spec-mode launches under "<name>/spec"
 LAUNCHES = {f"{k}{m}": 0 for k in KERNELS for m in ("", "/spec")
@@ -317,6 +331,14 @@ def library():
         lib.gpry_mcmc_chains.restype = I
         lib.gpry_ns_step.argtypes = [I] * 5 + [D, D, I] + [P] * 19
         lib.gpry_ns_step.restype = I
+        lib.gpry_tp_cross_mean.argtypes = [K] + [I] * 5 + [P] * 7
+        lib.gpry_tp_cross_mean.restype = I
+        lib.gpry_tp_quad_panels.argtypes = [I]
+        lib.gpry_tp_quad_panels.restype = I
+        lib.gpry_tp_quad.argtypes = [I] * 3 + [P] * 6
+        lib.gpry_tp_quad.restype = I
+        lib.gpry_current_device.argtypes = []
+        lib.gpry_current_device.restype = I
         _lib = lib
         return lib
 
@@ -434,6 +456,32 @@ def _raise_on(name, rc):
 
 def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+#: the devices on which the library's CUDA runtime was seen to follow
+#: torch's current device
+_DEVICES_CHECKED = set()
+
+
+@contextlib.contextmanager
+def _launch_on(device):
+    """Make ``device`` torch's current device around a launch, so that the
+    launch goes on that device's current stream and every per-device
+    setting (shared memory opt-ins, the SM count) is that device's.  The
+    library links its own CUDA runtime: the first launch on a device
+    checks that its current device is torch's (both follow the driver's
+    current context), and raises if not."""
+    with torch.cuda.device(device):
+        idx = torch.cuda.current_device()
+        if idx not in _DEVICES_CHECKED:
+            got = library().gpry_current_device()
+            if got != idx:
+                raise RuntimeError(
+                    f"the kernel library's CUDA runtime is on device {got}, "
+                    f"torch's on {idx}: a launch would go to the wrong "
+                    "card.")
+            _DEVICES_CHECKED.add(idx)
+        yield
 
 
 def _ptr(t):
@@ -1124,9 +1172,9 @@ def _sweep_queries_per_block(nmax, d, spec_doubles):
 
 
 #: K2's route 0 (csrc/gated_meanvar_logexp.cu, csrc/subst_blocked.cuh):
-#: panel rows, the warps of a block, and the batch sizes above which a
-#: block takes 16 and 32 queries (SUB_Q16_NQ, SUB_Q32_NQ)
-_SUB_PB, _SUB_WARPS = 16, 8
+#: panel rows, and the batch sizes above which a block takes 16 and 32
+#: queries (SUB_Q16_NQ, SUB_Q32_NQ)
+_SUB_PB = 16
 _SUB_Q16_NQ, _SUB_Q32_NQ = 1056, 4224
 
 
@@ -1162,7 +1210,9 @@ def _sub_plan(n, nmax, nq, fixed, per_q, aligned):
     npad = -(-n // _SUB_PB) * _SUB_PB
     q = 32 if nq > _SUB_Q32_NQ else 16 if nq > _SUB_Q16_NQ else 8
     while q >= 8:
-        sub = npad * (q + 4) + 2 * _SUB_PB * (npad + 4) + _SUB_WARPS * 64 \
+        # V, the two stages, the update's Q x 64 shares (SUB_SPLITS a
+        # tile), 1 / L_jj, sumsq and one to align
+        sub = npad * (q + 4) + 2 * _SUB_PB * (npad + 4) + q * 64 \
             + _SUB_PB + q + 1
         smem = 8 * (fixed + per_q * q + sub)
         if smem <= _SMEM_MAX:
@@ -1302,14 +1352,15 @@ def gated_meanvar_logexp(family, p, Xq_raw, logexp=None):
     zeta, noise_std = (0.0, 0.0) if logexp is None else logexp
     qchain = _sweep_queries_per_block(nmax, d, _spec_doubles(kern))
     lib = library()
-    rc = lib.gpry_gated_meanvar_logexp(
-        kern, int(logexp is not None), nq, int(p.n), nmax,
-        p.svm.sv.shape[0], d, qchain,
-        *(_ptr(tensors[k]) for k in (
-            "Xq_raw", "X", "alpha", "L", "theta", "x_loc", "x_scale",
-            "trust_lo", "trust_hi", "sv", "dual", "scal")),
-        int(p.svm.mode), float(zeta), float(noise_std), _ptr(out0),
-        _ptr(out1), _stream())
+    with _launch_on(Xq_raw.device):
+        rc = lib.gpry_gated_meanvar_logexp(
+            kern, int(logexp is not None), nq, int(p.n), nmax,
+            p.svm.sv.shape[0], d, qchain,
+            *(_ptr(tensors[k]) for k in (
+                "Xq_raw", "X", "alpha", "L", "theta", "x_loc", "x_scale",
+                "trust_lo", "trust_hi", "sv", "dual", "scal")),
+            int(p.svm.mode), float(zeta), float(noise_std), _ptr(out0),
+            _ptr(out1), _stream())
     _raise_on("gated_meanvar_logexp", rc)
     _count("gated_meanvar_logexp", family)
     return out0 if logexp is not None else (out0, out1)
@@ -1544,14 +1595,15 @@ def ns_slice_chains(family, p, x0, lx0, lstar, chol, nrm, u, lo, hi,
     nwork = lib.gpry_ns_slice_chains_work(kern, int(p.n), nsv, d, mode)
     work = torch.empty(nwork, dtype=torch.float64, device=dev) \
         if nwork else None
-    rc = lib.gpry_ns_slice_chains(
-        kern, B, R, int(p.n), nsv, d,
-        *(_ptr(tensors[k]) for k in (
-            "x0", "lx0", "lstar", "chol", "lo", "hi", "nrm", "u", "X",
-            "alpha", "theta", "x_loc", "x_scale", "trust_lo", "trust_hi",
-            "sv", "dual", "scal")),
-        mode, _ptr_or_null(done), _ptr_or_null(work), _ptr(x), _ptr(lx),
-        _ptr(calls), _ptr_or_null(passes), _stream())
+    with _launch_on(dev):
+        rc = lib.gpry_ns_slice_chains(
+            kern, B, R, int(p.n), nsv, d,
+            *(_ptr(tensors[k]) for k in (
+                "x0", "lx0", "lstar", "chol", "lo", "hi", "nrm", "u", "X",
+                "alpha", "theta", "x_loc", "x_scale", "trust_lo",
+                "trust_hi", "sv", "dual", "scal")),
+            mode, _ptr_or_null(done), _ptr_or_null(work), _ptr(x),
+            _ptr(lx), _ptr(calls), _ptr_or_null(passes), _stream())
     _raise_on("ns_slice_chains", rc)
     _count("ns_slice_chains", family)
     return out
@@ -2156,14 +2208,108 @@ def lbfgs_lml_fit(family, X, y, n, noise_var, theta0s, lo, hi, maxiter=200,
                              "kernel's global route (shared memory).")
         work = torch.empty(R * per_lane.value, dtype=torch.float64,
                            device=dev)
-        rc = lib.gpry_lbfgs_lml_fit(
-            kern, R, int(n), d, int(maxiter), _ptr(theta0s), _ptr(lo),
-            _ptr(hi), _ptr(X), _ptr(y), _ptr(noise), int(noise.numel() > 1),
-            float(rel_jitter), _ptr(work), _ptr(thetas), _ptr(f), _ptr(nev),
-            _ptr(iters), _stream())
+        with _launch_on(dev):
+            rc = lib.gpry_lbfgs_lml_fit(
+                kern, R, int(n), d, int(maxiter), _ptr(theta0s), _ptr(lo),
+                _ptr(hi), _ptr(X), _ptr(y), _ptr(noise),
+                int(noise.numel() > 1), float(rel_jitter), _ptr(work),
+                _ptr(thetas), _ptr(f), _ptr(nev), _ptr(iters), _stream())
         _raise_on("lbfgs_lml_fit", rc)
         _count("lbfgs_lml_fit", family)
     return (thetas, f, nev, iters) if return_iters else (thetas, f, nev)
+
+
+# ---------------------------------------------------------------------------
+# K14: one shard's partial of the training-axis (TP) sharded predict
+# ---------------------------------------------------------------------------
+
+
+def tp_cross_mean_plain(family, theta, X_shard, alpha_shard, Xq_, row0, n):
+    """The ``local`` body of gpry_tpu/parallel/mesh.py:188-193 for one
+    shard of the training rows (``X_shard`` (nloc, d) from row ``row0``,
+    its ``alpha_shard``; ``n`` valid rows in all): ``(K_shard (nloc, nq),
+    mean_part (nq,))`` with ``K_shard[i, q] = [row0 + i < n] k(x_i,
+    xq_q)`` in the cross form and ``mean_part = K_shard^T alpha_shard``."""
+    nloc = X_shard.shape[0]
+    m = (row0 + torch.arange(nloc, device=X_shard.device) < n).to(
+        X_shard.dtype)
+    K = cross_kernel(family, theta, X_shard, Xq_) * m[:, None]
+    return K, K.T @ alpha_shard
+
+
+def tp_quad_plain(M_shard, k_full, K_shard):
+    """gpry_tpu/parallel/mesh.py:196-197: ``sum_i K_shard[i, q] (M_shard
+    k_full)[i, q]`` (nq,), M_shard the shard's rows of K^-1 (nloc, nmax)
+    and k_full every shard's K_shard gathered (nmax, nq)."""
+    return torch.sum(K_shard * (M_shard @ k_full), dim=0)
+
+
+def tp_cross_mean(family, theta, X_shard, alpha_shard, Xq_, row0, n):
+    """K14 (a): :func:`tp_cross_mean_plain` in one launch on the shard's
+    own device (a block a query, the row sum in a fixed order)."""
+    check_family(family)
+    if X_shard.device.type == "cpu":
+        return tp_cross_mean_plain(family, theta, X_shard, alpha_shard, Xq_,
+                                   row0, n)
+    dev = X_shard.device
+    nloc, d = X_shard.shape
+    nq = Xq_.shape[0]
+    if tuple(alpha_shard.shape) != (nloc,) or Xq_.ndim != 2 or \
+            Xq_.shape[1] != d:
+        raise ValueError(f"tp_cross_mean: expected X_shard (nloc, d), "
+                         f"alpha_shard (nloc,) and Xq_ (nq, d); got "
+                         f"{tuple(X_shard.shape)}, "
+                         f"{tuple(alpha_shard.shape)}, {tuple(Xq_.shape)}.")
+    _check_cuda("tp_cross_mean", dev, theta=theta, X_shard=X_shard,
+                alpha_shard=alpha_shard, Xq_=Xq_)
+    kern = _kern(family, d, dev)
+    _check_theta("tp_cross_mean", kern, theta)
+    K = torch.empty((nloc, nq), dtype=torch.float64, device=dev)
+    mean = torch.empty(nq, dtype=torch.float64, device=dev)
+    if nq == 0:
+        return K, mean
+    lib = library()
+    with _launch_on(dev):
+        rc = lib.gpry_tp_cross_mean(
+            kern, nloc, nq, d, int(row0), int(n), _ptr(X_shard),
+            _ptr(alpha_shard), _ptr(Xq_), _ptr(theta), _ptr(K), _ptr(mean),
+            _stream())
+    _raise_on("tp_cross_mean", rc)
+    _count("tp_cross_mean", family)
+    return K, mean
+
+
+def tp_quad(M_shard, k_full, K_shard):
+    """K14 (b): :func:`tp_quad_plain` on the shard's own device: a block a
+    panel of M_shard's rows, the product and the column sum fused (only
+    the panels' partials reach global memory), then their sum per query
+    in panel order; two launches."""
+    if M_shard.device.type == "cpu":
+        return tp_quad_plain(M_shard, k_full, K_shard)
+    dev = M_shard.device
+    nloc, nmax = M_shard.shape
+    nq = k_full.shape[1] if k_full.ndim == 2 else -1
+    if tuple(k_full.shape) != (nmax, nq) or \
+            tuple(K_shard.shape) != (nloc, nq):
+        raise ValueError(f"tp_quad: expected M_shard (nloc, nmax), k_full "
+                         f"(nmax, nq) and K_shard (nloc, nq); got "
+                         f"{tuple(M_shard.shape)}, {tuple(k_full.shape)}, "
+                         f"{tuple(K_shard.shape)}.")
+    _check_cuda("tp_quad", dev, M_shard=M_shard, k_full=k_full,
+                K_shard=K_shard)
+    quad = torch.empty(nq, dtype=torch.float64, device=dev)
+    if nq == 0:
+        return quad
+    lib = library()
+    work = torch.empty((lib.gpry_tp_quad_panels(nloc), nq),
+                       dtype=torch.float64, device=dev)
+    with _launch_on(dev):
+        rc = lib.gpry_tp_quad(nloc, nmax, nq, _ptr(M_shard), _ptr(k_full),
+                              _ptr(K_shard), _ptr(work), _ptr(quad),
+                              _stream())
+    _raise_on("tp_quad", rc)
+    LAUNCHES["tp_quad"] += 2
+    return quad
 
 
 __all__ = ["KERNELS", "LAUNCHES", "KernelBuildError", "SPEC_MAX_NODES",
@@ -2182,4 +2328,5 @@ __all__ = ["KERNELS", "LAUNCHES", "KernelBuildError", "SPEC_MAX_NODES",
            "mcmc_chains_plain", "NSState", "ns_step", "ns_step_plain",
            "NS_STEP_MAX_NLIVE", "CHAINS_MAX_D", "lbfgs_logexp_ascent_plan",
            "lbfgs_lml_fit_plan", "lml_value_grad_plan",
-           "check_lbfgs_range"]
+           "check_lbfgs_range", "tp_cross_mean", "tp_cross_mean_plain",
+           "tp_quad", "tp_quad_plain"]

@@ -2378,3 +2378,215 @@ def test_polish_k2_calls_equal_the_plain_version(dev):
         np.testing.assert_allclose(a[fin], b[fin], rtol=1e-10, atol=1e-12)
     assert np.all(np.isfinite(vals))
     assert np.all((X_out >= bounds[:, 0]) & (X_out <= bounds[:, 1]))
+
+
+# ---------------------------------------------------------------------------
+# K14 and the device mesh (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+
+def k14_case(family, dev, nq, d=8, n=900, nmax=1024, P=4, seed=5):
+    """K14's inputs at the TP predict's shapes: n valid rows of nmax (d
+    = 8) split over P shards of nloc = nmax / P rows, nq queries, a
+    symmetric positive definite M (nmax, nmax); the shards' plain K_shard
+    gathered into k_full.  Returns (family, theta, X, alpha, Xq_, M,
+    k_full, nloc, n)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(np.asarray(a, float), dtype=torch.float64,
+                                  device=dev)
+    family, theta = family_and_theta(family, d)
+    X = np.zeros((nmax, d))
+    X[:n] = rng.uniform(0, 1, (n, d))
+    alpha = np.zeros(nmax)
+    alpha[:n] = rng.normal(size=n)
+    A = rng.normal(size=(nmax, nmax)) / np.sqrt(nmax)
+    M = A @ A.T + np.eye(nmax)
+    Xq = rng.uniform(0, 1, (nq, d))
+    nloc = nmax // P
+    X, alpha, theta, Xq = t(X), t(alpha), t(theta), t(Xq)
+    k_full = torch.cat([fused.tp_cross_mean_plain(
+        family, theta, X[i * nloc:(i + 1) * nloc],
+        alpha[i * nloc:(i + 1) * nloc], Xq, i * nloc, n)[0]
+        for i in range(P)])
+    return family, theta, X, alpha, Xq, t(M), k_full, nloc, n
+
+
+def _within(a, b, scale, tol=1e-12):
+    err = float(torch.max(torch.abs(a - b)))
+    assert err <= tol * max(float(torch.max(scale)), 1e-300), err
+
+
+@pytest.mark.parametrize("nq", [1, 64, 255])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_tp_cross_mean_kernel(dev, family, nq):
+    """K14 (a) against its plain version on every shard (nloc 256 of nmax
+    1,024, the last shard's rows past n padding): K_shard within 1e-12 of
+    its largest entry, the partial mean within 1e-12 of the largest sum
+    of |k alpha|; one launch a call, counted under the family's key."""
+    family, theta, X, alpha, Xq, _, _, nloc, n = k14_case(family, dev, nq)
+    key = count_key("tp_cross_mean", family if isinstance(family, str)
+                    else "all_nodes")
+    for i in range(X.shape[0] // nloc):
+        args = (family, theta, X[i * nloc:(i + 1) * nloc],
+                alpha[i * nloc:(i + 1) * nloc], Xq, i * nloc, n)
+        n0 = fused.LAUNCHES[key]
+        K, mean = fused.tp_cross_mean(*args)
+        assert fused.LAUNCHES[key] == n0 + 1
+        Kr, meanr = fused.tp_cross_mean_plain(*args)
+        _within(K, Kr, Kr.abs())
+        _within(mean, meanr, (Kr.abs() * args[3].abs()[:, None]).sum(0))
+        if i * nloc >= n:
+            assert not bool(K.any())
+
+
+@pytest.mark.parametrize("nq", [1, 64, 255])
+def test_tp_quad_kernel(dev, nq):
+    """K14 (b) against its plain version on every shard: within 1e-12 of
+    the largest sum of the absolute values of its terms; two launches a
+    call (the panels' product and their sum); a rerun gives the same
+    bits."""
+    _, _, X, _, _, M, k_full, nloc, _ = k14_case("rbf", dev, nq)
+    for i in range(X.shape[0] // nloc):
+        Mi, Ki = M[i * nloc:(i + 1) * nloc], k_full[i * nloc:(i + 1) * nloc]
+        n0 = fused.LAUNCHES["tp_quad"]
+        quad = fused.tp_quad(Mi, k_full, Ki)
+        assert fused.LAUNCHES["tp_quad"] == n0 + 2
+        ref = fused.tp_quad_plain(Mi, k_full, Ki)
+        _within(quad, ref, (Ki.abs() * (Mi.abs() @ k_full.abs())).sum(0))
+        assert torch.equal(quad, fused.tp_quad(Mi, k_full, Ki))
+
+
+def test_launches_follow_torchs_device(dev):
+    """The library's CUDA runtime launches on torch's current device
+    (checked on every card the machine has)."""
+    lib = fused.library()
+    for i in range(torch.cuda.device_count()):
+        with fused._launch_on(torch.device("cuda", i)):
+            assert lib.gpry_current_device() == i == \
+                torch.cuda.current_device()
+
+
+def _mesh_cases(dev, devices):
+    """The DP predict (K2, nq 1,024), the fit's 8 lanes (K11) and an NS
+    run whose 20 chains a step go over a mesh of ``devices`` (K6), each
+    against its unsharded launch bit for bit."""
+    from gpry_tpu_torch.mc.nested import run_nested_device
+    from gpry_tpu_torch.mc.samples import surrogate_logp_fn
+    from gpry_tpu_torch.models import gp as gpm
+    from gpry_tpu_torch.parallel import mesh as mesh_mod
+    mesh = mesh_mod.make_mesh(devices)
+    P = mesh.shape["data"]
+    p = surrogate("rbf", dev, n=60, nmax=64, d=3)
+    rng = np.random.default_rng(3)
+    Xq = torch.as_tensor(rng.uniform(-1, 1, (1024, 3)), dtype=torch.float64,
+                         device=dev)
+    got = mesh_mod.sharded_predict("rbf", p, Xq, mesh)
+    want = gpm.surrogate_predict("rbf", p, Xq)
+    for a, b in zip(got, want):
+        assert a.device == b.device and torch.equal(a, b)
+    lo, hi = torch.full((4,), -3.0, dtype=torch.float64, device=dev), \
+        torch.full((4,), 3.0, dtype=torch.float64, device=dev)
+    th0 = torch.as_tensor(rng.uniform(-2, 2, (8, 4)), dtype=torch.float64,
+                          device=dev)
+    args = ("rbf", p.X, p.y, p.n, p.noise_var, th0, lo, hi)
+    got = mesh_mod._sharded_fit_theta(*args, mesh, maxiter=60)
+    want = gpm._fit_theta_restarts(*args, maxiter=60)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    box = torch.ones(3, dtype=torch.float64, device=dev)
+    runs = [run_nested_device(
+        surrogate_logp_fn("rbf"), p, torch.Generator(device=dev).manual_seed(
+            2), -box, box, nlive=120, num_repeats=6, max_dead=3000,
+        kill_batch=20, mesh=m) for m in (mesh, None)]
+    assert 20 % P == 0
+    assert runs[0].n_dead == runs[1].n_dead
+    assert runs[0].logZ == runs[1].logZ
+    assert torch.equal(runs[0].X, runs[1].X)
+    return mesh
+
+
+def test_mesh_dp_routes_on_a_logical_mesh(dev):
+    """On [cuda:0] * 4 the DP predict, the fit's lanes and the NS's
+    chains equal their unsharded launches bit for bit."""
+    _mesh_cases(dev, [torch.device("cuda", 0)] * 4)
+
+
+def test_mesh_dp_routes_on_the_cards(dev, monkeypatch):
+    """On every card of a machine with two or more: the same, and each
+    shard's K2 output lies on its own card (its launch went there)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    from gpry_tpu_torch.models import gp as gpm
+    inner = gpm.surrogate_predict
+    seen = []
+
+    def recorded(family, p, Xq):
+        out = inner(family, p, Xq)
+        seen.append((Xq.device, p.X.device, out[0].device))
+        return out
+
+    monkeypatch.setattr(gpm, "surrogate_predict", recorded)
+    devices = [torch.device("cuda", i) for i in range(n)]
+    _mesh_cases(torch.device("cuda", 0), devices)
+    assert [s[0] for s in seen[:n]] == devices
+    assert all(a == b == c for a, b, c in seen)
+
+
+def test_tp_predict_on_a_logical_mesh(dev):
+    """The TP predict on [cuda:0] * 4 (K14 on every shard) against the
+    single-device predict at tests/test_parallel.py's tolerances, at nmax
+    1,024."""
+    from gpry_tpu_torch.models import gp as gpm
+    from gpry_tpu_torch.parallel import mesh as mesh_mod
+    p = surrogate("rbf", dev, n=900, nmax=1024, d=8, svm="all_finite",
+                  ls=0.3)
+    p = p.replace(trust_lo=torch.full((8,), -np.inf, dtype=torch.float64,
+                                      device=dev),
+                  trust_hi=torch.full((8,), np.inf, dtype=torch.float64,
+                                      device=dev),
+                  clip_max=torch.tensor(np.inf, dtype=torch.float64,
+                                        device=dev))
+    mesh = mesh_mod.make_mesh([torch.device("cuda", 0)] * 4)
+    Xq = torch.as_tensor(np.random.default_rng(8).uniform(-1, 1, (64, 8)),
+                         dtype=torch.float64, device=dev)
+    mean, std = mesh_mod.tp_predict("rbf", p, Xq, mesh)
+    mean_1, std_1 = gpm.surrogate_predict("rbf", p, Xq)
+    np.testing.assert_allclose(mean.cpu().numpy(), mean_1.cpu().numpy(),
+                               rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(std.cpu().numpy(), std_1.cpu().numpy(),
+                               rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize("family", ["rbf", "c_rbf_white"])
+def test_blocked_sweeps_do_not_depend_on_the_batch(dev, family):
+    """K2, K5 and K8's mean and std give a query the same bits whatever
+    the batch it came in, so the queries a block takes (Q = 8, 16, 32 by
+    nq) do not change a solution (csrc/subst_blocked.cuh: the update's
+    k-split is SUB_SPLITS whatever Q is): the whole batch against the
+    same queries in shards of other Q, as the device mesh splits a
+    predict.  (K8's gradient sweep gives a query 256 / Q threads, so its
+    gradients still round by Q: no mesh route splits K8.)"""
+    p = surrogate(family, dev, n=200, nmax=224, d=8)
+    fam = family_and_theta(family, 8)[0]
+    rng = np.random.default_rng(12)
+    Xq = torch.as_tensor(rng.uniform(-1, 1, (4500, 8)), dtype=torch.float64,
+                         device=dev)
+    cuts = (0, 1000, 3000, 4500)
+    qs = {fused.gated_meanvar_logexp_plan(200, 224, 8, b - a)[1]
+          for a, b in zip(cuts, cuts[1:])}
+    qs.add(fused.gated_meanvar_logexp_plan(200, 224, 8, 4500)[1])
+    assert qs == {8, 16, 32}
+    for fn in (lambda X: fused.gated_meanvar_logexp(fam, p, X),
+               lambda X: (fused.gated_meanvar_logexp(
+                   fam, p, X, logexp=(0.3, 0.01)),),
+               lambda X: fused.meanvar_ungated(fam, p, X)):
+        whole = fn(Xq)
+        parts = [fn(Xq[a:b].contiguous()) for a, b in zip(cuts, cuts[1:])]
+        for k, w in enumerate(whole):
+            assert torch.equal(w, torch.cat([q[k] for q in parts]))
+    whole = fused.meanstd_grad(fam, p, Xq[:1100])
+    parts = [fused.meanstd_grad(fam, p, Xq[a:b].contiguous())
+             for a, b in ((0, 500), (500, 1100))]
+    for k, w in enumerate(whole[:2]):
+        assert torch.equal(w, torch.cat([q[k] for q in parts]))
