@@ -296,11 +296,12 @@ K11_MAXITER, K11_PERMS = 120, 8
 FIT_PATHS = {"batchoptimizer": "", "nora_bench": "", "nora_runner": "",
              "himmelblau_audit": "", "spec_runner": "/spec", "bo_bench": "",
              "resumed_runner": "", "polish": "", "mpi_runner": "",
-             "mesh": ""}
+             "mesh": "", "wide": ""}
 # the fit paths whose polishes are not replayed: path k's fits are path
 # a's, bit for bit (its training sets equal a's), and so are path m's
-# (each split into the mesh's shards, a polish each)
-NO_REPLAY = ("mpi_runner", "mesh")
+# (each split into the mesh's shards, a polish each); path n's 90 lanes at
+# d = 40 would take the plain fit minutes
+NO_REPLAY = ("mpi_runner", "mesh", "wide")
 # K6 at the NS steps of the main paths: nlive 400 (final NS) and 200
 # (NORA), num_repeats 40; its shrink candidates a pass
 # (csrc/ns_slice_chains.cu K6_WIDTH)
@@ -401,6 +402,12 @@ PATH_KERNELS = {
     # (K11), the TP predict (K14) and path a's Runner under the mesh
     "mesh": ("gated_meanvar_logexp", "ns_slice_chains", "lbfgs_lml_fit",
              "ns_step", "tp_cross_mean", "tp_quad"),
+    # the default Runner at d = 40 for three believer iterations, then its
+    # final NS
+    "wide": ("gated_mean", "gated_meanvar_logexp",
+             "masked_kernel_matrix_batched", "ns_slice_chains",
+             "lbfgs_logexp_ascent", "lml_value_grad", "lbfgs_lml_fit",
+             "ns_step"),
 }
 # the fourteen kernels' symbols, by row of the kernels line
 SYMBOLS = {"gated_mean_kernel": "gated_mean",
@@ -432,7 +439,19 @@ BELIEVER_PATHS = {"batchoptimizer": "lbfgs_logexp_ascent",
                   "bo_bench": "lbfgs_logexp_ascent",
                   "resumed_runner": "lbfgs_logexp_ascent",
                   "mpi_runner": "lbfgs_logexp_ascent",
-                  "mesh": "lbfgs_logexp_ascent"}
+                  "mesh": "lbfgs_logexp_ascent",
+                  "wide": "lbfgs_logexp_ascent"}
+# path (n): the default Runner at d = WIDE_D, stopped after WIDE_ITERS
+# believer iterations (of d points each) by its callback, its K9 launches all
+# of the d <= 64 instance (INSTANCE_PATHS: the template argument GD in the
+# trace's kernel name, lbfgs_logexp_ascent_kernel<SPEC, STREAM, GD, VG>);
+# its Gaussian's prior box WIDE_PRIOR_STD standard
+# deviations wide each way: at the generator's default of 5, 0.35% of
+# uniform draws at d = 40 lie within the GPR's finiteness threshold
+# (270 log units) of the best, and the initial design gives up after
+# max_initial = 30 d^1.5 draws (it does so in gpry_tpu too); at 3, 17.6%
+WIDE_D, WIDE_ITERS, WIDE_PRIOR_STD = 40, 3, 3.0
+INSTANCE_PATHS = {"wide": ("lbfgs_logexp_ascent", ", 64, ")}
 # path i against path a: the training sets within rel TOL_RESUME_X, theta
 # within TOL_RESUME_THETA
 TOL_RESUME_X, TOL_RESUME_THETA = 1e-12, 1e-10
@@ -623,7 +642,7 @@ def pair_flops(family, d=D):
 
 
 def synthetic_surrogate(family, dev, seed, svm="fitted", d=D, n=N,
-                        nmax=NMAX, mode=False):
+                        nmax=NMAX, mode=False, ls_scale=1.0):
     """A surrogate snapshot at the main-path shapes (or d, n valid rows of
     nmax) with every gate active: a fitted SVM, a trust box inside the
     prior and an upper clip.  With ``svm="all_finite"`` the SVM is the
@@ -638,7 +657,9 @@ def synthetic_surrogate(family, dev, seed, svm="fitted", d=D, n=N,
     box of [-3, 3]^d, the ball of radius 6 and the clip at the 90%
     quantile of the mean at draws of standard deviation 0.4; else the
     training points lie uniformly in the box.  ``family`` is a fast family
-    or the all_nodes(d) spec tree."""
+    or the all_nodes(d) spec tree; a fast family's length scales are drawn
+    in [0.4, 0.9] times ``ls_scale`` (sqrt(d / D) keeps the kernel values
+    of a wider d those of d = D)."""
     import numpy as np
     import torch
     from gpry_tpu_torch.models.classifier import MODE_ALL_FINITE, \
@@ -660,7 +681,7 @@ def synthetic_surrogate(family, dev, seed, svm="fitted", d=D, n=N,
         theta = theta0 + rng.uniform(-0.2, 0.2, len(theta0))
     else:
         theta = np.concatenate([[np.log(2.0)],
-                                np.log(rng.uniform(0.4, 0.9, d))])
+                                np.log(rng.uniform(0.4, 0.9, d) * ls_scale)])
     noise = t(1e-4)
     L, alpha = factorize(family, t(theta), t(Xp), t(yp), n, noise)
     if bool(torch.isnan(L).any()):
@@ -1791,26 +1812,26 @@ def check_k7(dev, rng, families, timed):
                                    "bytes")}}
 
 
-def grad_row_flops(family):
+def grad_row_flops(family, d=D):
     """FP64 operations of one training row's gradient contribution
     dk(x, X_j)/dx weighted twice (alpha_j and w_j): for a fast family r^2
-    again and dk/d(r^2) (3 D + 3) and two multiply-adds per coordinate;
-    in spec mode the forward mode carries D partials beside each value
-    ((1 + D) pair_flops)."""
+    again and dk/d(r^2) (3 d + 3) and two multiply-adds per coordinate;
+    in spec mode the forward mode carries d partials beside each value
+    ((1 + d) pair_flops)."""
     if not is_spec(family):
-        return 3 * D + 3 + 5 * D
-    return (1 + D) * pair_flops(family) + 4 * D
+        return 3 * d + 3 + 5 * d
+    return (1 + d) * pair_flops(family, d) + 4 * d
 
 
-def k8_bound(family, nq):
-    """K8's bound at nq queries (n = N of NMAX, d = D): per query k and k .
-    alpha, the two substitutions (n^2 / 2 multiply-adds each), each row's
-    gradient; bytes: the queries, the training rows, alpha, the valid
-    triangle of L, the four outputs."""
+def k8_bound(family, nq, d=D, n=N):
+    """K8's bound at nq queries (n = N of NMAX, d = D unless given): per
+    query k and k . alpha, the two substitutions (n^2 / 2 multiply-adds
+    each), each row's gradient; bytes: the queries, the training rows,
+    alpha, the valid triangle of L, the four outputs."""
     return bound(
-        nq * (N * (pair_flops(family) + 2) + 2 * N * N
-              + N * grad_row_flops(family)),
-        8 * (nq * D + N * D + N + N * (N + 1) // 2 + nq * (2 + 2 * D)))
+        nq * (n * (pair_flops(family, d) + 2) + 2 * n * n
+              + n * grad_row_flops(family, d)),
+        8 * (nq * d + n * d + n + n * (n + 1) // 2 + nq * (2 + 2 * d)))
 
 
 def check_k8(dev, rng, families, timed):
@@ -1876,7 +1897,7 @@ def check_k8(dev, rng, families, timed):
                                    "bound_by", "flops", "bytes")}}
 
 
-def k9_inputs(family, dev, seed, clip=False, n=N):
+def k9_inputs(family, dev, seed, clip=False, n=N, d=D):
     """K9's arguments at the main paths' believer step: the synthetic
     surrogate with a classifier that has seen no -inf, no trust box and no
     upper clip (the ascent runs on the smooth surrogate; the synthetic clip
@@ -1886,24 +1907,26 @@ def k9_inputs(family, dev, seed, clip=False, n=N):
     it), LogExp's zeta at D and a noise std of 0.01.  With ``clip``, an
     upper clip at the median of the mean at the 8 starts: 4 lanes start
     above it, where min(mean, clip_max) passes no gradient.  ``n`` valid
-    rows of max(n, NMAX)."""
+    rows of max(n, NMAX); at ``d`` dimensions (a fast family's length
+    scales times sqrt(d / D), zeta at d)."""
     import torch
     from gpry_tpu_torch.ops import fused
     p = synthetic_surrogate(family, dev, seed=18, svm="all_finite", n=n,
-                            nmax=max(n, NMAX))
-    inf = torch.full((D,), torch.inf, dtype=torch.float64, device=dev)
+                            nmax=max(n, NMAX), d=d,
+                            ls_scale=math.sqrt(d / D))
+    inf = torch.full((d,), torch.inf, dtype=torch.float64, device=dev)
     p = p.replace(clip_max=torch.tensor(torch.inf, dtype=torch.float64,
                                         device=dev),
                   trust_lo=-inf, trust_hi=inf)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    lo = torch.full((D,), -5.0, dtype=torch.float64, device=dev)
-    x0s = torch.rand((8, D), generator=gen, dtype=torch.float64,
+    lo = torch.full((d,), -5.0, dtype=torch.float64, device=dev)
+    x0s = torch.rand((8, d), generator=gen, dtype=torch.float64,
                      device=dev) * 10.0 - 5.0
     x0s[0] = p.X[n - 1] * p.x_scale + p.x_loc
     if clip:
         mu0 = fused.meanvar_ungated_plain(family, p, x0s)[0]
         p = p.replace(clip_max=torch.quantile(mu0, 0.5))
-    return p, (D ** -0.85, 0.01, x0s, lo, -lo)
+    return p, (d ** -0.85, 0.01, x0s, lo, -lo)
 
 
 def check_k9(dev, families, timed):
@@ -2018,12 +2041,12 @@ def check_k9(dev, families, timed):
     return row
 
 
-def lml_flops(family, n, p=0, grad=False):
-    """FP64 operations of one row's LML: the pair build (n (n + 1) / 2
-    kernel values), the Cholesky (n^3 / 3) and the substitution for z
-    (n^2); with ``grad`` also L^-1 and K^-1 = L^-T L^-1 (n^3 / 3 each) and
-    the contraction with the p tangents of each pair (p n^2)."""
-    ops = n * (n + 1) // 2 * pair_flops(family) + n ** 3 / 3 + n * n
+def lml_flops(family, n, p=0, grad=False, d=D):
+    """FP64 operations of one row's LML at d dimensions: the pair build (n
+    (n + 1) / 2 kernel values), the Cholesky (n^3 / 3) and the substitution
+    for z (n^2); with ``grad`` also L^-1 and K^-1 = L^-T L^-1 (n^3 / 3
+    each) and the contraction with the p tangents of each pair (p n^2)."""
+    ops = n * (n + 1) // 2 * pair_flops(family, d) + n ** 3 / 3 + n * n
     if grad:
         ops += 2 * n ** 3 / 3 + p * n * n
     return ops
@@ -2755,6 +2778,548 @@ def rel_k14(a, b, scale):
         float(torch.max(scale)), 1e-300)
 
 
+# K8 and K9 at their d <= 64 instance (two coordinates a lane of K9's warp
+# 0, the gradient sums in two passes of 32): at its first d, path (n)'s and
+# its last, on the synthetic surrogate at n = N of NMAX there (a fast
+# family's length scales times sqrt(d / D)); K8 at WIDE_NQ queries; both
+# timed at WIDE_TIMED
+WIDE_DS, WIDE_NQ, WIDE_TIMED = (33, 40, 64), (1, 8, 64), 40
+# the main path's width at d = 48: the default budget 70 d^1.5 (23,278
+# training points), where K9 and K8 take their global routes; the other
+# kernels of that path once each there, K2, K5, K7 at BIG_NQ queries, K3's
+# one-row panel; the fit's K10 (2 theta rows) and K11 (1 lane, maxiter 1)
+# at d = 48 on their global route at BIG_FIT_N rows: at BIG_N one row's
+# evaluation on one SM takes minutes (on an H100 80GB HBM3 at 700 W: K10
+# at 2 rows 206 s, K11's first value and gradient 507 s), beyond this
+# script's time limit (profile_lbfgs_routes.py --budget runs both at BIG_N)
+BIG_D = 48
+BIG_N = int(70 * BIG_D ** 1.5)
+BIG_NQ = 8
+BIG_FIT_N = 2048
+# rows of a K3 plain panel where the whole (n, n, d) difference tensor of
+# the plain LML exceeds the card (lml_panels)
+PANEL_ROWS = 256
+
+
+def wide_k8(dev, fam, d, rng):
+    """K8 at d on the synthetic surrogate at WIDE_NQ queries (the first 4
+    on training points) against its plain version: mean and std within rel
+    TOL_K8, both gradients within TOL_K8_GRAD of their max |.|; returns
+    (row, the surrogate, the last queries)."""
+    import torch
+    from gpry_tpu_torch.ops import fused
+    label = f"{'spec' if is_spec(fam) else 'rbf'} d={d}"
+    sd = fused._spec_doubles(fused._kern(fam, d, dev))
+    p = synthetic_surrogate(fam, dev, seed=17, d=d,
+                            ls_scale=math.sqrt(d / D))
+    worst, routes = 0.0, {}
+    for nq in WIDE_NQ:
+        Xq = torch.as_tensor(rng.uniform(-5, 5, (nq, d)),
+                             dtype=torch.float64, device=dev)
+        Xq[:min(nq, 4)] = p.X[:min(nq, 4)] * p.x_scale + p.x_loc
+        got = fused.meanstd_grad(fam, p, Xq)
+        ref = fused.meanstd_grad_plain(fam, p, Xq)
+        sync()
+        errs = []
+        for what, a, b, tol in zip(("mean", "std", "dmean", "dstd"), got,
+                                   ref, (TOL_K8, TOL_K8, TOL_K8_GRAD,
+                                         TOL_K8_GRAD)):
+            err, rel = rel_err(a.reshape(-1), b.reshape(-1))
+            errs.append(f"{what} rel {rel:.3e}")
+            if not rel <= tol:
+                raise AssertionError(f"K8 {label} nq={nq} {what}: rel {rel} "
+                                     f"> {tol}")
+            worst = max(worst, err)
+        routes[f"nq={nq}"] = fused.meanstd_grad_plan(N, NMAX, d, nq, sd)[:2]
+        log(f"[WIDE] K8 {label} nq={nq} route {routes[f'nq={nq}']}: "
+            + "; ".join(errs))
+    return {"max_abs_err": worst, "routes": routes}, p, Xq
+
+
+def k9_objective(fam, p, x, zeta, noise):
+    """K9's objective, the negated LogExp of the smooth surrogate, at the
+    raw points x by the plain torch functions (meanvar_ungated_plain): the
+    value that K9 reports for an endpoint x."""
+    import torch
+    from gpry_tpu_torch.ops import fused
+    mu, sd = fused.meanvar_ungated_plain(fam, p, x)
+    var = sd * sd - noise * noise
+    return -(2.0 * zeta * (torch.minimum(mu, p.clip_max) - p.y_max)
+             + 0.5 * torch.log(torch.clamp_min(var, 1e-300)))
+
+
+def surrogate_on(p, dev):
+    """The surrogate snapshot p with its tensors on dev."""
+    import dataclasses
+    import torch
+    from gpry_tpu_torch.models.gp import SurrogateParams
+    mv = lambda v: v.to(dev) if torch.is_tensor(v) else v
+    fields = lambda o: {f.name: mv(getattr(o, f.name))
+                        for f in dataclasses.fields(o) if f.init}
+    kw = fields(p)
+    kw["svm"] = type(p.svm)(**fields(p.svm))
+    return SurrogateParams(**kw)
+
+
+def k9_ends(fam, p, args):
+    """K9 to the end (maxiter 100) and two runs of its plain version, on
+    the card and on the CPU (the same arithmetic summed in another order:
+    the rounding witness), on the same inputs.  A lane is stable where the
+    two plain runs end within TOL_K9_X of the box width in x and TOL_K9_F
+    (1 + |f|) in f: there the kernel's lane is held to the card's plain
+    run at those tolerances.  Returns (the kernel's (x, f, nev), the card's
+    plain (x, f, nev, iterations), the CPU's plain (x, f), the stable
+    lanes, a bool tensor), the outputs on the CPU."""
+    import torch
+    from gpry_tpu_torch.ops import fused
+    cpu = lambda *ts: [t.cpu() for t in ts]
+    xs, f, nev = fused.lbfgs_logexp_ascent(fam, p, *args)
+    xr, fr, nevr, iters = fused.lbfgs_logexp_ascent_plain(
+        fam, p, *args, return_iters=True)
+    sync()
+    with torch.device("cpu"):
+        xc, fc, _ = fused.lbfgs_logexp_ascent_plain(
+            fam, surrogate_on(p, "cpu"), args[0], args[1], *cpu(*args[2:]))
+    width = float(torch.max(args[4] - args[3]))
+    xr_, fr_ = cpu(xr, fr)
+    stable = ((xr_ - xc).abs().amax(1) <= TOL_K9_X * width) & (
+        (fr_ - fc).abs() <= TOL_K9_F * (1 + fc.abs()))
+    return cpu(xs, f, nev), (xr_, fr_, nevr, iters), (xc, fc), stable
+
+
+def wide_k9(dev, fam, d):
+    """K9 at d (k9_inputs: 8 lanes, lane 0 on a training point) against its
+    plain version: step for step over K9_STEPS iterations (the same nev, x
+    within TOL_K9_X of the box width, f within TOL_K9_F (1 + |f|)); then
+    to the end (maxiter 100, k9_ends): on the lanes where the plain
+    version on the card and on the CPU end together (stable), each lane's
+    x and f against the card's plain run at those tolerances, and, where
+    the two plain runs' picks (K2's gated rescore of the endpoints) agree
+    within TOL_K9_F (1 + |v|), the kernel's pick too; on every lane its f
+    within TOL_K9_F (1 + |f|) of the objective that the plain functions
+    give at its x (k9_objective) and no worse than its start's.  On the
+    other lanes the plain version's own summation order moves the end
+    (over ~200 evaluations at d >= 33 with RBF most lanes follow their
+    sums' rounding into other basins, on an H100 as on the CPU), so there
+    the kernel is compared by those two tests only; the distances are
+    printed.  Returns (row, the plain run's iterations, its nev, the
+    inputs)."""
+    import torch
+    from gpry_tpu_torch.ops import fused
+    label = f"{'spec' if is_spec(fam) else 'rbf'} d={d}"
+    p, args = k9_inputs(fam, dev, seed=19, d=d)
+    zeta, noise, x0s, lo, hi = args
+    width = float(torch.max(hi - lo))
+    plan = fused.lbfgs_logexp_ascent_plan(
+        N, d, fused._spec_doubles(fused._kern(fam, d, dev)))
+    xs, f, nev = fused.lbfgs_logexp_ascent(fam, p, *args, maxiter=K9_STEPS)
+    xr, fr, nevr = fused.lbfgs_logexp_ascent_plain(fam, p, *args,
+                                                   maxiter=K9_STEPS)
+    sync()
+    err_x = float(torch.max(torch.abs(xs - xr)))
+    err_f = float(torch.max(torch.abs(f - fr) / (1 + torch.abs(fr))))
+    log(f"[WIDE] K9 {label} (route {plan[0]}): over {K9_STEPS} iterations "
+        f"nev {nev.tolist()} (plain {nevr.tolist()}), x max abs err "
+        f"{err_x:.3e}, f rel {err_f:.3e}")
+    if not (nev.tolist() == nevr.tolist() and err_x <= TOL_K9_X * width
+            and err_f <= TOL_K9_F):
+        raise AssertionError(f"K9 {label}: nev {nev.tolist()} against "
+                             f"{nevr.tolist()}, x {err_x}, f {err_f}")
+    worst = max(err_x, float(torch.max(torch.abs(f - fr))))
+    (xs, f, nev), (xr, fr, nevr, iters), (xc, fc), stable = k9_ends(
+        fam, p, args)
+    f_at = k9_objective(fam, p, xs.to(dev), zeta, noise).cpu()
+    f_start = k9_objective(fam, p, x0s, zeta, noise).cpu()
+    err_end = float(torch.max(torch.abs(f - f_at) / (1 + torch.abs(f_at))))
+    climbed = bool(torch.all(f <= f_start + TOL_K9_F * (1 + f_start.abs())))
+    dx_kr, dx_rc = (xs - xr).abs().amax(1), (xr - xc).abs().amax(1)
+    held = (dx_kr <= TOL_K9_X * width) & (
+        (f - fr).abs() <= TOL_K9_F * (1 + fr.abs()))
+    pick = lambda x: float(fused.gated_meanvar_logexp(
+        fam, p, x.to(dev), logexp=(zeta, noise)).max())
+    pick_k, pick_r, pick_c = pick(xs), pick(xr), pick(xc)
+    pick_stable = abs(pick_r - pick_c) <= TOL_K9_F * (1 + abs(pick_c))
+    log(f"[WIDE] K9 {label} to the end: stable lanes "
+        f"{int(stable.sum())} of {stable.numel()}, the kernel's held on "
+        f"{int((held & stable).sum())} of them (and on "
+        f"{int((held & ~stable).sum())} others); x max abs distance to the "
+        f"card's plain run by lane {[float(f'{v:.3g}') for v in dx_kr]}, "
+        f"the CPU's plain run to it {[float(f'{v:.3g}') for v in dx_rc]}; "
+        f"pick {pick_k:.12g} (plain {pick_r:.12g}, CPU {pick_c:.12g}, "
+        f"gated {pick_stable}); each lane's f against the objective at its "
+        f"x rel {err_end:.3e}, no worse than its start {climbed}; nev "
+        f"{nev.tolist()} (plain {nevr.tolist()})")
+    if not bool(torch.all(held | ~stable)):
+        raise AssertionError(f"K9 {label}: lanes "
+                             f"{torch.nonzero(stable & ~held).flatten().tolist()}"
+                             f" end away from a stable plain run")
+    if pick_stable and not abs(pick_k - pick_r) <= TOL_K9_F * (
+            1 + abs(pick_r)):
+        raise AssertionError(f"K9 {label}: pick {pick_k} against {pick_r}")
+    if not (err_end <= TOL_K9_F and climbed and math.isfinite(pick_k)):
+        raise AssertionError(f"K9 {label}: an endpoint's f is {err_end} from "
+                             f"the objective at its x, or below its start "
+                             f"({not climbed})")
+    worst = max(worst, float(torch.max(torch.abs(f - f_at))))
+    return {"max_abs_err": worst, "route": plan[0],
+            "stable_lanes": int(stable.sum())}, iters, nevr, (p, args)
+
+
+def k9_bound(fam, d, n, R, iters, nevr):
+    """K9's bound from its plain run's evaluations: 1 + iterations
+    value-and-gradient calls a lane, the rest of its nev probes (each a k
+    vector and a forward substitution; a gradient adds the back
+    substitution and each row's gradient); bytes: the starts, the box,
+    the training rows, alpha, the valid triangle of L, the outputs."""
+    n_vg = int((1 + iters).sum())
+    n_probe = int((nevr - 1 - iters).sum())
+    probe = n * (pair_flops(fam, d) + 2) + n * n
+    vg = probe + n * n + n * grad_row_flops(fam, d)
+    return {"value_grad_calls": n_vg, "probes": n_probe,
+            **bound(n_vg * vg + n_probe * probe,
+                    8 * (R * d + 2 * d + n * d + n + n * (n + 1) // 2
+                         + R * (d + 2)))}
+
+
+def check_wide(dev):
+    """K8 and K9 at each d of WIDE_DS, RBF and all_nodes(d) (wide_k8,
+    wide_k9: check_k8's and check_k9's tolerances); at d = WIDE_TIMED each
+    timed (CUDA events; the plain version once for K9, 5 calls for K8)
+    beside its bound.  Returns {kernel row: {"d=..": row}}."""
+    import numpy as np
+    from gpry_tpu_torch.ops import fused
+    rng = np.random.default_rng(33)
+    out = {}
+    for d in WIDE_DS:
+        for fam in ("rbf", spec_kernel(d)[0]):
+            sfx = "/spec" if is_spec(fam) else ""
+            row8, p, Xq = wide_k8(dev, fam, d, rng)
+            row9, iters, nevr, (p9, args) = wide_k9(dev, fam, d)
+            if d == WIDE_TIMED:
+                nq = Xq.shape[0]
+                row8.update(
+                    nq=nq, ms=time_ms(lambda: fused.meanstd_grad(fam, p, Xq),
+                                      50),
+                    plain_ms=time_ms(lambda: fused.meanstd_grad_plain(
+                        fam, p, Xq), 5), **k8_bound(fam, nq, d))
+                t0 = time.perf_counter()
+                fused.lbfgs_logexp_ascent_plain(fam, p9, *args)
+                sync()
+                row9.update(
+                    ms=time_ms(lambda: fused.lbfgs_logexp_ascent(
+                        fam, p9, *args), 10),
+                    plain_ms=1e3 * (time.perf_counter() - t0),
+                    **k9_bound(fam, d, N, args[2].shape[0], iters, nevr))
+                log(f"[WIDE] d={d} {'spec' if sfx else 'rbf'}: K8 "
+                    + json.dumps(row8) + "; K9 " + json.dumps(row9))
+            out.setdefault("meanstd_grad" + sfx, {})[f"d={d}"] = row8
+            out.setdefault("lbfgs_logexp_ascent" + sfx, {})[f"d={d}"] = row9
+    return out
+
+
+def big_surrogate(dev):
+    """The smooth surrogate at d = BIG_D and the default budget there (n =
+    nmax = BIG_N): the training points uniform in the unit box, y a
+    Gaussian of width 0.3 standardized, RBF with the synthetic
+    surrogate's length scales times sqrt(BIG_D / D), the noise 1e-4,
+    factorized by the port (K3 and torch's Cholesky); a classifier that
+    has seen no -inf, no trust box, no clip.  Returns (surrogate, theta,
+    X, y, noise)."""
+    import numpy as np
+    import torch
+    from gpry_tpu_torch.models.classifier import MODE_ALL_FINITE, \
+        trivial_svm_params
+    from gpry_tpu_torch.models.gp import SurrogateParams
+    from gpry_tpu_torch.ops.linalg import factorize
+    rng = np.random.default_rng(23)
+    t = lambda a: torch.as_tensor(np.asarray(a, float), dtype=torch.float64,
+                                  device=dev)
+    Xv = rng.uniform(0, 1, (BIG_N, BIG_D))
+    yv = -0.5 * np.sum(((Xv - 0.5) / 0.3) ** 2, axis=1)
+    yv = (yv - yv.mean()) / yv.std()
+    theta = t(np.concatenate([[np.log(2.0)], np.log(rng.uniform(
+        0.4, 0.9, BIG_D) * math.sqrt(BIG_D / D))]))
+    X, y, noise = t(Xv), t(yv), t(1e-4)
+    L, alpha = factorize("rbf", theta, X, y, BIG_N, noise)
+    if bool(torch.isnan(L).any()):
+        raise AssertionError("the d = 48 factorization is not PD")
+    inf = torch.full((BIG_D,), torch.inf, dtype=torch.float64, device=dev)
+    p = SurrogateParams(
+        theta=theta, X=X, y=y, n=BIG_N, noise_var=noise, L=L, alpha=alpha,
+        x_loc=t(np.full(BIG_D, -5.0)), x_scale=t(np.full(BIG_D, 10.0)),
+        y_loc=t(-3.0), y_scale=t(2.5), y_max=t(0.0), clip_max=t(np.inf),
+        svm=trivial_svm_params(BIG_D, NSV, torch.float64, dev,
+                               MODE_ALL_FINITE),
+        trust_lo=-inf, trust_hi=inf)
+    return p, theta, X, y, noise
+
+
+def lml_panels(family, thetas, X, y, n, noise, grad=False):
+    """lml_value_grad_plain's LML (with ``grad`` its gradient, the same
+    formula: 1/2 sum_ab (alpha alpha^T - K^-1)_ab dK_ab/dtheta) where its
+    whole (n, n, d) difference tensor exceeds the card (208 GB at d = 48,
+    n = 23,278): K assembled from masked_kernel_matrix_plain's row panels
+    of PANEL_ROWS (each entry the whole matrix's bit for bit), the
+    contraction with dK/dtheta panel by panel; a theta row at a time."""
+    import torch
+    from gpry_tpu_torch.ops import fused
+    nmax = X.shape[0]
+    spans = [(r, min(r + PANEL_ROWS, nmax)) for r in range(0, nmax,
+                                                            PANEL_ROWS)]
+    lmls, grads = [], []
+    for th in thetas:
+        th = th[None]
+        with torch.no_grad():
+            K = torch.cat([fused.masked_kernel_matrix_plain(
+                family, th, X, n, noise, rows=sp) for sp in spans], dim=-2)
+            L = fused.cholesky_nan(K)
+            del K
+            lml, z = fused._lml_of_L(L, y, n)
+        lmls.append(lml)
+        if not grad:
+            continue
+        with torch.no_grad():
+            alpha = torch.linalg.solve_triangular(L.mT, z[..., None],
+                                                  upper=True)[..., 0]
+            eye = torch.eye(nmax, dtype=L.dtype, device=L.device)
+            M = torch.linalg.solve_triangular(L, eye[None], upper=False)
+            del eye, L
+            W = alpha[..., :, None] * alpha[..., None, :] - M.mT @ M
+            del M
+        g = torch.zeros_like(th)
+        for sp in spans:
+            with torch.enable_grad():
+                tg = th.detach().requires_grad_(True)
+                Kp = fused.masked_kernel_matrix_plain(family, tg, X, n,
+                                                      noise, rows=sp)
+                g += torch.autograd.grad(Kp, tg, grad_outputs=0.5 * W[
+                    ..., sp[0]:sp[1], :])[0]
+        del W
+        grads.append(g)
+    lml = torch.cat(lmls)
+    return (lml, torch.cat(grads)) if grad else lml
+
+
+def lbfgs_lml_fit_panels(family, X, y, n, noise, theta0s, lo, hi, maxiter):
+    """lbfgs_lml_fit_plain (ops/lbfgs.py's solver on -lml, tol 1e-8) with
+    lml_panels' value and gradient."""
+    import torch
+    from gpry_tpu_torch.ops.lbfgs import minimize_lbfgs_bounded
+
+    class NegLML(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, thetas):
+            lml, g = lml_panels(family, thetas, X, y, n, noise, grad=True)
+            ctx.save_for_backward(g)
+            return -lml
+
+        @staticmethod
+        def backward(ctx, go):
+            g, = ctx.saved_tensors
+            return -go[:, None] * g
+
+    def nll(thetas):
+        if thetas.requires_grad:
+            return NegLML.apply(thetas)
+        return -lml_panels(family, thetas, X, y, n, noise)
+
+    return minimize_lbfgs_bounded(nll, theta0s, lo, hi, maxiter=maxiter,
+                                  tol=1e-8, return_iters=True)
+
+
+def timed_once(fn):
+    """(the result of fn(), its ms: host clock around the call and a
+    synchronize)."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def check_big(dev):
+    """At d = BIG_D and n = BIG_N (big_surrogate, RBF): K9 on its global
+    route (3; 2 lanes from uniform starts in the box) step for step over
+    K9_STEPS iterations (the same nev, x within TOL_K9_X of the box width,
+    f within TOL_K9_F (1 + |f|)) and K8 on its global route (2) at BIG_NQ
+    queries (check_k8's tolerances); then once each at that n: K2 (mean
+    and std, rel TOL_K2) and K5 (mean rel TOL_K5, std rel TOL_K5_SIGMA) at
+    BIG_NQ queries, K7 (mean rel TOL_K7, cov within TOL_K7_COV
+    max|K(Xq, Xq)|) at BIG_NQ, K3 as the panel of the last row (rel
+    TOL_K3); on the first BIG_FIT_N rows of the same data (K10's and
+    K11's global route at d = BIG_D), K10 at 2 theta rows (the
+    surrogate's and 0.1 above: rel TOL_K10 against lml_panels) and K11 on
+    1 lane from the surrogate's theta + 0.2 at maxiter 1 (the same nev and
+    iterations, theta within TOL_K11_X of the box width, f within
+    TOL_K11_F (1 + |f|), against lbfgs_lml_fit_panels).  Each kernel's ms
+    (host clock around the launch) beside its plain version's and its
+    bound.  Returns {kernel row: {"d=48 n=..": row}}."""
+    import numpy as np
+    import torch
+    from gpry_tpu_torch.ops import fused
+    fam, d, n = "rbf", BIG_D, BIG_N
+    key = f"d={d} n={n}"
+    t0 = time.perf_counter()
+    p, theta, X, y, noise = big_surrogate(dev)
+    log(f"[BIG] surrogate at d={d} n={n} built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(48)
+    out = {}
+    tri = n * (n + 1) // 2
+
+    def put(name, row):
+        out.setdefault(name, {})[key] = row
+        log(f"[BIG] {name}: " + json.dumps(row))
+
+    # K9, route 3
+    lo = torch.full((d,), -5.0, dtype=torch.float64, device=dev)
+    x0s = torch.as_tensor(rng.uniform(-5, 5, (2, d)), dtype=torch.float64,
+                          device=dev)
+    args = (d ** -0.85, 0.01, x0s, lo, -lo)
+    route = fused.lbfgs_logexp_ascent_plan(n, d)[0]
+    if route != 3:
+        raise AssertionError(f"K9 at d={d} n={n}: route {route}, not 3")
+    (xs, f, nev), ms = timed_once(lambda: fused.lbfgs_logexp_ascent(
+        fam, p, *args, maxiter=K9_STEPS))
+    (xr, fr, nevr, iters), plain_ms = timed_once(
+        lambda: fused.lbfgs_logexp_ascent_plain(
+            fam, p, *args, maxiter=K9_STEPS, return_iters=True))
+    err_x = float(torch.max(torch.abs(xs - xr)))
+    err_f = float(torch.max(torch.abs(f - fr) / (1 + torch.abs(fr))))
+    if not (nev.tolist() == nevr.tolist() and err_x <= TOL_K9_X * 10.0
+            and err_f <= TOL_K9_F):
+        raise AssertionError(f"K9 at d={d} n={n}: nev {nev.tolist()} "
+                             f"against {nevr.tolist()}, x {err_x}, f {err_f}")
+    put("lbfgs_logexp_ascent", {
+        "route": route, "lanes": 2, "maxiter": K9_STEPS, "nev": nev.tolist(),
+        "max_abs_err": max(err_x, float(torch.max(torch.abs(f - fr)))),
+        "f_rel": err_f, "ms": ms, "plain_ms": plain_ms,
+        **k9_bound(fam, d, n, 2, iters, nevr)})
+    # K8, route 2
+    Xq = torch.as_tensor(rng.uniform(-5, 5, (BIG_NQ, d)), dtype=torch.float64,
+                         device=dev)
+    route = fused.meanstd_grad_plan(n, n, d, BIG_NQ)[0]
+    if route != 2:
+        raise AssertionError(f"K8 at d={d} n={n}: route {route}, not 2")
+    got, ms = timed_once(lambda: fused.meanstd_grad(fam, p, Xq))
+    ref, plain_ms = timed_once(lambda: fused.meanstd_grad_plain(fam, p, Xq))
+    row, worst = {"route": route, "nq": BIG_NQ}, 0.0
+    for what, a, b, tol in zip(("mean", "std", "dmean", "dstd"), got, ref,
+                               (TOL_K8, TOL_K8, TOL_K8_GRAD, TOL_K8_GRAD)):
+        err, rel = rel_err(a.reshape(-1), b.reshape(-1))
+        row[f"{what}_rel"] = rel
+        worst = max(worst, err)
+        if not rel <= tol:
+            raise AssertionError(f"K8 at d={d} n={n} {what}: rel {rel}")
+    put("meanstd_grad", {**row, "max_abs_err": worst, "ms": ms,
+                         "plain_ms": plain_ms,
+                         **k8_bound(fam, BIG_NQ, d, n)})
+    # K2, K5, K7 at BIG_NQ
+    for name, call, plain, tols in (
+            ("gated_meanvar_logexp",
+             lambda: fused.gated_meanvar_logexp(fam, p, Xq),
+             lambda: fused.gated_meanvar_logexp_plain(fam, p, Xq),
+             (TOL_K2, TOL_K2)),
+            ("meanvar_ungated", lambda: fused.meanvar_ungated(fam, p, Xq),
+             lambda: fused.meanvar_ungated_plain(fam, p, Xq),
+             (TOL_K5, TOL_K5_SIGMA))):
+        got, ms = timed_once(call)
+        ref, plain_ms = timed_once(plain)
+        errs = [rel_err(a, b) for a, b in zip(got, ref)]
+        if not all(e[1] <= tol for e, tol in zip(errs, tols)):
+            raise AssertionError(f"{name} at d={d} n={n}: {errs}")
+        put(name, {"nq": BIG_NQ, "mean_rel": errs[0][1],
+                   "std_rel": errs[1][1],
+                   "max_abs_err": max(e[0] for e in errs), "ms": ms,
+                   "plain_ms": plain_ms,
+                   **bound(BIG_NQ * (n * (pair_flops(fam, d) + 2) + n * n),
+                           8 * (BIG_NQ * d + n * d + n + tri
+                                + 2 * BIG_NQ))})
+    Xq_ = (Xq - p.x_loc) / p.x_scale
+    (mean, cov), ms = timed_once(lambda: fused.predict_meancov(
+        fam, theta, X, n, noise, p.L, p.alpha, Xq_))
+    (mr, cr), plain_ms = timed_once(lambda: fused.predict_meancov_plain(
+        fam, theta, X, n, noise, p.L, p.alpha, Xq_))
+    em, rm = rel_err(mean, mr)
+    ec = float(torch.max(torch.abs(cov - cr)))
+    kqq = float(torch.max(torch.abs(fused.kernel_diag(fam, theta, Xq_))))
+    if not (rm <= TOL_K7 and ec <= TOL_K7_COV * kqq):
+        raise AssertionError(f"K7 at d={d} n={n}: mean rel {rm}, cov {ec}")
+    put("predict_meancov", {
+        "nq": BIG_NQ, "mean_rel": rm, "cov_abs_err": ec,
+        "max_abs_err": max(em, ec), "ms": ms, "plain_ms": plain_ms,
+        **bound(BIG_NQ * n * (pair_flops(fam, d) + 2) + BIG_NQ * n * n
+                + BIG_NQ * (BIG_NQ + 1) // 2 * (pair_flops(fam, d) + 2 * n),
+                8 * (BIG_NQ * d + n * d + n + tri + BIG_NQ
+                     + BIG_NQ * BIG_NQ))})
+    # K3: the last row's panel
+    th = theta[None]
+    panel, ms = timed_once(lambda: fused.masked_kernel_matrix_batched(
+        fam, th, X, n, noise, rows=(n - 1, n)))
+    ref, plain_ms = timed_once(lambda: fused.masked_kernel_matrix_plain(
+        fam, th, X, n, noise, rows=(n - 1, n)))
+    err, rel = rel_err(panel, ref)
+    if not rel <= TOL_K3:
+        raise AssertionError(f"K3's panel at d={d} n={n}: rel {rel}")
+    put("masked_kernel_matrix_batched", {
+        "rows": 1, "rel": rel, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms,
+        **bound(n * pair_flops(fam, d), 8 * (n * d + d + 1 + n))})
+    del panel, ref, p
+    torch.cuda.empty_cache()
+    # K10 at 2 theta rows, K11 on 1 lane, on the first BIG_FIT_N rows
+    n, key = BIG_FIT_N, f"d={d} n={BIG_FIT_N}"
+    X, y = X[:n].contiguous(), y[:n].contiguous()
+    tri = n * (n + 1) // 2
+    for name, plan in (("K10", fused.lml_value_grad_plan(n, d)),
+                       ("K11", fused.lbfgs_lml_fit_plan(n, d, d + 1))):
+        if plan[0] != 1:
+            raise AssertionError(f"{name} at d={d} n={n}: route {plan[0]}, "
+                                 "not 1")
+    thetas = torch.stack([theta, theta + 0.1])
+    lml, ms = timed_once(lambda: fused.lml_value_grad(fam, thetas, X, y, n,
+                                                      noise))
+    ref, plain_ms = timed_once(lambda: lml_panels(fam, thetas, X, y, n,
+                                                  noise))
+    err, rel = rel_err(lml, ref)
+    if not rel <= TOL_K10:
+        raise AssertionError(f"K10 at d={d} n={n}: rel {rel}")
+    put("lml_value_grad", {
+        "R": 2, "rel": rel, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms,
+        **bound(2 * lml_flops(fam, n, d=d),
+                8 * (2 * (d + 1) + n * d + n + 2))})
+    torch.cuda.empty_cache()
+    lo_t, hi_t = theta - 2.0, theta + 2.0
+    th0 = (theta + 0.2)[None]
+    fit = lambda: fused.lbfgs_lml_fit(fam, X, y, n, noise, th0, lo_t, hi_t,
+                                      maxiter=1, return_iters=True)
+    (tk, fk, nk, ik), ms = timed_once(fit)
+    torch.cuda.empty_cache()
+    (tr, fr, nr, ir), plain_ms = timed_once(lambda: lbfgs_lml_fit_panels(
+        fam, X, y, n, noise, th0, lo_t, hi_t, 1))
+    err_t = float(torch.max(torch.abs(tk - tr)))
+    err_f = float(torch.max(torch.abs(fk - fr) / (1 + torch.abs(fr))))
+    if not (nk.tolist() == nr.tolist() and ik.tolist() == ir.tolist()
+            and err_t <= TOL_K11_X * 4.0 and err_f <= TOL_K11_F):
+        raise AssertionError(f"K11 at d={d} n={n}: nev {nk.tolist()} "
+                             f"against {nr.tolist()}, theta {err_t}, f "
+                             f"{err_f}")
+    p_th = d + 1
+    n_vg, n_probe = int((1 + ir).sum()), int((nr - 1 - ir).sum())
+    put("lbfgs_lml_fit", {
+        "lanes": 1, "maxiter": 1, "nev": nk.tolist(), "f_rel": err_f,
+        "max_abs_err": max(err_t, float(torch.max(torch.abs(fk - fr)))),
+        "ms": ms, "plain_ms": plain_ms, "value_grad_calls": n_vg,
+        "probes": n_probe,
+        **bound(n_vg * lml_flops(fam, n, p_th, grad=True, d=d)
+                + n_probe * lml_flops(fam, n, d=d),
+                8 * (3 * p_th + n * d + n + 2))})
+    del X, y
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_kernels(dev):
     """Compare K1-K14 with their plain versions, the fast families and the
     ALL_NODES spec (K13 and K14's tp_quad have no spec instance); returns
@@ -2793,6 +3358,16 @@ def check_kernels(dev):
         torch.cuda.empty_cache()
         log(f"[CHECKS] {'spec' if sfx else 'fast families'}: "
             f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, by_d in check_wide(dev).items():
+        rows[name]["wide"] = by_d
+    log(f"[CHECKS] K8 and K9 at d = {WIDE_DS}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, by_n in check_big(dev).items():
+        rows[name]["big"] = by_n
+    log(f"[CHECKS] d = {BIG_D}, n = {BIG_N}: "
+        f"{time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -2979,6 +3554,89 @@ def run_spec_cov_nora(runner):
             not np.all((Xn >= b[:, 0]) & (Xn <= b[:, 1])):
         raise AssertionError(f"spec NORA: malformed proposal {Xn.shape}")
     log("[SPEC-NORA] " + json.dumps(summary))
+    return summary
+
+
+def run_wide():
+    """Path (n): the default Runner (BatchOptimizer, LogExp, the audit on)
+    on the d = WIDE_D correlated Gaussian of tests/model_generator.py (its
+    prior box WIDE_PRIOR_STD standard deviations each way), its
+    default budget max_total = 70 d^1.5 (17,708 at d = 40: the range check
+    of K11, K9 and K8 runs at the full budget when it is built), stopped
+    after WIDE_ITERS iterations by its ``callback`` (which raises there,
+    as path i's does: max_finite would count only the points within the
+    finiteness threshold of the best, 8 iterations on this run); then
+    generate_mc_sample() at its default options (nlive 50 d, num_repeats 5
+    d).  Fails unless the Runner ran WIDE_ITERS iterations of d believer
+    steps each, its WIDE_ITERS d proposals are finite and inside the prior
+    box, and the final sample is finite, of width d, from an NS run that
+    ended.  KL(sample || truth) is printed, not gated: three iterations do
+    not converge at d = 40."""
+    import numpy as np
+    from model_generator import random_gaussian
+    from gpry_tpu_torch.acquisition.batch_optimizer import BatchOptimizer
+    from gpry_tpu_torch.run import Runner
+    from gpry_tpu_torch.utils.tools import kl_norm, mean_covmat_from_samples
+    d = WIDE_D
+    model = random_gaussian(d=d, prior_size_in_std=WIDE_PRIOR_STD,
+                            rng=10 + d)
+
+    class Stop(Exception):
+        pass
+
+    def stop(runner):
+        if runner.current_iteration >= WIDE_ITERS:
+            raise Stop
+
+    t0 = time.perf_counter()
+    runner = Runner(model.loglike, bounds=model.bounds, seed=1, verbose=2,
+                    callback=stop)
+    t_build = time.perf_counter() - t0
+    if runner.max_total != int(70 * d ** 1.5) or not runner.audit or \
+            not isinstance(runner.acquisition, BatchOptimizer):
+        raise AssertionError(f"wide: not the default Runner (max_total "
+                             f"{runner.max_total}, audit {runner.audit})")
+    try:
+        runner.run()
+    except Stop:
+        pass
+    t_run = time.perf_counter() - t0 - t_build
+    new = np.asarray(runner.gpr.X_train_all)[-WIDE_ITERS * d:]
+    lo, hi = model.bounds[:, 0], model.bounds[:, 1]
+    n_init = int(runner.gpr.n_total) - WIDE_ITERS * d
+    if not (runner.current_iteration == WIDE_ITERS
+            and BELIEVER["steps"] == WIDE_ITERS * d
+            and n_init >= runner.n_initial
+            and np.all(np.isfinite(new)) and np.all(new >= lo)
+            and np.all(new <= hi)):
+        raise AssertionError(
+            f"wide: {runner.current_iteration} iterations, "
+            f"{BELIEVER['steps']} believer steps, n_total "
+            f"{runner.gpr.n_total}, proposals finite "
+            f"{bool(np.all(np.isfinite(new)))}, in the box "
+            f"{bool(np.all((new >= lo) & (new <= hi)))}")
+    t0 = time.perf_counter()
+    sample = runner.generate_mc_sample()
+    t_mc = time.perf_counter() - t0
+    Xs = np.asarray(sample["X"])
+    if not (Xs.ndim == 2 and Xs.shape[1] == d and len(Xs) > 0
+            and np.all(np.isfinite(Xs)) and sample["ns_steps"] > 0):
+        raise AssertionError(f"wide: the final sample is malformed "
+                             f"({Xs.shape}, {sample['ns_steps']} NS steps)")
+    mean, cov = mean_covmat_from_samples(Xs, sample["weights"])
+    kl = max(kl_norm(mean, cov, model.mean, model.cov),
+             kl_norm(model.mean, model.cov, mean, cov))
+    summary = {"d": d, "max_total": int(runner.max_total),
+               "initial_design": n_init, "n_total": int(runner.gpr.n_total),
+               "n_finite": int(runner.gpr.n),
+               "iterations": int(runner.current_iteration),
+               "build_s": t_build, "run_s": t_run,
+               "generate_mc_sample_s": t_mc, "ns_s": sample["time_ns"],
+               "refine_s": sample["time_refine"],
+               "ns_steps": int(sample["ns_steps"]),
+               "ns_calls": int(sample["n_calls"]), "sample": len(Xs),
+               "kl": float(kl)}
+    log("[WIDE-RUNNER] " + json.dumps(summary))
     return summary
 
 
@@ -4275,6 +4933,8 @@ def drive(name, fn, *args, **kwargs):
         sync()
         t2 = time.perf_counter()
     trace = device_split(prof, t2 - t1)
+    if name in INSTANCE_PATHS:
+        trace["instances"] = check_instance(name, prof)
     # the profiler's start and stop around the run (its cost inside the
     # run, CUPTI's record of each launch, is in wall_s)
     trace["profiler_start_stop_s"] = time.perf_counter() - t0 - (t2 - t1)
@@ -4322,6 +4982,28 @@ def drive(name, fn, *args, **kwargs):
     return out, launches, ns
 
 
+def check_instance(name, prof):
+    """The launches of INSTANCE_PATHS[name]'s kernel in the path's trace,
+    by instance (its template arguments); fails unless the trace holds
+    some and every one is of the instance named there."""
+    from torch.autograd import DeviceType
+    row, tag = INSTANCE_PATHS[name]
+    counts = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        hit = kernel_row(e.name)
+        if hit is not None and hit[0].split("/")[0] == row:
+            inst = e.name.split("(", 1)[0]
+            counts[inst] = counts.get(inst, 0) + 1
+    log(f"[{name}] {row} launches in the trace by instance: "
+        + json.dumps(counts))
+    if not counts or any(tag not in inst for inst in counts):
+        raise AssertionError(f"{name}: the trace's {row} launches are not "
+                             f"all of the instance '{tag}': {counts}")
+    return counts
+
+
 def check_mc_launches(name, launches, ns):
     """The Monte-Carlo runs of a path went through K12 and K13: two K12
     launches per MCMC run; per NS run K13 once per queued step (NS_SEG a
@@ -4364,10 +5046,10 @@ def warm_profiler():
 
 
 def drive_paths():
-    """The thirteen paths in order, (a)-(l) with the device mesh disabled
+    """The fourteen paths in order, (a)-(l) with the device mesh disabled
     (their evals and equalities stay those of one card whatever the
-    machine holds), then (m) on the mesh; returns their summaries and
-    launches."""
+    machine holds), then (m) on the mesh, then (n) with the mesh disabled;
+    returns their summaries and launches."""
     from gpry_tpu_torch.parallel import mesh as mesh_mod
     warm_profiler()
     t0 = time.perf_counter()
@@ -4379,13 +5061,15 @@ def drive_paths():
     with mesh_mod.mesh_disabled():
         drive_single_card_paths(paths, launches, ns)
     paths["mesh"], launches["mesh"], ns["mesh"] = drive("mesh", run_mesh)
+    with mesh_mod.mesh_disabled():
+        paths["wide"], launches["wide"], ns["wide"] = drive("wide", run_wide)
     for name, stats in ns.items():
         paths[name]["device"] = stats.pop("device")
         paths[name]["believer_steps"] = stats.pop("believer_steps")
         paths[name]["gp_fits"] = stats.pop("fits")
         paths[name]["mcmc_runs"] = stats.pop("mcmc_runs")
         paths[name]["nested_sampling"] = stats
-    log(f"[PATHS] all thirteen paths in {time.perf_counter() - t0:.1f} s")
+    log(f"[PATHS] all fourteen paths in {time.perf_counter() - t0:.1f} s")
     return paths, launches
 
 

@@ -94,8 +94,8 @@ class BatchOptimizer(GenericGPAcquisition):
                          preprocessing_X=preprocessing_X,
                          zeta_scaling=zeta_scaling, verbose=verbose)
         if self.d > GRAD_MAX_D and config.get_device().type == "cuda":
-            # the ascent's gradients are K8's / K9's, one warp lane per
-            # coordinate
+            # the ascent's gradients are K8's / K9's, at most two
+            # coordinates a warp lane (the nested sampler's range too)
             raise ValueError(
                 f"BatchOptimizer: d={self.d} > {GRAD_MAX_D}, the most its "
                 "gradient kernels hold on the card; use the CPU.")

@@ -727,9 +727,15 @@ static cudaError_t gpry_stage_global(int plan, const GpryKern& kern, int n,
 // gradient is 0 at a training point.
 // ---------------------------------------------------------------------------
 
-// the largest d whose gradients the per-thread arrays hold (the wrappers
-// refuse a larger one)
-#define GPRY_GRAD_MAX_D 32
+// the largest d whose gradients K8 and K9 take (the wrappers refuse a
+// larger one; the nested sampler's range, K6 and K13)
+#define GPRY_GRAD_MAX_D 64
+// the coordinates one pass of a per-thread gradient sum holds: a d <= 32
+// instance sums every coordinate in one pass, the d <= 64 instance in two
+// passes of 32 (per coordinate the same rows in the same order, so the
+// same sums), which keeps 2 x 32 doubles a thread in registers where 2 x 64
+// would spill
+#define GPRY_GRAD_W 32
 
 // dk / d(r^2) of the unit-variance correlation gpry_k_of_sq; 0 at r^2 = 0
 // for the Matern families, as the zero-safe square root's gradient.
@@ -805,20 +811,31 @@ __device__ __forceinline__ double gpry_dpow(double v, double e) {
 }
 
 // Forward mode of gpry_spec_cov (diag false: k(a, b)) or gpry_spec_diag
-// (diag true: k(a, a); b unused): returns the value and writes its d
-// partial derivatives in a to grad (d <= GPRY_GRAD_MAX_D).  Each stack entry
-// carries a value and its d partials.  Per node: an ARD leaf dk/d(r^2)
+// (diag true: k(a, a); b unused): returns the value and writes its partial
+// derivatives in a_k to grad: all d of them (WIN false, d <= GPRY_GRAD_W),
+// or those of the window k0 <= k < k0 + kw to grad[k - k0] (WIN true; kw
+// <= GPRY_GRAD_W, the caller's min(d - k0, GPRY_GRAD_W): a wider d calls
+// once a window, each window's partials the same operations as in one
+// call; the d <= 32 instances keep the unwindowed addressing).  Each stack
+// entry carries a value and the window's partials.  Per node: an ARD leaf
+// dk/d(r^2)
 // 2 (a - b) / l^2; RationalQuadratic the chain rule through pow;
 // ExpSineSquared 0 at r = 0; DotProduct b in the cross form and 2 a on the
 // diagonal (the only prior term with a gradient); WhiteKernel and
 // ConstantKernel 0; sum, product and pow the usual rules (gpry_dpow).
+template <bool WIN>
 static __device__ __noinline__ double gpry_spec_grad(const GprySpec s,
                                                      const double* a, int sa,
                                                      const double* b, int sb,
                                                      int d, bool diag,
-                                                     double* grad) {
+                                                     double* grad, int k0 = 0,
+                                                     int kw = 0) {
+  if (!WIN) {
+    k0 = 0;
+    kw = d;
+  }
   double st[GPRY_SPEC_MAX_STACK];
-  double gs[GPRY_SPEC_MAX_STACK][GPRY_GRAD_MAX_D];
+  double gs[GPRY_SPEC_MAX_STACK][GPRY_GRAD_W];
   int top = 0;
   for (int i = 0; i < s.nodes; ++i) {
     const int op = s.op[i], off = s.off[i];
@@ -826,7 +843,7 @@ static __device__ __noinline__ double gpry_spec_grad(const GprySpec s,
       const double v = st[top - 1], e = s.expo[i];
       const double dv = gpry_dpow(v, e);
       st[top - 1] = gpry_pow(v, e);
-      for (int k = 0; k < d; ++k) gs[top - 1][k] *= dv;
+      for (int k = 0; k < kw; ++k) gs[top - 1][k] *= dv;
       continue;
     }
     if (op >= GPRY_OP_SUM) {
@@ -836,22 +853,27 @@ static __device__ __noinline__ double gpry_spec_grad(const GprySpec s,
       const double* gb = gs[top];
       if (op == GPRY_OP_SUM) {
         st[top - 1] = av + bv;
-        for (int k = 0; k < d; ++k) ga[k] += gb[k];
+        for (int k = 0; k < kw; ++k) ga[k] += gb[k];
       } else {
         st[top - 1] = av * bv;
-        for (int k = 0; k < d; ++k) ga[k] = ga[k] * bv + av * gb[k];
+        for (int k = 0; k < kw; ++k) ga[k] = ga[k] * bv + av * gb[k];
       }
       continue;
     }
     double v;
     double* gv = gs[top];
-    for (int k = 0; k < d; ++k) gv[k] = 0.0;
+    for (int k = 0; k < kw; ++k) gv[k] = 0.0;
     if (diag) {
       if (op == GPRY_OP_DOT) {
         double acc = 0.0;
-        for (int k = 0; k < d; ++k) {
-          acc += a[k * sa] * a[k * sa];
-          gv[k] = 2.0 * a[k * sa];
+        if constexpr (WIN) {
+          for (int k = 0; k < d; ++k) acc += a[k * sa] * a[k * sa];
+          for (int k = 0; k < kw; ++k) gv[k] = 2.0 * a[(k0 + k) * sa];
+        } else {
+          for (int k = 0; k < d; ++k) {
+            acc += a[k * sa] * a[k * sa];
+            gv[k] = 2.0 * a[k * sa];
+          }
         }
         const double s0 = s.et[off];
         v = s0 * s0 + acc;
@@ -866,9 +888,9 @@ static __device__ __noinline__ double gpry_spec_grad(const GprySpec s,
       }
       v = gpry_k_of_sq(op, sq);
       const double c = 2.0 * gpry_dk_dsq(op, sq);
-      for (int k = 0; k < d; ++k) {
-        const double il = s.iet[off + k];
-        gv[k] = c * ((a[k * sa] - b[k * sb]) * il) * il;
+      for (int k = 0; k < kw; ++k) {
+        const double il = s.iet[off + k0 + k];
+        gv[k] = c * ((a[(k0 + k) * sa] - b[(k0 + k) * sb]) * il) * il;
       }
     } else if (op == GPRY_OP_RQ) {
       const double il = s.iet[off + 1], al = s.et[off];
@@ -880,8 +902,8 @@ static __device__ __noinline__ double gpry_spec_grad(const GprySpec s,
       const double base = 1.0 + sq / (2.0 * al);
       v = pow(base, -al);
       const double c = 2.0 * (-al * pow(base, -al - 1.0) / (2.0 * al));
-      for (int k = 0; k < d; ++k)
-        gv[k] = c * ((a[k * sa] - b[k * sb]) * il) * il;
+      for (int k = 0; k < kw; ++k)
+        gv[k] = c * ((a[(k0 + k) * sa] - b[(k0 + k) * sb]) * il) * il;
     } else if (op == GPRY_OP_EXPSINE) {
       double sq = 0.0;
       for (int k = 0; k < d; ++k) {
@@ -895,14 +917,19 @@ static __device__ __noinline__ double gpry_spec_grad(const GprySpec s,
       if (r > 0.0) {
         const double dvdr =
             v * (-4.0 * sn) * (cos(arg) / s.et[off]) * (GPRY_PI / s.et[off + 1]);
-        for (int k = 0; k < d; ++k)
-          gv[k] = dvdr * ((a[k * sa] - b[k * sb]) / r);
+        for (int k = 0; k < kw; ++k)
+          gv[k] = dvdr * ((a[(k0 + k) * sa] - b[(k0 + k) * sb]) / r);
       }
     } else if (op == GPRY_OP_DOT) {
       double acc = 0.0;
-      for (int k = 0; k < d; ++k) {
-        acc += a[k * sa] * b[k * sb];
-        gv[k] = b[k * sb];
+      if constexpr (WIN) {
+        for (int k = 0; k < d; ++k) acc += a[k * sa] * b[k * sb];
+        for (int k = 0; k < kw; ++k) gv[k] = b[(k0 + k) * sb];
+      } else {
+        for (int k = 0; k < d; ++k) {
+          acc += a[k * sa] * b[k * sb];
+          gv[k] = b[k * sb];
+        }
       }
       const double s0 = s.et[off];
       v = s0 * s0 + acc;
@@ -913,7 +940,7 @@ static __device__ __noinline__ double gpry_spec_grad(const GprySpec s,
     }
     st[top++] = v;
   }
-  for (int k = 0; k < d; ++k) grad[k] = gs[0][k];
+  for (int k = 0; k < kw; ++k) grad[k] = gs[0][k];
   return st[0];
 }
 
@@ -943,7 +970,10 @@ __device__ __forceinline__ void gpry_warp_back_subst(
 // spec mode) in shared memory; L stays in global memory (the 50 MB L2
 // holds it).  A training set too large for shared memory reads X from
 // global memory instead (row-major, divided by ls on the fly with the same
-// arithmetic).
+// arithmetic), and one too large for even the two n-vectors keeps them in
+// global memory too: alpha read where it lies, the work vector in the
+// block's own slice of a workspace (K8's route 2, K9's route 3).  The
+// arithmetic is the same wherever the vectors lie, so are the bits.
 // ---------------------------------------------------------------------------
 
 struct GpryGP {
@@ -967,24 +997,30 @@ __host__ __device__ inline size_t gpry_grad_red_doubles(int d) {
 }
 
 // Doubles of the staged GP: ls, x_loc, x_scale (d each), res (2 + 2 d),
-// the partial sums, alpha and kv (n each), X (d n, when staged) and the
-// spec program.
+// the partial sums, alpha and kv (n each, when staged), X (d n, when
+// staged) and the spec program.
 __host__ __device__ inline size_t gpry_gp_doubles(int n, int d, bool stage_x,
-                                                  size_t spec) {
+                                                  size_t spec,
+                                                  bool stage_v = true) {
   return 3 * (size_t)d + 2 + 2 * (size_t)d + gpry_grad_red_doubles(d) +
-         2 * (size_t)n + (stage_x ? (size_t)d * n : 0) + spec;
+         (stage_v ? 2 * (size_t)n : 0) + (stage_x ? (size_t)d * n : 0) +
+         spec;
 }
 
 // Stage the GP at smem (gpry_gp_doubles) and return it; *tail is the
 // first free double behind it.  SPEC: the spec program is staged too
-// (*spec) and ls is 1.  Ends with a barrier.
-template <bool SPEC>
+// (*spec) and ls is 1.  VG (the vectors in global memory): alpha stays
+// where it lies and the work vector is the block's n doubles of `work`
+// (blockIdx.x n on); a template argument, so that an instance with the
+// vectors in shared memory addresses them as such.  Ends with a barrier.
+template <bool SPEC, bool VG = false>
 __device__ __forceinline__ GpryGP gpry_stage_gp(
     double* smem, const GpryKern& kern, int n, int nmax, int d,
     bool stage_x, const double* __restrict__ X,
     const double* __restrict__ alpha, const double* __restrict__ L,
     const double* __restrict__ theta, const double* __restrict__ x_loc,
-    const double* __restrict__ x_scale, GprySpec* spec, double** tail) {
+    const double* __restrict__ x_scale, GprySpec* spec, double** tail,
+    double* work = nullptr) {
   const int tid = threadIdx.x;
   double* ls = smem;
   double* xl = ls + d;
@@ -992,8 +1028,8 @@ __device__ __forceinline__ GpryGP gpry_stage_gp(
   double* res = xs + d;
   double* red = res + 2 + 2 * d;
   double* al = red + gpry_grad_red_doubles(d);
-  double* kv = al + n;
-  double* Xt = kv + n;
+  double* kv = VG ? work + (size_t)blockIdx.x * n : al + n;
+  double* Xt = VG ? al : kv + n;
   double* sp = Xt + (stage_x ? (size_t)d * n : 0);
   for (int k = tid; k < d; k += blockDim.x) {
     ls[k] = SPEC ? 1.0 : exp(theta[1 + k]);
@@ -1006,7 +1042,8 @@ __device__ __forceinline__ GpryGP gpry_stage_gp(
       const int j = idx / d, k = idx - j * d;
       Xt[(size_t)k * n + j] = X[idx] / ls[k];
     }
-  for (int j = tid; j < n; j += blockDim.x) al[j] = alpha[j];
+  if (!VG)
+    for (int j = tid; j < n; j += blockDim.x) al[j] = alpha[j];
   if constexpr (SPEC) *spec = gpry_stage_spec(sp, kern, theta, tid, blockDim.x);
   GpryGP g;
   g.family = kern.family;
@@ -1021,7 +1058,7 @@ __device__ __forceinline__ GpryGP gpry_stage_gp(
   g.xk = stage_x ? n : 1;
   g.xj = stage_x ? 1 : d;
   g.scale_x = !stage_x;
-  g.alpha = al;
+  g.alpha = VG ? alpha : al;
   g.L = L;
   g.kv = kv;
   g.red = red;
@@ -1037,6 +1074,134 @@ __device__ __forceinline__ double gpry_xt(const GpryGP& g, int j, int k) {
   return g.scale_x ? v / g.ls[k] : v;
 }
 
+// The gradient sums of the point q (visible to the block) from alpha and
+// g.kv = w = L^-T L^-1 k (visible to the block), with g.res[0], g.res[1]
+// set: res[2 + k] = sum_j alpha_j dk_j / dq_k and res[2 + d + k] = d prior
+// / dq_k - 2 sum_j w_j dk_j / dq_k.  The threads split the rows, each
+// summing 2 d per-thread sums, then block reductions.  GD: the largest d
+// the instance takes, 32 (one pass) or 64 (two passes of GPRY_GRAD_W
+// coordinates: the rows again, for the second 32; a coordinate's sums are
+// the same operations either way).  Every thread calls it; it ends with a
+// barrier, after which res is visible.
+template <bool SPEC, int GD>
+__device__ __forceinline__ void gpry_block_grad_sums(const GpryGP& g,
+                                                     const GprySpec& spec,
+                                                     const double* q) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = g.n, d = g.d;
+  double* part = g.red + GPRY_BLOCK_WARPS;  // [warp][2 d]
+  double* gprior = part + GPRY_BLOCK_WARPS * 2 * d;
+  if constexpr (GD <= GPRY_GRAD_W) {
+    // per thread: sum_j alpha_j grad k_j and sum_j w_j grad k_j over its
+    // rows (fast mode: without the common 1 / ls_k)
+    double am[GPRY_GRAD_W], aw[GPRY_GRAD_W];
+    for (int k = 0; k < d; ++k) am[k] = aw[k] = 0.0;
+    for (int j = tid; j < n; j += blockDim.x) {
+      const double a = g.alpha[j], w = g.kv[j];
+      if constexpr (SPEC) {
+        double gk[GPRY_GRAD_W];
+        gpry_spec_grad<false>(spec, q, 1, g.Xt + (size_t)j * g.xj, g.xk, d,
+                              false, gk);
+        for (int k = 0; k < d; ++k) {
+          am[k] += a * gk[k];
+          aw[k] += w * gk[k];
+        }
+      } else {
+        double sq = 0.0;
+        for (int k = 0; k < d; ++k) {
+          const double df = q[k] - gpry_xt(g, j, k);
+          sq += df * df;
+        }
+        const double c = 2.0 * g.variance * gpry_dk_dsq(g.family, sq);
+        const double ca = c * a, cw = c * w;
+        for (int k = 0; k < d; ++k) {
+          const double df = q[k] - gpry_xt(g, j, k);
+          am[k] += ca * df;
+          aw[k] += cw * df;
+        }
+      }
+    }
+    for (int k = 0; k < d; ++k) {
+      const double sa = gpry_warp_sum(am[k]);
+      const double sw = gpry_warp_sum(aw[k]);
+      if (lane == 0) {
+        part[warp * 2 * d + k] = sa;
+        part[warp * 2 * d + d + k] = sw;
+      }
+    }
+  } else {
+    // coordinates k0 .. k0 + 31 a pass, the sums in registers
+    for (int k0 = 0; k0 < d; k0 += GPRY_GRAD_W) {
+      const int kw = d - k0 < GPRY_GRAD_W ? d - k0 : GPRY_GRAD_W;
+      double am[GPRY_GRAD_W], aw[GPRY_GRAD_W];
+#pragma unroll
+      for (int k = 0; k < GPRY_GRAD_W; ++k) am[k] = aw[k] = 0.0;
+      for (int j = tid; j < n; j += blockDim.x) {
+        const double a = g.alpha[j], w = g.kv[j];
+        if constexpr (SPEC) {
+          double gk[GPRY_GRAD_W];
+          gpry_spec_grad<true>(spec, q, 1, g.Xt + (size_t)j * g.xj, g.xk,
+                               d, false, gk, k0, kw);
+#pragma unroll
+          for (int k = 0; k < GPRY_GRAD_W; ++k)
+            if (k < kw) {
+              am[k] += a * gk[k];
+              aw[k] += w * gk[k];
+            }
+        } else {
+          double sq = 0.0;
+          for (int k = 0; k < d; ++k) {
+            const double df = q[k] - gpry_xt(g, j, k);
+            sq += df * df;
+          }
+          const double c = 2.0 * g.variance * gpry_dk_dsq(g.family, sq);
+          const double ca = c * a, cw = c * w;
+#pragma unroll
+          for (int k = 0; k < GPRY_GRAD_W; ++k)
+            if (k < kw) {
+              const double df = q[k0 + k] - gpry_xt(g, j, k0 + k);
+              am[k] += ca * df;
+              aw[k] += cw * df;
+            }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < GPRY_GRAD_W; ++k)
+        if (k < kw) {  // uniform over the warp
+          const double sa = gpry_warp_sum(am[k]);
+          const double sw = gpry_warp_sum(aw[k]);
+          if (lane == 0) {
+            part[warp * 2 * d + k0 + k] = sa;
+            part[warp * 2 * d + d + k0 + k] = sw;
+          }
+        }
+    }
+  }
+  if (tid == 0) {
+    if constexpr (SPEC && GD <= GPRY_GRAD_W) {
+      gpry_spec_grad<false>(spec, q, 1, q, 1, d, true, gprior);
+    } else if constexpr (SPEC) {
+      for (int k0 = 0; k0 < d; k0 += GPRY_GRAD_W)
+        gpry_spec_grad<true>(spec, q, 1, q, 1, d, true, gprior + k0, k0,
+                             d - k0 < GPRY_GRAD_W ? d - k0 : GPRY_GRAD_W);
+    } else {
+      for (int k = 0; k < d; ++k) gprior[k] = 0.0;
+    }
+  }
+  __syncthreads();
+  if (tid < 2 * d) {
+    double s = 0.0;
+    for (int w = 0; w < GPRY_BLOCK_WARPS; ++w) s += part[w * 2 * d + tid];
+    const int k = tid < d ? tid : tid - d;
+    s = s / g.ls[k];
+    if (tid < d)
+      g.res[2 + k] = s;
+    else
+      g.res[2 + d + k] = gprior[k] - 2.0 * s;
+  }
+  __syncthreads();
+}
+
 // The mean k . alpha and the latent variance prior - |L^-1 k|^2 (not
 // clamped) of the point q (d: preprocessed, divided by ls in fast mode;
 // visible to the block) in the GP's coordinates, into res[0], res[1], and
@@ -1044,10 +1209,10 @@ __device__ __forceinline__ double gpry_xt(const GpryGP& g, int j, int k) {
 //   res[2 + k]     = d mean / dq_k = sum_j alpha_j dk_j / dq_k,
 //   res[2 + d + k] = d var / dq_k  = d prior / dq_k - 2 sum_j w_j dk_j / dq_k
 // with w = L^-T L^-1 k.  The threads split the rows for k and its
-// gradient (block reductions of 1 and 2 d sums); one warp runs the two
-// substitution chains.  Every thread calls it; it ends with a barrier,
-// after which res is visible.
-template <bool SPEC>
+// gradient (block reductions of 1 and 2 d sums, gpry_block_grad_sums); one
+// warp runs the two substitution chains.  Every thread calls it; it ends
+// with a barrier, after which res is visible.
+template <bool SPEC, int GD>
 __device__ void gpry_block_meanvar_grad(const GpryGP& g, const GprySpec& spec,
                                         const double* q) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1083,64 +1248,7 @@ __device__ void gpry_block_meanvar_grad(const GpryGP& g, const GprySpec& spec,
     }
   }
   __syncthreads();
-  // per thread: sum_j alpha_j grad k_j and sum_j w_j grad k_j over its
-  // rows (fast mode: without the common 1 / ls_k)
-  double am[GPRY_GRAD_MAX_D], aw[GPRY_GRAD_MAX_D];
-  for (int k = 0; k < d; ++k) am[k] = aw[k] = 0.0;
-  for (int j = tid; j < n; j += blockDim.x) {
-    const double a = g.alpha[j], w = g.kv[j];
-    if constexpr (SPEC) {
-      double gk[GPRY_GRAD_MAX_D];
-      gpry_spec_grad(spec, q, 1, g.Xt + (size_t)j * g.xj, g.xk, d, false,
-                     gk);
-      for (int k = 0; k < d; ++k) {
-        am[k] += a * gk[k];
-        aw[k] += w * gk[k];
-      }
-    } else {
-      double sq = 0.0;
-      for (int k = 0; k < d; ++k) {
-        const double df = q[k] - gpry_xt(g, j, k);
-        sq += df * df;
-      }
-      const double c = 2.0 * g.variance * gpry_dk_dsq(g.family, sq);
-      const double ca = c * a, cw = c * w;
-      for (int k = 0; k < d; ++k) {
-        const double df = q[k] - gpry_xt(g, j, k);
-        am[k] += ca * df;
-        aw[k] += cw * df;
-      }
-    }
-  }
-  double* part = g.red + GPRY_BLOCK_WARPS;  // [warp][2 d]
-  double* gprior = part + GPRY_BLOCK_WARPS * 2 * d;
-  for (int k = 0; k < d; ++k) {
-    const double sa = gpry_warp_sum(am[k]);
-    const double sw = gpry_warp_sum(aw[k]);
-    if (lane == 0) {
-      part[warp * 2 * d + k] = sa;
-      part[warp * 2 * d + d + k] = sw;
-    }
-  }
-  if (tid == 0) {
-    if constexpr (SPEC) {
-      gpry_spec_grad(spec, q, 1, q, 1, d, true, gprior);
-    } else {
-      for (int k = 0; k < d; ++k) gprior[k] = 0.0;
-    }
-  }
-  __syncthreads();
-  if (tid < 2 * d) {
-    double s = 0.0;
-    for (int w = 0; w < GPRY_BLOCK_WARPS; ++w) s += part[w * 2 * d + tid];
-    const int k = tid < d ? tid : tid - d;
-    s = s / g.ls[k];
-    if (tid < d)
-      g.res[2 + k] = s;
-    else
-      g.res[2 + d + k] = gprior[k] - 2.0 * s;
-  }
-  __syncthreads();
+  gpry_block_grad_sums<SPEC, GD>(g, spec, q);
 }
 
 // ---------------------------------------------------------------------------

@@ -47,10 +47,17 @@
 // the (S, Y, rho) history, kh, the stall count, nev) lives in shared
 // memory, so a block exits when its own lane stops and nothing is read by
 // the host until the launch ends.  Warp 0 runs the L-BFGS arithmetic, lane
-// k owning coordinate k (d <= 32): dot products are warp reductions.  The
-// updates whose rounding decides a line search or a stall (u + t d, the
-// Armijo threshold, the objective) are written with explicit roundings, as
-// torch evaluates them, not contracted into fused multiply-adds.
+// k owning coordinate k (the GD = 32 instance, d <= 32) or coordinates k
+// and k + 32 (GD = 64, d = 33-64): dot products are warp reductions of the
+// lane's partial sums.  The updates whose rounding decides a line search or
+// a stall (u + t d, the Armijo threshold, the objective) are written with
+// explicit roundings, as torch evaluates them, not contracted into fused
+// multiply-adds, for each coordinate a lane owns.  The gradient's
+// per-thread sums take one pass over the rows at GD = 32 (written out in
+// k9_grad) and two passes of 32 coordinates at GD = 64 (gpry_block_grad_sums
+// of common.cuh, K8's route 1: 2 x 64 sums a thread would spill from the
+// registers; a shared-memory reduction of 128 threads x 128 sums would not
+// fit beside the GP).
 // * An accepted probe is reused: a line-search probe computes k, the mean
 //   and v = L^-1 k (the value) and leaves them in place; when it passes,
 //   the back substitution and the gradient sums run on them, so an
@@ -78,8 +85,11 @@
 //   partial sums are kept; the solution overwrites k in place and 1 / L_ii
 //   comes from the diagonal tile.  Shared memory then grows with n only by
 //   the staged GP's alpha and k, as K8's does: route 1 up to n = 12,180 at
-//   d = 8, route 2 up to 13,236 (12,756 at d = 32).  The wrapper raises
-//   ValueError above.
+//   d = 8, route 2 up to 13,236 (12,756 at d = 32).  Route 3 streams L as
+//   route 1 does (4 stages) and keeps alpha and k in global memory (alpha
+//   where it lies, k in the lane's n doubles of a workspace; L1 and L2 hold
+//   them), so it takes every n (the fit, K11, bounds the training set
+//   first: n <= 23,611 at d = 40); the same arithmetic as route 2.
 //
 // Spec mode (template SPEC) as K8's.
 #include <cuda_pipeline.h>
@@ -114,14 +124,14 @@ __host__ __device__ inline size_t k9_lane_doubles(int d) {
          sizeof(K9State) / sizeof(double);
 }
 
-// The stages of route 1's and route 2's tile ring.
+// The stages of the streamed routes' tile ring.
 __host__ __device__ inline int k9_stages(int route) {
-  return route == 1 ? 4 : 2;
+  return route == 2 ? 2 : 4;
 }
 
 // Shared doubles of the substitutions: on route 0, 1 / L_ii, v (n each)
-// and packed L; on routes 1 and 2, the current panel's per-warp partial
-// sums (GPRY_BLOCK_WARPS x K9_P) and the tile ring.
+// and packed L; on routes 1-3, the current panel's per-warp partial sums
+// (GPRY_BLOCK_WARPS x K9_P) and the tile ring.
 __host__ __device__ inline size_t k9_sub_doubles(int n, int route) {
   return route == 0 ? 2 * (size_t)n + gpry_tri(n)
                     : (size_t)GPRY_BLOCK_WARPS * K9_P +
@@ -129,14 +139,15 @@ __host__ __device__ inline size_t k9_sub_doubles(int n, int route) {
 }
 
 // The route (0: L staged in shared memory, 1 and 2: streamed through 4 or
-// 2 stages; -1: n too large) and whether X is staged too, with the shared
-// memory it takes.
+// 2 stages, 3: streamed through 4 with alpha and k in global memory; -1:
+// nothing fits) and whether X is staged too, with the shared memory it
+// takes.
 __host__ __device__ inline int k9_route(int n, int d, size_t spec,
                                         int* stage_x, size_t* smem) {
-  for (int route = 0; route < 3; ++route)
+  for (int route = 0; route < 4; ++route)
     for (int sx = 1; sx >= 0; --sx) {
       const size_t bytes =
-          sizeof(double) * (gpry_gp_doubles(n, d, sx != 0, spec) +
+          sizeof(double) * (gpry_gp_doubles(n, d, sx != 0, spec, route < 3) +
                             k9_lane_doubles(d) + k9_sub_doubles(n, route));
       if (bytes <= GPRY_MAX_SMEM) {
         *stage_x = sx;
@@ -152,12 +163,12 @@ __host__ __device__ inline int k9_route(int n, int d, size_t spec,
 struct K9Sub {
   const double* L;  // (nmax, nmax) row-major, global memory
   int n, nmax;
-  int stages;       // routes 1, 2: the ring's stages
+  int stages;       // routes 1-3: the ring's stages
   double* dinv;     // route 0: 1 / L_ii (n)
   double* vv;       // route 0: v = L^-1 k (n)
   double* Lp;       // route 0: L packed by rows
-  double* acc;      // routes 1, 2: GPRY_BLOCK_WARPS x K9_P partial sums
-  double* ring;     // routes 1, 2: `stages` tiles of K9_P x K9_TLD
+  double* acc;      // routes 1-3: GPRY_BLOCK_WARPS x K9_P partial sums
+  double* ring;     // routes 1-3: `stages` tiles of K9_P x K9_TLD
 };
 
 // v = L^-1 k on route 0: the residuals in kv (k on entry), v into vv.
@@ -266,7 +277,7 @@ __device__ void k9_bwd_staged(const K9Sub& s, double* kv) {
   }
 }
 
-// Routes 1, 2: tile (P, J) of L (rows 32 P.., columns 32 J..; zeros
+// Routes 1-3: tile (P, J) of L (rows 32 P.., columns 32 J..; zeros
 // outside the n x n block) into ring slot `slot` by cp.async.
 __device__ __forceinline__ void k9_load_tile(const K9Sub& s, int slot, int P,
                                              int J) {
@@ -300,7 +311,7 @@ __device__ __forceinline__ void k9_next(bool fwd, int np, int& P, int& J) {
   }
 }
 
-// Routes 1, 2: the forward (FWD: v = L^-1 k) or the back substitution (w =
+// Routes 1-3: the forward (FWD: v = L^-1 k) or the back substitution (w =
 // L^-T v) in place in kv, with L streamed tile by tile.  Off-diagonal
 // tiles are shared by the warps, warp q taking 8 of the 32 columns
 // (forward) or rows (back) into a partial sum it keeps in a register
@@ -408,8 +419,9 @@ __device__ double k9_subst_stream(const K9Sub& s, double* kv) {
 
 // The negated LogExp at the u-space point pu (d; coordinate k written by
 // thread k): k, the mean and v = L^-1 k, left in g.kv, s.vv (the same
-// vector on routes 1 and 2: v overwrites k) and g.res[0], g.res[1] for
-// k9_grad.  Returns F in every lane of warp 0 (0 elsewhere).
+// vector on routes 1-3: v overwrites k) and g.res[0], g.res[1] for
+// k9_grad (kv on route 3 in global memory).  Returns F in every lane of
+// warp 0 (0 elsewhere).
 // Every thread calls it.
 template <bool SPEC, bool STREAM>
 __device__ double k9_value(const GpryGP& g, const GprySpec& spec,
@@ -469,79 +481,90 @@ __device__ double k9_value(const GpryGP& g, const GprySpec& spec,
                     __dmul_rn(0.5, log(varcl)));
 }
 
-// dF/du at pu into gout (d, by warp 0's lanes) from what k9_value left:
+// dF/du at pu into gout (d, by threads 0..d-1) from what k9_value left:
 // the back substitution w = L^-T v into g.kv, then d mean / dq and
-// d var / dq (the sums of gpry_block_meanvar_grad, K8's) into g.res.
+// d var / dq into g.res (at GD = 64 by gpry_block_grad_sums, K8's route 1).
 // Every thread calls it; it ends with a barrier.
-template <bool SPEC, bool STREAM>
+template <bool SPEC, bool STREAM, int GD>
 __device__ void k9_grad(const GpryGP& g, const GprySpec& spec,
                         const K9Lane& ln, const K9Sub& s, const double* pu,
                         double* gout, double y_loc, double y_scale,
                         double clip, double c1, double ns2) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n = g.n, d = g.d;
-  const double* q = ln.q;
+  const int tid = threadIdx.x;
+  const int d = g.d;
   if (STREAM)
     k9_subst_stream<false>(s, g.kv);
   else
     k9_bwd_staged(s, g.kv);
-  // per thread: sum_j alpha_j grad k_j and sum_j w_j grad k_j over its
-  // rows (fast mode: without the common 1 / ls_k)
-  double am[GPRY_GRAD_MAX_D], aw[GPRY_GRAD_MAX_D];
-  for (int k = 0; k < d; ++k) am[k] = aw[k] = 0.0;
-  for (int j = tid; j < n; j += blockDim.x) {
-    const double a = g.alpha[j], w = g.kv[j];
-    if constexpr (SPEC) {
-      double gk[GPRY_GRAD_MAX_D];
-      gpry_spec_grad(spec, q, 1, g.Xt + (size_t)j * g.xj, g.xk, d, false, gk);
-      for (int k = 0; k < d; ++k) {
-        am[k] += a * gk[k];
-        aw[k] += w * gk[k];
-      }
-    } else {
-      double sq = 0.0;
-      for (int k = 0; k < d; ++k) {
-        const double df = q[k] - gpry_xt(g, j, k);
-        sq += df * df;
-      }
-      const double c = 2.0 * g.variance * gpry_dk_dsq(g.family, sq);
-      const double ca = c * a, cw = c * w;
-      for (int k = 0; k < d; ++k) {
-        const double df = q[k] - gpry_xt(g, j, k);
-        am[k] += ca * df;
-        aw[k] += cw * df;
+  if constexpr (GD <= GPRY_GRAD_W) {
+    // The d <= 32 instance writes its sums out here: the same operations
+    // as gpry_block_grad_sums<SPEC, 32> (K8's), whose inlined form made
+    // this instance 3% slower on an H100 80GB HBM3 at 700 W (254 registers
+    // against 238, the same bits; compare_trees.sh kernels).
+    const int lane = tid & 31, warp = tid >> 5;
+    const int n = g.n;
+    const double* q = ln.q;
+    // per thread: sum_j alpha_j grad k_j and sum_j w_j grad k_j over its
+    // rows (fast mode: without the common 1 / ls_k)
+    double am[GPRY_GRAD_W], aw[GPRY_GRAD_W];
+    for (int k = 0; k < d; ++k) am[k] = aw[k] = 0.0;
+    for (int j = tid; j < n; j += blockDim.x) {
+      const double a = g.alpha[j], w = g.kv[j];
+      if constexpr (SPEC) {
+        double gk[GPRY_GRAD_W];
+        gpry_spec_grad<false>(spec, q, 1, g.Xt + (size_t)j * g.xj, g.xk, d,
+                              false, gk);
+        for (int k = 0; k < d; ++k) {
+          am[k] += a * gk[k];
+          aw[k] += w * gk[k];
+        }
+      } else {
+        double sq = 0.0;
+        for (int k = 0; k < d; ++k) {
+          const double df = q[k] - gpry_xt(g, j, k);
+          sq += df * df;
+        }
+        const double c = 2.0 * g.variance * gpry_dk_dsq(g.family, sq);
+        const double ca = c * a, cw = c * w;
+        for (int k = 0; k < d; ++k) {
+          const double df = q[k] - gpry_xt(g, j, k);
+          am[k] += ca * df;
+          aw[k] += cw * df;
+        }
       }
     }
-  }
-  double* part = g.red + GPRY_BLOCK_WARPS;  // [warp][2 d]
-  double* gprior = part + GPRY_BLOCK_WARPS * 2 * d;
-  for (int k = 0; k < d; ++k) {
-    const double sa = gpry_warp_sum(am[k]);
-    const double sw = gpry_warp_sum(aw[k]);
-    if (lane == 0) {
-      part[warp * 2 * d + k] = sa;
-      part[warp * 2 * d + d + k] = sw;
+    double* part = g.red + GPRY_BLOCK_WARPS;  // [warp][2 d]
+    double* gprior = part + GPRY_BLOCK_WARPS * 2 * d;
+    for (int k = 0; k < d; ++k) {
+      const double sa = gpry_warp_sum(am[k]);
+      const double sw = gpry_warp_sum(aw[k]);
+      if (lane == 0) {
+        part[warp * 2 * d + k] = sa;
+        part[warp * 2 * d + d + k] = sw;
+      }
     }
-  }
-  if (tid == 0) {
-    if constexpr (SPEC) {
-      gpry_spec_grad(spec, q, 1, q, 1, d, true, gprior);
-    } else {
-      for (int k = 0; k < d; ++k) gprior[k] = 0.0;
+    if (tid == 0) {
+      if constexpr (SPEC) {
+        gpry_spec_grad<false>(spec, q, 1, q, 1, d, true, gprior);
+      } else {
+        for (int k = 0; k < d; ++k) gprior[k] = 0.0;
+      }
     }
+    __syncthreads();
+    if (tid < 2 * d) {
+      double sm = 0.0;
+      for (int w = 0; w < GPRY_BLOCK_WARPS; ++w) sm += part[w * 2 * d + tid];
+      const int k = tid < d ? tid : tid - d;
+      sm = sm / g.ls[k];
+      if (tid < d)
+        g.res[2 + k] = sm;
+      else
+        g.res[2 + d + k] = gprior[k] - 2.0 * sm;
+    }
+    __syncthreads();
+  } else {
+    gpry_block_grad_sums<SPEC, GD>(g, spec, ln.q);
   }
-  __syncthreads();
-  if (tid < 2 * d) {
-    double sm = 0.0;
-    for (int w = 0; w < GPRY_BLOCK_WARPS; ++w) sm += part[w * 2 * d + tid];
-    const int k = tid < d ? tid : tid - d;
-    sm = sm / g.ls[k];
-    if (tid < d)
-      g.res[2 + k] = sm;
-    else
-      g.res[2 + d + k] = gprior[k] - 2.0 * sm;
-  }
-  __syncthreads();
   if (tid < d) {
     const int k = tid;
     const double var_raw = g.res[1];
@@ -569,27 +592,158 @@ __device__ void k9_grad(const GpryGP& g, const GprySpec& spec,
   __syncthreads();
 }
 
-template <bool SPEC, bool STREAM>
+// Warp 0's dot product of two d-vectors whose entries k = lane + 32 c
+// (c < C) a lane holds: the lane's partial sum, then a warp reduction.
+template <int C>
+__device__ __forceinline__ double k9_dot(const double* a, const double* b) {
+  double s = a[0] * b[0];
+#pragma unroll
+  for (int c = 1; c < C; ++c) s += a[c] * b[c];
+  return gpry_warp_sum(s);
+}
+
+// The two-loop direction into ln.dir and st->gd (t, ok, nls reset), by
+// warp 0, lane k owning coordinates lane + 32 c, c < C (C = 1: d <= 32, 2:
+// d <= 64): the same operations per coordinate, the dot products over the
+// lane's C partial products.
+template <int C>
+__device__ __forceinline__ void k9_direction(const K9Lane& ln, K9State* st,
+                                             int lane, int d, const bool* on,
+                                             double eps) {
+  const int kh = st->kh;
+  double gk[C], qk[C], sj[C], yj[C], rk[C], dk[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    gk[c] = on[c] ? ln.g[lane + 32 * c] : 0.0;
+    qk[c] = gk[c];
+  }
+  double alf[K9_M];
+#pragma unroll
+  for (int j = 0; j < K9_M; ++j) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      sj[c] = on[c] ? ln.S[j * d + lane + 32 * c] : 0.0;
+      yj[c] = on[c] ? ln.Y[j * d + lane + 32 * c] : 0.0;
+    }
+    const double dot = k9_dot<C>(sj, qk);
+    const double a = j < kh ? ln.rho[j] * dot : 0.0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) qk[c] = __dsub_rn(qk[c], __dmul_rn(a, yj[c]));
+    alf[j] = a;
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    sj[c] = on[c] ? ln.S[lane + 32 * c] : 0.0;
+    yj[c] = on[c] ? ln.Y[lane + 32 * c] : 0.0;
+  }
+  const double yy = k9_dot<C>(yj, yj);
+  const double sy0 = k9_dot<C>(sj, yj);
+  double gamma = kh > 0 ? sy0 / (yy < eps ? eps : yy) : 1.0;
+  gamma = gamma < 1e-8 ? 1e-8 : (gamma > 1e8 ? 1e8 : gamma);
+#pragma unroll
+  for (int c = 0; c < C; ++c) rk[c] = __dmul_rn(gamma, qk[c]);
+#pragma unroll
+  for (int j = K9_M - 1; j >= 0; --j) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      sj[c] = on[c] ? ln.S[j * d + lane + 32 * c] : 0.0;
+      yj[c] = on[c] ? ln.Y[j * d + lane + 32 * c] : 0.0;
+    }
+    const double dot = k9_dot<C>(yj, rk);
+    const double b = j < kh ? ln.rho[j] * dot : 0.0;
+    const double cc = j < kh ? alf[j] - b : 0.0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) rk[c] = __dadd_rn(rk[c], __dmul_rn(cc, sj[c]));
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) dk[c] = -rk[c];
+  double gd = k9_dot<C>(gk, dk);
+  if (!(gd < 0.0)) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) dk[c] = -gk[c];
+    gd = k9_dot<C>(gk, dk);
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (on[c]) ln.dir[lane + 32 * c] = dk[c];
+  if (lane == 0) {
+    st->gd = gd;
+    st->t = 1.0;
+    st->ok = 0;
+    st->nls = 0;
+  }
+}
+
+// The step's pair s = un - u, y = gn - g into the history (when the line
+// search passed and s.y > 1e-10), u = un, g = gn; *sy and *gnorm = |gn| on
+// every lane.  Warp 0, lane k owning coordinates lane + 32 c, c < C.
+template <int C>
+__device__ __forceinline__ void k9_history(const K9Lane& ln, int lane, int d,
+                                           const bool* on, bool ok,
+                                           double* sy_out,
+                                           double* gnorm_out) {
+  double unk[C], gnk[C], sv[C], yv[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int k = lane + 32 * c;
+    const double uk = on[c] ? ln.u[k] : 0.0;
+    unk[c] = on[c] ? ln.un[k] : 0.0;
+    const double gkc = on[c] ? ln.g[k] : 0.0;
+    gnk[c] = on[c] ? ln.gn[k] : 0.0;
+    sv[c] = unk[c] - uk;
+    yv[c] = gnk[c] - gkc;
+  }
+  const double sy = k9_dot<C>(sv, yv);
+  const double gnorm = sqrt(k9_dot<C>(gnk, gnk));
+  const bool store = ok && sy > 1e-10;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int k = lane + 32 * c;
+    if (store && on[c]) {
+      for (int j = K9_M - 1; j > 0; --j) {
+        ln.S[j * d + k] = ln.S[(j - 1) * d + k];
+        ln.Y[j * d + k] = ln.Y[(j - 1) * d + k];
+      }
+      ln.S[k] = sv[c];
+      ln.Y[k] = yv[c];
+    }
+    if (on[c]) {
+      ln.u[k] = unk[c];
+      ln.g[k] = gnk[c];
+    }
+  }
+  *sy_out = sy;
+  *gnorm_out = gnorm;
+}
+
+// GD: the largest d the instance takes, 32 (a coordinate a lane of warp
+// 0) or 64 (two); VG: route 3, alpha and k in global memory, k in the
+// lane's n doubles of `work` (a template argument, so that the other
+// routes address their staged vectors as shared memory).
+template <bool SPEC, bool STREAM, int GD, bool VG>
 __global__ void __launch_bounds__(GPRY_BLOCK_THREADS, 1)
 lbfgs_logexp_ascent_kernel(
-    GpryKern kern, int R, int n, int nmax, int d, int stage_x, int stages,
-    int maxiter, const double* __restrict__ x0s,
+    GpryKern kern, int R, int n, int nmax, int d, int stage_x,
+    int stages, int maxiter, const double* __restrict__ x0s,
     const double* __restrict__ lo_g, const double* __restrict__ hi_g,
     const double* __restrict__ X,
     const double* __restrict__ alpha, const double* __restrict__ L,
     const double* __restrict__ theta, const double* __restrict__ x_loc,
     const double* __restrict__ x_scale, const double* __restrict__ scal,
-    double c1, double ns2, double* __restrict__ xs_out,
-    double* __restrict__ f_out, long long* __restrict__ nev_out) {
+    double c1, double ns2, double* __restrict__ work,
+    double* __restrict__ xs_out, double* __restrict__ f_out,
+    long long* __restrict__ nev_out) {
+  constexpr int C = GD / 32;  // coordinates a lane of warp 0
   extern __shared__ double smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nt = blockDim.x, nw = nt >> 5;
   const int r = blockIdx.x;
   GprySpec spec;
   double* tail;
-  const GpryGP g = gpry_stage_gp<SPEC>(smem, kern, n, nmax, d, stage_x != 0,
-                                       X, alpha, L, theta, x_loc, x_scale,
-                                       &spec, &tail);
+  const GpryGP g = gpry_stage_gp<SPEC, VG>(smem, kern, n, nmax, d,
+                                           stage_x != 0, X, alpha, L, theta,
+                                           x_loc, x_scale, &spec, &tail,
+                                           work);
   K9Lane ln;
   ln.q = tail;
   ln.sig = ln.q + d;
@@ -651,8 +805,8 @@ lbfgs_logexp_ascent_kernel(
   {
     const double F = k9_value<SPEC, STREAM>(g, spec, ln, sub, ln.u, y_loc,
                                             y_scale, clip, y_max, c1, ns2);
-    k9_grad<SPEC, STREAM>(g, spec, ln, sub, ln.u, ln.g, y_loc, y_scale,
-                          clip, c1, ns2);
+    k9_grad<SPEC, STREAM, GD>(g, spec, ln, sub, ln.u, ln.g, y_loc, y_scale,
+                              clip, c1, ns2);
     if (tid == 0) {
       st->f = st->f0 = F;
       st->stop = !isfinite(F);
@@ -663,52 +817,15 @@ lbfgs_logexp_ascent_kernel(
   }
   __syncthreads();
 
-  const bool on = lane < d;
+  // warp 0's lane owns coordinates lane + 32 c, c < C
+  bool on[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) on[c] = lane + 32 * c < d;
   for (int it = 0; it < maxiter; ++it) {
     if (st->stop) break;
     // the two-loop direction and the steepest-descent safeguard (warp 0)
     if (warp == 0) {
-      const int kh = st->kh;
-      const double gk = on ? ln.g[lane] : 0.0;
-      double qk = gk;
-      double alf[K9_M];
-#pragma unroll
-      for (int j = 0; j < K9_M; ++j) {
-        const double sj = on ? ln.S[j * d + lane] : 0.0;
-        const double yj = on ? ln.Y[j * d + lane] : 0.0;
-        const double dot = gpry_warp_sum(sj * qk);
-        const double a = j < kh ? ln.rho[j] * dot : 0.0;
-        qk = __dsub_rn(qk, __dmul_rn(a, yj));
-        alf[j] = a;
-      }
-      const double s0 = on ? ln.S[lane] : 0.0, y0 = on ? ln.Y[lane] : 0.0;
-      const double yy = gpry_warp_sum(y0 * y0);
-      const double sy0 = gpry_warp_sum(s0 * y0);
-      double gamma = kh > 0 ? sy0 / (yy < eps ? eps : yy) : 1.0;
-      gamma = gamma < 1e-8 ? 1e-8 : (gamma > 1e8 ? 1e8 : gamma);
-      double rk = __dmul_rn(gamma, qk);
-#pragma unroll
-      for (int j = K9_M - 1; j >= 0; --j) {
-        const double sj = on ? ln.S[j * d + lane] : 0.0;
-        const double yj = on ? ln.Y[j * d + lane] : 0.0;
-        const double dot = gpry_warp_sum(yj * rk);
-        const double b = j < kh ? ln.rho[j] * dot : 0.0;
-        const double c = j < kh ? alf[j] - b : 0.0;
-        rk = __dadd_rn(rk, __dmul_rn(c, sj));
-      }
-      double dk = -rk;
-      double gd = gpry_warp_sum(gk * dk);
-      if (!(gd < 0.0)) {
-        dk = -gk;
-        gd = gpry_warp_sum(gk * dk);
-      }
-      if (on) ln.dir[lane] = dk;
-      if (lane == 0) {
-        st->gd = gd;
-        st->t = 1.0;
-        st->ok = 0;
-        st->nls = 0;
-      }
+      k9_direction<C>(ln, st, lane, d, on, eps);
     }
     __syncthreads();
     // Armijo backtracking: each probe computes the value and leaves k, v
@@ -738,8 +855,8 @@ lbfgs_logexp_ascent_kernel(
     const bool ok = st->ok != 0;
     if (ok) {
       // the accepted probe's k and v: the gradient at un
-      k9_grad<SPEC, STREAM>(g, spec, ln, sub, ln.un, ln.gn, y_loc, y_scale,
-                            clip, c1, ns2);
+      k9_grad<SPEC, STREAM, GD>(g, spec, ln, sub, ln.un, ln.gn, y_loc,
+                                y_scale, clip, c1, ns2);
     } else {
       // t = 0: u + 0 d is u, and the reference's value and gradient there
       // are the ones the lane holds; unless d has a non-finite entry, when
@@ -760,24 +877,9 @@ lbfgs_logexp_ascent_kernel(
     __syncthreads();
     // the history, the stops and the step (warp 0)
     if (warp == 0) {
-      const double uk = on ? ln.u[lane] : 0.0, unk = on ? ln.un[lane] : 0.0;
-      const double gk = on ? ln.g[lane] : 0.0, gnk = on ? ln.gn[lane] : 0.0;
-      const double s = unk - uk, y = gnk - gk;
-      const double sy = gpry_warp_sum(s * y);
-      const double gnorm = sqrt(gpry_warp_sum(gnk * gnk));
+      double sy, gnorm;
+      k9_history<C>(ln, lane, d, on, ok, &sy, &gnorm);
       const bool store = ok && sy > 1e-10;
-      if (store && on) {
-        for (int j = K9_M - 1; j > 0; --j) {
-          ln.S[j * d + lane] = ln.S[(j - 1) * d + lane];
-          ln.Y[j * d + lane] = ln.Y[(j - 1) * d + lane];
-        }
-        ln.S[lane] = s;
-        ln.Y[lane] = y;
-      }
-      if (on) {
-        ln.u[lane] = unk;
-        ln.g[lane] = gnk;
-      }
       __syncwarp();
       if (lane == 0) {
         if (store) {
@@ -810,32 +912,47 @@ lbfgs_logexp_ascent_kernel(
   }
 }
 
-// The route (0: L staged, 1 and 2: streamed, -1: n too large), whether X
-// is staged, and the shared memory (bytes) it takes.
+// The route (0: L staged, 1-3: streamed, -1: nothing fits), whether X
+// is staged, and the shared memory (bytes) it takes.  Route 3 needs n
+// doubles of global workspace a lane.
 extern "C" int gpry_lbfgs_logexp_ascent_plan(GpryKern kern, int n, int d,
                                              int* stage_x, size_t* smem) {
   return k9_route(n, d, gpry_spec_doubles(kern), stage_x, smem);
 }
 
+// The instance of `route` at d: L staged (route 0) or streamed (1-3), the
+// vectors in global memory on route 3, GD 32 or 64.
+template <bool SPEC>
+static auto k9_kernel(int route, int d) {
+  const bool w = d > GPRY_GRAD_W;
+  if (route == 0)
+    return w ? lbfgs_logexp_ascent_kernel<SPEC, false, 64, false>
+             : lbfgs_logexp_ascent_kernel<SPEC, false, 32, false>;
+  if (route < 3)
+    return w ? lbfgs_logexp_ascent_kernel<SPEC, true, 64, false>
+             : lbfgs_logexp_ascent_kernel<SPEC, true, 32, false>;
+  return w ? lbfgs_logexp_ascent_kernel<SPEC, true, 64, true>
+           : lbfgs_logexp_ascent_kernel<SPEC, true, 32, true>;
+}
+
 // scal = [y_loc, y_scale, clip_max, svm intercept, svm gamma, y_max]; c1 =
 // 2 zeta, ns2 = sigma_n^2 (raw units), both as the plain version rounds
-// them.
+// them; work: R n doubles on route 3 (else unused, may be null).
 extern "C" int gpry_lbfgs_logexp_ascent(
     GpryKern kern, int R, int n, int nmax, int d, int maxiter,
     const void* x0s, const void* lo, const void* hi, const void* X,
     const void* alpha, const void* L, const void* theta, const void* x_loc,
     const void* x_scale, const void* scal, double c1, double ns2,
-    void* xs_out, void* f_out, void* nev_out, void* stream) {
+    void* work, void* xs_out, void* f_out, void* nev_out, void* stream) {
   if (d > GPRY_GRAD_MAX_D || R < 0) return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
   int stage_x;
   size_t smem;
   const int route = gpry_lbfgs_logexp_ascent_plan(kern, n, d, &stage_x, &smem);
   if (route < 0) return (int)cudaErrorInvalidConfiguration;
-  auto kernel = kern.nodes ? (route ? lbfgs_logexp_ascent_kernel<true, true>
-                                    : lbfgs_logexp_ascent_kernel<true, false>)
-                           : (route ? lbfgs_logexp_ascent_kernel<false, true>
-                                    : lbfgs_logexp_ascent_kernel<false, false>);
+  if (route == 3 && work == nullptr) return (int)cudaErrorInvalidValue;
+  auto kernel = kern.nodes ? k9_kernel<true>(route, d)
+                           : k9_kernel<false>(route, d);
   cudaError_t e = gpry_set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<R, GPRY_BLOCK_THREADS, smem, (cudaStream_t)stream>>>(
@@ -844,6 +961,7 @@ extern "C" int gpry_lbfgs_logexp_ascent(
       (const double*)lo, (const double*)hi, (const double*)X,
       (const double*)alpha, (const double*)L, (const double*)theta,
       (const double*)x_loc, (const double*)x_scale, (const double*)scal, c1,
-      ns2, (double*)xs_out, (double*)f_out, (long long*)nev_out);
+      ns2, (double*)work, (double*)xs_out, (double*)f_out,
+      (long long*)nev_out);
   return (int)cudaGetLastError();
 }

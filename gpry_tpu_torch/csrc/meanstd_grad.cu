@@ -33,9 +33,13 @@
 //   x_jk) per coordinate in registers; a shuffle tree sums the T threads.
 //   The sums stay in that form: alpha cancels heavily on a fitted GP, and
 //   q_k sum alpha c - sum alpha c x_k would lose the gradient's digits.
-//   The per-thread sums hold GD = 8 or 32 coordinates (two instances).  It
-//   takes n as long as the panels, V and the queries fit in shared memory
-//   (n <= 640 at d = 8) and L's rows are 16-byte aligned (even nmax).
+//   The per-thread sums hold GD = 8 or 32 coordinates (two instances),
+//   and at d = 33-64 (the GD = 64 instance) 32 coordinates a pass, the
+//   sweep made twice (2 x 64 sums would spill from the registers); there
+//   the rows are read from global memory over the length scales on the fly
+//   (the stages hold 32 doubles a row).  It takes n as long as the panels,
+//   V and the queries fit in shared memory (n <= 640 at d = 8) and L's rows
+//   are 16-byte aligned (even nmax).
 // * Route 1 (meanstd_grad_kernel), K8's design before route 0: one block
 //   of 128 threads per query (grid-stride over the queries), the block
 //   routine gpry_block_meanvar_grad of common.cuh: the surrogate (X / l,
@@ -45,6 +49,13 @@
 //   in global memory.  Above 48 KB of shared memory the kernel opts in
 //   (gpry_set_smem); beyond the 227 KB a block holds, X is read from
 //   global memory.  For an odd nmax, an unaligned L, or n beyond route 0.
+//   Its gradient sums (gpry_block_grad_sums) take d <= 32 in one pass and
+//   d = 33-64 in two passes of 32 coordinates (the GD = 64 instance).
+// * Route 2: route 1's kernel with alpha read from global memory and the
+//   work vector in the block's slice of a global workspace (grid x n
+//   doubles, sized by gpry_meanstd_grad_work), for n beyond route 1's
+//   shared memory (n > 14,284 at d = 32): every n the fit (K11) takes, the
+//   same arithmetic, so route 1's bits.
 //
 // What bounds it on the H100.  Per query 2 n^2 / 2 multiply-adds of the
 // two substitutions and about n (5 d + 3) for k and its gradient: 1.1e8
@@ -67,10 +78,11 @@ meanstd_grad_blocked(SubUngated a) {
   sub_ungated<SPEC, GD>(a, smem);
 }
 
-// Route 1.
-template <bool SPEC>
+// Routes 1 and 2 (VG: alpha and the work vector in global memory).
+template <bool SPEC, int GD, bool VG>
 __global__ void __launch_bounds__(GPRY_BLOCK_THREADS) meanstd_grad_kernel(
     GpryKern kern, int nq, int n, int nmax, int d, int stage_x,
+    double* __restrict__ work,
     const double* __restrict__ Xq_raw, const double* __restrict__ X,
     const double* __restrict__ alpha, const double* __restrict__ L,
     const double* __restrict__ theta, const double* __restrict__ x_loc,
@@ -81,16 +93,16 @@ __global__ void __launch_bounds__(GPRY_BLOCK_THREADS) meanstd_grad_kernel(
   const int tid = threadIdx.x;
   GprySpec spec;
   double* q;
-  const GpryGP g = gpry_stage_gp<SPEC>(smem, kern, n, nmax, d, stage_x != 0,
-                                       X, alpha, L, theta, x_loc, x_scale,
-                                       &spec, &q);
+  const GpryGP g = gpry_stage_gp<SPEC, VG>(smem, kern, n, nmax, d,
+                                           stage_x != 0, X, alpha, L, theta,
+                                           x_loc, x_scale, &spec, &q, work);
   const double y_loc = scal[0], y_scale = scal[1];
   for (int b = blockIdx.x; b < nq; b += gridDim.x) {
     if (tid < d)
       q[tid] = (Xq_raw[(size_t)b * d + tid] - g.x_loc[tid]) /
                g.x_scale[tid] / g.ls[tid];
     __syncthreads();
-    gpry_block_meanvar_grad<SPEC>(g, spec, q);
+    gpry_block_meanvar_grad<SPEC, GD>(g, spec, q);
     const double var_raw = g.res[1];
     const double var = (var_raw < 0.0) ? 0.0 : var_raw;  // NaN stays NaN
     const double sd = sqrt(var);
@@ -111,23 +123,25 @@ __global__ void __launch_bounds__(GPRY_BLOCK_THREADS) meanstd_grad_kernel(
   }
 }
 
-// Route 1's shared memory: the staged GP with X if that fits (*stage_x),
-// else without.
-static size_t k8_chain_smem(const GpryKern& kern, int n, int d,
+// Route 1's shared memory (stage_v) or route 2's: the staged GP with X if
+// that fits (*stage_x), else without.
+static size_t k8_chain_smem(const GpryKern& kern, int n, int d, bool stage_v,
                             bool* stage_x) {
   const size_t spec = gpry_spec_doubles(kern);
   *stage_x = true;
-  size_t smem = sizeof(double) * (gpry_gp_doubles(n, d, true, spec) + d);
+  size_t smem =
+      sizeof(double) * (gpry_gp_doubles(n, d, true, spec, stage_v) + d);
   if (smem > GPRY_MAX_SMEM) {
     *stage_x = false;
-    smem = sizeof(double) * (gpry_gp_doubles(n, d, false, spec) + d);
+    smem = sizeof(double) * (gpry_gp_doubles(n, d, false, spec, stage_v) + d);
   }
   return smem;
 }
 
-// The route (0 blocked, 1 a block a query; -1 beyond shared memory) for
-// nq queries against n training rows of the (nmax, nmax) factor L, the
-// queries a block *Q (1 on route 1) and the shared memory *smem.
+// The route (0 blocked, 1 a block a query, 2 the same with the n-vectors
+// in global memory; -1 beyond shared memory) for nq queries against n
+// training rows of the (nmax, nmax) factor L, the queries a block *Q (1 on
+// routes 1 and 2) and the shared memory *smem.
 static int k8_plan(const GpryKern& kern, int nq, int n, int nmax, int d,
                    const void* L, int* Q, size_t* smem) {
   if (sub_plan(nq, n, nmax, L, (size_t)d + gpry_spec_doubles(kern),
@@ -135,8 +149,19 @@ static int k8_plan(const GpryKern& kern, int nq, int n, int nmax, int d,
     return 0;
   bool stage_x;
   *Q = 1;
-  *smem = k8_chain_smem(kern, n, d, &stage_x);
-  return *smem <= GPRY_MAX_SMEM ? 1 : -1;
+  for (int route = 1; route <= 2; ++route) {
+    *smem = k8_chain_smem(kern, n, d, route == 1, &stage_x);
+    if (*smem <= GPRY_MAX_SMEM) return route;
+  }
+  return -1;
+}
+
+// Blocks of routes 1 and 2: one a query, at most 4 an SM (grid-stride).
+static int k8_grid(int nq) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return nq < 4 * sms ? nq : 4 * sms;
 }
 
 extern "C" int gpry_meanstd_grad_plan(GpryKern kern, int nq, int n,
@@ -145,26 +170,52 @@ extern "C" int gpry_meanstd_grad_plan(GpryKern kern, int nq, int n,
   return k8_plan(kern, nq, n, nmax, d, L, Q, smem);
 }
 
-// scal = [y_loc, y_scale, ...] (the surrogate's packed gate scalars)
+// Doubles of the global workspace a launch needs: route 2's n a block on
+// the current device, 0 on the other routes.
+extern "C" size_t gpry_meanstd_grad_work(GpryKern kern, int nq, int n,
+                                         int nmax, int d, const void* L) {
+  int Q;
+  size_t smem;
+  if (nq <= 0 || k8_plan(kern, nq, n, nmax, d, L, &Q, &smem) != 2) return 0;
+  return (size_t)k8_grid(nq) * n;
+}
+
+// Routes 1 and 2's instance at d (GD 32 or 64), the vectors in global
+// memory on route 2.
+template <bool SPEC>
+static auto k8_chain_kernel(int d, bool vg) {
+  return d > GPRY_GRAD_W
+             ? (vg ? meanstd_grad_kernel<SPEC, 64, true>
+                   : meanstd_grad_kernel<SPEC, 64, false>)
+             : (vg ? meanstd_grad_kernel<SPEC, 32, true>
+                   : meanstd_grad_kernel<SPEC, 32, false>);
+}
+
+// scal = [y_loc, y_scale, ...] (the surrogate's packed gate scalars); work:
+// gpry_meanstd_grad_work doubles (null where that is 0)
 extern "C" int gpry_meanstd_grad(
     GpryKern kern, int nq, int n, int nmax, int d, const void* Xq_raw,
     const void* X, const void* alpha, const void* L, const void* theta,
     const void* x_loc, const void* x_scale, const void* scal,
     void* mean_out, void* std_out, void* gmean_out, void* gstd_out,
-    void* stream) {
+    void* work, void* stream) {
   if (d > GPRY_GRAD_MAX_D || nq < 0) return (int)cudaErrorInvalidValue;
   if (nq == 0) return 0;
   int Q = 0;
   size_t smem = 0;
   const int route = k8_plan(kern, nq, n, nmax, d, L, &Q, &smem);
   if (route < 0) return (int)cudaErrorInvalidConfiguration;
+  if (route == 2 && work == nullptr) return (int)cudaErrorInvalidValue;
   const bool spec = kern.nodes > 0;
+  const bool wide = d > GPRY_GRAD_W;
   cudaError_t e;
   if (route == 0) {
     auto kernel = spec ? (d <= 8 ? meanstd_grad_blocked<true, 8>
-                                 : meanstd_grad_blocked<true, 32>)
+                                 : wide ? meanstd_grad_blocked<true, 64>
+                                        : meanstd_grad_blocked<true, 32>)
                        : (d <= 8 ? meanstd_grad_blocked<false, 8>
-                                 : meanstd_grad_blocked<false, 32>);
+                                 : wide ? meanstd_grad_blocked<false, 64>
+                                        : meanstd_grad_blocked<false, 32>);
     e = gpry_set_smem(kernel, smem);
     if (e != cudaSuccess) return (int)e;
     const SubUngated a{kern, nq, n, nmax, d, Q,
@@ -179,17 +230,14 @@ extern "C" int gpry_meanstd_grad(
     return (int)cudaGetLastError();
   }
   bool stage_x;
-  k8_chain_smem(kern, n, d, &stage_x);
-  auto kernel = spec ? meanstd_grad_kernel<true>
-                     : meanstd_grad_kernel<false>;
+  k8_chain_smem(kern, n, d, route == 1, &stage_x);
+  auto kernel = spec ? k8_chain_kernel<true>(d, route == 2)
+                     : k8_chain_kernel<false>(d, route == 2);
   e = gpry_set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int grid = nq < 4 * sms ? nq : 4 * sms;
-  kernel<<<grid, GPRY_BLOCK_THREADS, smem, (cudaStream_t)stream>>>(
-      kern, nq, n, nmax, d, (int)stage_x, (const double*)Xq_raw,
+  kernel<<<k8_grid(nq), GPRY_BLOCK_THREADS, smem, (cudaStream_t)stream>>>(
+      kern, nq, n, nmax, d, (int)stage_x, (double*)work,
+      (const double*)Xq_raw,
       (const double*)X, (const double*)alpha, (const double*)L,
       (const double*)theta, (const double*)x_loc, (const double*)x_scale,
       (const double*)scal, (double*)mean_out, (double*)std_out,

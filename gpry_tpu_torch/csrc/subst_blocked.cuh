@@ -441,8 +441,9 @@ static __device__ void sub_backward(const GprySub& s) {
 
 // ---------------------------------------------------------------------------
 // The ungated sweep on route 0: K5's raw-space mean and std (GD = 0) and
-// K8's, with their gradients in the raw coordinates (GD = 8 or 32, the
-// largest d its per-thread sums hold), of a block's Q queries.  One body,
+// K8's, with their gradients in the raw coordinates (GD = 8, 32 or 64, the
+// largest d the instance takes: 64 sums its gradients in passes of 32
+// coordinates), of a block's Q queries.  One body,
 // so that where K5 and K8 take the same Q their mean and std are the same
 // operations, bit for bit.
 //
@@ -524,77 +525,101 @@ __device__ __forceinline__ void sub_ungated(const SubUngated& a,
     // W = L^-T L^-1 K
     sub_backward(sub);
     // the training rows again (as sub_build_k staged them), over the
-    // length scales, in the stages
-    for (int e = tid; e < n * d; e += blockDim.x)
-      sub.stage[e] = SPEC ? a.X[e] : a.X[e] / ls[e % d];
+    // length scales, in the stages; at d > 32 (GD = 64) they do not fit
+    // there, and the sweep reads them from global memory, over the length
+    // scales on the fly (the same division: the same values)
+    constexpr bool STX = GD <= GPRY_GRAD_W;
+    if (STX)
+      for (int e = tid; e < n * d; e += blockDim.x)
+        sub.stage[e] = SPEC ? a.X[e] : a.X[e] / ls[e % d];
     __syncthreads();
     // the gradient sweep: T threads a query, thread r of them the rows r,
-    // r + T, ...; each squared distance again from direct differences
+    // r + T, ...; each squared distance again from direct differences; W
+    // coordinates a pass (GD = 64: two passes over the rows, 2 x 32 sums
+    // in registers where 2 x 64 would spill)
     const int T = SUB_THREADS / Q, qi = tid / T, r = tid - qi * T;
     const int ldq = Q + 4;
     const double* qv = qls + qi * d;
-    double am[GD], aw[GD];
+    const double* xr = STX ? sub.stage : a.X;
+    constexpr int W = GD < GPRY_GRAD_W ? GD : GPRY_GRAD_W;
+    const int passes = GD > W ? (d + W - 1) / W : 1;
+    for (int pass = 0; pass < passes; ++pass) {
+      // coordinates k0 + k, k < kw, of this pass
+      const int k0 = pass * W, kw = d - k0;
+      double am[W], aw[W];
 #pragma unroll
-    for (int k = 0; k < GD; ++k) am[k] = aw[k] = 0.0;
-    for (int j = r; qi < nqb && j < n; j += T) {
-      const double al = a.alpha[j], w = sub.V[(size_t)j * ldq + qi];
-      const double* xj = sub.stage + (size_t)j * d;
-      if constexpr (SPEC) {
-        double gk[GPRY_GRAD_MAX_D];
-        gpry_spec_grad(spec, qv, 1, xj, 1, d, false, gk);
+      for (int k = 0; k < W; ++k) am[k] = aw[k] = 0.0;
+      for (int j = r; qi < nqb && j < n; j += T) {
+        const double al = a.alpha[j], w = sub.V[(size_t)j * ldq + qi];
+        const double* xj = xr + (size_t)j * d;
+        if constexpr (SPEC) {
+          double gk[GPRY_GRAD_W];
+          if constexpr (GD > GPRY_GRAD_W)
+            gpry_spec_grad<true>(spec, qv, 1, xj, 1, d, false, gk, k0,
+                                 kw < W ? kw : W);
+          else
+            gpry_spec_grad<false>(spec, qv, 1, xj, 1, d, false, gk);
 #pragma unroll
-        for (int k = 0; k < GD; ++k)
-          if (k < d) {
-            am[k] += al * gk[k];
-            aw[k] += w * gk[k];
-          }
-      } else {
-        double sq = 0.0;
+          for (int k = 0; k < W; ++k)
+            if (k < kw) {
+              am[k] += al * gk[k];
+              aw[k] += w * gk[k];
+            }
+        } else {
+          double sq = 0.0;
 #pragma unroll
-        for (int k = 0; k < GD; ++k)
-          if (k < d) {
-            const double df = qv[k] - xj[k];
-            sq += df * df;
-          }
-        const double c = 2.0 * variance * gpry_dk_dsq(a.kern.family, sq);
-        const double ca = c * al, cw = c * w;
+          for (int k = 0; k < GD; ++k)
+            if (k < d) {
+              const double df = qv[k] - (STX ? xj[k] : xj[k] / ls[k]);
+              sq += df * df;
+            }
+          const double c = 2.0 * variance * gpry_dk_dsq(a.kern.family, sq);
+          const double ca = c * al, cw = c * w;
 #pragma unroll
-        for (int k = 0; k < GD; ++k)
-          if (k < d) {
-            const double df = qv[k] - xj[k];
-            am[k] += ca * df;
-            aw[k] += cw * df;
+          for (int k = 0; k < W; ++k)
+            if (k < kw) {
+              const int kk = k0 + k;
+              const double df = qv[kk] - (STX ? xj[kk] : xj[kk] / ls[kk]);
+              am[k] += ca * df;
+              aw[k] += cw * df;
+            }
+        }
+      }
+      // the T threads' sums (T = 32, 16 or 8 neighbouring lanes)
+      for (int off = T / 2; off > 0; off >>= 1) {
+#pragma unroll
+        for (int k = 0; k < W; ++k)
+          if (k < kw) {
+            am[k] += __shfl_xor_sync(0xffffffffu, am[k], off);
+            aw[k] += __shfl_xor_sync(0xffffffffu, aw[k], off);
           }
       }
-    }
-    // the T threads' sums (T = 32, 16 or 8 neighbouring lanes)
-    for (int off = T / 2; off > 0; off >>= 1) {
+      if (r == 0 && qi < nqb) {
+        const int q = q0 + qi;
+        // (each pass writes the same mean and std)
+        const double var0 = sub_ungated_out<SPEC>(
+            a, spec, variance, qv, q, ms[qi], sub.sumsq[qi]);
+        const double y_scale = a.scal[1];
+        const double sd = sqrt((var0 < 0.0) ? 0.0 : var0);
+        // torch: the std's gradient y_scale / (2 sqrt(var)) passes the
+        // clamp only where var >= 0
+        const double dsd = var0 >= 0.0 ? y_scale / (2.0 * sd) : 0.0;
+        double gprior[GPRY_GRAD_W];
+        if constexpr (SPEC && GD > GPRY_GRAD_W)
+          gpry_spec_grad<true>(spec, qv, 1, qv, 1, d, true, gprior, k0,
+                               kw < W ? kw : W);
+        else if constexpr (SPEC)
+          gpry_spec_grad<false>(spec, qv, 1, qv, 1, d, true, gprior);
 #pragma unroll
-      for (int k = 0; k < GD; ++k)
-        if (k < d) {
-          am[k] += __shfl_xor_sync(0xffffffffu, am[k], off);
-          aw[k] += __shfl_xor_sync(0xffffffffu, aw[k], off);
-        }
-    }
-    if (r == 0 && qi < nqb) {
-      const int q = q0 + qi;
-      const double var0 = sub_ungated_out<SPEC>(
-          a, spec, variance, qv, q, ms[qi], sub.sumsq[qi]);
-      const double y_scale = a.scal[1];
-      const double sd = sqrt((var0 < 0.0) ? 0.0 : var0);
-      // torch: the std's gradient y_scale / (2 sqrt(var)) passes the
-      // clamp only where var >= 0
-      const double dsd = var0 >= 0.0 ? y_scale / (2.0 * sd) : 0.0;
-      double gprior[GPRY_GRAD_MAX_D];
-      if constexpr (SPEC) gpry_spec_grad(spec, qv, 1, qv, 1, d, true, gprior);
-#pragma unroll
-      for (int k = 0; k < GD; ++k)
-        if (k < d) {
-          const double sa = am[k] / ls[k], sw = aw[k] / ls[k];
-          a.gmean_out[(size_t)q * d + k] = sa * y_scale / a.x_scale[k];
-          a.gstd_out[(size_t)q * d + k] =
-              dsd * ((SPEC ? gprior[k] : 0.0) - 2.0 * sw) / a.x_scale[k];
-        }
+        for (int k = 0; k < W; ++k)
+          if (k < kw) {
+            const int kk = k0 + k;
+            const double sa = am[k] / ls[kk], sw = aw[k] / ls[kk];
+            a.gmean_out[(size_t)q * d + kk] = sa * y_scale / a.x_scale[kk];
+            a.gstd_out[(size_t)q * d + kk] =
+                dsd * ((SPEC ? gprior[k] : 0.0) - 2.0 * sw) / a.x_scale[kk];
+          }
+      }
     }
   }
 }

@@ -172,8 +172,10 @@ _BLOCK_THREADS = 128
 CHAINS_MAX_D = _BLOCK_THREADS // 2
 
 #: the largest d whose gradients K8 and K9 take (csrc/common.cuh
-#: GPRY_GRAD_MAX_D)
-GRAD_MAX_D = 32
+#: GPRY_GRAD_MAX_D; the nested sampler's CHAINS_MAX_D): instances for d <=
+#: 32 (a coordinate a lane) and d <= 64 (two coordinates a lane, the
+#: gradient sums in two passes of 32)
+GRAD_MAX_D = 64
 
 #: the slice sampler's caps: step-out doublings and shrinks per update
 NS_STEP_OUT = 6
@@ -301,12 +303,14 @@ def library():
         lib.gpry_predict_meancov.restype = I
         lib.gpry_predict_meancov_plan.argtypes = [K] + [I] * 5 + [P] * 5
         lib.gpry_predict_meancov_plan.restype = I
-        lib.gpry_meanstd_grad.argtypes = [K] + [I] * 4 + [P] * 13
+        lib.gpry_meanstd_grad.argtypes = [K] + [I] * 4 + [P] * 14
         lib.gpry_meanstd_grad.restype = I
         lib.gpry_meanstd_grad_plan.argtypes = [K] + [I] * 4 + [P] * 3
         lib.gpry_meanstd_grad_plan.restype = I
+        lib.gpry_meanstd_grad_work.argtypes = [K] + [I] * 4 + [P]
+        lib.gpry_meanstd_grad_work.restype = ctypes.c_size_t
         lib.gpry_lbfgs_logexp_ascent.argtypes = [K] + [I] * 5 + [P] * 10 \
-            + [D, D] + [P] * 4
+            + [D, D] + [P] * 5
         lib.gpry_lbfgs_logexp_ascent.restype = I
         lib.gpry_lbfgs_logexp_ascent_plan.argtypes = [K, I, I, P, P]
         lib.gpry_lbfgs_logexp_ascent_plan.restype = I
@@ -1302,11 +1306,13 @@ def _k7_product_smem(d, spec_doubles):
     return smem
 
 
-def _gp_doubles(n, d, stage_x, spec_doubles):
+def _gp_doubles(n, d, stage_x, spec_doubles, stage_v=1):
     """csrc/common.cuh gpry_gp_doubles: the staged GP of the block routine
-    (K8's route 1, K9)."""
+    (K8's routes 1 and 2, K9), alpha and the work vector in shared memory
+    with ``stage_v``."""
     red = _BLOCK_WARPS * (2 * d + 1) + d + 1
-    return 5 * d + 2 + red + 2 * n + stage_x * d * n + spec_doubles
+    return 5 * d + 2 + red + stage_v * 2 * n + stage_x * d * n \
+        + spec_doubles
 
 
 def meanstd_grad_plan(n, nmax, d, nq, spec_doubles=0, aligned=True):
@@ -1317,19 +1323,24 @@ def meanstd_grad_plan(n, nmax, d, nq, spec_doubles=0, aligned=True):
     Route 0 is K5's route 0 (the same Q and shared memory) with a blocked
     back substitution and the gradient sweep; route 1 a block of 128
     threads a query (Q = 1), X staged in shared memory while it fits, read
-    from global memory beyond.  Raises ``ValueError`` for d above
-    GRAD_MAX_D and beyond route 1.
+    from global memory beyond; route 2 route 1 with alpha and the work
+    vector in global memory too (a workspace of n doubles a block), from
+    where route 1's vectors stop fitting (n > 14,284 at d = 32, fast
+    family) on, for every n.  Raises ``ValueError`` for d above
+    GRAD_MAX_D.
     """
     _check_grad_d("meanstd_grad", d)
     blocked = _sub_plan(n, nmax, nq, d + spec_doubles, d + 1, aligned)
     if blocked is not None:
         return (0,) + blocked
-    for stage_x in (1, 0):
-        smem = 8 * (_gp_doubles(n, d, stage_x, spec_doubles) + d)
-        if smem <= _SMEM_MAX:
-            return 1, 1, smem
-    raise ValueError(f"meanstd_grad: n={n} at d={d} needs more shared "
-                     "memory than a Hopper block has.")
+    for route in (1, 2):
+        for stage_x in (1, 0):
+            smem = 8 * (_gp_doubles(n, d, stage_x, spec_doubles,
+                                    int(route == 1)) + d)
+            if smem <= _SMEM_MAX:
+                return route, 1, smem
+    raise ValueError(f"meanstd_grad: d={d} needs more shared memory than "
+                     "a Hopper block has.")
 
 
 def gated_meanvar_logexp(family, p, Xq_raw, logexp=None):
@@ -1873,7 +1884,7 @@ _LANE_M = 8              # L-BFGS history pairs (K9_M, K11_M)
 _STATE_DOUBLES = 8       # K9State, K11State
 _BLOCK_WARPS = _BLOCK_THREADS // 32
 _K9_P, _K9_TLD = 32, 33
-_K9_STAGES = {1: 4, 2: 2}  # k9_stages: the tile ring of routes 1 and 2
+_K9_STAGES = {1: 4, 2: 2, 3: 4}  # k9_stages: the streamed routes' ring
 # the shared LML evaluation (csrc/lml_blocked.cuh LML_NB, LML_WARPS,
 # GPRY_LML_PCHUNK, LML_STAGE) and K10's route-1 edge for a spec program
 # (K10_ROUTE1_N)
@@ -1903,21 +1914,24 @@ def lbfgs_logexp_ascent_plan(n, d, spec_doubles=0):
     of ``spec_doubles``): ``(route, stage_x, smem_bytes)``.  Route 0 stages
     L packed (n (n + 1) / 2 doubles) in shared memory, with X when that fits
     too; routes 1 and 2 stream L through a ring of 4 or 2 tiles of 32 x 32
-    and keep only the staged GP's n-vectors in shared memory.  At d = 8
-    (fast family) route 0 takes n <= 235 (X staged up to n = 227), route 1
-    n <= 12,180, route 2 n <= 13,236 (12,756 at d = 32).  Raises
-    ``ValueError`` beyond route 2.
+    and keep only the staged GP's n-vectors in shared memory; route 3
+    streams L through 4 tiles and keeps the n-vectors in global memory (n
+    doubles of workspace a lane), so it takes every n.  At d = 8 (fast
+    family) route 0 takes n <= 235 (X staged up to n = 227), route 1 n <=
+    12,180, route 2 n <= 13,236 (12,756 at d = 32, 12,596 at d = 40), route
+    3 every n beyond.  Raises ``ValueError`` for d above GRAD_MAX_D.
     """
-    for route in (0, 1, 2):
+    _check_grad_d("lbfgs_logexp_ascent", d)
+    for route in (0, 1, 2, 3):
         sub = 2 * n + _tri(n) if route == 0 else \
             _BLOCK_WARPS * _K9_P + _K9_STAGES[route] * _K9_P * _K9_TLD
         for stage_x in (1, 0):
-            gp = _gp_doubles(n, d, stage_x, spec_doubles)
+            gp = _gp_doubles(n, d, stage_x, spec_doubles, int(route < 3))
             smem = 8 * (gp + 10 * d + _lane_doubles(d) + sub)
             if smem <= _SMEM_MAX:
                 return route, stage_x, smem
-    raise ValueError(f"lbfgs_logexp_ascent: n={n} at d={d} exceeds the "
-                     "kernel's streamed routes (shared memory).")
+    raise ValueError(f"lbfgs_logexp_ascent: d={d} needs more shared memory "
+                     "than a Hopper block has.")
 
 
 def _lml_fits(n, d, spec_doubles, extra, route):
@@ -1989,10 +2003,13 @@ def lml_value_grad_plan(n, d, spec_doubles=0):
 
 def check_lbfgs_range(family, d, n, ascent=True):
     """
-    Raise ``ValueError`` unless K11 (the fit) and, with ``ascent``, K9 take
-    ``n`` training rows at dimension ``d`` for ``family`` (their planners),
-    so that a run whose budget is ``n`` points is refused before it starts
-    rather than when its training set grows past them.
+    Raise ``ValueError`` unless K11 (the fit) and, with ``ascent``, K9 (the
+    LogExp ascent) and K8 (its gradients on the generic route) take ``n``
+    training rows at dimension ``d`` for ``family`` (their planners), so
+    that a run whose budget is ``n`` points is refused before it starts
+    rather than when its training set grows past them.  With the default
+    budget 70 d^1.5 that passes every d <= 48 and refuses d = 49-64 with
+    K11's message (its range) and d > 64 with K8's and K9's.
     """
     if isinstance(family, tuple):
         p = spec_n_params(family)
@@ -2001,14 +2018,18 @@ def check_lbfgs_range(family, d, n, ascent=True):
         check_family(family)
         p, spec = 1 + d, 0
     lbfgs_lml_fit_plan(int(n), d, p, spec)
-    if ascent and d <= GRAD_MAX_D:
+    if ascent:
         lbfgs_logexp_ascent_plan(int(n), d, spec)
+        # K8's route 2 takes every n and its d limit is K9's, so this
+        # refuses nothing that K9's plan passes; it keeps K8's own limits
+        # checked here should they ever part from K9's
+        meanstd_grad_plan(int(n), int(n), d, 1, spec)
 
 
 def _check_grad_d(name, d):
     if d > GRAD_MAX_D:
         raise ValueError(f"{name}: d={d} > {GRAD_MAX_D}, the most the "
-                         "kernel's per-thread gradient arrays hold.")
+                         "kernel's per-thread gradient sums take.")
 
 
 def meanstd_grad(family, p, Xq_raw):
@@ -2030,19 +2051,33 @@ def meanstd_grad(family, p, Xq_raw):
     kern = _kern(family, d, dev)
     _check_theta("meanstd_grad", kern, p.theta)
     # raises ValueError beyond the kernel's routes, before any launch
-    meanstd_grad_plan(int(p.n), nmax, d, nq, _spec_doubles(kern))
+    route = meanstd_grad_plan(int(p.n), nmax, d, nq, _spec_doubles(kern),
+                              aligned=p.L.data_ptr() % 16 == 0)[0]
     mean = torch.empty(nq, dtype=torch.float64, device=dev)
     std = torch.empty_like(mean)
     g_mean = torch.empty((nq, d), dtype=torch.float64, device=dev)
     g_std = torch.empty_like(g_mean)
     if nq == 0:
         return mean, std, g_mean, g_std
-    rc = library().gpry_meanstd_grad(
+    lib = library()
+    L_ptr = _ptr(p.L)
+    Q, smem = ctypes.c_int(), ctypes.c_size_t()
+    got = lib.gpry_meanstd_grad_plan(kern, nq, int(p.n), nmax, d, L_ptr,
+                                     ctypes.byref(Q), ctypes.byref(smem))
+    if got != route:
+        raise RuntimeError(f"meanstd_grad: the library plans route {got} "
+                           f"where the host plans {route}.")
+    # route 2's workspace: n doubles a block, the library's own grid
+    work = torch.empty(lib.gpry_meanstd_grad_work(kern, nq, int(p.n), nmax,
+                                                  d, L_ptr),
+                       dtype=torch.float64, device=dev)
+    rc = lib.gpry_meanstd_grad(
         kern, nq, int(p.n), nmax, d,
         *(_ptr(tensors[k]) for k in (
             "Xq_raw", "X", "alpha", "L", "theta", "x_loc", "x_scale",
             "scal")),
-        _ptr(mean), _ptr(std), _ptr(g_mean), _ptr(g_std), _stream())
+        _ptr(mean), _ptr(std), _ptr(g_mean), _ptr(g_std),
+        _ptr_or_null(work if work.numel() else None), _stream())
     _raise_on("meanstd_grad", rc)
     _count("meanstd_grad", family)
     return mean, std, g_mean, g_std
@@ -2075,22 +2110,34 @@ def lbfgs_logexp_ascent(family, p, zeta, noise_std_raw, x0s, lo, hi,
     nmax = p.X.shape[0]
     kern = _kern(family, d, dev)
     _check_theta("lbfgs_logexp_ascent", kern, p.theta)
-    lbfgs_logexp_ascent_plan(int(p.n), d, _spec_doubles(kern))
+    plan = lbfgs_logexp_ascent_plan(int(p.n), d, _spec_doubles(kern))
     xs = torch.empty_like(x0s)
     f = torch.empty(R, dtype=torch.float64, device=dev)
     nev = torch.empty(R, dtype=torch.int64, device=dev)
     if R == 0:
         return xs, f, nev
+    lib = library()
+    sx, smem = ctypes.c_int(), ctypes.c_size_t()
+    got = lib.gpry_lbfgs_logexp_ascent_plan(kern, int(p.n), d,
+                                            ctypes.byref(sx),
+                                            ctypes.byref(smem))
+    if (got, sx.value, smem.value) != plan:
+        raise RuntimeError(f"lbfgs_logexp_ascent: the library plans "
+                           f"{(got, sx.value, smem.value)} where the host "
+                           f"plans {plan}.")
+    # route 3 keeps each lane's k vector in n doubles of global memory
+    work = torch.empty(R * int(p.n), dtype=torch.float64, device=dev) \
+        if plan[0] == 3 else None
     # the constants as the plain version rounds them: 2.0 * zeta and
     # noise_std_raw * noise_std_raw on the host
     zeta, noise_std_raw = float(zeta), float(noise_std_raw)
-    rc = library().gpry_lbfgs_logexp_ascent(
+    rc = lib.gpry_lbfgs_logexp_ascent(
         kern, R, int(p.n), nmax, d, int(maxiter),
         *(_ptr(tensors[k]) for k in (
             "x0s", "lo", "hi", "X", "alpha", "L", "theta", "x_loc",
             "x_scale", "scal")),
-        2.0 * zeta, noise_std_raw * noise_std_raw, _ptr(xs), _ptr(f),
-        _ptr(nev), _stream())
+        2.0 * zeta, noise_std_raw * noise_std_raw, _ptr_or_null(work),
+        _ptr(xs), _ptr(f), _ptr(nev), _stream())
     _raise_on("lbfgs_logexp_ascent", rc)
     _count("lbfgs_logexp_ascent", family)
     return xs, f, nev

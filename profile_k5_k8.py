@@ -65,10 +65,11 @@ PHASES = {
         ("backward", "    // W = L^-T L^-1 K\n", 0),
         ("restage", "    // the training rows again", 0),
         ("sweep", "    // the gradient sweep: T threads", 0),
-        ("reduce", "    // the T threads' sums", 0),
-        ("epilogue", "    if (r == 0 && qi < nqb) {", 0),
-        ("end", "              dsd * ((SPEC ? gprior[k] : 0.0) - 2.0 * sw) "
-                "/ a.x_scale[k];\n        }\n    }\n", 1)),
+        ("reduce", "      // the T threads' sums", 0),
+        ("epilogue", "      if (r == 0 && qi < nqb) {\n"
+                     "        const int q = q0 + qi;", 0),
+        ("end", "dsd * ((SPEC ? gprior[k] : 0.0) - 2.0 * sw) / "
+                "a.x_scale[kk];\n          }\n      }\n    }\n", 1)),
 }
 K5_NQ, K8_NQ = (1, 256, 4096), (8, 1024)
 # K8's other designs: (source compiled, file changed, [(old, new), ...])
@@ -81,38 +82,43 @@ VARIANTS = {
         "               (size_t)d + gpry_spec_doubles(kern), (size_t)d + 1,"
         " Q,\n               smem) == 0)\n    return 0;\n  bool stage_x;")]),
     "k8_expanded": ("meanstd_grad.cu", "subst_blocked.cuh", [
-        ("    for (int k = 0; k < GD; ++k) am[k] = aw[k] = 0.0;\n",
-         "    for (int k = 0; k < GD; ++k) am[k] = aw[k] = 0.0;\n"
-         "    double sca = 0.0, scw = 0.0;\n"),
-        ("        const double ca = c * al, cw = c * w;\n"
+        ("      for (int k = 0; k < W; ++k) am[k] = aw[k] = 0.0;\n",
+         "      for (int k = 0; k < W; ++k) am[k] = aw[k] = 0.0;\n"
+         "      double sca = 0.0, scw = 0.0;\n"),
+        ("          const double ca = c * al, cw = c * w;\n"
          "#pragma unroll\n"
-         "        for (int k = 0; k < GD; ++k)\n"
-         "          if (k < d) {\n"
-         "            const double df = qv[k] - xj[k];\n"
-         "            am[k] += ca * df;\n"
-         "            aw[k] += cw * df;\n"
-         "          }\n",
-         "        const double ca = c * al, cw = c * w;\n"
-         "        sca += ca;\n"
-         "        scw += cw;\n"
+         "          for (int k = 0; k < W; ++k)\n"
+         "            if (k < kw) {\n"
+         "              const int kk = k0 + k;\n"
+         "              const double df = qv[kk] - (STX ? xj[kk] : xj[kk] / "
+         "ls[kk]);\n"
+         "              am[k] += ca * df;\n"
+         "              aw[k] += cw * df;\n"
+         "            }\n",
+         "          const double ca = c * al, cw = c * w;\n"
+         "          sca += ca;\n"
+         "          scw += cw;\n"
          "#pragma unroll\n"
-         "        for (int k = 0; k < GD; ++k)\n"
-         "          if (k < d) {\n"
-         "            am[k] -= ca * xj[k];\n"
-         "            aw[k] -= cw * xj[k];\n"
-         "          }\n"),
-        ("    // the T threads' sums",
-         "    if (!SPEC && qi < nqb) {\n"
+         "          for (int k = 0; k < W; ++k)\n"
+         "            if (k < kw) {\n"
+         "              const int kk = k0 + k;\n"
+         "              const double xv = STX ? xj[kk] : xj[kk] / ls[kk];\n"
+         "              am[k] -= ca * xv;\n"
+         "              aw[k] -= cw * xv;\n"
+         "            }\n"),
+        ("      // the T threads' sums",
+         "      if (!SPEC && qi < nqb) {\n"
          "#pragma unroll\n"
-         "      for (int k = 0; k < GD; ++k)\n"
-         "        if (k < d) {\n"
-         "          am[k] += qv[k] * sca;\n"
-         "          aw[k] += qv[k] * scw;\n"
-         "        }\n"
-         "    }\n"
-         "    // the T threads' sums")]),
+         "        for (int k = 0; k < W; ++k)\n"
+         "          if (k < kw) {\n"
+         "            am[k] += qv[k0 + k] * sca;\n"
+         "            aw[k] += qv[k0 + k] * scw;\n"
+         "          }\n"
+         "      }\n"
+         "      // the T threads' sums")]),
 }
-ENTRIES = ("gpry_meanstd_grad", "gpry_meanstd_grad_plan")
+ENTRIES = ("gpry_meanstd_grad", "gpry_meanstd_grad_plan",
+           "gpry_meanstd_grad_work")
 
 
 def build_variants(fused):

@@ -82,17 +82,20 @@ def dev():
 
 
 def surrogate(family, dev, n=40, nmax=64, d=3, seed=0, nsv=8, svm="fitted",
-              ls=None):
+              ls=None, side=None):
     """A small surrogate with every gate active: the SVM fitted (or, with
     ``svm="all_finite"``, the placeholder of a run that has seen no -inf),
     a trust box inside the prior and an upper clip.  ``family`` is a fast
     family or a spec tree (its kernel argument, see family_and_theta); a
-    fast family's length scale ``ls`` if given."""
+    fast family's length scale ``ls`` if given; the training points in the
+    cube of ``side`` about the unit box's centre if given (else the unit
+    box)."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.as_tensor(np.asarray(a, float), dtype=torch.float64,
                                   device=dev)
     X, y = np.zeros((nmax, d)), np.zeros(nmax)
-    X[:n] = rng.uniform(0, 1, (n, d))
+    X[:n] = rng.uniform(0, 1, (n, d)) if side is None else \
+        rng.uniform(0.5 - side / 2, 0.5 + side / 2, (n, d))
     y[:n] = np.sin(4 * X[:n]).sum(1)
     family, theta = family_and_theta(family, d)
     if ls is not None:
@@ -1264,19 +1267,223 @@ def test_grad_kernels_refuse(dev):
 
 def test_runner_refuses_d_above_grad_kernels(dev):
     """On the card the BatchOptimizer's ascent runs K8 / K9, which hold
-    d <= GRAD_MAX_D: a default Runner at d = GRAD_MAX_D + 1 raises
-    ValueError when it is built, before any truth evaluation."""
+    d <= GRAD_MAX_D = 64: a default Runner at d = 65 raises ValueError
+    when it is built, before any truth evaluation."""
     from gpry_tpu_torch.run import Runner
-    d = fused.GRAD_MAX_D + 1
+    d = 65
+    assert d == fused.GRAD_MAX_D + 1
     calls = []
 
     def loglike(X):
         calls.append(X)
         return -0.5 * float(np.sum(np.asarray(X) ** 2))
 
-    with pytest.raises(ValueError, match=f"d={d} > {fused.GRAD_MAX_D}"):
+    with pytest.raises(ValueError, match="d=65 > 64"):
         Runner(loglike, [[-1.0, 1.0]] * d, verbose=0)
     assert not calls
+
+
+@pytest.mark.parametrize("d", (33, 48))
+def test_default_runner_builds_up_to_d48(dev, d):
+    """A default Runner (BatchOptimizer, its default budget 70 d^1.5: 23,278
+    points at d = 48) builds on the card at d = 33 and 48, its range check
+    passing for K11, K9 and K8, with no truth evaluation; at d = 49 the
+    fit's range (K11) refuses it."""
+    from gpry_tpu_torch.acquisition.batch_optimizer import BatchOptimizer
+    from gpry_tpu_torch.run import Runner
+    calls = []
+
+    def loglike(X):
+        calls.append(X)
+        return -0.5 * float(np.sum(np.asarray(X) ** 2))
+
+    runner = Runner(loglike, [[-1.0, 1.0]] * d, verbose=0)
+    assert isinstance(runner.acquisition, BatchOptimizer)
+    assert runner.max_total == int(70 * d ** 1.5)
+    with pytest.raises(ValueError, match="lbfgs_lml_fit"):
+        Runner(loglike, [[-1.0, 1.0]] * 49, verbose=0)
+    assert not calls
+
+
+# K8 and K9 at d = 33-64, their d <= 64 instance (two coordinates a lane,
+# the gradient sums in two passes of 32): (d, n, nmax) at the instance's
+# first d, chip_smoke.py's path (n) width and its last, on K8's route 0
+# (n 40 of 64, 224 of 320), its route 1 (n 700 of 704, beyond route 0;
+# an odd nmax) and K9's routes 0 and 1; the training points in a cube
+# of side sqrt(3 / d) about the centre, so that the kernel values are
+# those of a d = 3 surrogate's, not ~1e-15
+WIDE_SHAPES = [(33, 40, 64), (40, 224, 320), (64, 700, 704), (40, 224, 321)]
+
+
+def _wide_surrogate(family, dev, d, n, nmax):
+    p = surrogate(family, dev, n=n, nmax=nmax, d=d, side=float(np.sqrt(
+        3.0 / d)))
+    return p.replace(clip_max=torch.tensor(torch.inf, dtype=torch.float64,
+                                           device=dev))
+
+
+def _wide_queries(p, nq, d, seed):
+    """nq raw queries in the training cube (raw = 2 x - 1), the first 4 on
+    training points."""
+    gen = torch.Generator(device=p.X.device).manual_seed(seed)
+    half = float(np.sqrt(3.0 / d))
+    Xq = (torch.rand((nq, d), generator=gen, dtype=torch.float64,
+                     device=p.X.device) * 2.0 - 1.0) * half
+    Xq[:min(nq, 4)] = p.X[:min(nq, 4)] * p.x_scale + p.x_loc
+    return Xq
+
+
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+@pytest.mark.parametrize("d,n,nmax", WIDE_SHAPES)
+def test_meanstd_grad_kernel_wide(dev, family, d, n, nmax):
+    """K8's d <= 64 instance against its plain version at nq = 1, 8 and
+    300: mean and std within rel 1e-10, both gradients within 1e-8 of
+    their max |.| (test_meanstd_grad_kernel's tolerances), the gradients'
+    coordinates past 32 not all zero; one launch a call, on the route its
+    plan gives (route 0 at n 40 and 224 of an even nmax)."""
+    p = _wide_surrogate(family, dev, d, n, nmax)
+    key = count_key("meanstd_grad", family)
+    fam = family_and_theta(family, d)[0]
+    sd = fused._spec_doubles(fused._kern(fam, d, dev))
+    for nq in (1, 8, 300):
+        route = fused.meanstd_grad_plan(n, nmax, d, nq, sd)[0]
+        assert route == (0 if n < 640 and nmax % 2 == 0 else 1)
+        Xq = _wide_queries(p, nq, d, nq)
+        n0 = fused.LAUNCHES[key]
+        out = fused.meanstd_grad(fam, p, Xq)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES[key] == n0 + 1
+        ref = fused.meanstd_grad_plain(fam, p, Xq)
+        for a, b, tol in zip(out, ref, (1e-10, 1e-10, 1e-8, 1e-8)):
+            assert _rel_max(a, b) <= tol
+        assert bool(torch.any(ref[2][:, 32:] != 0.0))
+
+
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+@pytest.mark.parametrize("d,n,nmax", WIDE_SHAPES[:3])
+def test_lbfgs_logexp_ascent_kernel_wide(dev, family, d, n, nmax):
+    """K9's d <= 64 instance against its plain version, 8 lanes, lane 0 on
+    a training point (test_lbfgs_logexp_ascent_kernel's check): step for
+    step over 3 iterations, the same nev, x within 1e-9 of the box width,
+    f within 1e-10 (1 + |f|); to the end (maxiter 100) by the pick: the
+    best f within 1e-9 (1 + |f|).  One launch a call."""
+    p = _wide_surrogate(family, dev, d, n, nmax)
+    key = count_key("lbfgs_logexp_ascent", family)
+    fam = family_and_theta(family, d)[0]
+    half = float(np.sqrt(3.0 / d))
+    lo = torch.full((d,), -half, dtype=torch.float64, device=dev)
+    x0s = torch.cat([p.X[n - 1:n] * p.x_scale + p.x_loc,
+                     _wide_queries(p, 11, d, d)[4:]])
+    zeta, noise = d ** -0.85, 0.01
+    for maxiter, tol_x, tol_f in ((3, 1e-9, 1e-10), (100, None, 1e-9)):
+        n0 = fused.LAUNCHES[key]
+        xs, f, nev = fused.lbfgs_logexp_ascent(fam, p, zeta, noise, x0s, lo,
+                                               -lo, maxiter=maxiter)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES[key] == n0 + 1
+        xr, fr, nevr = fused.lbfgs_logexp_ascent_plain(
+            fam, p, zeta, noise, x0s, lo, -lo, maxiter=maxiter)
+        if tol_x is not None:
+            assert nev.tolist() == nevr.tolist()
+            assert float(torch.max(torch.abs(xs - xr))) <= tol_x * 2 * half
+            assert bool(torch.all(torch.abs(f - fr)
+                                  <= tol_f * (1 + torch.abs(fr))))
+        else:
+            assert abs(float(f.min() - fr.min())) <= \
+                tol_f * (1 + abs(float(fr.min())))
+
+
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+@pytest.mark.parametrize("d", (8, 40))
+def test_lbfgs_logexp_ascent_kernel_global_route(dev, family, d):
+    """K9 on both sides of its route-3 edge (the last n of route 2 and the
+    next, where alpha and k leave shared memory for global memory; d = 8
+    the d <= 32 instance, d = 40 the d <= 64 one), 2 lanes from starts in
+    the training cube, against its plain version over 3 iterations: the
+    same nev, x within 1e-7 of the box width, f within 1e-9 (1 + |f|)
+    (test_lbfgs_logexp_ascent_kernel_large_n's tolerances); the launch
+    takes the route its plan gives."""
+    key = count_key("lbfgs_logexp_ascent", family)
+    fam = family_and_theta(family, d)[0]
+    sd = fused._spec_doubles(fused._kern(fam, d, dev))
+    edge = _plan_edges(lambda m: fused.lbfgs_logexp_ascent_plan(m, d,
+                                                                sd))[2]
+    half = float(np.sqrt(3.0 / d))
+    lo = torch.full((d,), -half, dtype=torch.float64, device=dev)
+    for n, route in ((edge, 2), (edge + 1, 3)):
+        assert fused.lbfgs_logexp_ascent_plan(n, d, sd)[0] == route
+        p = _wide_surrogate(family, dev, d, n, n + 8)
+        x0s = _wide_queries(p, 6, d, n)[4:]
+        n0 = fused.LAUNCHES[key]
+        xs, f, nev = fused.lbfgs_logexp_ascent(fam, p, d ** -0.85, 0.01,
+                                               x0s, lo, -lo, maxiter=3)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES[key] == n0 + 1
+        xr, fr, nevr = fused.lbfgs_logexp_ascent_plain(
+            fam, p, d ** -0.85, 0.01, x0s, lo, -lo, maxiter=3)
+        assert nev.tolist() == nevr.tolist()
+        assert float(torch.max(torch.abs(xs - xr))) <= 1e-7 * 2 * half
+        assert bool(torch.all(torch.abs(f - fr)
+                              <= 1e-9 * (1 + torch.abs(fr))))
+        del p
+
+
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+@pytest.mark.parametrize("d", (8, 40))
+def test_meanstd_grad_kernel_global_route(dev, family, d):
+    """K8 on both sides of its route-2 edge (the last n of route 1 and the
+    next, where alpha and the work vector leave shared memory), at nq = 1
+    and 4, against its plain version: mean and std within rel 1e-10, both
+    gradients within 1e-8 of their max |.|; one launch a call."""
+    key = count_key("meanstd_grad", family)
+    fam = family_and_theta(family, d)[0]
+    sd = fused._spec_doubles(fused._kern(fam, d, dev))
+    edge = _plan_edges(lambda m: fused.meanstd_grad_plan(m, m + m % 2, d,
+                                                         4, sd))[1]
+    for n, route in ((edge, 1), (edge + 1, 2)):
+        p = _wide_surrogate(family, dev, d, n, n | 1)
+        for nq in (1, 4):
+            assert fused.meanstd_grad_plan(n, n | 1, d, nq, sd)[0] == route
+            Xq = _wide_queries(p, nq, d, nq)
+            n0 = fused.LAUNCHES[key]
+            out = fused.meanstd_grad(fam, p, Xq)
+            torch.cuda.synchronize()
+            assert fused.LAUNCHES[key] == n0 + 1
+            ref = fused.meanstd_grad_plain(fam, p, Xq)
+            for a, b, tol in zip(out, ref, (1e-10, 1e-10, 1e-8, 1e-8)):
+                assert _rel_max(a, b) <= tol
+        del p
+
+
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+@pytest.mark.parametrize("d", (33, 40, 64))
+def test_meanstd_grad_plan_matches_the_kernel_wide(dev, family, d):
+    """fused.meanstd_grad_plan gives k8_plan's route, queries a block and
+    shared memory at d = 33-64, about each route's edge, at an even and an
+    odd nmax; gpry_meanstd_grad_work is route 2's n doubles a block of its
+    grid (one a query, at most 4 an SM) and 0 elsewhere."""
+    fam = family_and_theta(family, d)[0]
+    kern = fused._kern(fam, d, dev)
+    sd = fused._spec_doubles(kern)
+    lib = fused.library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    at = ctypes.c_void_p(4096)
+    for nq in (1, 8, 1024):
+        edges = _plan_edges(lambda m: fused.meanstd_grad_plan(m, m | 1, d,
+                                                              nq, sd))
+        ns = {1, 224, 600, 700, 30000}
+        for e in edges[:2]:
+            ns |= {e - 1, e, e + 1}
+        for n in sorted(ns):
+            for nmax in (n + n % 2, n | 1):
+                Q, sm = ctypes.c_int(), ctypes.c_size_t()
+                route, q, smem = fused.meanstd_grad_plan(n, nmax, d, nq, sd)
+                assert lib.gpry_meanstd_grad_plan(
+                    kern, nq, n, nmax, d, at, ctypes.byref(Q),
+                    ctypes.byref(sm)) == route
+                assert (Q.value, sm.value) == (q, smem)
+                work = lib.gpry_meanstd_grad_work(kern, nq, n, nmax, d, at)
+                assert work == (min(nq, 4 * sms) * n if route == 2 else 0)
 
 
 @pytest.mark.parametrize("family", ("rbf", "all_nodes"))
@@ -1634,17 +1841,19 @@ def test_lbfgs_kernels_failed_search_and_non_pd_start(dev, family):
     assert bool(torch.all(torch.abs(f - fr) <= 1e-9 * (1 + torch.abs(fr))))
 
 
-def _plan_edges(plan):
+def _plan_edges(plan, top=1 << 16):
     """The largest n of each route of a host planner (n -> (route, ...)),
-    by bisection over n."""
+    by bisection over n up to ``top`` (a last route that takes every n
+    ends there)."""
     def fits(n, route):
         try:
             return plan(n)[0] <= route
         except ValueError:
             return False
     edges, route = [], 0
-    while fits(1, route) and (not edges or fits(edges[-1] + 1, route)):
-        lo, hi = 1, 1 << 16
+    while fits(1, route) and (not edges or (edges[-1] < top and fits(
+            edges[-1] + 1, route))):
+        lo, hi = 1, top
         while lo < hi:
             mid = (lo + hi + 1) // 2
             lo, hi = (mid, hi) if fits(mid, route) else (lo, mid - 1)
@@ -1654,13 +1863,14 @@ def _plan_edges(plan):
 
 
 @pytest.mark.parametrize("family", ("rbf", "c_rbf_white", "all_nodes"))
-@pytest.mark.parametrize("d", (2, 8, 32))
+@pytest.mark.parametrize("d", (2, 8, 32, 40, 64))
 def test_lbfgs_plans_match_the_kernels(dev, family, d):
     """The host planners (fused.lbfgs_logexp_ascent_plan,
     fused.lbfgs_lml_fit_plan, fused.lml_value_grad_plan) give the kernels' own routes, shared memory and
     workspace for every n up to 400 and around the last n of each route,
-    and the wrappers raise ValueError just past the last route, before any
-    launch."""
+    and the fit's wrappers raise ValueError just past their last route,
+    before any launch; K9's last route (3) takes every n, the fit's last n
+    + 1 too."""
     lib = fused.library()
     fam = family_and_theta(family, d)[0]
     kern = fused._kern(fam, d, dev)
@@ -1670,7 +1880,8 @@ def test_lbfgs_plans_match_the_kernels(dev, family, d):
     k11 = _plan_edges(lambda n: fused.lbfgs_lml_fit_plan(n, d, kern.ntheta,
                                                          sd))
     k10 = _plan_edges(lambda n: fused.lml_value_grad_plan(n, d, sd))
-    assert len(k9) == 3 and len(k11) == 2 and len(k10) == 2
+    assert len(k9) == 4 and k9[-1] == 1 << 16
+    assert len(k11) == 2 and len(k10) == 2
     ns = set(range(1, 400))
     for e in k9 + k11 + k10:
         ns |= set(range(e - 24, e + 25))
@@ -1713,20 +1924,13 @@ def test_lbfgs_plans_match_the_kernels(dev, family, d):
     X = torch.zeros((n, d), dtype=torch.float64, device=dev)
     y = torch.zeros(n, dtype=torch.float64, device=dev)
     th0 = torch.as_tensor(family_and_theta(family, d)[1], device=dev)[None]
-    small = _grad_surrogate(family, dev, d, 8, 16)
     n0 = dict(fused.LAUNCHES)
     with pytest.raises(ValueError, match="exceeds"):
         fused.lbfgs_lml_fit(fam, X, y, n, torch.tensor(
             1e-4, dtype=torch.float64, device=dev), th0, th0[0] - 1.0,
             th0[0] + 1.0)
     del X, y
-    n = k9[-1] + 1
-    z = lambda *shape: torch.zeros(shape, dtype=torch.float64, device=dev)
-    p = small.replace(X=z(n, d), n=n, alpha=z(n),
-                      L=torch.eye(n, dtype=torch.float64, device=dev))
-    with pytest.raises(ValueError, match="exceeds"):
-        fused.lbfgs_logexp_ascent(fam, p, 0.5, 0.01, z(2, d), z(d) - 1.0,
-                                  z(d) + 1.0)
+    assert fused.lbfgs_logexp_ascent_plan(k11[-1] + 1, d, sd)[0] == 3
     assert fused.LAUNCHES == n0
 
 
@@ -1789,12 +1993,13 @@ def test_lbfgs_logexp_ascent_kernel_large_n(dev, family, route):
 
 
 def test_runner_refuses_a_budget_past_the_lbfgs_kernels(dev):
-    """On the card the fit (K11) and the ascent (K9) take a bounded n: a
-    Runner whose max_total is past the last route of either raises
-    ValueError when it is built, before any truth evaluation."""
+    """On the card the fit (K11) takes a bounded n (the ascent's K9 and K8
+    every n, since their global routes): a Runner whose max_total is past
+    K11's last route raises ValueError when it is built, before any truth
+    evaluation."""
     from gpry_tpu_torch.run import Runner
     d = 2
-    n = _plan_edges(lambda m: fused.lbfgs_logexp_ascent_plan(m, d))[-1] + 1
+    n = _plan_edges(lambda m: fused.lbfgs_lml_fit_plan(m, d, d + 1))[-1] + 1
     calls = []
 
     def loglike(X):

@@ -22,12 +22,14 @@ K5_NQ = (1, 8, 256, 2048, 4096)
 K8_NQ = (1, 32, 1024)
 
 
-def k8_parent_smem(n, d, spec, stage_x):
+def k8_parent_smem(n, d, spec, stage_x, stage_v=1):
     """Shared bytes of K8's block-per-query design (csrc/common.cuh
-    gpry_gp_doubles, the staged GP, plus the query's d doubles)."""
+    gpry_gp_doubles, the staged GP, plus the query's d doubles); alpha and
+    the work vector in shared memory with ``stage_v`` (route 1; route 2
+    keeps them in global memory)."""
     red = 4 * (2 * d + 1) + d + 1
-    return 8 * (3 * d + 2 + 2 * d + red + 2 * n + stage_x * d * n + spec
-                + d)
+    return 8 * (3 * d + 2 + 2 * d + red + stage_v * 2 * n
+                + stage_x * d * n + spec + d)
 
 
 def k8_parent_max_n(d, spec):
@@ -105,12 +107,14 @@ def test_k5_keeps_the_chain_range(d):
         fused.meanvar_ungated_plan(nmax, nmax, d, 64)
 
 
-@pytest.mark.parametrize("d", (1, 2, 8, 16, fused.GRAD_MAX_D))
+@pytest.mark.parametrize("d", (1, 2, 8, 16, 32, fused.GRAD_MAX_D))
 def test_k8_keeps_the_block_range(d):
     """K8 takes every n up to the largest that its block-per-query design
     took (X staged in shared memory while it fits, then read from global
     memory), at every d up to GRAD_MAX_D, fast family and ALL_NODES's
-    program; it raises ValueError one row beyond, and above GRAD_MAX_D."""
+    program; one row beyond, route 2 (the same design with alpha and the
+    work vector in global memory) takes it, and above GRAD_MAX_D it raises
+    ValueError."""
     for sd in (0, spec_doubles(d)):
         top = k8_parent_max_n(d, sd)
         for n in (1, 224, 641, 1100, 1800, top // 2, top):
@@ -122,9 +126,11 @@ def test_k8_keeps_the_block_range(d):
             if route == 1:
                 stage_x = int(k8_parent_smem(n, d, sd, 1) <= SMEM_MAX)
                 assert (q, smem) == (1, k8_parent_smem(n, d, sd, stage_x))
-        with pytest.raises(ValueError, match="shared memory"):
-            fused.meanstd_grad_plan(top + 1, config.bucket_size(top + 1), d,
-                                    300, sd)
+        route, q, smem = fused.meanstd_grad_plan(
+            top + 1, config.bucket_size(top + 1), d, 300, sd)
+        stage_x = int(k8_parent_smem(top + 1, d, sd, 1, 0) <= SMEM_MAX)
+        assert (route, q, smem) == (2, 1, k8_parent_smem(top + 1, d, sd,
+                                                         stage_x, 0))
     with pytest.raises(ValueError, match="per-thread"):
         fused.meanstd_grad_plan(N, NMAX, fused.GRAD_MAX_D + 1, 8)
 

@@ -242,7 +242,8 @@ def test_failed_search_keeps_the_held_value(solver, recorder):
 # The largest n of each route at d = 8 (fast family), as the headers of
 # csrc/lbfgs_logexp_ascent.cu and csrc/lbfgs_lml_fit.cu state them: K9
 # stages L (route 0) up to 235 (with X up to 227) and streams it through 4
-# stages (route 1) up to 12,180 and through 2 (route 2) up to 13,236; K11
+# stages (route 1) up to 12,180 and through 2 (route 2) up to 13,236, then
+# through 4 with its n-vectors in global memory (route 3) at every n; K11
 # keeps the bordered triangle in shared memory up to 236 (with X up to
 # 229) and in global memory up to 24,539.
 K9_EDGES_D8 = {"route0": 235, "stage_x": 227, "route1": 12180,
@@ -266,37 +267,61 @@ PLAN_CASES = [(2, 0, 3), (8, 0, 9), (32, 0, 33), (8, 14, 16),
               (8, fused.SPEC_MAX_NODES, 16 * 9)]
 
 
-def walk_routes(plan):
-    """Plan n = 1, 2, ... until ValueError; returns the largest n of each
-    route and, per n, the plan."""
+def walk_routes(plan, stop=None):
+    """Plan n = 1, 2, ... until ValueError (or up to ``stop``, exclusive);
+    returns the largest n of each route, per n the plan, and the first n
+    not planned."""
     last, plans, n = {}, {}, 1
-    while True:
+    while n != stop:
         try:
             out = plan(n)
         except ValueError:
-            return last, plans, n
+            break
         plans[n] = out
         last[out[0]] = n
         n += 1
+    return last, plans, n
+
+
+def last_n(plan):
+    """The largest n that ``plan`` takes (it takes 1 .. last_n and raises
+    ValueError above), by bisection."""
+    lo, hi = 1, 2
+    while True:
+        try:
+            plan(hi)
+        except ValueError:
+            break
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        try:
+            plan(mid)
+            lo = mid
+        except ValueError:
+            hi = mid
+    return lo
 
 
 @pytest.mark.parametrize("d,nodes,p", PLAN_CASES)
 def test_ascent_plan(d, nodes, p):
-    """K9's planner for every n up to the largest it takes: the shared
-    memory within the 232,448 bytes a block may have, route 0 (X staged
-    first) then routes 1 and 2, each n once; ValueError just past the
-    last."""
+    """K9's planner for every n up to the largest that K11 (the fit) takes
+    at the same d: the shared memory within the 232,448 bytes a block may
+    have, route 0 (X staged first) then routes 1, 2 and 3 (L streamed, the
+    n-vectors in global memory: every n), each n once; ValueError above
+    GRAD_MAX_D."""
+    sd = spec_doubles(nodes, p)
+    top = last_n(lambda n: fused.lbfgs_lml_fit_plan(n, d, p, sd))
     last, plans, stop = walk_routes(
-        lambda n: fused.lbfgs_logexp_ascent_plan(n, d,
-                                                 spec_doubles(nodes, p)))
+        lambda n: fused.lbfgs_logexp_ascent_plan(n, d, sd), top + 2)
     routes = [plans[n][0] for n in sorted(plans)]
-    assert routes == sorted(routes) and set(routes) == {0, 1, 2}
+    assert routes == sorted(routes) and set(routes) == {0, 1, 2, 3}
     assert all(0 < plans[n][2] <= SMEM_MAX for n in plans)
     staged_x = [n for n in plans if plans[n][0] == 0 and plans[n][1] == 1]
     assert staged_x == list(range(1, len(staged_x) + 1))
-    assert stop == last[2] + 1
-    with pytest.raises(ValueError):
-        fused.lbfgs_logexp_ascent_plan(stop, d, spec_doubles(nodes, p))
+    assert stop == top + 2 == last[3] + 1
+    with pytest.raises(ValueError, match="per-thread"):
+        fused.lbfgs_logexp_ascent_plan(1, fused.GRAD_MAX_D + 1, sd)
     if (d, nodes) == (8, 0):
         assert last[0] == K9_EDGES_D8["route0"]
         assert max(staged_x) == K9_EDGES_D8["stage_x"]
@@ -378,20 +403,26 @@ def test_lml_value_grad_plan_at_the_main_path(n, route):
             fused.lml_value_grad_plan(n + 1, 8)
 
 
-@pytest.mark.parametrize("d", range(1, fused.GRAD_MAX_D + 1))
+@pytest.mark.parametrize("d", range(1, 49))
 def test_default_budget_fits_the_lbfgs_kernels(d):
     """A default Runner's budget, max_total = 70 d^1.5 training points,
-    fits both kernels' routes at every d the ascent's kernels take, for a
-    fast family and for ALL_NODES (check_lbfgs_range, which the Runner
-    calls when it is built on the card); one point past the last route
-    raises ValueError."""
+    fits the fit's and the ascent's kernels (K11, K9, K8) at every d up to
+    48 for a fast family, and up to 47 for ALL_NODES (check_lbfgs_range,
+    which the Runner calls when it is built on the card; at d = 48 its 56
+    theta entries and its program hold K11 below the budget's 23,278); one
+    point past the last route of K11 (which bounds K9 and K8, whose last
+    route takes every n) raises ValueError."""
     n = int(70 * d ** 1.5)
     tree = copy.deepcopy(ALL_NODES)
     tree["Sum"][0]["Product"][1]["Exponentiation"]["kernel"]["Matern"][
         "length_scale"] = [0.6] * d
-    for family in ("matern32", build_kernel_spec(tree, d)[0]):
-        fused.check_lbfgs_range(family, d, n)
-    last, _, stop = walk_routes(lambda m: fused.lbfgs_logexp_ascent_plan(
-        m, d, 0))
+    spec = build_kernel_spec(tree, d)[0]
+    fused.check_lbfgs_range("matern32", d, n)
+    if d < 48:
+        fused.check_lbfgs_range(spec, d, n)
+    else:
+        with pytest.raises(ValueError, match="lbfgs_lml_fit"):
+            fused.check_lbfgs_range(spec, d, n)
+    stop = 1 + last_n(lambda m: fused.lbfgs_lml_fit_plan(m, d, 1 + d, 0))
     with pytest.raises(ValueError, match="exceeds"):
         fused.check_lbfgs_range("matern32", d, stop)
