@@ -205,6 +205,20 @@ EDGE_NS = (231, 320)
 # the JAX package's truth evals to convergence on path e's run
 # (benchmarks/results_nongaussian.json, Himmelblau seed 100)
 JAX_HIMMELBLAU_EVALS = 61
+# K10 and K11 on route 1 (a row or a lane on a thread-block cluster):
+# checked at K11's first n of it at d = D (237; K10's fast families keep
+# route 0 there), 1,024 and 2,048 on ROUTE1_R rows
+# or lanes and K10 also on the screen's ROUTE1_SCREEN rows (check_route1),
+# timed at the kernel table's route-1 shapes (time_route1)
+ROUTE1_NS = (237, 1024, 2048)
+ROUTE1_R = (1, 2, 8, 16)
+ROUTE1_SCREEN = 2049
+# the rows of K10's yardstick call (torch.linalg.cholesky_ex, batched),
+# scaled to ROUTE1_SCREEN
+ROUTE1_CHOL_ROWS = 16
+# [FIT]: one full and one simple fit at d = D on its default budget,
+# 70 d^1.5 rounded up (run_fit_phase)
+FIT_N = 1584
 # path f's kernel: C() * RBF(ARD) + WhiteKernel, and the JAX package's
 # truth evals to convergence on path f's run (gpry_tpu on the CPU,
 # random_gaussian(d=8, rng=18), seed 1)
@@ -2052,16 +2066,17 @@ def lml_flops(family, n, p=0, grad=False, d=D):
     return ops
 
 
-def fit_data(dev, n=N):
-    """Path h's data (bench_data, its first ``n`` points) in a GPR: the
-    padded transformed X and y (n = N of nmax = NMAX at the table's
-    shape), the noise and the fit's box."""
+def fit_data(dev, n=N, d=D):
+    """Path h's data (bench_data, its first ``n`` points; at ``d``
+    dimensions the same draw in the unit d-cube) in a GPR: the padded
+    transformed X and y (n = N of nmax = NMAX at the table's shape), the
+    noise and the fit's box."""
     import numpy as np
     import torch
     from gpry_tpu_torch.models.gp import GaussianProcessRegressor
     from gpry_tpu_torch.models.preprocessing import Normalize_bounds, \
         Normalize_y
-    bounds, X, y = bench_data(n=n)
+    bounds, X, y = bench_data(n=n, d=d)
     gpr = GaussianProcessRegressor(
         bounds=bounds, preprocessing_X=Normalize_bounds(bounds),
         preprocessing_y=Normalize_y(), random_state=0, verbose=0)
@@ -3137,6 +3152,357 @@ def timed_once(fn):
     return out, 1e3 * (time.perf_counter() - t0)
 
 
+def route1_thetas(fam, gpr, R, seed, well=False):
+    """``R`` theta rows for K10 on fit_data's GPR: uniform in the fit's
+    box, as the screen draws them (a spec's theta0 +- 2), or with ``well``
+    in a well-conditioned part of it (variance 0.1-10, length scales
+    0.2-1 of the unit box; a spec's theta0 +- 0.3)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    d = gpr._dX.shape[1]
+    if is_spec(fam):
+        theta0 = np.asarray(spec_kernel(d)[1])
+        h = 0.3 if well else 2.0
+        return rng.uniform(theta0 - h, theta0 + h, (R, len(theta0)))
+    if well:
+        return np.column_stack([rng.uniform(np.log(0.1), np.log(10.0), R),
+                                rng.uniform(np.log(0.2), 0.0, (R, d))])
+    lo, hi = gpr.theta_bounds[:, 0], gpr.theta_bounds[:, 1]
+    return rng.uniform(lo, hi, (R, len(lo)))
+
+
+def k10_plain_chunked(fam, thetas, X, y, n, noise):
+    """lml_value_grad_plain's LML (lml_of_K of its padded K) a few theta
+    rows at a time (its R x nmax^2 matrices and the (rows, nmax, nmax, d)
+    differences of K3's plain version at once would not fit the card at n
+    = 2,048; about 2 GB of those a chunk), and which rows are
+    well-conditioned (check_k10's rule: the plain factor's smallest
+    pivot^2 at least K10_WELL max diag(K))."""
+    import torch
+    from gpry_tpu_torch.ops import fused
+    nmax, d = X.shape
+    rows = max(1, min(64, (2 << 30) // (8 * nmax * nmax * max(d, 1))))
+    lml, well = [], []
+    for i in range(0, thetas.shape[0], rows):
+        th = thetas[i:i + rows]
+        K = fused.masked_kernel_matrix_plain(fam, th, X, n, noise)
+        L = fused.cholesky_nan(K)
+        lml.append(fused._lml_of_L(L, y, n)[0])
+        dK = torch.diagonal(K, dim1=-2, dim2=-1)[:, :n]
+        piv2 = torch.diagonal(L, dim1=-2, dim2=-1)[:, :n] ** 2
+        well.append(torch.isfinite(lml[-1]) & (
+            piv2.min(1).values >= K10_WELL * dK.max(1).values))
+        del K, L
+    return torch.cat(lml), torch.cat(well)
+
+
+def check_route1(dev):
+    """K10 and K11 on route 1 (the triangle in global memory, a row or a
+    lane on a thread-block cluster), RBF and ALL_NODES, at d = D and each
+    n of ROUTE1_NS (fit_data's draw; at n = 237 K10's RBF rows take route
+    0, its spec rows and K11 route 1): K10 on ROUTE1_R rows and on the
+    screen's ROUTE1_SCREEN rows (route1_thetas, the well-conditioned part
+    of the box) in value mode, the LML within rel TOL_K10 on the rows
+    check_k10 calls well-conditioned (k10_plain_chunked), or, on a row
+    past that, within the plain LML's own rounding spread there
+    (lml_spread; one row of the 2,049 at n = 2,048 is at 1.8e-10), and on
+    ROUTE1_R rows in
+    gradient mode, the gradient within TOL_K10_GRAD of max |g|; K11 on
+    ROUTE1_R lanes (k11_starts) step for step over K11_STEPS iterations
+    (the same nev, theta within TOL_K11_X of the box width, f the plain
+    LML at the lane's own end within TOL_K11_F (1 + |f|) or, on a lane
+    past that, within the plain LML's rounding spread there).  Each
+    against its plain version (K10's by k10_plain_chunked).  Prints each case's cluster (fused.CLUSTERS) and
+    error; returns {kernel row: {"n=..": {"R=..": error}}}."""
+    import numpy as np
+    import torch
+    from gpry_tpu_torch.ops import fused
+    out = {}
+    for n in ROUTE1_NS:
+        gpr, t = fit_data(dev, n=n)
+        noise = gpr._noise_t()
+        for fam in ("rbf", spec_kernel()[0]):
+            sfx = "/spec" if is_spec(fam) else ""
+            kern = fused._kern(fam, D, dev)
+            sd = fused._spec_doubles(kern)
+            # K11's route 1 starts at n = 237; K10's fast families keep
+            # route 0 there (up to 237), a spec program takes route 1
+            k10_route = fused.lml_value_grad_plan(n, D, sd)[0]
+            if fused.lbfgs_lml_fit_plan(n, D, kern.ntheta, sd)[0] != 1 or \
+                    (n > 237 and k10_route != 1):
+                raise AssertionError(f"route 1 at n={n}: the plans give "
+                                     "another route")
+            for R in ROUTE1_R + (ROUTE1_SCREEN,):
+                thetas = t(route1_thetas(fam, gpr, R, seed=R + n, well=True))
+                fused.reset_launch_counts()
+                lml = fused.lml_value_grad(fam, thetas, gpr._dX, gpr._dy, n,
+                                           noise)
+                shape = dict(fused.CLUSTERS)
+                ref, well = k10_plain_chunked(fam, thetas, gpr._dX,
+                                              gpr._dy, n, noise)
+                # rel_err holds the NaN rows (K not positive definite in
+                # the plain factor) to the same rows; the LML within rel
+                # TOL_K10 on the well-conditioned rows, as check_k10 holds
+                err, _ = rel_err(lml, ref)
+                fin = torch.isfinite(ref)
+                relw = torch.where(well, torch.abs(lml - ref)
+                                   / torch.abs(ref), torch.zeros_like(ref))
+                # a well-conditioned row past TOL_K10 is held to the plain
+                # LML's own rounding spread at its theta instead
+                # (lml_spread, as check_k11 holds the fit's end), if larger
+                over = torch.nonzero(relw > TOL_K10).flatten().tolist()
+                spread_ok = all(
+                    abs(float(lml[r] - ref[r])) <= lml_spread(
+                        fam, thetas[r], gpr._dX, gpr._dy, n, noise)
+                    for r in over)
+                rel = float(relw.max())
+                case = {"route": k10_route, "rel": rel, "max_abs_err": err,
+                        "rel_all": float(torch.max(
+                            torch.abs(lml - ref)[fin] / torch.abs(ref[fin]))),
+                        "nan_rows": int((~fin).sum()),
+                        "ill_rows": int((fin & ~well).sum()),
+                        "rows_past_tol_within_spread":
+                            len(over) if spread_ok else None,
+                        "clusters": shape}
+                if R in ROUTE1_R:
+                    lg, g = fused.lml_value_grad(fam, thetas, gpr._dX,
+                                                 gpr._dy, n, noise,
+                                                 grad=True)
+                    _, gr = fused.lml_value_grad_plain(
+                        fam, thetas, gpr._dX, gpr._dy, n, noise, grad=True)
+                    if not torch.equal(torch.isnan(g), torch.isnan(gr)):
+                        raise AssertionError(f"K10{sfx} route 1 n={n} R={R}:"
+                                             " the gradients' NaN rows differ")
+                    case["grad_rel"] = float(
+                        torch.max(torch.abs(g - gr)[fin])
+                        / torch.max(torch.abs(gr[fin])))
+                log(f"[ROUTE1] K10{sfx} n={n} R={R}: " + json.dumps(case))
+                if not (spread_ok and
+                        case.get("grad_rel", 0.0) <= TOL_K10_GRAD):
+                    raise AssertionError(f"K10{sfx} route 1 n={n} R={R}: "
+                                         f"{case}")
+                out.setdefault("lml_value_grad" + sfx, {}).setdefault(
+                    f"n={n}", {})[f"R={R}"] = case
+            for lanes in ROUTE1_R:
+                lo, hi, th0 = k11_starts(fam, gpr, lanes)
+                args = (fam, gpr._dX, gpr._dy, n, noise, t(th0), t(lo),
+                        t(hi))
+                fused.reset_launch_counts()
+                th, f, nev = fused.lbfgs_lml_fit(*args, maxiter=K11_STEPS)
+                shape = dict(fused.CLUSTERS)
+                thr, fr, nevr = fused.lbfgs_lml_fit_plain(*args,
+                                                          maxiter=K11_STEPS)
+                sync()
+                fin = torch.isfinite(fr)
+                err_x = float(torch.max(torch.abs(th - thr)))
+                # f is -LML at the lane's own end: held to the plain LML
+                # there within TOL_K11_F (1 + |f|) or, on a lane past that,
+                # within the plain LML's own rounding spread at that theta
+                # (the C blocks sum the log det and z^T z in another order)
+                at = -fused.lml_value_grad_plain(fam, th, *args[1:5])
+                relf = torch.where(fin, torch.abs(f - at)
+                                   / (1 + torch.abs(at)), torch.zeros_like(fr))
+                err_f = float(relf.max())
+                over = torch.nonzero(relf > TOL_K11_F).flatten().tolist()
+                spread_ok = all(
+                    abs(float(f[r] - at[r])) <= lml_spread(
+                        fam, th[r], *args[1:5]) for r in over)
+                case = {"nev": nev.tolist(), "nev_plain": nevr.tolist(),
+                        "theta_err": err_x, "f_rel": err_f,
+                        "lanes_past_tol_within_spread":
+                            len(over) if spread_ok else None,
+                        "clusters": shape}
+                log(f"[ROUTE1] K11{sfx} n={n} lanes={lanes}: "
+                    + json.dumps(case))
+                if not (nev.tolist() == nevr.tolist()
+                        and torch.equal(torch.isnan(f), torch.isnan(fr))
+                        and err_x <= TOL_K11_X * float(np.max(hi - lo))
+                        and spread_ok):
+                    raise AssertionError(f"K11{sfx} route 1 n={n} lanes="
+                                         f"{lanes}: {case}")
+                out.setdefault("lbfgs_lml_fit" + sfx, {}).setdefault(
+                    f"n={n}", {})[f"lanes={lanes}"] = case
+            torch.cuda.empty_cache()
+    return out
+
+
+def lml_cluster_plans(dev, n, d=D, lanes=(8, 2)):
+    """The library's route-1 cluster plans at n (RBF): K11's for each count
+    of ``lanes`` and K10's value instance for as many rows, each with how
+    many clusters of 1, 2, 4, 8 and 16 blocks the card runs at once
+    (cudaOccupancyMaxActiveClusters; a package whose plan returns one count
+    fills the first): {"K11 <lanes> lanes": {"C": .., "active": [..]},
+    "K10 <lanes> rows": {"F": .., "C": .., "active": [..]}}; {} for a
+    package without cluster plans."""
+    import ctypes
+    from gpry_tpu_torch.ops import fused
+    if not hasattr(fused.library(), "gpry_lbfgs_lml_fit_cluster"):
+        return {}
+    lib, kern = fused.library(), fused._kern("rbf", d, dev)
+    sx, sm, wk, per_sm = ctypes.c_int(), ctypes.c_size_t(), \
+        ctypes.c_size_t(), ctypes.c_int()
+    lib.gpry_lml_value_grad_plan(kern, n, d, 0, ctypes.byref(sx),
+                                 ctypes.byref(sm), ctypes.byref(wk),
+                                 ctypes.byref(per_sm))
+    out = {}
+    for k in lanes:
+        C, F, act = ctypes.c_int(), ctypes.c_int(), (ctypes.c_int * 5)()
+        lib.gpry_lbfgs_lml_fit_cluster(kern, k, n, d, ctypes.byref(C), act)
+        out[f"K11 {k} lanes"] = {"C": C.value, "active": list(act)}
+        act = (ctypes.c_int * 5)()
+        lib.gpry_lml_value_grad_cluster(kern, k, n, d, 0, per_sm.value,
+                                        ctypes.byref(F), ctypes.byref(C), act)
+        out[f"K10 {k} rows"] = {"F": F.value, "C": C.value,
+                                "active": list(act)}
+    return out
+
+
+def route1_screen(dev, n=2048):
+    """K10 on the screen's ROUTE1_SCREEN rows at d = D, n (check_route1's
+    draw: route1_thetas, well-conditioned, seed ROUTE1_SCREEN + n), RBF and
+    ALL_NODES, against k10_plain_chunked: the largest relative error on
+    the well-conditioned rows, on all finite rows, the row it is on, and
+    a digest of the LML's bits, so that two checkouts that agree bit for
+    bit show the same digest.  It calls only the wrappers, so that
+    compare_trees.sh can run it on an older checkout."""
+    import hashlib
+    import torch
+    from gpry_tpu_torch.ops import fused
+    gpr, t = fit_data(dev, n=n)
+    noise = gpr._noise_t()
+    out = {}
+    for fam in ("rbf", spec_kernel()[0]):
+        thetas = t(route1_thetas(fam, gpr, ROUTE1_SCREEN,
+                                 seed=ROUTE1_SCREEN + n, well=True))
+        lml = fused.lml_value_grad(fam, thetas, gpr._dX, gpr._dy, n, noise)
+        ref, well = k10_plain_chunked(fam, thetas, gpr._dX, gpr._dy, n,
+                                      noise)
+        fin = torch.isfinite(ref)
+        rel = torch.abs(lml - ref) / torch.abs(ref)
+        relw = torch.where(well, rel, torch.zeros_like(rel))
+        out["spec" if is_spec(fam) else "rbf"] = {
+            "rel_well": float(relw.max()), "row": int(relw.argmax()),
+            "rel_all": float(rel[fin].max()),
+            "digest": hashlib.sha256(
+                lml.cpu().numpy().tobytes()).hexdigest()[:16]}
+    log(f"[ROUTE1-SCREEN] n={n}: " + json.dumps(out))
+    return out
+
+
+def time_route1(dev):
+    """K10 and K11 at the route-1 shapes of the kernel table (RBF; CUDA
+    events, one warm-up): K11 at d = D, n = 1,024 and 2,048 on 2 and 8
+    lanes (k11_starts) at maxiter K11_STEPS, ms per call and per
+    evaluation of the slowest lane; K10 on the screen's ROUTE1_SCREEN rows
+    in the fit's box (route1_thetas) at d = D, n = 1,024 and 2,048 and at
+    d = 16, n = 4,480 (the default budgets of d = 8 and 16 are 1,584 and
+    4,480), value mode, ms per call (one call at n = 4,480, host clock
+    to a synchronize) and its finite rows.  Beside each, the
+    yardstick torch.linalg.cholesky_ex on the same K (one lane's K for
+    K11; for K10 one batched call over ROUTE1_CHOL_ROWS of the rows,
+    scaled to R: it computes the factor alone) and the bound (lml_flops).
+    It calls only the wrappers, with their arguments of every version
+    since K10, so that compare_trees.sh can run it on an older checkout.
+    Returns {"K11 n=.. lanes=..": row, "K10 d=.. n=..": row}."""
+    import torch
+    from gpry_tpu_torch.ops import fused
+    out = {}
+    for n in (1024, 2048):
+        gpr, t = fit_data(dev, n=n)
+        noise = gpr._noise_t()
+        for lanes in (2, 8):
+            lo, hi, th0 = k11_starts("rbf", gpr, lanes)
+            args = ("rbf", gpr._dX, gpr._dy, n, noise, t(th0), t(lo), t(hi))
+            call = lambda: fused.lbfgs_lml_fit(*args, maxiter=K11_STEPS)
+            ms = time_ms(call, 3)
+            nev = call()[2]
+            K = fused.masked_kernel_matrix_plain(
+                "rbf", t(th0[:1]), gpr._dX, n, noise)[0, :n, :n].contiguous()
+            lib = time_ms(lambda: torch.linalg.cholesky_ex(K), 10)
+            row = {"ms": ms, "nev": nev.tolist(),
+                   "ms_per_eval": ms / int(nev.max()),
+                   "plan": lml_cluster_plans(dev, n, lanes=(lanes,)),
+                   "cholesky_ex_ms": lib,
+                   **bound(int(nev.max()) * lml_flops("rbf", n, D + 1,
+                                                      grad=True), 0)}
+            out[f"K11 n={n} lanes={lanes}"] = row
+            log(f"[ROUTE1-TIME] K11 n={n} lanes={lanes}: " + json.dumps(row))
+            del K
+    for d, n in ((D, 1024), (D, 2048), (16, 4480)):
+        gpr, t = fit_data(dev, n=n, d=d)
+        noise = gpr._noise_t()
+        thetas = t(route1_thetas("rbf", gpr, ROUTE1_SCREEN, seed=n))
+        call = lambda: fused.lml_value_grad("rbf", thetas, gpr._dX, gpr._dy,
+                                            n, noise)
+        if n <= 2048:
+            ms = time_ms(call, 2)
+            lml = call()
+        else:
+            # one call: the one-block route takes minutes here
+            lml, ms = timed_once(call)
+        fin = int(torch.isfinite(lml).sum())
+        # the rows' K one at a time (K3's plain version holds an (n, n, d)
+        # difference tensor a row)
+        K = torch.stack([fused.masked_kernel_matrix_plain(
+            "rbf", thetas[i:i + 1], gpr._dX, n, noise)[0, :n, :n]
+            for i in range(ROUTE1_CHOL_ROWS)])
+        lib = time_ms(lambda: torch.linalg.cholesky_ex(K), 3)
+        row = {"ms": ms, "R": ROUTE1_SCREEN, "finite_rows": fin,
+               "cholesky_ex_ms": lib * ROUTE1_SCREEN / ROUTE1_CHOL_ROWS,
+               **bound(ROUTE1_SCREEN * lml_flops("rbf", n, d=d), 0)}
+        out[f"K10 d={d} n={n}"] = row
+        log(f"[ROUTE1-TIME] K10 d={d} n={n} R={ROUTE1_SCREEN}: "
+            + json.dumps(row))
+        del K
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_fit_phase(dev):
+    """[FIT]: one full fit (fit_gpr_hyperparameters() with the Runner's
+    10 + 2 d restarts: the screen, 8 polish lanes, the re-score) and then
+    one simple fit (simple=True: the screen and 2 lanes, or the screen
+    alone when the basin did not move) at d = D and n = FIT_N, the
+    default budget there, on bench_data's smooth Gaussian.  Prints each
+    fit's seconds (host clock to a synchronize), its K10 and K11 launches
+    and the clusters they ran on (fused.CLUSTERS, where the package counts
+    them), and the plans' C for 8 and 2 lanes (lml_cluster_plans).  Fails
+    unless both fits end with a finite LML.  It drives the package through
+    the GPR alone, so that compare_trees.sh can run it on an older
+    checkout."""
+    import numpy as np
+    import torch
+    from gpry_tpu_torch.models.gp import GaussianProcessRegressor
+    from gpry_tpu_torch.models.preprocessing import Normalize_bounds, \
+        Normalize_y
+    from gpry_tpu_torch.ops import fused
+    bounds, X, y = bench_data(n=FIT_N)
+    # the Runner's restarts (10 + 2 d): a full fit polishes 8 lanes
+    gpr = GaussianProcessRegressor(
+        bounds=bounds, preprocessing_X=Normalize_bounds(bounds),
+        preprocessing_y=Normalize_y(), n_restarts_optimizer=10 + 2 * D,
+        random_state=0, verbose=0)
+    gpr.append_to_data(X, y, fit_gpr=False)
+    out = {"d": D, "n": FIT_N}
+    if dev.type == "cuda":
+        out["plan"] = lml_cluster_plans(dev, FIT_N)
+    for kind, simple in (("full", False), ("simple", True)):
+        fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        gpr.fit_gpr_hyperparameters(simple=simple)
+        sync()
+        secs = time.perf_counter() - t0
+        lml = float(gpr.log_marginal_likelihood_value_)
+        out[kind] = {"s": secs, "lml": lml,
+                     "K10": fused.LAUNCHES["lml_value_grad"],
+                     "K11": fused.LAUNCHES["lbfgs_lml_fit"],
+                     "clusters": dict(getattr(fused, "CLUSTERS", {}))}
+        if not np.isfinite(lml):
+            raise AssertionError(f"[FIT] the {kind} fit ended with LML {lml}")
+    log("[FIT] " + json.dumps(out))
+    return out
+
+
 def check_big(dev):
     """At d = BIG_D and n = BIG_N (big_surrogate, RBF): K9 on its global
     route (3; 2 lanes from uniform starts in the box) step for step over
@@ -3364,6 +3730,11 @@ def check_kernels(dev):
     log(f"[CHECKS] K8 and K9 at d = {WIDE_DS}: "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    for name, by_n in check_route1(dev).items():
+        rows[name]["route1"] = by_n
+    log(f"[CHECKS] K10 and K11 on route 1 at n = {ROUTE1_NS}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     for name, by_n in check_big(dev).items():
         rows[name]["big"] = by_n
     log(f"[CHECKS] d = {BIG_D}, n = {BIG_N}: "
@@ -3575,6 +3946,7 @@ def run_wide():
     import numpy as np
     from model_generator import random_gaussian
     from gpry_tpu_torch.acquisition.batch_optimizer import BatchOptimizer
+    from gpry_tpu_torch.ops import fused
     from gpry_tpu_torch.run import Runner
     from gpry_tpu_torch.utils.tools import kl_norm, mean_covmat_from_samples
     d = WIDE_D
@@ -3635,19 +4007,19 @@ def run_wide():
                "refine_s": sample["time_refine"],
                "ns_steps": int(sample["ns_steps"]),
                "ns_calls": int(sample["n_calls"]), "sample": len(Xs),
-               "kl": float(kl)}
+               "kl": float(kl), "fit_clusters": dict(fused.CLUSTERS)}
     log("[WIDE-RUNNER] " + json.dumps(summary))
     return summary
 
 
-def bench_data(seed=0, n=N):
+def bench_data(seed=0, n=N, d=D):
     """bench.py's make_data (bench.py:44-49): N = 224 uniform points in
     the unit 8-cube under a centred isotropic Gaussian (``n`` points: the
-    same first N, then more of the same draw)."""
+    same first N, then more of the same draw; ``d``: the unit d-cube)."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    bounds = np.array([[0.0, 1.0]] * D)
-    X = rng.uniform(size=(n, D))
+    bounds = np.array([[0.0, 1.0]] * d)
+    X = rng.uniform(size=(n, d))
     y = -0.5 * 25 * np.sum((X - 0.5) ** 2, axis=1)
     return bounds, X, y
 
@@ -5231,6 +5603,7 @@ def main():
     t0 = time.perf_counter()
     rows = check_kernels(dev)
     log(f"[CHECKS] all kernel checks in {time.perf_counter() - t0:.1f} s")
+    fit_phase = run_fit_phase(dev)
     kernels = []
     for base, (src, replaces) in SOURCES.items():
         for name in (base,) if base in fused.NO_SPEC else \
@@ -5259,7 +5632,8 @@ def main():
     assert "jax" not in sys.modules
     assert not any(m == "gpry_tpu" or m.startswith("gpry_tpu.")
                    for m in sys.modules)
-    print(json.dumps({"kernels": kernels, "paths": paths}))
+    print(json.dumps({"kernels": kernels, "paths": paths,
+                      "fit_phase": fit_phase}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

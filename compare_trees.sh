@@ -39,6 +39,18 @@
 #           nq = 1, 64 and 1,024, ms and its solve's and product's device
 #           ms)
 #   sweeps  K2 and K13 alone (chip_smoke.time_k2_k13)
+#   route1  K10 and K11 on their global route (the triangle in global
+#           memory) at the kernel table's route-1 shapes
+#           (chip_smoke.time_route1: K11 at d = 8, n = 1,024 and 2,048 on
+#           2 and 8 lanes, maxiter 3, ms a call and an evaluation; K10 on
+#           2,049 screen rows at d = 8, n = 1,024 and 2,048 and at d = 16,
+#           n = 4,480), then K9, K10, K11 and K6 at the table's n = 224
+#           shapes (chip_smoke.time_fit_kernels: K10's and K11's route 0,
+#           the spec K10 screen's route 1), then one full and one simple
+#           fit at d = 8, n = 1,584 (chip_smoke.run_fit_phase, [FIT])
+#   screen  K10 on check_route1's 2,049 screen rows at d = 8, n = 2,048
+#           against its plain version: the errors and a digest of the bits
+#           (chip_smoke.route1_screen)
 # The driving code is this script's own chip_smoke.py (run_bench,
 # run_runner), loaded by path; only gpry_tpu_torch comes from each
 # checkout, so every checkout times the same work, an older one whose
@@ -54,9 +66,9 @@ set -e
 engine=$1
 shift
 case "$engine" in
-  nora|bo|runner|spec|norarunner|mcmc|himmelblau|kernels|sweeps) ;;
+  nora|bo|runner|spec|norarunner|mcmc|himmelblau|kernels|sweeps|route1|screen) ;;
   *) echo "usage: compare_trees.sh" \
-       "nora|bo|runner|spec|norarunner|mcmc|himmelblau|kernels|sweeps" \
+       "nora|bo|runner|spec|norarunner|mcmc|himmelblau|kernels|sweeps|route1|screen" \
        "TREE..." >&2
      exit 2;;
 esac
@@ -110,6 +122,17 @@ elif engine in ('kernels', 'sweeps'):
         out.update(cs.time_k1_k3(dev))
         out.update(cs.time_k5_k8(dev))
         out.update(cs.time_k7(dev))
+    print('RES', tree, engine, json.dumps(out), flush=True)
+elif engine == 'route1':
+    import torch
+    dev = torch.device('cuda')
+    out = cs.time_route1(dev)
+    out.update(cs.time_fit_kernels(dev))
+    out['fit'] = cs.run_fit_phase(dev)
+    print('RES', tree, engine, json.dumps(out), flush=True)
+elif engine == 'screen':
+    import torch
+    out = cs.route1_screen(torch.device('cuda'))
     print('RES', tree, engine, json.dumps(out), flush=True)
 elif engine == 'himmelblau':
     from gpry_tpu_torch.models import gp as gpm

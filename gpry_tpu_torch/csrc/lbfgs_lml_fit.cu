@@ -26,16 +26,28 @@
 // of the LML of an n x n covariance (n = 224 on the main paths): about
 // n^3 / 3 operations to factor it, n^3 / 3 more for L^-1 and as many for
 // K^-1 = L^-T L^-1 in a gradient.  At the FP64 tensor cores' 67 TFLOP/s
-// that is microseconds; what bounds a lane is latency: the n dependent
-// pivots of the factorization, the barriers between its steps, the
-// shared-memory traffic of the updates and the chain of instructions a
-// kernel pair takes, at 8 warps a block and 255 registers a thread (one
-// block an SM).  2 to 8 lanes use 2 to 8 of the 132 SMs.
+// that is microseconds at n = 224; what bounds a lane there is latency:
+// the n dependent pivots of the factorization, the barriers between its
+// steps, the shared-memory traffic of the updates and the chain of
+// instructions a kernel pair takes, at 8 warps a block and 255 registers a
+// thread (one block an SM).  Past route 0 (n > 236 at d = 8; the default
+// budget reaches 1,584 at d = 8, 4,480 at d = 16, 23,278 at d = 48) the
+// triangle lives in global memory and the n^3-scale work is what counts:
+// on one block a lane got one SM's share of the card (25 GFLOP/s at n =
+// 23,278 on an H100), so route 1 runs a lane on a cluster.
 //
-// Design.  One block of LML_THREADS per lane; the lane's state (u, f, g,
-// the (S, Y, rho) history, kh, the stall count, nev) lives in shared
-// memory, so a block exits when its own lane stops and the host reads
-// nothing until the launch ends.
+// Design.  A lane per block (route 0) or per thread-block cluster of C
+// blocks (route 1; C from lml_cluster: of the powers of two up to 16 with
+// R C <= the SMs, the most blocks a lane per wave of resident clusters,
+// 16 for a simple fit's 2 lanes and a full fit's 8 on an H100), launched
+// with cudaLaunchKernelEx.
+// The lane's state (u, f, g, the (S, Y, rho) history, kh, the stall
+// count, nev) lives in shared memory, so a lane exits when it stops and
+// the host reads nothing until the launch ends.  On a cluster every block holds the lane's state and
+// runs its arithmetic: the value and gradient every block reads are the
+// same bits (lml_blocked.cuh sums the blocks' partials in one order), so
+// the blocks take the same decisions with no barrier for them, and rank 0
+// writes the outputs.
 // * An accepted probe is reused: a line-search probe at u + t d computes
 //   the value (the factor of K, z = L^-1 y and log det) and leaves the
 //   factor in place; when it passes, the gradient is computed from that
@@ -49,12 +61,13 @@
 //   tensor cores, then L^-1 and K^-1 in place on the same MMA tiles and
 //   one pass over the pairs for the gradient.
 // * Routes (lml_route with the lane's state, mirrored on the host by
-//   ops/fused.py lbfgs_lml_fit_plan): the packed triangle in shared memory
-//   up to n = 236 at d = 8 (fast family); above that, in the block's
-//   global workspace (L2), with the tensor cores' operands staged through
-//   the fixed LML_STAGE buffer: up to n = 24,539 at d = 8 (23,843 at
-//   d = 32).  The wrapper raises ValueError above.  X goes to shared
-//   memory too where it fits (route 0 up to n = 229 at d = 8).
+//   ops/fused.py lbfgs_lml_fit_plan and lml_cluster): the packed triangle
+//   in shared memory up to n = 236 at d = 8 (fast family); above that, in
+//   the lane's global workspace, with the tensor cores' operands staged
+//   through the fixed LML_STAGE buffer of each of the cluster's blocks: up
+//   to n = 24,539 at d = 8 (23,843 at d = 32).  The wrapper raises
+//   ValueError above.  X goes to shared memory too where it fits (route 0
+//   up to n = 229 at d = 8).
 // p = 1 + d (or a tree's parameter count) may exceed a warp, so warp 0
 // runs the L-BFGS arithmetic with its lanes striding over the coordinates;
 // dot products are warp reductions.  The updates whose rounding decides a
@@ -129,17 +142,20 @@ __device__ __forceinline__ void k11_grad_u(const K11Lane& ln, int p,
 
 template <bool SPEC, bool GLOB>
 __global__ void __launch_bounds__(LML_THREADS, 1) lbfgs_lml_fit_kernel(
-    GpryKern kern, int R, GpryLmlData D, int stage_x, int maxiter,
+    GpryKern kern, int R, int C, GpryLmlData D, int stage_x, int maxiter,
     const double* __restrict__ theta0s, const double* __restrict__ lo_g,
     const double* __restrict__ hi_g, double* __restrict__ work,
-    size_t work_per_block, double* __restrict__ th_out,
+    size_t work_per_lane, double* __restrict__ th_out,
     double* __restrict__ f_out, long long* __restrict__ nev_out,
     long long* __restrict__ it_out) {
   extern __shared__ double smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nt = blockDim.x;
-  const int r = blockIdx.x, p = kern.ntheta, n = D.n, d = D.d;
-  double* wk = work + (size_t)r * work_per_block;
+  // lane r on blocks C r .. C r + C - 1 (one cluster; route 0: C = 1)
+  const int CL = GLOB ? C : 1;
+  const int r = blockIdx.x / CL, rank = blockIdx.x - r * CL;
+  const int p = kern.ntheta, n = D.n, d = D.d;
+  double* wk = work + (size_t)r * work_per_lane;
   // the lane's state first, then the evaluation's buffers
   K11Lane ln;
   ln.u = smem;
@@ -160,6 +176,9 @@ __global__ void __launch_bounds__(LML_THREADS, 1) lbfgs_lml_fit_kernel(
   ln.st = (K11State*)(ln.rho + K11_M);
   K11State* st = ln.st;
   LmlEval E;
+  E.rank = rank;
+  E.C = CL;
+  E.xs = stage_x;
   E.dinv = smem + k11_lane_doubles(p);
   E.red = E.dinv + LML_NB;
   E.flag = (int*)(E.red + LML_WARPS * GPRY_LML_PCHUNK);
@@ -359,13 +378,17 @@ __global__ void __launch_bounds__(LML_THREADS, 1) lbfgs_lml_fit_kernel(
     const double uc =
         u < -K11_UCLIP ? -K11_UCLIP : (u > K11_UCLIP ? K11_UCLIP : u);
     const double s = 1.0 / (1.0 + exp(-uc));
-    th_out[(size_t)r * p + k] = __dadd_rn(ln.lo[k], __dmul_rn(ln.A[k], s));
+    if (rank == 0)
+      th_out[(size_t)r * p + k] =
+          __dadd_rn(ln.lo[k], __dmul_rn(ln.A[k], s));
   }
-  if (tid == 0) {
+  if (tid == 0 && rank == 0) {
     f_out[r] = bad ? st->f0 : st->f;
     nev_out[r] = st->nev;
     it_out[r] = st->iters;
   }
+  // no block leaves while another may read its shared memory
+  if (GLOB && C > 1) cooperative_groups::this_cluster().sync();
 }
 
 // The route (0: shared, 1: global, -1: n too large), whether X is staged
@@ -381,11 +404,42 @@ extern "C" int gpry_lbfgs_lml_fit_plan(GpryKern kern, int n, int d,
   return route;
 }
 
+static auto k11_kernel(const GpryKern& kern, int route) {
+  return kern.nodes ? (route ? lbfgs_lml_fit_kernel<true, true>
+                             : lbfgs_lml_fit_kernel<true, false>)
+                    : (route ? lbfgs_lml_fit_kernel<false, true>
+                             : lbfgs_lml_fit_kernel<false, false>);
+}
+
+// The cluster of R lanes (route 1: lml_cluster over the current device's
+// SMs and act; route 0: 1) into *C, and into act[i] how many clusters of
+// 2^i blocks (i = 0: blocks; on route 0 only those) the card runs at once
+// (lml_actives; 0: it cannot schedule one).  Returns the route (-1: n too
+// large), or -2 when the runtime refused a query.
+extern "C" int gpry_lbfgs_lml_fit_cluster(GpryKern kern, int R, int n, int d,
+                                          int* C, int* act) {
+  int stage_x, dev, sms;
+  size_t smem, wpl;
+  *C = 1;
+  for (int i = 0; i < 5; ++i) act[i] = 0;
+  const int route = gpry_lbfgs_lml_fit_plan(kern, n, d, &stage_x, &smem,
+                                            &wpl);
+  if (route < 0) return route;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      lml_actives(k11_kernel(kern, route), smem, route == 1, act) !=
+          cudaSuccess)
+    return -2;
+  if (route == 1) *C = lml_cluster(R, sms, act);
+  return route;
+}
+
 // theta0s (R, kern.ntheta) inside [lo, hi]; X (>= n rows, d); y (>= n);
-// noise one value or one per row; work R x the plan's workspace doubles.
-// Outputs: theta (R, kern.ntheta), -lml (R), nev and iterations (R,
-// int64).
-extern "C" int gpry_lbfgs_lml_fit(GpryKern kern, int R, int n, int d,
+// noise one value or one per row; work R x the plan's workspace doubles;
+// C the cluster gpry_lbfgs_lml_fit_cluster gave for R lanes.  Outputs:
+// theta (R, kern.ntheta), -lml (R), nev and iterations (R, int64).
+extern "C" int gpry_lbfgs_lml_fit(GpryKern kern, int R, int C, int n, int d,
                                   int maxiter, const void* theta0s,
                                   const void* lo, const void* hi,
                                   const void* X, const void* y,
@@ -393,19 +447,16 @@ extern "C" int gpry_lbfgs_lml_fit(GpryKern kern, int R, int n, int d,
                                   double rel_jitter, void* work,
                                   void* th_out, void* f_out, void* nev_out,
                                   void* it_out, void* stream) {
-  if (R < 0 || n < 0) return (int)cudaErrorInvalidValue;
+  if (R < 0 || n < 0 || !lml_cluster_ok(C)) return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
   int stage_x;
-  size_t smem, wpb;
+  size_t smem, wpl;
   const int route = gpry_lbfgs_lml_fit_plan(kern, n, d, &stage_x, &smem,
-                                            &wpb);
-  if (route < 0) return (int)cudaErrorInvalidConfiguration;
-  auto kernel =
-      kern.nodes ? (route ? lbfgs_lml_fit_kernel<true, true>
-                          : lbfgs_lml_fit_kernel<true, false>)
-                 : (route ? lbfgs_lml_fit_kernel<false, true>
-                          : lbfgs_lml_fit_kernel<false, false>);
-  cudaError_t e = gpry_set_smem(kernel, smem);
+                                            &wpl);
+  if (route < 0 || (C > 1 && route != 1))
+    return (int)cudaErrorInvalidConfiguration;
+  auto kernel = k11_kernel(kern, route);
+  cudaError_t e = lml_attributes(kernel, smem, C);
   if (e != cudaSuccess) return (int)e;
   GpryLmlData D;
   D.n = n;
@@ -415,10 +466,10 @@ extern "C" int gpry_lbfgs_lml_fit(GpryKern kern, int R, int n, int d,
   D.y = (const double*)y;
   D.noise = (const double*)noise;
   D.rel_jitter = rel_jitter;
-  kernel<<<R, LML_THREADS, smem, (cudaStream_t)stream>>>(
-      kern, R, D, stage_x, maxiter, (const double*)theta0s,
-      (const double*)lo,
-      (const double*)hi, (double*)work, wpb, (double*)th_out,
-      (double*)f_out, (long long*)nev_out, (long long*)it_out);
-  return (int)cudaGetLastError();
+  return (int)lml_launch(kernel, R * C, C, smem,
+                         (cudaStream_t)stream, kern, R, C, D, stage_x,
+                         maxiter, (const double*)theta0s, (const double*)lo,
+                         (const double*)hi, (double*)work, wpl,
+                         (double*)th_out, (double*)f_out,
+                         (long long*)nev_out, (long long*)it_out);
 }

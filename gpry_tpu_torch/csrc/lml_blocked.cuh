@@ -34,20 +34,45 @@
 //   pair, two pairs a lane; spec mode the interpreter's gpry_spec_dtheta),
 //   GPRY_LML_PCHUNK parameters a pass.
 // * Routes (lml_route): 0 keeps the packed triangle in shared memory; 1
-//   keeps it in the block's global workspace (L2), with the operands of
-//   each tensor-core step staged by cp.async in a shared buffer of fixed
-//   size (LML_STAGE doubles: two chunks of 128 rows of the panel for the
+//   keeps it in the lane's global workspace, with the operands of each
+//   tensor-core step staged by cp.async in a shared buffer of fixed size
+//   (LML_STAGE doubles: two chunks of 128 rows of the panel for the
 //   trailing update, 256 columns of the row panel for L^-1, 256 rows of
 //   the column panel for K^-1), so that shared memory grows with n only by
 //   alpha.  X (d n doubles) goes to shared memory too where it fits: the
 //   pair build and the contraction read it for every pair, and from global
 //   memory each of those reads waits on L2.
+// * Route 1 runs on a thread-block cluster of E.C blocks (1, 2, 4, 8 or
+//   16; the kernels' plans choose it), one lane or row a cluster, so that
+//   C SMs feed one triangle instead of one.  Every phase deals its work
+//   over the cluster's warps (or threads) and ends with a cluster barrier
+//   (lml_sync) where one block's barrier stood: the pair build and the
+//   contraction by rows, the panel solve by rows, the trailing update by
+//   pairs of 64-row chunks (pair q to block q mod C), L^-1's and K^-1's
+//   8 x 8 column tiles by pairs (pair q to block q mod C, then warp q / C
+//   mod 8), the diagonal blocks of L^-1 and the entries of alpha by
+//   index.  Each block factors the panel's 16 x 16 diagonal block itself
+//   (one warp, in registers, the same bits in every block) into its own
+//   shared memory, so the panel solve needs no barrier besides its own
+//   block's; rank 0 writes it back after the next cluster barrier.  The
+//   reductions (log det, z^T z, the gradient) add the blocks' warp sums
+//   read through distributed shared memory in one fixed order (rank, then
+//   warp), so every block holds the same bits and the result does not
+//   depend on scheduling; alpha is pushed to every block's copy.  An
+//   evaluation starts with a cluster barrier and a failed pivot ends the
+//   factor with one, so that no block writes the next evaluation's
+//   triangle while another still reads this one's.  Each
+//   output tile is computed by one warp with the same arithmetic as on
+//   one block, so the factor, L^-1 and K^-1 are the one-block route's bit
+//   for bit; only the sums' order differs with C.
 //
 // Spec mode (template SPEC): the interpreter of common.cuh builds K; the
 // gradient is its forward mode in theta (gpry_spec_dtheta).
 #pragma once
 
 #include <cuda_pipeline.h>
+
+#include <utility>
 
 #include "common.cuh"
 
@@ -60,11 +85,15 @@
 #define LML_MAXT 8
 #define LML_CHUNK (LML_WARPS * LML_MAXT / 2 * 8)
 // route 1: the staging buffer (doubles) and its shapes: two chunks of
-// LML_SYRK_H panel rows (the trailing update), 16 rows of LML_STAGE / 16
-// columns (L^-1) or LML_STAGE / 16 rows of 16 columns (K^-1)
+// LML_SYRK_H panel rows (the trailing update; half as many on a cluster,
+// so that a panel's update has four times the chunk pairs to deal), 16
+// rows of LML_STAGE / 16 columns (L^-1) or LML_STAGE / 16 rows of 16
+// columns (K^-1); it also holds a block's factored diagonal block
 #define LML_STAGE 4096
 #define LML_SYRK_H (LML_STAGE / (2 * LML_NB))
 #define LML_SPAN (LML_STAGE / LML_NB)
+// the largest cluster of route 1 (the non-portable size above 8)
+#define LML_MAX_CLUSTER 16
 
 // Shared doubles of the evaluation besides the matrix: 1 / L_jj of the
 // current diagonal block, the block reduction, the pivot flag, ls (d), the
@@ -117,8 +146,39 @@ __host__ __device__ inline size_t lml_work_doubles(int n, int d, int route) {
 }
 
 
+// The cluster of route 1 for `rows` lanes or rows in flight on `sms` SMs,
+// with act[i] the clusters of 2^i blocks the card runs at once (i = 0..4,
+// lml_actives): of the powers of two C up to LML_MAX_CLUSTER with rows x C
+// <= sms (and 1), the one that gives a lane the most blocks per wave of
+// resident clusters, C / ceil(rows / act[log2 C]), the larger C on a tie:
+// a lane that waits for a second wave starts as soon as a lane of the
+// first ends, so a tie favours the larger clusters (ops/fused.py
+// lml_cluster).  On an H100 (7 clusters of 16 resident, 15 of 8) a full
+// fit's 8 lanes take 16 blocks each.
+__host__ __device__ inline int lml_cluster(int rows, int sms,
+                                           const int* act) {
+  int top = 0;
+  while ((1 << top) < LML_MAX_CLUSTER &&
+         (long long)rows * (2 << top) <= sms)
+    ++top;
+  int best = 1;
+  long long waves = 0;  // the best's waves (0: none yet)
+  for (int i = top; i >= 0; --i) {
+    if (act[i] < 1) continue;
+    const long long w = (rows + act[i] - 1) / act[i];
+    if (waves == 0 || (long long)(1 << i) * waves > (long long)best * w) {
+      best = 1 << i;
+      waves = w;
+    }
+  }
+  return best;
+}
+
 // The evaluation's buffers.
 struct LmlEval {
+  int rank, C;   // route 1: this block's rank in the lane's cluster, and
+                 // the cluster's blocks (route 0: 0 and 1)
+  int xs;        // X (or X / ls) staged in this block's shared memory
   double* A;     // the packed bordered triangle (shared or global memory)
   double* pan;   // route 1: the staging buffer (LML_STAGE, shared)
   double* dinv;  // LML_NB: 1 / L_jj of the current diagonal block
@@ -136,13 +196,48 @@ __device__ __forceinline__ double* lml_row(double* A, int i) {
   return A + gpry_tri(i);
 }
 
+// The blocks working on one lane: E.C on route 1, one on route 0.
+template <bool GLOB>
+__device__ __forceinline__ int lml_C(const LmlEval& E) {
+  return GLOB ? E.C : 1;
+}
+
+template <bool GLOB>
+__device__ __forceinline__ int lml_rank(const LmlEval& E) {
+  return GLOB ? E.rank : 0;
+}
+
+// The barrier of the blocks working on one lane: the cluster's on route 1
+// with C > 1 (barrier.cluster arrive.release / wait.acquire: global and
+// shared writes before it are visible to the cluster after it), else the
+// block's.
+template <bool GLOB>
+__device__ __forceinline__ void lml_sync(const LmlEval& E) {
+  if (GLOB && E.C > 1)
+    cooperative_groups::this_cluster().sync();
+  else
+    __syncthreads();
+}
+
+// Block r's copy of a shared buffer of this block's (distributed shared
+// memory on a cluster).
+template <bool GLOB, typename T>
+__device__ __forceinline__ T* lml_remote(const LmlEval& E, T* p, int r) {
+  if (GLOB && E.C > 1)
+    return cooperative_groups::this_cluster().map_shared_rank(p, r);
+  return p;
+}
+
 // Factor the diagonal block of the panel at column k0 (nbk <= LML_NB
-// columns) in place, by one warp: lane i holds row k0 + i in registers and
-// every column step is a broadcast of the pivot and of the new column
-// (shuffles); dinv[j] = 1 / L_jj.  Returns (in every lane) whether a pivot
-// was not > 0.
+// columns), by one warp: lane i holds row k0 + i in registers and every
+// column step is a broadcast of the pivot and of the new column
+// (shuffles); dinv[j] = 1 / L_jj.  The factor goes back in place when
+// `inplace`, and to dblk (row i at dblk + LML_NB i) when not null.
+// Returns (in every lane) whether a pivot was not > 0.
 __device__ __forceinline__ bool lml_chol_diag(double* A, int k0, int nbk,
-                                              double* dinv, int lane) {
+                                              double* dinv, int lane,
+                                              bool inplace = true,
+                                              double* dblk = nullptr) {
   double* Ar = lml_row(A, k0 + lane) + k0;
   const bool mine = lane < nbk;
   double a[LML_NB];
@@ -167,18 +262,25 @@ __device__ __forceinline__ bool lml_chol_diag(double* A, int k0, int nbk,
   }
   if (mine) {
 #pragma unroll
-    for (int j = 0; j < LML_NB; ++j)
-      if (j <= lane) Ar[j] = a[j];
+    for (int j = 0; j < LML_NB; ++j) {
+      if (j <= lane) {
+        if (inplace) Ar[j] = a[j];
+        if (dblk) dblk[LML_NB * lane + j] = a[j];
+      }
+    }
   }
   return bad;
 }
 
 // The panel below the diagonal block: rows [r0, r1) (the border row n
 // included), columns k0..k0 + nbk - 1, L_ij = (A_ij - sum_{k<j} L_ik L_jk)
-// / L_jj, a thread a row.
+// / L_jj, a thread a row (thread t0 of nt over the lane's blocks); the
+// diagonal block's L read in place, or from dblk when not null.
 __device__ __forceinline__ void lml_trsm(double* A, int k0, int nbk, int r0,
-                                         int r1, const double* dinv) {
-  for (int i = r0 + (int)threadIdx.x; i < r1; i += blockDim.x) {
+                                         int r1, const double* dinv,
+                                         int t0, int nt,
+                                         const double* dblk = nullptr) {
+  for (int i = r0 + t0; i < r1; i += nt) {
     double* Ai = lml_row(A, i) + k0;
     double x[LML_NB];
 #pragma unroll
@@ -186,7 +288,7 @@ __device__ __forceinline__ void lml_trsm(double* A, int k0, int nbk, int r0,
 #pragma unroll
     for (int j = 0; j < LML_NB; ++j) {
       if (j < nbk) {
-        const double* Lj = lml_row(A, k0 + j) + k0;
+        const double* Lj = dblk ? dblk + LML_NB * j : lml_row(A, k0 + j) + k0;
         double s = x[j];
 #pragma unroll
         for (int k = 0; k < j; ++k) s -= x[k] * Lj[k];
@@ -276,8 +378,10 @@ __device__ __forceinline__ void lml_stage(double* pan, int ld,
 // The trailing update of the panel at k0 (columns k0..k0 + LML_NB - 1) on
 // rows and columns from b0 = k0 + LML_NB, in 16 x 16 blocks, warps taking
 // them in turn.  Route 0 reads the panel in place; route 1 stages it in
-// chunks of LML_SYRK_H rows, a pair of chunks (rows, columns) at a time.
-// Ends with a barrier on route 1; route 0's caller places its own.
+// chunks of H rows (LML_SYRK_H on one block, half that on a cluster), a
+// pair of chunks (rows, columns) at a time, pair q (numbered by rows) on
+// block q mod C.  On route 1 a block that took a pair ends with a barrier
+// of its own; the caller places the lane's.
 template <bool GLOB>
 __device__ void lml_syrk(const LmlEval& E, int k0, int b0, int n, int warp,
                          int lane) {
@@ -304,13 +408,20 @@ __device__ void lml_syrk(const LmlEval& E, int k0, int b0, int n, int warp,
   }
   double* bufr = E.pan;
   double* bufc = E.pan + LML_SYRK_H * LML_NB;
-  for (int R0 = b0; R0 <= n; R0 += LML_SYRK_H) {
-    const int nr = n + 1 - R0 < LML_SYRK_H ? n + 1 - R0 : LML_SYRK_H;
+  const int C = E.C, rank = E.rank;
+  const int H = C > 1 ? LML_SYRK_H / 2 : LML_SYRK_H;
+  int q = 0, staged = -1;
+  for (int R0 = b0; R0 <= n; R0 += H) {
+    const int nr = n + 1 - R0 < H ? n + 1 - R0 : H;
     const int SRr = (nr + 15) >> 4;
-    lml_stage(bufr, LML_NB, A, R0, R0 + nr, k0, LML_NB);
-    for (int C0 = b0; C0 <= R0; C0 += LML_SYRK_H) {
+    for (int C0 = b0; C0 <= R0; C0 += H, ++q) {
+      if (q % C != rank) continue;
+      if (staged != R0) {
+        lml_stage(bufr, LML_NB, A, R0, R0 + nr, k0, LML_NB);
+        staged = R0;
+      }
       const bool diag = C0 == R0;
-      const int nc = diag ? nr : LML_SYRK_H;
+      const int nc = diag ? nr : H;
       const int SRc = (nc + 15) >> 4;
       if (!diag) lml_stage(bufc, LML_NB, A, C0, C0 + nc, k0, LML_NB);
       __syncthreads();
@@ -340,24 +451,47 @@ __device__ void lml_syrk(const LmlEval& E, int k0, int b0, int n, int warp,
 }
 
 // The factor of the bordered matrix in place: L (rows < n) and z (row n).
-// Returns false (in every thread) if a pivot was not > 0.  Starts after a
-// barrier, ends with one.
+// Returns false (in every thread of the lane's blocks) if a pivot was not
+// > 0.  Starts after a barrier of the lane's blocks, ends with one.
 template <bool GLOB>
 __device__ bool lml_cholesky(const LmlEval& E, int n) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nt = blockDim.x;
+  const int C = lml_C<GLOB>(E), rank = lml_rank<GLOB>(E);
+  // on a cluster every block factors the diagonal block into its own
+  // staging buffer (the trsm reads it there), and rank 0 writes it back
+  // once every block has read the block's old entries
+  double* dblk = GLOB ? E.pan : nullptr;
   for (int k0 = 0; k0 < n; k0 += LML_NB) {
     const int nbk = n - k0 < LML_NB ? n - k0 : LML_NB;
     if (warp == 0) {
-      const bool bad = lml_chol_diag(E.A, k0, nbk, E.dinv, lane);
+      const bool bad =
+          lml_chol_diag(E.A, k0, nbk, E.dinv, lane, C == 1, dblk);
       if (lane == 0 && bad) *E.flag = 1;
     }
     __syncthreads();
-    if (*E.flag) return false;
-    lml_trsm(E.A, k0, nbk, k0 + nbk, n + 1, E.dinv);
-    __syncthreads();
+    // a failed pivot ends the factor in every block alike; the lane's
+    // barrier keeps a block that leaves first from writing the next
+    // evaluation's triangle while another still reads this diagonal block
+    if (*E.flag) {
+      if (GLOB) lml_sync<GLOB>(E);
+      return false;
+    }
+    lml_trsm(E.A, k0, nbk, k0 + nbk, n + 1, E.dinv, rank * nt + tid, C * nt,
+             dblk);
+    lml_sync<GLOB>(E);
+    if (C > 1 && rank == 0) {
+      for (int e = tid; e < LML_NB * LML_NB; e += nt) {
+        const int i = e / LML_NB, j = e - i * LML_NB;
+        if (i < nbk && j <= i) lml_row(E.A, k0 + i)[k0 + j] = dblk[e];
+      }
+      __syncthreads();
+    }
     if (nbk == LML_NB && k0 + LML_NB < n) {
       lml_syrk<GLOB>(E, k0, k0 + LML_NB, n, warp, lane);
-      if (!GLOB) __syncthreads();
+      if (!GLOB || C > 1) lml_sync<GLOB>(E);
+    } else if (C > 1) {
+      lml_sync<GLOB>(E);
     }
   }
   return true;
@@ -399,20 +533,27 @@ __device__ __forceinline__ void lml_inv_diag(double* A, int I0, int nbI,
   }
 }
 
-// M = L^-1 in place on rows 0..n-1.  Ends with a barrier.
+// M = L^-1 in place on rows 0..n-1.  Ends with a barrier of the lane's
+// blocks.  The column tiles of a row panel go in pairs: pair q (columns
+// 16 q + [0, 16) of the chunk) to block q mod C, warp q / C mod 8; on one
+// block, warp w takes pairs w, w + 8.
 template <bool GLOB>
 __device__ void lml_trtri(const LmlEval& E, int n) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
+  const int C = lml_C<GLOB>(E), rank = lml_rank<GLOB>(E);
+  const int NW = C * LML_WARPS;
+  const int chunk = C * LML_CHUNK;
   double* A = E.A;
-  for (int I0 = LML_NB * warp; I0 < n; I0 += LML_NB * LML_WARPS)
+  for (int I0 = LML_NB * (rank * LML_WARPS + warp); I0 < n;
+       I0 += LML_NB * NW)
     lml_inv_diag(A, I0, n - I0 < LML_NB ? n - I0 : LML_NB, lane);
-  __syncthreads();
+  lml_sync<GLOB>(E);
   for (int I0 = LML_NB; I0 < n; I0 += LML_NB) {
     const int nbI = n - I0 < LML_NB ? n - I0 : LML_NB;
     // P = M_II L_I,<I in place, a thread a column
-    for (int c = tid; c < I0; c += nt) {
+    for (int c = rank * nt + tid; c < I0; c += C * nt) {
       double l[LML_NB];
 #pragma unroll
       for (int k = 0; k < LML_NB; ++k)
@@ -428,17 +569,17 @@ __device__ void lml_trtri(const LmlEval& E, int n) {
         }
       }
     }
-    __syncthreads();
+    lml_sync<GLOB>(E);
     // M_I,<I = -P M_<I,<I, chunks of columns from the left: the tiles of a
     // chunk in registers, a barrier, then the writes (later chunks read
     // only columns to their right)
-    for (int cs = 0; cs < I0; cs += LML_CHUNK) {
-      const int ce = I0 < cs + LML_CHUNK ? I0 : cs + LML_CHUNK;
+    for (int cs = 0; cs < I0; cs += chunk) {
+      const int ce = I0 < cs + chunk ? I0 : cs + chunk;
       const int TC = (ce - cs) >> 3;
-      // this warp's tiles: column tiles 2 w, 2 w + 1 (+ 2 LML_WARPS), both
-      // tile rows of each, four chains run together over the k the first
-      // needs (B is zero above the diagonal of M: the second's two extra
-      // steps add nothing)
+      // this warp's tiles: the column tiles of its pairs, both tile rows
+      // of each, four chains run together over the k the first needs (B
+      // is zero above the diagonal of M: the second's two extra steps add
+      // nothing)
       double acc[LML_MAXT][2];
 #pragma unroll
       for (int s = 0; s < LML_MAXT; ++s) acc[s][0] = acc[s][1] = 0.0;
@@ -446,8 +587,10 @@ __device__ void lml_trtri(const LmlEval& E, int n) {
 #pragma unroll
       for (int tr = 0; tr < 2; ++tr) rin[tr] = 8 * tr + g < nbI;
       // route 0 reads P in place over [cs, I0); route 1 stages it LML_SPAN
-      // columns at a time (row r at pan[r LML_SPAN])
-      for (int kc = cs; kc < I0; kc += GLOB ? LML_SPAN : I0) {
+      // columns at a time (row r at pan[r LML_SPAN]) from this block's
+      // first column on
+      for (int kc = cs + LML_NB * rank; kc < I0;
+           kc += GLOB ? LML_SPAN : I0) {
         const int ke = GLOB && kc + LML_SPAN < I0 ? kc + LML_SPAN : I0;
         const int ko = GLOB ? kc : 0;
         if (GLOB) {
@@ -463,7 +606,7 @@ __device__ void lml_trtri(const LmlEval& E, int n) {
         }
 #pragma unroll
         for (int m = 0; m < LML_MAXT / 4; ++m) {
-          const int ct0 = 2 * warp + 2 * LML_WARPS * m;
+          const int ct0 = 2 * (NW * m + C * warp + rank);
           if (ct0 < TC) {
             const bool two = ct0 + 1 < TC;
             const int cb0 = cs + 8 * ct0 + g, cb1 = cb0 + 8;
@@ -486,10 +629,10 @@ __device__ void lml_trtri(const LmlEval& E, int n) {
         }
         if (GLOB) __syncthreads();
       }
-      __syncthreads();
+      lml_sync<GLOB>(E);
 #pragma unroll
       for (int s = 0; s < LML_MAXT; ++s) {
-        const int ct = 2 * warp + 2 * LML_WARPS * (s / 4) + (s / 2) % 2;
+        const int ct = 2 * (NW * (s / 4) + C * warp + rank) + (s / 2) % 2;
         const int rr = 8 * (s % 2) + g;
         if (ct < TC && rr < nbI) {
           double* Mr = lml_row(A, I0 + rr) + cs + 8 * ct + 2 * t;
@@ -499,27 +642,36 @@ __device__ void lml_trtri(const LmlEval& E, int n) {
       }
     }
   }
-  __syncthreads();
+  lml_sync<GLOB>(E);
 }
 
 // K^-1 = M^T M in place on rows 0..n-1 (M = L^-1), row panels from the
 // top: out[r][c] = sum_{k >= r} M_kr M_kc for c <= r reads only rows >= r,
 // so a panel's tiles are held in registers across one barrier and then
-// overwrite it.  Ends with a barrier.
+// overwrite it.  The column tiles are dealt as in lml_trtri.  Ends with a
+// barrier of the lane's blocks.
 template <bool GLOB>
 __device__ void lml_lauum(const LmlEval& E, int n) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
+  const int C = lml_C<GLOB>(E), rank = lml_rank<GLOB>(E);
+  const int NW = C * LML_WARPS;
+  const int chunk = C * LML_CHUNK;
   double* A = E.A;
   for (int I0 = 0; I0 < n; I0 += LML_NB) {
     const int nbI = n - I0 < LML_NB ? n - I0 : LML_NB;
     const int W = I0 + nbI;  // the panel's columns 0..W-1
-    for (int cs = 0; cs < W; cs += LML_CHUNK) {
-      const int ce = W < cs + LML_CHUNK ? W : cs + LML_CHUNK;
+    for (int cs = 0; cs < W; cs += chunk) {
+      const int ce = W < cs + chunk ? W : cs + chunk;
       const int TC = (ce - cs + 7) >> 3;
-      // this warp's tiles: column tiles 2 w, 2 w + 1 (+ 2 LML_WARPS), both
-      // tile rows, run together over k in [I0, n) (A is zero where k < r,
-      // B where k < c); per step two A and two B fragments feed four chains
+      // a block with no tile in this chunk stages nothing
+      if (2 * rank >= TC) {
+        lml_sync<GLOB>(E);
+        continue;
+      }
+      // this warp's tiles: the column tiles of its pairs, both tile rows,
+      // run together over k in [I0, n) (A is zero where k < r, B where
+      // k < c); per step two A and two B fragments feed four chains
       double acc[LML_MAXT][2];
 #pragma unroll
       for (int s = 0; s < LML_MAXT; ++s) acc[s][0] = acc[s][1] = 0.0;
@@ -535,7 +687,7 @@ __device__ void lml_lauum(const LmlEval& E, int n) {
         }
 #pragma unroll
         for (int m = 0; m < LML_MAXT / 4; ++m) {
-          const int ct0 = 2 * warp + 2 * LML_WARPS * m;
+          const int ct0 = 2 * (NW * m + C * warp + rank);
           if (ct0 < TC) {
             const int cb0 = cs + 8 * ct0 + g, cb1 = cb0 + 8;
             for (int k = kc; k < ke; k += 4) {
@@ -560,10 +712,10 @@ __device__ void lml_lauum(const LmlEval& E, int n) {
         }
         if (GLOB) __syncthreads();
       }
-      __syncthreads();
+      lml_sync<GLOB>(E);
 #pragma unroll
       for (int s = 0; s < LML_MAXT; ++s) {
-        const int ct = 2 * warp + 2 * LML_WARPS * (s / 4) + (s / 2) % 2;
+        const int ct = 2 * (NW * (s / 4) + C * warp + rank) + (s / 2) % 2;
         const int r = I0 + 8 * (s % 2) + g, c = cs + 8 * ct + 2 * t;
         if (ct < TC && r < n) {
           double* Mr = lml_row(A, r);
@@ -573,19 +725,21 @@ __device__ void lml_lauum(const LmlEval& E, int n) {
       }
     }
   }
-  __syncthreads();
+  lml_sync<GLOB>(E);
 }
 
 // The LML of theta (p entries, visible to the block) on the data D, the
-// factor left in E.A (rows < n: L, row n: z), returned in every thread;
-// NaN if K is not positive definite.  Every thread calls it; it starts and
-// ends with a block barrier.
+// factor left in E.A (rows < n: L, row n: z), returned in every thread of
+// the lane's blocks (the same bits in each); NaN if K is not positive
+// definite.  Every thread calls it; it starts with a block barrier and
+// ends with a barrier of the lane's blocks.
 template <bool SPEC, bool GLOB>
 __device__ double lml_value(const GpryKern& kern, const GpryLmlData& D,
                             const double* theta, const LmlEval& E,
                             GprySpec* spec) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nt = blockDim.x, nw = nt >> 5;
+  const int C = lml_C<GLOB>(E), rank = lml_rank<GLOB>(E);
   const int n = D.n, d = D.d;
   double* A = E.A;
   __syncthreads();
@@ -596,18 +750,27 @@ __device__ double lml_value(const GpryKern& kern, const GpryLmlData& D,
   if (tid == 0) *E.flag = 0;
   const double variance = exp(theta[0]);
   const double jitter = D.rel_jitter * variance;
-  __syncthreads();
+  // on a cluster, the lane's barrier: no block writes X / ls or the
+  // triangle before every block has left the previous evaluation
+  lml_sync<GLOB>(E);
   if constexpr (!SPEC) {
-    for (int idx = tid; idx < n * d; idx += nt) {
+    // X / ls: each block its own copy in shared memory, or the lane's one
+    // copy in global memory split over its blocks
+    const bool split = GLOB && C > 1 && !E.xs;
+    const int t0 = split ? rank * nt + tid : tid, ts = split ? C * nt : nt;
+    for (int idx = t0; idx < n * d; idx += ts) {
       const int j = idx / d, k = idx - j * d;
       E.Xt[(size_t)k * n + j] = D.X[idx] / E.ls[k];
     }
-    __syncthreads();
+    if (split)
+      lml_sync<GLOB>(E);
+    else
+      __syncthreads();
   }
   // the bordered lower triangle: K (rows < n), y (row n); two pairs a lane
   // at a time (independent chains)
   constexpr int H = 2;
-  for (int a = warp; a <= n; a += nw) {
+  for (int a = rank * nw + warp; a <= n; a += C * nw) {
     const int bmax = a < n ? a : n - 1;
     double* Aa = lml_row(A, a);
     for (int b0 = lane; b0 <= bmax; b0 += 32 * H) {
@@ -641,12 +804,13 @@ __device__ double lml_value(const GpryKern& kern, const GpryLmlData& D,
     }
     }
   }
-  __syncthreads();
+  lml_sync<GLOB>(E);
   if (!lml_cholesky<GLOB>(E, n)) return NAN;
-  // log det and z^T z
+  // log det and z^T z: the warps' sums of every block of the lane, in
+  // the order rank, warp
   double ld = 0.0, qq = 0.0;
   const double* z = lml_row(A, n);
-  for (int k = tid; k < n; k += nt) {
+  for (int k = rank * nt + tid; k < n; k += C * nt) {
     ld += log(lml_row(A, k)[k]);
     qq += z[k] * z[k];
   }
@@ -656,37 +820,42 @@ __device__ double lml_value(const GpryKern& kern, const GpryLmlData& D,
     E.red[2 * warp] = ld;
     E.red[2 * warp + 1] = qq;
   }
-  __syncthreads();
+  lml_sync<GLOB>(E);
   ld = qq = 0.0;
-  for (int w = 0; w < nw; ++w) {
-    ld += E.red[2 * w];
-    qq += E.red[2 * w + 1];
+  for (int r = 0; r < C; ++r) {
+    const double* red = lml_remote<GLOB>(E, E.red, r);
+    for (int w = 0; w < nw; ++w) {
+      ld += red[2 * w];
+      qq += red[2 * w + 1];
+    }
   }
-  __syncthreads();
+  lml_sync<GLOB>(E);
   return (-0.5 * qq - ld) - (0.5 * n) * GPRY_LOG_2PI;
 }
 
-// The p derivatives of the LML into grad (any memory), from the factor
-// lml_value left at theta.  Every thread calls it; it ends with a barrier.
+// The p derivatives of the LML into grad (any memory; null: this block
+// writes none), from the factor lml_value left at theta.  Every thread of
+// the lane's blocks calls it; it ends with a barrier of the lane's blocks.
 template <bool SPEC, bool GLOB>
 __device__ void lml_grad(const GpryKern& kern, const GpryLmlData& D,
                          const double* theta, const LmlEval& E,
                          const GprySpec& spec, double* grad) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nt = blockDim.x, nw = nt >> 5;
+  const int C = lml_C<GLOB>(E), rank = lml_rank<GLOB>(E);
   const int n = D.n, d = D.d, p = kern.ntheta;
   double* A = E.A;
   const double variance = exp(theta[0]);
   const double jitter = D.rel_jitter * variance;
   lml_trtri<GLOB>(E, n);
-  // alpha = M^T z
+  // alpha = M^T z, each entry into every block's copy
   const double* z = lml_row(A, n);
-  for (int a = tid; a < n; a += nt) {
+  for (int a = rank * nt + tid; a < n; a += C * nt) {
     double s = 0.0;
     for (int c = a; c < n; ++c) s += lml_row(A, c)[a] * z[c];
-    E.al[a] = s;
+    for (int r = 0; r < C; ++r) lml_remote<GLOB>(E, E.al, r)[a] = s;
   }
-  __syncthreads();
+  lml_sync<GLOB>(E);
   lml_lauum<GLOB>(E, n);
   // the contraction, GPRY_LML_PCHUNK parameters a pass
   const double* Xt = E.Xt;
@@ -695,7 +864,7 @@ __device__ void lml_grad(const GpryKern& kern, const GpryLmlData& D,
     double acc[GPRY_LML_PCHUNK];
 #pragma unroll
     for (int c = 0; c < GPRY_LML_PCHUNK; ++c) acc[c] = 0.0;
-    for (int a = warp; a < n; a += nw) {
+    for (int a = rank * nw + warp; a < n; a += C * nw) {
       const double* Ka = lml_row(A, a);
       // two pairs a lane at a time (independent chains)
       for (int b0 = lane; b0 <= a; b0 += 32 * H) {
@@ -744,12 +913,104 @@ __device__ void lml_grad(const GpryKern& kern, const GpryLmlData& D,
       const double s = gpry_warp_sum(acc[c]);
       if (lane == 0) E.red[warp * GPRY_LML_PCHUNK + c] = s;
     }
-    __syncthreads();
-    if (tid < GPRY_LML_PCHUNK && j0 + tid < p) {
+    lml_sync<GLOB>(E);
+    if (grad && tid < GPRY_LML_PCHUNK && j0 + tid < p) {
       double s = 0.0;
-      for (int w = 0; w < nw; ++w) s += E.red[w * GPRY_LML_PCHUNK + tid];
+      for (int r = 0; r < C; ++r) {
+        const double* red = lml_remote<GLOB>(E, E.red, r);
+        for (int w = 0; w < nw; ++w) s += red[w * GPRY_LML_PCHUNK + tid];
+      }
       grad[j0 + tid] = s;
     }
-    __syncthreads();
+    lml_sync<GLOB>(E);
   }
+}
+
+// Host side of route 1's cluster launch.  A cluster of C blocks: 1 or a
+// power of two up to LML_MAX_CLUSTER.
+static inline bool lml_cluster_ok(int C) {
+  return C >= 1 && C <= LML_MAX_CLUSTER && (C & (C - 1)) == 0;
+}
+
+// Opt `kernel` into `smem` bytes of dynamic shared memory and, above 8
+// blocks a cluster, into the non-portable cluster size.
+template <typename K>
+static cudaError_t lml_attributes(K kernel, size_t smem, int C) {
+  cudaError_t e = gpry_set_smem(kernel, smem);
+  if (e != cudaSuccess || C <= 8) return e;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+// How many clusters of C blocks of LML_THREADS (C = 1: blocks) with `smem`
+// bytes each the card runs at once (cudaOccupancyMaxActiveClusters; 0: it
+// cannot schedule one), after lml_attributes.
+template <typename K>
+static cudaError_t lml_active(K kernel, size_t smem, int C, int* active) {
+  cudaError_t e = lml_attributes(kernel, smem, C);
+  if (e != cudaSuccess) return e;
+  if (C == 1) {
+    int dev, sms, per_sm;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, LML_THREADS, smem)) != cudaSuccess)
+      return e;
+    *active = per_sm * sms;
+    return cudaSuccess;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(LML_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(active, (const void*)kernel, &cfg);
+}
+
+// act[i]: how many clusters of 2^i blocks (i = 0: blocks) the card runs at
+// once, i = 0..4, as lml_active; on route 0 (`route1` false) only act[0],
+// the others 0.
+template <typename K>
+static cudaError_t lml_actives(K kernel, size_t smem, bool route1,
+                               int* act) {
+  for (int i = 0, c = 1; c <= LML_MAX_CLUSTER; ++i, c *= 2) {
+    act[i] = 0;
+    if (c > 1 && !route1) continue;
+    const cudaError_t e = lml_active(kernel, smem, c, act + i);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+// Launch `kernel` on `blocks` blocks of LML_THREADS in clusters of C (C = 1:
+// no cluster) on `stream`, after lml_attributes; a launch the runtime
+// refuses returns its error.
+template <typename... P, typename... A>
+static cudaError_t lml_launch(void (*kernel)(P...), int blocks, int C,
+                              size_t smem, cudaStream_t stream,
+                              A&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(LML_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  if (C > 1) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, std::forward<A>(args)...);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }

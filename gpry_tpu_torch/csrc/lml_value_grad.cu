@@ -13,21 +13,25 @@
 // in GRAD mode, lml_grad of lml_blocked.cuh): the bordered triangle built
 // pair by pair, factored blocked in 16-column panels with the trailing
 // update on the FP64 tensor cores.  Unlike a K11 lane, the screen is R
-// independent rows, so the design is for rows in flight: a grid of
-// blocks, as many as the SMs hold at once (the occupancy of the instance
-// at its shared memory, cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// each looping over the rows r = blockIdx.x, blockIdx.x + gridDim.x, ...
-// on its own workspace, so that memory does not grow with R.  The route
-// (k10_route, mirrored on the host by ops/fused.py lml_value_grad_plan):
-// 0 keeps the packed triangle in shared memory, 1 keeps it in the block's
-// global workspace (L2) and stages the tensor cores' operands through the
-// fixed LML_STAGE buffer (32 KB), so that two blocks share an SM.  Both
-// were measured at the screen's shape (PERF.md, section 6): for the fast
-// families route 0 is the faster (the factor's trailing updates dominate,
-// and through L2 each costs more than a second row in flight saves), for
-// a spec program route 1 from K10_ROUTE1_N rows on (the interpreter's pair
-// build dominates, and a second block hides its latency).  Route 1 also
-// wherever route 0 does not fit.
+// independent rows, so the design is for rows in flight: F rows at a time,
+// each on a cluster of C blocks (one block on route 0) with its own
+// workspace, cluster f looping over the rows f, f + F, ..., so that memory
+// does not grow with R.  The route (k10_route, mirrored on
+// the host by ops/fused.py lml_value_grad_plan): 0 keeps the packed
+// triangle in shared memory, 1 keeps it in the row's global workspace and
+// stages the tensor cores' operands through the fixed LML_STAGE buffer
+// (32 KB), so that two blocks share an SM.  Both were measured at the
+// screen's shape (PERF.md, section 6): for the fast families route 0 is
+// the faster (the factor's trailing updates dominate, and through L2 each
+// costs more than a second row in flight saves), for a spec program route
+// 1 from K10_ROUTE1_N rows on (the interpreter's pair build dominates,
+// and a second block hides its latency).  Route 1 also wherever route 0
+// does not fit.  The plan (gpry_lml_value_grad_cluster, mirrored by
+// ops/fused.py lml_value_grad_cluster): F = min(R, the blocks the SMs
+// hold, the rows whose workspaces fit LML_WORK_BUDGET), then on route 1
+// C = lml_cluster(F, SMs, the clusters the card holds at once), so that a
+// screen of many rows at moderate n keeps a row a block and a few rows at
+// large n take up to 16 SMs each.
 //
 // What bounds it on the H100.  Per row the n / 16 dependent panels of the
 // factor (a warp's register factor of the diagonal block, the panel
@@ -36,7 +40,9 @@
 // n^2 for the pair build; with GRAD about 2 n^3 / 3 more for L^-1 and
 // K^-1 and p n^2 for the contraction) take well under a microsecond per
 // row at n = 224 at 67 TFLOP/s, and the bytes (theta in, one value out)
-// are nothing: the bound is operations.
+// are nothing: the bound is operations.  On route 1 at large n a row's
+// trailing updates move its triangle through L2 or HBM once a panel, and
+// a block moves it at one SM's rate: what a cluster multiplies.
 //
 // Spec mode (template SPEC): the interpreter of common.cuh builds K; the
 // gradient is its forward mode in theta (gpry_spec_dtheta).
@@ -59,17 +65,29 @@ static int k10_route(int n, int d, size_t spec, int* stage_x, size_t* smem) {
   return route;
 }
 
+// the most global memory the rows' workspaces take together (bytes;
+// ops/fused.py LML_WORK_BUDGET): a fifth of the H100's 80 GB
+#define LML_WORK_BUDGET (16ull << 30)
+
 template <bool SPEC, bool GRAD, bool GLOB>
 __global__ void __launch_bounds__(LML_THREADS, 2) lml_value_grad_kernel(
-    GpryKern kern, int R, GpryLmlData D, int stage_x,
+    GpryKern kern, int R, int C, GpryLmlData D, int stage_x,
     const double* __restrict__ thetas, double* __restrict__ work,
-    size_t work_per_block, double* __restrict__ lml_out,
+    size_t work_per_row, double* __restrict__ lml_out,
     double* __restrict__ grad_out) {
   extern __shared__ double smem[];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int n = D.n, d = D.d, p = kern.ntheta;
-  double* wk = work + (size_t)blockIdx.x * work_per_block;
+  // rows in flight: cluster f on blocks C f .. C f + C - 1 (route 0: C =
+  // 1)
+  const int CL = GLOB ? C : 1;
+  const int f = blockIdx.x / CL, rank = blockIdx.x - f * CL;
+  const int F = gridDim.x / CL;
+  double* wk = work + (size_t)f * work_per_row;
   LmlEval E;
+  E.rank = rank;
+  E.C = CL;
+  E.xs = stage_x;
   E.dinv = smem;
   E.red = E.dinv + LML_NB;
   E.flag = (int*)(E.red + LML_WARPS * GPRY_LML_PCHUNK);
@@ -96,20 +114,24 @@ __global__ void __launch_bounds__(LML_THREADS, 2) lml_value_grad_kernel(
     E.Xr = tail;
   }
   GprySpec spec;
-  for (int r = blockIdx.x; r < R; r += gridDim.x) {
+  for (int r = f; r < R; r += F) {
     const double* th = thetas + (size_t)r * p;
     const double v = lml_value<SPEC, GLOB>(kern, D, th, E, &spec);
     if constexpr (GRAD) {
       double* g = grad_out + (size_t)r * p;
-      // every thread holds the same v: a failed factor is NaN in all
+      // every thread of the cluster holds the same v: a failed factor is
+      // NaN in all
       if (isnan(v)) {
-        for (int j = tid; j < p; j += nt) g[j] = NAN;
+        if (rank == 0)
+          for (int j = tid; j < p; j += nt) g[j] = NAN;
       } else {
-        lml_grad<SPEC, GLOB>(kern, D, th, E, spec, g);
+        lml_grad<SPEC, GLOB>(kern, D, th, E, spec, rank == 0 ? g : nullptr);
       }
     }
-    if (tid == 0) lml_out[r] = v;
+    if (tid == 0 && rank == 0) lml_out[r] = v;
   }
+  // no block leaves while another may read its shared memory
+  if (GLOB && C > 1) cooperative_groups::this_cluster().sync();
 }
 
 template <bool SPEC, bool GRAD>
@@ -146,27 +168,66 @@ extern "C" int gpry_lml_value_grad_plan(GpryKern kern, int n, int d,
   return route;
 }
 
+// The rows in flight F and the cluster C of R rows (route 1: lml_cluster
+// of F over the current device's SMs and act; route 0: 1), F = min(R, the
+// blocks the SMs hold (per_sm of gpry_lml_value_grad_plan each),
+// LML_WORK_BUDGET over a row's workspace), and into act[i] how many
+// clusters of 2^i blocks (i = 0: blocks, per_sm a SM; on route 0 only
+// those) the card runs at once (lml_actives; 0: it cannot schedule one).
+// Returns the route (-1: n too large), or -2 when the runtime refused a
+// query.
+extern "C" int gpry_lml_value_grad_cluster(GpryKern kern, int R, int n, int d,
+                                           int grad, int per_sm, int* F,
+                                           int* C, int* act) {
+  int stage_x, dev, sms;
+  size_t smem, wpr;
+  *F = *C = 1;
+  for (int i = 0; i < 5; ++i) act[i] = 0;
+  const int route = gpry_lml_value_grad_plan(kern, n, d, grad, &stage_x,
+                                             &smem, &wpr, nullptr);
+  if (route < 0) return route;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return -2;
+  const unsigned long long row = 8ull * (wpr > 0 ? wpr : 1);
+  const unsigned long long fit = LML_WORK_BUDGET / row;
+  long long f = R;
+  if (f > (long long)per_sm * sms) f = (long long)per_sm * sms;
+  if ((unsigned long long)f > fit) f = (long long)fit;
+  *F = f < 1 ? 1 : (int)f;
+  if (route == 1 && lml_actives(k10_kernel(kern, grad, route), smem, true,
+                                act) != cudaSuccess)
+    return -2;
+  act[0] = per_sm * sms;
+  if (route == 1) *C = lml_cluster(*F, sms, act);
+  return route;
+}
+
 // thetas (R, kern.ntheta); X (>= n rows, d); y (>= n); noise one value or
-// one per row; work blocks x the plan's workspace doubles; grad_out (R,
-// kern.ntheta) when grad.
+// one per row; F rows in flight on clusters of C (as
+// gpry_lml_value_grad_cluster gave them); work F x the plan's workspace
+// doubles; grad_out (R, kern.ntheta) when grad.
 extern "C" int gpry_lml_value_grad(GpryKern kern, int R, int n, int d,
-                                   int grad, int blocks, const void* thetas,
+                                   int grad, int F, int C,
+                                   const void* thetas,
                                    const void* X, const void* y,
                                    const void* noise, int noise_is_vec,
                                    double rel_jitter, void* work,
                                    void* lml_out, void* grad_out,
                                    void* stream) {
-  if (R < 0 || n < 0 || blocks < 1 || (grad && !grad_out))
+  if (R < 0 || n < 0 || F < 1 || !lml_cluster_ok(C) || (grad && !grad_out))
     return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
   int stage_x;
-  size_t smem, wpb;
+  size_t smem, wpr;
   const int route =
-      gpry_lml_value_grad_plan(kern, n, d, grad, &stage_x, &smem, &wpb,
+      gpry_lml_value_grad_plan(kern, n, d, grad, &stage_x, &smem, &wpr,
                                nullptr);
-  if (route < 0) return (int)cudaErrorInvalidConfiguration;
+  if (route < 0 || (C > 1 && route != 1))
+    return (int)cudaErrorInvalidConfiguration;
   auto kernel = k10_kernel(kern, grad, route);
-  cudaError_t e = gpry_set_smem(kernel, smem);
+  cudaError_t e = lml_attributes(kernel, smem, C);
   if (e != cudaSuccess) return (int)e;
   GpryLmlData D;
   D.n = n;
@@ -176,10 +237,8 @@ extern "C" int gpry_lml_value_grad(GpryKern kern, int R, int n, int d,
   D.y = (const double*)y;
   D.noise = (const double*)noise;
   D.rel_jitter = rel_jitter;
-  kernel<<<blocks < R ? blocks : R, LML_THREADS, smem,
-           (cudaStream_t)stream>>>(kern, R, D, stage_x,
-                                   (const double*)thetas, (double*)work,
-                                   wpb, (double*)lml_out,
-                                   (double*)grad_out);
-  return (int)cudaGetLastError();
+  return (int)lml_launch(kernel, F * C, C, smem,
+                         (cudaStream_t)stream, kern, R, C, D, stage_x,
+                         (const double*)thetas, (double*)work, wpr,
+                         (double*)lml_out, (double*)grad_out);
 }

@@ -151,6 +151,9 @@ NO_SPEC = ("ns_step", "tp_quad")
 #: spec-mode launches under "<name>/spec"
 LAUNCHES = {f"{k}{m}": 0 for k in KERNELS for m in ("", "/spec")
             if not (m and k in NO_SPEC)}
+#: K10's and K11's launches by the blocks a row or a lane ran on, as
+#: "<name> C=<blocks>" (reset with LAUNCHES)
+CLUSTERS = {}
 
 #: seconds the last build took (None: the library was already built)
 BUILD_SECONDS = None
@@ -196,6 +199,7 @@ class _Kern(ctypes.Structure):
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    CLUSTERS.clear()
 
 
 def _nvcc():
@@ -316,12 +320,16 @@ def library():
         lib.gpry_lbfgs_logexp_ascent_plan.restype = I
         lib.gpry_lml_value_grad_plan.argtypes = [K] + [I] * 3 + [P] * 4
         lib.gpry_lml_value_grad_plan.restype = I
-        lib.gpry_lml_value_grad.argtypes = [K] + [I] * 5 + [P] * 4 \
+        lib.gpry_lml_value_grad_cluster.argtypes = [K] + [I] * 5 + [P] * 3
+        lib.gpry_lml_value_grad_cluster.restype = I
+        lib.gpry_lml_value_grad.argtypes = [K] + [I] * 6 + [P] * 4 \
             + [I, D] + [P] * 4
         lib.gpry_lml_value_grad.restype = I
         lib.gpry_lbfgs_lml_fit_plan.argtypes = [K, I, I, P, P, P]
         lib.gpry_lbfgs_lml_fit_plan.restype = I
-        lib.gpry_lbfgs_lml_fit.argtypes = [K] + [I] * 4 + [P] * 6 \
+        lib.gpry_lbfgs_lml_fit_cluster.argtypes = [K] + [I] * 3 + [P] * 2
+        lib.gpry_lbfgs_lml_fit_cluster.restype = I
+        lib.gpry_lbfgs_lml_fit.argtypes = [K] + [I] * 5 + [P] * 6 \
             + [I, D] + [P] * 6
         lib.gpry_lbfgs_lml_fit.restype = I
         lib.gpry_mcmc_chains_min_smem.argtypes = [K, I, I]
@@ -416,6 +424,11 @@ def _kern(family, d, device):
 def _count(name, family, launches=1):
     LAUNCHES[name + ("/spec" if isinstance(family, tuple) else "")] += \
         launches
+
+
+def _count_cluster(name, family, C):
+    key = f"{name}{'/spec' if isinstance(family, tuple) else ''} C={C}"
+    CLUSTERS[key] = CLUSTERS.get(key, 0) + 1
 
 
 def _check_theta(name, kern, theta):
@@ -1890,6 +1903,8 @@ _K9_STAGES = {1: 4, 2: 2, 3: 4}  # k9_stages: the streamed routes' ring
 # (K10_ROUTE1_N)
 _LML_NB, _LML_WARPS, _LML_PCHUNK, _LML_STAGE = 16, 8, 16, 4096
 _K10_ROUTE1_N = 160
+# route 1's largest cluster (LML_MAX_CLUSTER)
+LML_MAX_CLUSTER = 16
 
 
 def _tri(n):
@@ -1962,10 +1977,11 @@ def lbfgs_lml_fit_plan(n, d, p, spec_doubles=0):
     Route 0 keeps the packed bordered triangle ((n + 1) (n + 2) / 2
     doubles) in shared memory; route 1 keeps it in the lane's global
     workspace and stages the tensor cores' operands through a shared buffer
-    of 4,096 doubles; either stages X (d n doubles) in shared memory too
-    where that fits.  At d = 8 (fast family, p = 9) route 0 takes n <= 236
-    (X staged up to n = 229), route 1 n <= 24,539 (23,843 at d = 32).
-    Raises ``ValueError`` beyond route 1.
+    of 4,096 doubles in each block of the lane's cluster
+    (:func:`lbfgs_lml_fit_cluster`); either stages X (d n doubles) in
+    shared memory too where that fits.  At d = 8 (fast family, p = 9)
+    route 0 takes n <= 236 (X staged up to n = 229), route 1 n <= 24,539
+    (23,843 at d = 32).  Raises ``ValueError`` beyond route 1.
     """
     extra = 12 * p + _lane_doubles(p)
     for route in (0, 1):
@@ -1980,13 +1996,15 @@ def lml_value_grad_plan(n, d, spec_doubles=0):
     """
     K10's route for ``n`` training rows at dimension ``d`` (a spec program
     of ``spec_doubles``): ``(route, stage_x, smem_bytes, work_doubles)``,
-    the workspace per block in global memory.  The evaluation is K11's without a lane's state: route 0 keeps the
-    packed bordered triangle in shared memory, route 1 in the block's
-    global workspace with the operands staged through 4,096 doubles, so
-    that two blocks share an SM.  The fast families take route 0 wherever
-    it fits (n <= 237 at d = 8), a spec program route 1 from n = 160 on;
-    route 1 reaches n = 24,807 at d = 8 (fast family), past K11's range at
-    every d.  Raises ``ValueError`` beyond route 1.
+    the workspace per row in flight in global memory.  The evaluation is
+    K11's without a lane's state: route 0 keeps the packed bordered
+    triangle in shared memory, route 1 in the row's global workspace with
+    the operands staged through 4,096 doubles a block, so that two blocks
+    share an SM (and a row may take a cluster of blocks:
+    :func:`lml_value_grad_cluster`).  The fast families take route 0
+    wherever it fits (n <= 237 at d = 8), a spec program route 1 from n =
+    160 on; route 1 reaches n = 24,807 at d = 8 (fast family), past K11's
+    range at every d.  Raises ``ValueError`` beyond route 1.
     """
     route = next((r for r in (0, 1)
                   if _lml_fits(n, d, spec_doubles, 0, r)), None)
@@ -1999,6 +2017,56 @@ def lml_value_grad_plan(n, d, spec_doubles=0):
         route = 1
     return (route, *_lml_fits(n, d, spec_doubles, 0, route),
             _lml_work(n, d, route))
+
+
+def lml_cluster(rows, sms, active):
+    """
+    The thread-block cluster of K10's and K11's route 1 for ``rows`` lanes
+    or rows in flight on ``sms`` SMs (csrc/lml_blocked.cuh lml_cluster),
+    with ``active`` mapping each C of 1, 2, 4, 8, 16 to the clusters of C
+    blocks the card runs at once (as the library queries it,
+    ``cudaOccupancyMaxActiveClusters``): of the powers of two C up to
+    ``LML_MAX_CLUSTER`` with ``rows * C <= sms`` (and 1), the one that
+    gives a lane the most blocks per wave of resident clusters, ``C /
+    ceil(rows / active[C])``, the larger C on a tie.  On an H100 (7
+    clusters of 16 resident, 15 of 8) 1-8 lanes take 16.
+    """
+    top = 1
+    while top < LML_MAX_CLUSTER and rows * top * 2 <= sms:
+        top *= 2
+    best, waves = 1, 0
+    c = top
+    while c >= 1:
+        if active[c] >= 1:
+            w = -(-rows // active[c])
+            if waves == 0 or c * waves > best * w:
+                best, waves = c, w
+        c //= 2
+    return best
+
+
+def lbfgs_lml_fit_cluster(R, n, d, p, sms, active, spec_doubles=0):
+    """K11's cluster for ``R`` lanes at ``n`` rows (csrc/lbfgs_lml_fit.cu
+    gpry_lbfgs_lml_fit_cluster): ``lml_cluster(R, sms, active)`` on route
+    1, 1 on route 0.  Raises ``ValueError`` beyond route 1."""
+    route = lbfgs_lml_fit_plan(n, d, p, spec_doubles)[0]
+    return lml_cluster(R, sms, active) if route == 1 else 1
+
+
+def lml_value_grad_cluster(R, n, d, sms, per_sm, active, spec_doubles=0):
+    """
+    K10's rows in flight and cluster ``(F, C)`` for ``R`` rows at ``n``
+    (csrc/lml_value_grad.cu gpry_lml_value_grad_cluster), with ``per_sm``
+    blocks of the instance on each of ``sms`` SMs: F = min(R, per_sm *
+    sms, the rows whose workspaces fit ``LML_WORK_BUDGET``), at least 1;
+    then on route 1 C = ``lml_cluster(F, sms, active)``, on route 0 1.  So
+    a screen of 2,049 rows keeps a row a block up to the budget's n (n =
+    4,480: F = 212, C = 1) and a few rows at large n take 16 blocks each.
+    Raises ``ValueError`` beyond route 1.
+    """
+    route, _, _, work = lml_value_grad_plan(n, d, spec_doubles)
+    F = max(1, min(R, per_sm * sms, LML_WORK_BUDGET // (8 * max(1, work))))
+    return F, (lml_cluster(F, sms, active) if route == 1 else 1)
 
 
 def check_lbfgs_range(family, d, n, ascent=True):
@@ -2143,8 +2211,35 @@ def lbfgs_logexp_ascent(family, p, zeta, noise_std_raw, x0s, lo, hi,
     return xs, f, nev
 
 
-#: the most global memory K10's per-block workspaces take together (bytes)
-LML_WORK_BUDGET = 1 << 30
+#: the most global memory K10's rows in flight take together (bytes;
+#: csrc/lml_value_grad.cu LML_WORK_BUDGET): a fifth of the H100's 80 GB
+LML_WORK_BUDGET = 16 << 30
+
+
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _actives():
+    """The library's out-array of the clusters of 1, 2, 4, 8 and 16 blocks
+    the card runs at once."""
+    return (ctypes.c_int * 5)()
+
+
+def _active_of(act):
+    """``{C: clusters of C blocks the card runs at once}`` of ``act``."""
+    return {1 << i: act[i] for i in range(5)}
+
+
+def _check_cluster(name, got, want, C, active):
+    """Raise unless the library's cluster plan ``got`` is the host's
+    ``want`` and the card runs at least one cluster of its ``C`` blocks."""
+    if got != want:
+        raise RuntimeError(f"{name}: the library plans {got} where the host "
+                           f"plans {want}.")
+    if active[C] < 1:
+        raise RuntimeError(f"{name}: the card cannot schedule the plan "
+                           f"{got} (no cluster of its blocks fits).")
 
 
 def _lml_args(name, family, thetas, X, y, n, noise_var):
@@ -2172,9 +2267,11 @@ def lml_value_grad(family, thetas, X, y, n, noise_var, rel_jitter=0.0,
     ``thetas`` (R, p) on the padded data ``X`` (nmax, d), ``y`` (nmax,)
     with ``n`` valid rows and ``noise_var`` a scalar or an (nmax,) vector
     (see :func:`lml_value_grad_plain`); with ``grad``, ``(lml, dlml /
-    dtheta)``.  One launch; as many blocks as the SMs hold at once loop
-    over the rows, each on its own workspace (:func:`lml_value_grad_plan`).
-    Raises ``ValueError`` past the last route, before any launch.
+    dtheta)``.  One launch; F rows in flight, each on a cluster of C
+    blocks with its own workspace, loop over the rows
+    (:func:`lml_value_grad_plan`, :func:`lml_value_grad_cluster`).
+    Raises ``ValueError`` past the last route, before any launch, and
+    ``RuntimeError`` if the card cannot schedule the plan's cluster.
     """
     check_family(family)
     if thetas.device.type == "cpu":
@@ -2191,28 +2288,36 @@ def lml_value_grad(family, thetas, X, y, n, noise_var, rel_jitter=0.0,
     if R == 0:
         return (lml, g) if grad else lml
     lib = library()
-    # the workspace and the blocks an SM holds: the library's own plan
-    sx, smem, per_block, per_sm = ctypes.c_int(), ctypes.c_size_t(), \
+    # the workspace, the blocks an SM holds and the cluster: the library's
+    # own plan, held to the host's
+    sx, smem, per_row, per_sm = ctypes.c_int(), ctypes.c_size_t(), \
         ctypes.c_size_t(), ctypes.c_int()
     got = lib.gpry_lml_value_grad_plan(
         kern, int(n), d, int(grad), ctypes.byref(sx),
-        ctypes.byref(smem), ctypes.byref(per_block), ctypes.byref(per_sm))
+        ctypes.byref(smem), ctypes.byref(per_row), ctypes.byref(per_sm))
     if got != route or per_sm.value < 1:
         raise RuntimeError(f"lml_value_grad: the library plans route {got} "
                            f"({per_sm.value} blocks an SM) where the host "
                            f"plans {route}.")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(R, per_sm.value * sms,
-                        LML_WORK_BUDGET // (8 * max(1, per_block.value))))
-    work = torch.empty(blocks * per_block.value, dtype=torch.float64,
+    F, C, act = ctypes.c_int(), ctypes.c_int(), _actives()
+    got = lib.gpry_lml_value_grad_cluster(
+        kern, R, int(n), d, int(grad), per_sm.value, ctypes.byref(F),
+        ctypes.byref(C), act)
+    active = _active_of(act)
+    _check_cluster("lml_value_grad", (got, F.value, C.value),
+                   (route, *lml_value_grad_cluster(
+                       R, int(n), d, _sms(dev), per_sm.value, active,
+                       _spec_doubles(kern))), C.value, active)
+    work = torch.empty(F.value * per_row.value, dtype=torch.float64,
                        device=dev)
     rc = lib.gpry_lml_value_grad(
-        kern, R, int(n), d, int(grad), blocks, _ptr(thetas), _ptr(X),
+        kern, R, int(n), d, int(grad), F, C, _ptr(thetas), _ptr(X),
         _ptr(y), _ptr(noise), int(noise.numel() > 1), float(rel_jitter),
         _ptr(work), _ptr(lml), ctypes.c_void_p(g.data_ptr() if grad
                                                 else None), _stream())
     _raise_on("lml_value_grad", rc)
     _count("lml_value_grad", family)
+    _count_cluster("lml_value_grad", family, C.value)
     return (lml, g) if grad else lml
 
 
@@ -2221,8 +2326,11 @@ def lbfgs_lml_fit(family, X, y, n, noise_var, theta0s, lo, hi, maxiter=200,
     """
     K11: the multistart bounded L-BFGS fit of ``-lml`` from ``theta0s``
     (R, p) in the box [lo, hi] (see :func:`lbfgs_lml_fit_plain`), one block
-    per lane, every line search inside the launch.  Returns ``(thetas,
-    -lml, nev)`` (and, with ``return_iters``, the iterations).
+    per lane on route 0 and one thread-block cluster per lane on route 1
+    (:func:`lbfgs_lml_fit_cluster`), every line search inside the launch.
+    Returns ``(thetas, -lml, nev)`` (and, with ``return_iters``, the
+    iterations).  Raises ``RuntimeError`` if the card cannot schedule the
+    plan's cluster.
     """
     check_family(family)
     if theta0s.device.type == "cpu":
@@ -2242,7 +2350,7 @@ def lbfgs_lml_fit(family, X, y, n, noise_var, theta0s, lo, hi, maxiter=200,
     f = torch.empty(R, dtype=torch.float64, device=dev)
     nev = torch.empty(R, dtype=torch.int64, device=dev)
     iters = torch.empty(R, dtype=torch.int64, device=dev)
-    lbfgs_lml_fit_plan(int(n), d, p, _spec_doubles(kern))
+    route = lbfgs_lml_fit_plan(int(n), d, p, _spec_doubles(kern))[0]
     if R > 0:
         lib = library()
         # the workspace as the kernel strides it: the library's own plan
@@ -2256,13 +2364,22 @@ def lbfgs_lml_fit(family, X, y, n, noise_var, theta0s, lo, hi, maxiter=200,
         work = torch.empty(R * per_lane.value, dtype=torch.float64,
                            device=dev)
         with _launch_on(dev):
+            C, act = ctypes.c_int(), _actives()
+            got = lib.gpry_lbfgs_lml_fit_cluster(
+                kern, R, int(n), d, ctypes.byref(C), act)
+            active = _active_of(act)
+            _check_cluster("lbfgs_lml_fit", (got, C.value),
+                           (route, lbfgs_lml_fit_cluster(
+                               R, int(n), d, p, _sms(dev), active,
+                               _spec_doubles(kern))), C.value, active)
             rc = lib.gpry_lbfgs_lml_fit(
-                kern, R, int(n), d, int(maxiter), _ptr(theta0s), _ptr(lo),
-                _ptr(hi), _ptr(X), _ptr(y), _ptr(noise),
+                kern, R, C, int(n), d, int(maxiter), _ptr(theta0s),
+                _ptr(lo), _ptr(hi), _ptr(X), _ptr(y), _ptr(noise),
                 int(noise.numel() > 1), float(rel_jitter), _ptr(work),
                 _ptr(thetas), _ptr(f), _ptr(nev), _ptr(iters), _stream())
         _raise_on("lbfgs_lml_fit", rc)
         _count("lbfgs_lml_fit", family)
+        _count_cluster("lbfgs_lml_fit", family, C.value)
     return (thetas, f, nev, iters) if return_iters else (thetas, f, nev)
 
 
@@ -2359,8 +2476,9 @@ def tp_quad(M_shard, k_full, K_shard):
     return quad
 
 
-__all__ = ["KERNELS", "LAUNCHES", "KernelBuildError", "SPEC_MAX_NODES",
-           "SPEC_MAX_STACK", "build", "encode_spec", "library",
+__all__ = ["KERNELS", "LAUNCHES", "CLUSTERS", "KernelBuildError",
+           "SPEC_MAX_NODES", "SPEC_MAX_STACK", "build", "encode_spec",
+           "library",
            "reset_launch_counts", "gated_mean", "gated_mean_plain",
            "gated_meanvar_logexp", "gated_meanvar_logexp_plain",
            "masked_kernel_matrix_batched", "masked_kernel_matrix_plain",
@@ -2374,6 +2492,8 @@ __all__ = ["KERNELS", "LAUNCHES", "KernelBuildError", "SPEC_MAX_NODES",
            "lbfgs_lml_fit", "lbfgs_lml_fit_plain", "mcmc_chains",
            "mcmc_chains_plain", "NSState", "ns_step", "ns_step_plain",
            "NS_STEP_MAX_NLIVE", "CHAINS_MAX_D", "lbfgs_logexp_ascent_plan",
-           "lbfgs_lml_fit_plan", "lml_value_grad_plan",
+           "lbfgs_lml_fit_plan", "lml_value_grad_plan", "LML_MAX_CLUSTER",
+           "LML_WORK_BUDGET", "lml_cluster", "lbfgs_lml_fit_cluster",
+           "lml_value_grad_cluster",
            "check_lbfgs_range", "tp_cross_mean", "tp_cross_mean_plain",
            "tp_quad", "tp_quad_plain"]

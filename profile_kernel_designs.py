@@ -208,6 +208,7 @@ K1_D = (16, 32)
 K1_NQ = (16, 66, 400, 2000, 16384, 65536)
 # the C entry points each source serves
 ENTRIES = {"lml_value_grad.cu": ("gpry_lml_value_grad_plan",
+                                 "gpry_lml_value_grad_cluster",
                                  "gpry_lml_value_grad"),
            "ns_slice_chains.cu": ("gpry_ns_slice_chains",
                                   "gpry_ns_slice_chains_work"),
@@ -269,7 +270,7 @@ def serving(fused, lib):
 
 def k10_lines(fused, dev, libs, quick):
     base = fused.library()
-    plan = fused.lml_value_grad_plan
+    plan, cluster = fused.lml_value_grad_plan, fused.lml_value_grad_cluster
     for fam, tag in (("rbf", "rbf"), (cs.spec_kernel()[0], "spec")):
         kern = fused._kern(fam, cs.D, dev)
         sd = fused._spec_doubles(kern)
@@ -284,10 +285,17 @@ def k10_lines(fused, dev, libs, quick):
                 route = lib.gpry_lml_value_grad_plan(
                     kern, n, cs.D, 0, ctypes.byref(sx), ctypes.byref(sm),
                     ctypes.byref(wk), ctypes.byref(per_sm))
-                # the host mirror plans the build's routes; a variant's
-                # calls take the variant's
-                fused.lml_value_grad_plan = \
-                    plan if name is None else lambda *a, r=route: (r,)
+                # the host mirror plans the build's routes and rows in
+                # flight; a variant's calls take the variant's
+                F, C, act = ctypes.c_int(), ctypes.c_int(), \
+                    (ctypes.c_int * 5)()
+                lib.gpry_lml_value_grad_cluster(
+                    kern, thetas.shape[0], n, cs.D, 0, per_sm.value,
+                    ctypes.byref(F), ctypes.byref(C), act)
+                if name is not None:
+                    fused.lml_value_grad_plan = lambda *a, r=route: (r,)
+                    fused.lml_value_grad_cluster = \
+                        lambda *a, fc=(F.value, C.value): fc
                 call = lambda: fused.lml_value_grad(fam, thetas, X, y, n,
                                                     noise)
                 try:
@@ -296,6 +304,7 @@ def k10_lines(fused, dev, libs, quick):
                         ms = cs.time_ms(call, 10)
                 finally:
                     fused.lml_value_grad_plan = plan
+                    fused.lml_value_grad_cluster = cluster
                 if ref is None:
                     ref = out
                 elif not torch.equal(torch.isnan(out), torch.isnan(ref)):

@@ -23,8 +23,10 @@ from the surrogate's theta + 0.2 at maxiter 0 (its start's value and
 gradient: one evaluation), each against its plain version by row panels
 (chip_smoke.lml_panels, lbfgs_lml_fit_panels: the whole (n, n, d)
 difference tensor would be 208 GB), with their seconds (host clock
-around the call and a synchronize) and relative errors.  chip_smoke.py
-runs them at n = BIG_FIT_N, within its time limit.
+around the call and a synchronize), relative errors and the clusters
+they ran on; then K11 on 2 and on 8 lanes from that start (each lane's
+f against the 1-lane run's: the same bits on the same cluster size).  chip_smoke.py runs K10 and
+K11 at n = BIG_FIT_N, within its time limit.
 
 With ``--rounding``, instead, K9's endpoints at d = 33, 40 and 64 against
 two runs of its plain version, on the card and on the CPU (the same
@@ -117,15 +119,19 @@ def budget(dev):
     p, theta, X, y, noise = cs.big_surrogate(dev)
     n = cs.BIG_N
     thetas = torch.stack([theta, theta + 0.1])
+    fused.reset_launch_counts()
     lml, s10 = cs.timed_once(lambda: fused.lml_value_grad(
         "rbf", thetas, X, y, n, noise))
+    k10_clusters = dict(fused.CLUSTERS)
     ref, p10 = cs.timed_once(lambda: cs.lml_panels("rbf", thetas, X, y, n,
                                                    noise))
     print("K10 " + json.dumps({
         "d": cs.BIG_D, "n": n, "R": 2, "route": fused.lml_value_grad_plan(
             n, cs.BIG_D)[0], "s": 1e-3 * s10, "plain_s": 1e-3 * p10,
-        "rel": cs.rel_err(lml, ref)[1]}), flush=True)
+        "rel": cs.rel_err(lml, ref)[1], "clusters": k10_clusters}),
+        flush=True)
     th0, lo, hi = (theta + 0.2)[None], theta - 2.0, theta + 2.0
+    fused.reset_launch_counts()
     (tk, fk, nk), s11 = cs.timed_once(lambda: fused.lbfgs_lml_fit(
         "rbf", X, y, n, noise, th0, lo, hi, maxiter=0))
     (tr, fr, nr, _), p11 = cs.timed_once(lambda: cs.lbfgs_lml_fit_panels(
@@ -136,7 +142,21 @@ def budget(dev):
         "s": 1e-3 * s11, "plain_s": 1e-3 * p11, "nev": nk.tolist(),
         "nev_plain": nr.tolist(),
         "f_rel": float(torch.max(torch.abs(fk - fr)
-                                 / (1 + torch.abs(fr))))}), flush=True)
+                                 / (1 + torch.abs(fr)))),
+        "clusters": dict(fused.CLUSTERS)}), flush=True)
+    # 2 and 8 lanes from the same start: each lane's one evaluation on
+    # its own cluster, every f the 1-lane run's bits
+    for lanes in (2, 8):
+        fused.reset_launch_counts()
+        (_, fl, _), sl = cs.timed_once(lambda: fused.lbfgs_lml_fit(
+            "rbf", X, y, n, noise, th0.expand(lanes, -1).contiguous(), lo,
+            hi, maxiter=0))
+        print("K11 " + json.dumps({
+            "d": cs.BIG_D, "n": n, "lanes": lanes, "maxiter": 0,
+            "s": 1e-3 * sl, "f_equal_1_lane": bool(torch.all(fl == fk[0])),
+            "f_rel_1_lane": float(torch.max(torch.abs(fl - fk[0])
+                                            / (1 + torch.abs(fk[0])))),
+            "clusters": dict(fused.CLUSTERS)}), flush=True)
     return 0
 
 

@@ -1868,6 +1868,10 @@ def test_lbfgs_plans_match_the_kernels(dev, family, d):
     """The host planners (fused.lbfgs_logexp_ascent_plan,
     fused.lbfgs_lml_fit_plan, fused.lml_value_grad_plan) give the kernels' own routes, shared memory and
     workspace for every n up to 400 and around the last n of each route,
+    the cluster planners (fused.lbfgs_lml_fit_cluster,
+    fused.lml_value_grad_cluster) the kernels' own clusters and rows in
+    flight around the route edges, at 1,024 and at the last n both take,
+    for 1 to 2,049 lanes or rows, each one the card schedules,
     and the fit's wrappers raise ValueError just past their last route,
     before any launch; K9's last route (3) takes every n, the fit's last n
     + 1 too."""
@@ -1910,6 +1914,32 @@ def test_lbfgs_plans_match_the_kernels(dev, family, d):
         except ValueError:
             py = (-1, 0, 0, 0)
         assert py == (route, sx.value, sm.value, wk.value)
+    # the clusters of route 1 (and 1 on route 0) for lanes and rows from
+    # one to the screen's, each one the card schedules
+    sms = _sms(dev)
+    C, F, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    act = (ctypes.c_int * 5)()
+    top = min(k11[-1], k10[-1])
+    for n in sorted({k11[0], k11[0] + 1, k10[0], k10[0] + 1, 1024, top}):
+        for R in (1, 2, 8, 16, 26, 2049):
+            got = lib.gpry_lbfgs_lml_fit_cluster(
+                kern, R, n, d, ctypes.byref(C), act)
+            active = {1 << i: act[i] for i in range(5)}
+            assert got == fused.lbfgs_lml_fit_plan(n, d, kern.ntheta, sd)[0]
+            assert C.value == fused.lbfgs_lml_fit_cluster(
+                R, n, d, kern.ntheta, sms, active, sd)
+            assert active[C.value] >= 1
+            lib.gpry_lml_value_grad_plan(
+                kern, n, d, 0, ctypes.byref(sx), ctypes.byref(sm),
+                ctypes.byref(wk), ctypes.byref(per_sm))
+            got = lib.gpry_lml_value_grad_cluster(
+                kern, R, n, d, 0, per_sm.value, ctypes.byref(F),
+                ctypes.byref(C), act)
+            active = {1 << i: act[i] for i in range(5)}
+            assert got == fused.lml_value_grad_plan(n, d, sd)[0]
+            assert (F.value, C.value) == fused.lml_value_grad_cluster(
+                R, n, d, sms, per_sm.value, active, sd)
+            assert active[C.value] >= 1
     n0 = dict(fused.LAUNCHES)
     n = k10[-1] + 1
     X = torch.zeros((n, d), dtype=torch.float64, device=dev)
@@ -1958,6 +1988,207 @@ def test_lbfgs_lml_fit_kernel_large_n(dev, family):
     assert nev.tolist() == nevr.tolist() and it.tolist() == itr.tolist()
     assert float(torch.max(torch.abs(th - thr))) <= 1e-7 * 4.0
     _lanes_close(f, fr, 1e-9)
+
+
+# K10 and K11 on route 1, a row or a lane on a thread-block cluster: at
+# K11's first route-1 n at d = 8 (237; K10's fast families keep route 0
+# there), 1,024 and 2,048, on 1, 2, 8 and 16 rows or lanes
+ROUTE1_NS = (237, 1024, 2048)
+ROUTE1_R = (1, 2, 8, 16)
+
+
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _cluster_of(key):
+    """The blocks a row or a lane ran on in the one launch that
+    fused.CLUSTERS counted under ``key``."""
+    got = [k for k in fused.CLUSTERS if k.startswith(key + " C=")]
+    assert len(got) == 1 and fused.CLUSTERS[got[0]] == 1
+    return int(got[0].split("C=")[1])
+
+
+def _k10_per_sm(kern, n, d, grad=0):
+    """The blocks of K10's instance an SM holds (the library's plan)."""
+    sx, sm, wk, per_sm = ctypes.c_int(), ctypes.c_size_t(), \
+        ctypes.c_size_t(), ctypes.c_int()
+    fused.library().gpry_lml_value_grad_plan(
+        kern, n, d, grad, ctypes.byref(sx), ctypes.byref(sm),
+        ctypes.byref(wk), ctypes.byref(per_sm))
+    return per_sm.value
+
+
+def _active(kern, n, d, k10=False):
+    """{C: clusters of C blocks of K11's (or K10's value) instance at n the
+    card runs at once}, as the library's cluster plan queries them."""
+    C, F, act = ctypes.c_int(), ctypes.c_int(), (ctypes.c_int * 5)()
+    lib = fused.library()
+    if k10:
+        lib.gpry_lml_value_grad_cluster(kern, 1, n, d, 0,
+                                        _k10_per_sm(kern, n, d),
+                                        ctypes.byref(F), ctypes.byref(C), act)
+    else:
+        lib.gpry_lbfgs_lml_fit_cluster(kern, 1, n, d, ctypes.byref(C), act)
+    return {1 << i: act[i] for i in range(5)}
+
+
+@pytest.mark.parametrize("R", ROUTE1_R)
+@pytest.mark.parametrize("n", ROUTE1_NS)
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+def test_lml_value_grad_cluster_route(dev, family, n, R):
+    """K10 at d = 8 on the route and the cluster its plan gives (a spec
+    program on route 1 at every n here, the fast family from n = 238; C
+    from lml_value_grad_cluster over the card's SMs and the clusters it
+    runs at once: 16 blocks a row at R <= 8), against its plain version:
+    the LML within rel 1e-10, the gradient within 1e-8 of max |g|; one
+    launch a call."""
+    d = 8
+    X, y = _lml_data(dev, n, n + 8, d=d)
+    key = count_key("lml_value_grad", family)
+    fam, th = _lml_thetas(family, dev, R, d=d)
+    nv = torch.tensor(1e-4, dtype=torch.float64, device=dev)
+    kern = fused._kern(fam, d, dev)
+    sd = fused._spec_doubles(kern)
+    route = fused.lml_value_grad_plan(n, d, sd)[0]
+    assert route == int(n > 237 or family != "rbf")
+    fused.reset_launch_counts()
+    lml = fused.lml_value_grad(fam, th, X, y, n, nv)
+    C = _cluster_of(key)
+    want = fused.lml_value_grad_cluster(R, n, d, _sms(dev),
+                                        _k10_per_sm(kern, n, d),
+                                        _active(kern, n, d, k10=True), sd)[1]
+    assert C == want and (route == 0 or R > 8 or C == 16)
+    lml_g, g = fused.lml_value_grad(fam, th, X, y, n, nv, grad=True)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[key] == 2
+    ref, gr = fused.lml_value_grad_plain(fam, th, X, y, n, nv, grad=True)
+    assert bool(torch.isfinite(ref).all())
+    assert float(torch.max(torch.abs(lml - ref) / torch.abs(ref))) <= 1e-10
+    assert float(torch.max(torch.abs(lml_g - ref)
+                           / torch.abs(ref))) <= 1e-10
+    assert _rel_max(g, gr) <= 1e-8
+
+
+@pytest.mark.parametrize("lanes", ROUTE1_R)
+@pytest.mark.parametrize("n", ROUTE1_NS)
+@pytest.mark.parametrize("family", ("rbf", "all_nodes"))
+def test_lbfgs_lml_fit_cluster_route(dev, family, n, lanes):
+    """K11 at d = 8 on route 1, each lane on the cluster its plan gives
+    (lbfgs_lml_fit_cluster over the card's SMs and the clusters it runs at
+    once: 16 blocks a lane up to 8 lanes), against its plain version
+    lane by lane and step for step over 3 iterations: the same nev and
+    iterations, theta within 1e-7 of the box width, and f the plain LML at
+    the lane's own theta within 1e-9 (1 + |f|) or, where larger, within
+    the LML's own rounding spread there (_lml_spread)."""
+    d = 8
+    key = count_key("lbfgs_lml_fit", family)
+    fam, args = _fit_args(family, dev, lanes, d=d, n=n, nmax=n + 8)
+    kern = fused._kern(fam, d, dev)
+    sd = fused._spec_doubles(kern)
+    assert fused.lbfgs_lml_fit_plan(n, d, kern.ntheta, sd)[0] == 1
+    fused.reset_launch_counts()
+    th, f, nev, it = fused.lbfgs_lml_fit(*args, maxiter=3,
+                                         return_iters=True)
+    torch.cuda.synchronize()
+    C = _cluster_of(key)
+    active = _active(kern, n, d)
+    assert C == fused.lbfgs_lml_fit_cluster(lanes, n, d, kern.ntheta,
+                                            _sms(dev), active, sd)
+    assert active[C] >= 1 and (lanes > 8 or C == 16)
+    thr, fr, nevr, itr = fused.lbfgs_lml_fit_plain(*args, maxiter=3,
+                                                   return_iters=True)
+    assert nev.tolist() == nevr.tolist() and it.tolist() == itr.tolist()
+    assert float(torch.max(torch.abs(th - thr))) <= 1e-7 * 4.0
+    # f is -LML at the lane's own theta: against the plain LML there,
+    # within 1e-9 (1 + |f|) or, where that is larger, within the LML's own
+    # rounding spread at that theta (the C blocks sum the log det and z^T
+    # z in another order than the plain version, and some starts of the
+    # +-2 box leave K near singular)
+    assert torch.equal(torch.isnan(f), torch.isnan(fr))
+    fin = ~torch.isnan(fr)
+    at = -fused.lml_value_grad_plain(fam, th, *args[1:5])
+    tol = torch.maximum(1e-9 * (1 + torch.abs(at)),
+                        _lml_spread(fam, th, *args[1:5]))
+    assert bool(torch.all((torch.abs(f - at) <= tol)[fin]))
+
+
+@pytest.mark.parametrize("family", ("rbf", "c_rbf_white"))
+def test_lbfgs_lml_fit_cluster_singular_probes(dev, family):
+    """K11 on 16-block clusters (2 lanes, n = 300, d = 8) whose line
+    searches keep probing thetas where K is not positive definite: a noise
+    of -0.05 at one training row, and data (y ~ 1e-3) that pull the
+    variance down, so that most probes' factors fail at that row (about
+    125 of the plain version's 150 evaluations; the same counts under
+    another order of the rows).  The blocks of a cluster leave a failed
+    factor and start the next probe together: five launches give the same
+    bits, and they match the plain version step for step over 5
+    iterations (nev, iterations, theta within 1e-7 of the box width, f
+    within 1e-9 (1 + |f|))."""
+    d, n, lanes = 8, 300, 2
+    key = count_key("lbfgs_lml_fit", family)
+    fam, theta = family_and_theta(family, d)
+    X, y = _lml_data(dev, n, n + 4, d)
+    y = 1e-3 * y
+    nv = torch.full((n + 4,), 1e-4, dtype=torch.float64, device=dev)
+    nv[n // 2] = -0.05
+    lo, hi = theta - 2.0, theta + 2.0
+    th0 = np.stack([theta, theta + np.resize([0.7, -0.4, 0.2], len(theta))])
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    args = (fam, X, y, n, nv, t(th0), t(lo), t(hi))
+    low = theta.copy()
+    low[0] = lo[0]
+    assert bool(torch.isnan(fused.lml_value_grad_plain(fam, t(low[None]),
+                                                       X, y, n, nv)).all())
+    outs = []
+    for _ in range(5):
+        fused.reset_launch_counts()
+        outs.append(fused.lbfgs_lml_fit(*args, maxiter=5, return_iters=True))
+        torch.cuda.synchronize()
+        assert _cluster_of(key) == 16
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))
+    th, f, nev, it = outs[0]
+    thr, fr, nevr, itr = fused.lbfgs_lml_fit_plain(*args, maxiter=5,
+                                                   return_iters=True)
+    assert nev.tolist() == nevr.tolist() and it.tolist() == itr.tolist()
+    assert min(it.tolist()) == 5 and min(nev.tolist()) >= 60
+    assert float(torch.max(torch.abs(th - thr))) <= 1e-7 * 4.0
+    _lanes_close(f, fr, 1e-9)
+
+
+def _lml_spread(fam, thetas, X, y, n, nv, orders=4):
+    """The LML's own rounding spread at each row of ``thetas``: max - min
+    of the plain version's -LML over ``orders`` orders of the n training
+    rows (the first as given)."""
+    gen = torch.Generator().manual_seed(0)
+    vals = []
+    for i in range(orders):
+        perm = torch.randperm(n, generator=gen) if i else torch.arange(n)
+        perm = perm.to(X.device)
+        Xp, yp = X.clone(), y.clone()
+        Xp[:n], yp[:n] = X[:n][perm], y[:n][perm]
+        vals.append(-fused.lml_value_grad_plain(fam, thetas, Xp, yp, n, nv))
+    v = torch.stack(vals)
+    return v.max(0).values - v.min(0).values
+
+
+def test_cluster_plan_mismatch_raises(dev, monkeypatch):
+    """No quiet fallback: where the host's cluster plan and the library's
+    differ, K10 and K11 raise RuntimeError before any launch, and a CUDA
+    tensor never takes the plain version or one block a lane instead."""
+    d, n = 8, 300
+    fam, args = _fit_args("rbf", dev, 2, d=d, n=n, nmax=n + 8)
+    X, y = _lml_data(dev, n, n + 8, d=d)
+    _, th = _lml_thetas("rbf", dev, 2, d=d)
+    nv = torch.tensor(1e-4, dtype=torch.float64, device=dev)
+    monkeypatch.setattr(fused, "lml_cluster", lambda rows, sms, active: 3)
+    n0 = dict(fused.LAUNCHES)
+    with pytest.raises(RuntimeError, match="plans"):
+        fused.lbfgs_lml_fit(*args, maxiter=1)
+    with pytest.raises(RuntimeError, match="plans"):
+        fused.lml_value_grad("rbf", th, X, y, n, nv)
+    assert fused.LAUNCHES == n0
 
 
 @pytest.mark.parametrize("route", (1, 2))
